@@ -1,0 +1,343 @@
+// Flash-attention forward for Hopper (sm_90a), CUDA cores, f32 or bf16 in.
+//
+// Replaces the two Pallas TPU forward kernels of
+// speech_ssl_compression_tpu/ops/flash_attention.py:
+//   * _fa_fwd_kernel (its dropout-free branch), launched by _flash_fwd_impl,
+//     which keeps the whole K/V of one (b, h) resident in VMEM;
+//   * _fa_fwd_stream_kernel, launched by _flash_fwd_stream past T = 4096
+//     and for rectangular q-vs-k attention (flash_attention_kv_full).
+// The split between the two, and the tile planners beside them, exist for
+// the TPU's 16 MB scoped VMEM; here one kernel covers every Tq and Tk.
+//
+// Computes, per (b, h, query row):
+//   s    = scale * (q . k) in f32, scale = 1/sqrt(d) applied AFTER the dot
+//   s   += bias[key]                        (0 or -1e30 for a padded key)
+//   s    = -1e30 where segq[row] != segk[key]       (segment packing)
+//   s    = -1e30 where key > row                    (causal, Tq == Tk)
+//   O    = softmax(s) V by online softmax, LSE = m + log(max(l, 1e-30))
+// The mask value is the finite -1e30, never -inf: a row whose keys are all
+// masked still gives finite numbers. Keys past Tk (the ragged last tile)
+// are removed with -inf, which only ever meets a finite row maximum.
+// With bf16 inputs, P is rounded to bf16 before the P.V product, as the
+// Pallas kernel casts p to the input dtype before its MXU dot.
+//
+// Design. One block of 256 threads per (64-query tile, head, batch); a loop
+// inside the block walks the 64-key tiles that the TPU walked as a
+// sequential grid axis (under causal, up to the diagonal tile). Q, the
+// current K and V tiles and the P tile are staged in shared memory as f32
+// (70 KB, dynamic shared memory). Each thread owns a 4 x 4 register
+// micro-tile of S (rows ty + 16 i, keys tx + 16 j) and of the output
+// accumulator (rows ty + 16 i, dims 4 tx .. 4 tx + 3); the 16 threads of a
+// row share its max and sum by warp shuffles. The online-softmax
+// statistics and the accumulator stay in f32 registers.
+//
+// What bounds it. At the serving shape (8 packed rows of 896 frames, 12
+// heads, d = 64) each (b, h) reads 3 * 896 * 64 values and does
+// 4 * 896^2 * 64 FLOPs: ~150 FLOPs per byte even with K/V re-read for every
+// query tile, so the kernel is bound by its FLOPs, here on the CUDA cores'
+// f32 FMA pipes (67 TFLOP/s peak on an H100 SXM), not by memory bandwidth.
+//
+// Occupancy. ptxas gives the kernel 124-126 registers, so a block of 256
+// threads holds ~32K of an SM's 64K registers: registers, not the 70 KB of
+// shared memory (which would allow 3), cap it at 2 blocks (16 warps) per SM.
+//
+// What this simple design leaves on the table: the tensor cores (wgmma on
+// bf16 tiles, ~15x the f32 CUDA-core rate), TMA loads into a multi-stage
+// ring so the next K/V tile arrives during this tile's math (here loads
+// and math alternate behind __syncthreads), occupancy (the 4 x 4 S and
+// accumulator micro-tiles hold the registers that cap it; bf16 staging in
+// shared memory alone would not raise it), and causal skipping below the
+// diagonal's tile granularity. Those are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kD = 64;         // head dim (every shipped config)
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kBK = 64;        // keys per tile
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
+constexpr int kLd = 68;        // padded smem row stride in floats; a multiple
+                               // of 4 keeps float4 alignment, and rows land
+                               // 4 banks apart
+constexpr float kNegInf = -1e30f;
+constexpr size_t kSmemBytes =
+    (size_t)(kBQ * kLd + 2 * kBK * kLd + kBQ * kLd + kBK) * sizeof(float) +
+    (size_t)kBK * sizeof(int);
+
+static_assert(kD == 64 && kBQ == 64 && kBK == 64,
+              "the thread layout below assumes 64 x 64 tiles");
+
+// Copy rows [row0, row0 + n_valid) of a (T, 64) row-major slab into a
+// (64, kLd) f32 shared tile; rows past n_valid are zero.
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int n_valid, int tid) {
+  for (int i = tid; i < kBQ * (kD / 4); i += kThreads) {
+    const int r = i / (kD / 4);
+    const int c4 = i % (kD / 4);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_valid) {
+      val = reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD)[c4];
+    }
+    *reinterpret_cast<float4*>(dst + r * kLd + c4 * 4) = val;
+  }
+}
+
+__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src,
+                                          int row0, int n_valid, int tid) {
+  for (int i = tid; i < kBQ * (kD / 8); i += kThreads) {
+    const int r = i / (kD / 8);
+    const int c8 = i % (kD / 8);
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 hi = lo;
+    if (r < n_valid) {
+      const uint4 raw =
+          reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD)[c8];
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 a = __bfloat1622float2(h2[0]);
+      const float2 b = __bfloat1622float2(h2[1]);
+      const float2 c = __bfloat1622float2(h2[2]);
+      const float2 d = __bfloat1622float2(h2[3]);
+      lo = make_float4(a.x, a.y, b.x, b.y);
+      hi = make_float4(c.x, c.y, d.x, d.y);
+    }
+    float* p = dst + r * kLd + c8 * 8;
+    *reinterpret_cast<float4*>(p) = lo;
+    *reinterpret_cast<float4*>(p + 4) = hi;
+  }
+}
+
+// P as the P.V product sees it: unchanged for f32, rounded for bf16.
+__device__ __forceinline__ float round_p(float p, const float*) { return p; }
+__device__ __forceinline__ float round_p(float p, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(p));
+}
+
+__device__ __forceinline__ void store4(float* dst, const float* x) {
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* x) {
+  __nv_bfloat162 v[2] = {__floats2bfloat162_rn(x[0], x[1]),
+                         __floats2bfloat162_rn(x[2], x[3])};
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ bias,
+                      const int* __restrict__ segq,
+                      const int* __restrict__ segk, T* __restrict__ o,
+                      float* __restrict__ lse, int H, int Tq, int Tk,
+                      int causal, float scale) {
+  extern __shared__ float4 smem_f4[];
+  float* sq = reinterpret_cast<float*>(smem_f4);
+  float* sk = sq + kBQ * kLd;
+  float* sv = sk + kBK * kLd;
+  float* sp = sv + kBK * kLd;
+  float* sbias = sp + kBQ * kLd;
+  int* ssegk = reinterpret_cast<int*>(sbias + kBK);
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int q0 = blockIdx.x * kBQ;
+  const int b = blockIdx.z;
+  const size_t bh = (size_t)b * H + blockIdx.y;
+  const bool use_seg = segq != nullptr;
+
+  const T* qb = q + bh * Tq * kD;
+  const T* kb = k + bh * Tk * kD;
+  const T* vb = v + bh * Tk * kD;
+  const float* bias_b = bias + (size_t)b * Tk;
+
+  load_tile(sq, qb, q0, min(kBQ, Tq - q0), tid);
+
+  int row[4];
+  int seg_row[4];
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row[i] = q0 + ty + 16 * i;
+    seg_row[i] =
+        (use_seg && row[i] < Tq) ? segq[(size_t)b * Tq + row[i]] : 0;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  }
+
+  int n_tiles = (Tk + kBK - 1) / kBK;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBK;
+    const int k_valid = min(kBK, Tk - k0);
+    __syncthreads();  // the previous tile's readers of sk/sv/sp are done
+    load_tile(sk, kb, k0, k_valid, tid);
+    load_tile(sv, vb, k0, k_valid, tid);
+    if (tid < kBK) {
+      const bool in = tid < k_valid;
+      sbias[tid] = in ? bias_b[k0 + tid] : 0.f;
+      ssegk[tid] = (use_seg && in) ? segk[(size_t)b * Tk + k0 + tid] : 0;
+    }
+    __syncthreads();
+
+    // S = Q K^T on this thread's micro-tile, f32 accumulation
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < kD; c += 4) {
+      float4 qf[4], kf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(sq + (ty + 16 * i) * kLd + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(sk + (tx + 16 * j) * kLd + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = s[i][j];
+          a = fmaf(qf[i].x, kf[j].x, a);
+          a = fmaf(qf[i].y, kf[j].y, a);
+          a = fmaf(qf[i].z, kf[j].z, a);
+          a = fmaf(qf[i].w, kf[j].w, a);
+          s[i][j] = a;
+        }
+    }
+
+    // scale, masks, and the online-softmax update of this tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float row_max = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kc = tx + 16 * j;
+        float x;
+        if (kc >= k_valid) {
+          x = -INFINITY;
+        } else {
+          x = s[i][j] * scale + sbias[kc];
+          if (use_seg && seg_row[i] != ssegk[kc]) x = kNegInf;
+          if (causal && k0 + kc > row[i]) x = kNegInf;
+        }
+        s[i][j] = x;
+        row_max = fmaxf(row_max, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
+      const float m_new = fmaxf(m[i], row_max);
+      const float alpha = expf(m[i] - m_new);
+      float row_sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        row_sum += p;
+        sp[(ty + 16 * i) * kLd + tx + 16 * j] = round_p(p, q);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
+      m[i] = m_new;
+      l[i] = l[i] * alpha + row_sum;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+    // acc += P V on rows ty + 16 i, dims 4 tx .. 4 tx + 3
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 pf[4], vf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(sp + (ty + 16 * i) * kLd + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        vf[u] = *reinterpret_cast<const float4*>(sv + (kk + u) * kLd + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pr[4] = {pf[i].x, pf[i].y, pf[i].z, pf[i].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][0] = fmaf(pr[u], vf[u].x, acc[i][0]);
+          acc[i][1] = fmaf(pr[u], vf[u].y, acc[i][1]);
+          acc[i][2] = fmaf(pr[u], vf[u].z, acc[i][2]);
+          acc[i][3] = fmaf(pr[u], vf[u].w, acc[i][3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (row[i] >= Tq) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    float out[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[c] = acc[i][c] / l_safe;
+    store4(o + (bh * Tq + row[i]) * kD + 4 * tx, out);
+    if (tx == 0) lse[bh * Tq + row[i]] = m[i] + logf(l_safe);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* bias, const void* segq, const void* segk,
+                   void* o, void* lse, int B, int H, int Tq, int Tk,
+                   int causal, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
+  flash_attn_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const int*>(segq), static_cast<const int*>(segk),
+      static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk, causal,
+      0.125f /* 1/sqrt(64) */);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q (B,H,Tq,64), k and v (B,H,Tk,64), contiguous, f32 (is_bf16 = 0) or bf16;
+// bias (B,Tk) f32; segq (B,Tq) and segk (B,Tk) int32, both null without
+// segments; o like q; lse (B,H,Tq) f32; all on CUDA device `device`.
+// Launches on `stream` (a stream of that device) and returns
+// cudaGetLastError() after the launch (0 on success).
+int sslc_flash_attn_fwd(const void* q, const void* k, const void* v,
+                        const void* bias, const void* segq, const void* segk,
+                        void* o, void* lse, int B, int H, int Tq, int Tk,
+                        int causal, int is_bf16, int device, void* stream) {
+  // this library links its own CUDA runtime, whose current device is not
+  // the caller's: make it the tensors' device before the launch
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return launch<__nv_bfloat16>(q, k, v, bias, segq, segk, o, lse, B, H, Tq,
+                                 Tk, causal, s);
+  }
+  return launch<float>(q, k, v, bias, segq, segk, o, lse, B, H, Tq, Tk,
+                       causal, s);
+}
+
+const char* sslc_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,223 @@
+"""Transformer encoder with conv positional embedding (inference).
+
+Port of ``speech_ssl_compression_tpu/models/encoder.py``. Parameters live in
+``nn.Module``s under the reference state-dict names (``encoder.layers.{i}.
+self_attn.q_proj.weight``, ``encoder.pos_conv.0.weight_v``, ...); the
+forward is the plain functions below, each named after its JAX
+counterpart. Per-layer head counts and FFN widths come from the config's
+per-layer tuples, so head- and row-pruned checkpoints load.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs import MelHuBERTConfig
+
+from ..ops.activations import get_activation_fn
+from ..ops.attention import SelfAttention, multi_head_self_attention
+
+LN_EPS = 1e-5
+
+
+class PosConv(nn.Module):
+    """Weight-normed grouped Conv1d: ``weight_g`` (1, 1, K), ``weight_v``
+    (D, D // groups, K), ``bias`` (D,), the torch weight-norm layout."""
+
+    def __init__(self, embed_dim: int, kernel_size: int, groups: int):
+        super().__init__()
+        self.groups = groups
+        self.kernel_size = kernel_size
+        self.weight_g = nn.Parameter(torch.ones(1, 1, kernel_size))
+        self.weight_v = nn.Parameter(
+            torch.zeros(embed_dim, embed_dim // groups, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.zeros(embed_dim))
+
+
+class EncoderLayer(nn.Module):
+    """One BERT layer's parameters (reference TransformerSentenceEncoderLayer)."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 head_dim: int):
+        super().__init__()
+        self.self_attn = SelfAttention(embed_dim, num_heads, head_dim)
+        self.self_attn_layer_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.fc1 = nn.Linear(embed_dim, ffn_dim)
+        self.fc2 = nn.Linear(ffn_dim, embed_dim)
+        self.final_layer_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+
+
+class TransformerEncoder(nn.Module):
+    """Encoder parameters: ``pos_conv.0``, ``layer_norm``, ``layers.{i}``."""
+
+    def __init__(self, cfg: MelHuBERTConfig):
+        super().__init__()
+        if getattr(cfg, "pos_emb_type", "conv") != "conv":
+            raise NotImplementedError(
+                f"unsupported pos_emb_type {cfg.pos_emb_type!r} (only 'conv')"
+            )
+        if getattr(cfg, "layer_type", "transformer") != "transformer":
+            raise NotImplementedError(
+                f"unsupported layer_type {cfg.layer_type!r} (only 'transformer')"
+            )
+        _check_ported(cfg)
+        d = cfg.encoder_embed_dim
+        self.pos_conv = nn.ModuleList(
+            [PosConv(d, cfg.conv_pos, cfg.conv_pos_groups)]
+        )
+        self.layer_norm = nn.LayerNorm(d, eps=LN_EPS)
+        self.layers = nn.ModuleList(
+            EncoderLayer(d, cfg.encoder_ffn_embed_dim[i],
+                         cfg.encoder_attention_heads[i], cfg.head_dim)
+            for i in range(cfg.encoder_layers)
+        )
+
+
+def _check_ported(cfg) -> None:
+    if getattr(cfg, "pos_conv_depth", 1) > 1:
+        raise NotImplementedError(
+            "pos_conv_depth > 1 (pos_conv_embed_deep) is not ported yet"
+        )
+    if int(getattr(cfg, "required_seq_len_multiple", 1) or 1) > 1:
+        raise NotImplementedError(
+            "required_seq_len_multiple > 1 is not ported yet"
+        )
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    return F.layer_norm(x, ln.normalized_shape, ln.weight, ln.bias, LN_EPS)
+
+
+def pos_conv_weight(p: PosConv) -> torch.Tensor:
+    """Materialize the weight-normed kernel (D, D // g, K): the norm is over
+    dims (0, 1) for each tap k, floored at 1e-12."""
+    v = p.weight_v
+    norm = torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True))
+    return p.weight_g * v / norm.clamp_min(1e-12)
+
+
+def _grouped_conv_samepad(x, w, bias, groups: int, kernel_size: int):
+    """Grouped Conv1d over (B, T, D) with K // 2 padding on each side and the
+    SamePad crop of one frame for an even K. ``w`` is in the torch layout
+    (D, D // g, K), which ``F.conv1d`` takes as is."""
+    out = F.conv1d(x.transpose(1, 2), w.to(x.dtype), bias.to(x.dtype),
+                   padding=kernel_size // 2, groups=groups).transpose(1, 2)
+    if kernel_size % 2 == 0:
+        out = out[:, :-1, :]
+    return out
+
+
+def pos_conv_embed(x: torch.Tensor, p: PosConv) -> torch.Tensor:
+    """Weight-normed grouped conv + SamePad crop + GELU. x: (B, T, D)."""
+    out = _grouped_conv_samepad(x, pos_conv_weight(p), p.bias, p.groups,
+                                p.kernel_size)
+    return get_activation_fn("gelu")(out)
+
+
+def encoder_layer_forward(
+    x: torch.Tensor,  # (B, T, D)
+    layer: EncoderLayer,
+    *,
+    layer_norm_first: bool,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
+    attn_impl: str = "auto",
+    activation_fn: str = "gelu",
+):
+    """Post-LN (default) or pre-LN BERT layer, dropout-free. Returns
+    (x, context)."""
+    attn = layer.self_attn
+    act = get_activation_fn(activation_fn)
+
+    def self_attn(h):
+        return multi_head_self_attention(
+            h, attn, num_heads=attn.num_heads, head_dim=attn.head_dim,
+            key_padding_mask=key_padding_mask, causal=causal,
+            segment_ids=segment_ids, impl=attn_impl,
+        )
+
+    def ffn(h):
+        return layer.fc2(act(layer.fc1(h)))
+
+    if layer_norm_first:
+        h, context = self_attn(layer_norm(x, layer.self_attn_layer_norm))
+        x = x + h
+        x = x + ffn(layer_norm(x, layer.final_layer_norm))
+    else:
+        h, context = self_attn(x)
+        x = layer_norm(x + h, layer.self_attn_layer_norm)
+        x = layer_norm(x + ffn(x), layer.final_layer_norm)
+    return x, context
+
+
+def encoder_prologue(
+    x: torch.Tensor,  # (B, T, D)
+    enc: TransformerEncoder,
+    cfg: MelHuBERTConfig,
+    *,
+    padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = PAD
+):
+    """Everything before the layers: zero padded frames, add the conv
+    positional embedding, then the encoder LayerNorm (post-LN). Split out so
+    packed extraction can run it per utterance."""
+    if padding_mask is not None:
+        x = x.masked_fill(padding_mask[:, :, None], 0.0)
+    x = x + pos_conv_embed(x, enc.pos_conv[0])
+    if not cfg.layer_norm_first:
+        x = layer_norm(x, enc.layer_norm)
+    return x
+
+
+def encoder_layers_forward(
+    x: torch.Tensor,  # (B, T, D)
+    enc: TransformerEncoder,
+    cfg: MelHuBERTConfig,
+    *,
+    padding_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    get_hidden: bool = False,
+    attn_impl: str = "auto",
+):
+    """The layer stack + final (pre-LN) norm. Returns (x, layer_hiddens).
+    The per-layer contexts, which only head scoring reads, are dropped."""
+    layer_hiddens = []
+    for layer in enc.layers:
+        x, _ = encoder_layer_forward(
+            x, layer,
+            layer_norm_first=cfg.layer_norm_first,
+            key_padding_mask=padding_mask,
+            causal=causal,
+            segment_ids=segment_ids,
+            attn_impl=attn_impl,
+            activation_fn=cfg.activation_fn,
+        )
+        if get_hidden:
+            layer_hiddens.append(x)
+    if cfg.layer_norm_first:
+        x = layer_norm(x, enc.layer_norm)
+    return x, layer_hiddens
+
+
+def encoder_forward(
+    x: torch.Tensor,  # (B, T, D)
+    enc: TransformerEncoder,
+    cfg: MelHuBERTConfig,
+    *,
+    padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = PAD
+    causal: bool = False,
+    get_hidden: bool = False,
+    attn_impl: str = "auto",
+):
+    """Prologue + layer stack. Returns (x, layer_hiddens)."""
+    x = encoder_prologue(x, enc, cfg, padding_mask=padding_mask)
+    return encoder_layers_forward(
+        x, enc, cfg, padding_mask=padding_mask, causal=causal,
+        get_hidden=get_hidden, attn_impl=attn_impl,
+    )

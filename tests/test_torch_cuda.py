@@ -1,0 +1,148 @@
+"""The flash-attention CUDA kernel against its plain PyTorch version on the
+GPU, at the shapes the serving, long, rectangular and causal paths give it.
+Needs an NVIDIA GPU and nvcc; skipped elsewhere. On a GPU machine:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest imports JAX, which a GPU machine
+running only the port need not have.)
+"""
+
+import pytest
+import torch
+
+from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+from speech_ssl_compression_tpu_torch.ops.attention import (
+    multi_head_self_attention,
+    SelfAttention,
+)
+
+pytestmark = [
+    pytest.mark.cuda,
+    # a string condition is evaluated at setup, not while the module imports
+    pytest.mark.skipif("not torch.cuda.is_available()",
+                       reason="needs an NVIDIA GPU"),
+]
+
+F32_BAR, LSE_BAR = 1e-4, 1e-4  # max |d| / mean |ref|; lse max |d|
+# bf16: both sides round their output, so they may differ by one ulp where
+# the f32 results straddle a rounding point; against the plain version run
+# with the kernel's key tiles, few entries may differ at all
+BF16_ULP_BAR, BF16_SHARE_BAR = 1.0, 0.03
+
+
+@pytest.fixture(autouse=True)
+def _true_f32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _bf16_diff(got, ref, valid):
+    """(share of valid entries that differ, max |d| in bf16 ulps of
+    max(|ref|, mean |ref|))"""
+    got, ref = got.float()[valid], ref.float()[valid]
+    mag = ref.abs().clamp_min(float(ref.abs().mean()))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    d = (got - ref).abs()
+    return float((d > 0).float().mean()), float((d / ulp).max())
+
+
+def _segments(b, t, dev):
+    seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    for i in range(b):
+        seg[i, : 3 * t // 4] = 2 * i + 1
+        seg[i, 3 * t // 4: t - 3] = 2 * i + 2
+    return seg
+
+
+SHAPES = {
+    # name: (q shape, key length of a rectangular case)
+    "serving": ((8, 12, 896, 64), None),
+    "causal": ((2, 12, 1024, 64), None),
+    "one_head": ((4, 1, 896, 64), None),
+    "long": ((1, 12, 5000, 64), None),
+    "rectangular": ((1, 12, 1024, 64), 5000),
+}
+
+
+def _case(name, dev):
+    qs, tk = SHAPES[name]
+    b, _, tq, _ = qs
+    valid = torch.ones((b, tq), dtype=torch.bool, device=dev)
+    if name == "serving":
+        seg = _segments(b, tq, dev)
+        return qs, tk, dict(segment_ids=seg, key_padding_mask=seg == 0), seg != 0
+    if name == "causal":
+        pad = torch.zeros((b, tq), dtype=torch.bool, device=dev)
+        pad[1, 900:] = True
+        return qs, tk, dict(causal=True, key_padding_mask=pad), valid
+    if name == "one_head":
+        lens = torch.tensor([896, 700, 500, 101], device=dev)
+        pad = torch.arange(tq, device=dev)[None, :] >= lens[:, None]
+        return qs, tk, dict(key_padding_mask=pad), valid
+    if name == "rectangular":
+        pad = torch.zeros((b, tk), dtype=torch.bool, device=dev)
+        pad[0, 4800:] = True
+        return qs, tk, dict(key_padding_mask=pad), valid
+    return qs, tk, {}, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_kernel_matches_plain_version(name, dtype):
+    dev = torch.device("cuda")
+    qs, tk, masks, valid = _case(name, dev)
+    ks = qs if tk is None else (qs[0], qs[1], tk, qs[3])
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+               for s in (qs, ks, ks))
+    fa.reset_launch_counts()
+    if tk is None:
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+    else:
+        out, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True, **masks)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attn_fwd"] == 1
+    rows = valid[:, None, :].expand(lse.shape)
+    if dtype == torch.float32:
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
+        d = (out - ref)[rows].abs().max()
+        assert d / ref[rows].abs().mean() < F32_BAR
+    else:
+        ref, ref_lse = fa.flash_attention_reference(
+            q, k, v, block_k=fa.KERNEL_BLOCK_K, **masks)
+        share, ulps = _bf16_diff(out, ref, rows)
+        assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
+        # the check sees the rounding of P: leaving P in f32 fails it
+        control, _ = fa.flash_attention_reference(
+            q.float(), k.float(), v.float(), block_k=fa.KERNEL_BLOCK_K, **masks)
+        assert _bf16_diff(control.to(dtype), ref, rows)[0] >= BF16_SHARE_BAR
+    assert (lse - ref_lse)[rows].abs().max() < LSE_BAR
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+
+
+def test_cuda_tensors_never_reach_the_plain_version_unless_dense():
+    dev = torch.device("cuda")
+    attn = SelfAttention(128, 2, 64).to(dev).requires_grad_(False)
+    x = torch.randn(2, 100, 128, device=dev)
+    fa.reset_launch_counts()
+    out, _ = multi_head_self_attention(x, attn, num_heads=2, head_dim=64)
+    assert fa.launch_counts["flash_attn_fwd"] == 1
+    ref, _ = multi_head_self_attention(x, attn, num_heads=2, head_dim=64,
+                                       impl="dense")
+    assert fa.launch_counts["flash_attn_fwd"] == 1
+    assert (out - ref).abs().max() / ref.abs().mean() < F32_BAR
+
+
+def test_kernel_refuses_what_it_does_not_take():
+    q = torch.randn(1, 2, 64, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention(q, q, q)
+    q = torch.randn(1, 64, 2, 64, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q, q)
