@@ -1,9 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA cores, f32 or bf16 in.
+// Flash-attention forward for Hopper (sm_90a), CUDA cores, f32 or bf16 in,
+// with optional in-kernel attention dropout.
 //
 // Replaces the two Pallas TPU forward kernels of
 // speech_ssl_compression_tpu/ops/flash_attention.py:
-//   * _fa_fwd_kernel (its dropout-free branch), launched by _flash_fwd_impl,
-//     which keeps the whole K/V of one (b, h) resident in VMEM;
+//   * _fa_fwd_kernel (both branches: dropout-free and dropout, with
+//     _tile_keep_mask), launched by _flash_fwd_impl, which keeps the whole
+//     K/V of one (b, h) resident in VMEM;
 //   * _fa_fwd_stream_kernel, launched by _flash_fwd_stream past T = 4096
 //     and for rectangular q-vs-k attention (flash_attention_kv_full).
 // The split between the two, and the tile planners beside them, exist for
@@ -21,6 +23,17 @@
 // With bf16 inputs, P is rounded to bf16 before the P.V product, as the
 // Pallas kernel casts p to the input dtype before its MXU dot.
 //
+// Dropout acts on the normalized probabilities, and the LSE stays exact
+// (flash_attention.py:20-27): O = (P o M / (1 - p)) V with P = exp(S - LSE).
+// The TPU kernel takes two passes over the keys for that (statistics, then
+// P o M). This kernel takes one online-softmax pass: the row sum l adds
+// every p, the P.V product sees p only where the keep bit M is set, and the
+// output is acc / l / (1 - p). That is the same function; the one
+// difference is where a bf16 P is rounded (the unnormalized p of each key
+// tile, as in the dropout-free branch), and the plain version rounds there
+// too. M comes from flash_common.cuh's counter-based generator, one draw
+// per (row, key), so the backward kernels regenerate it.
+//
 // Design. One block of 256 threads per (64-query tile, head, batch); a loop
 // inside the block walks the 64-key tiles that the TPU walked as a
 // sequential grid axis (under causal, up to the diagonal tile). Q, the
@@ -36,6 +49,9 @@
 // 4 * 896^2 * 64 FLOPs: ~150 FLOPs per byte even with K/V re-read for every
 // query tile, so the kernel is bound by its FLOPs, here on the CUDA cores'
 // f32 FMA pipes (67 TFLOP/s peak on an H100 SXM), not by memory bandwidth.
+// Dropout adds one Philox-4x32-10 draw per score, about 100 integer
+// instructions beside the score's 128 FMAs, so the dropout variant issues
+// nearly twice the instructions of the dropout-free one.
 //
 // Occupancy. ptxas gives the kernel 124-126 registers, so a block of 256
 // threads holds ~32K of an SM's 64K registers: registers, not the 70 KB of
@@ -49,82 +65,17 @@
 // shared memory alone would not raise it), and causal skipping below the
 // diagonal's tile granularity. Those are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;         // head dim (every shipped config)
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 micro-tile each
-constexpr int kLd = 68;        // padded smem row stride in floats; a multiple
-                               // of 4 keeps float4 alignment, and rows land
-                               // 4 banks apart
-constexpr float kNegInf = -1e30f;
+using namespace sslc;
+
 constexpr size_t kSmemBytes =
     (size_t)(kBQ * kLd + 2 * kBK * kLd + kBQ * kLd + kBK) * sizeof(float) +
     (size_t)kBK * sizeof(int);
-
-static_assert(kD == 64 && kBQ == 64 && kBK == 64,
-              "the thread layout below assumes 64 x 64 tiles");
-
-// Copy rows [row0, row0 + n_valid) of a (T, 64) row-major slab into a
-// (64, kLd) f32 shared tile; rows past n_valid are zero.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int n_valid, int tid) {
-  for (int i = tid; i < kBQ * (kD / 4); i += kThreads) {
-    const int r = i / (kD / 4);
-    const int c4 = i % (kD / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_valid) {
-      val = reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * kD)[c4];
-    }
-    *reinterpret_cast<float4*>(dst + r * kLd + c4 * 4) = val;
-  }
-}
-
-__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src,
-                                          int row0, int n_valid, int tid) {
-  for (int i = tid; i < kBQ * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c8 = i % (kD / 8);
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 hi = lo;
-    if (r < n_valid) {
-      const uint4 raw =
-          reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD)[c8];
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h2[0]);
-      const float2 b = __bfloat1622float2(h2[1]);
-      const float2 c = __bfloat1622float2(h2[2]);
-      const float2 d = __bfloat1622float2(h2[3]);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(c.x, c.y, d.x, d.y);
-    }
-    float* p = dst + r * kLd + c8 * 8;
-    *reinterpret_cast<float4*>(p) = lo;
-    *reinterpret_cast<float4*>(p + 4) = hi;
-  }
-}
-
-// P as the P.V product sees it: unchanged for f32, rounded for bf16.
-__device__ __forceinline__ float round_p(float p, const float*) { return p; }
-__device__ __forceinline__ float round_p(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(p));
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* x) {
-  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* x) {
-  __nv_bfloat162 v[2] = {__floats2bfloat162_rn(x[0], x[1]),
-                         __floats2bfloat162_rn(x[2], x[3])};
-  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -133,7 +84,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ segq,
                       const int* __restrict__ segk, T* __restrict__ o,
                       float* __restrict__ lse, int H, int Tq, int Tk,
-                      int causal, float scale) {
+                      int causal, float scale, Dropout dropout) {
   extern __shared__ float4 smem_f4[];
   float* sq = reinterpret_cast<float*>(smem_f4);
   float* sk = sq + kBQ * kLd;
@@ -243,7 +194,10 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         row_sum += p;
-        sp[(ty + 16 * i) * kLd + tx + 16 * j] = round_p(p, q);
+        const int kc = tx + 16 * j;
+        const bool kept = !dropout.on || keep(dropout, k0 + kc, row[i],
+                                              (uint32_t)bh);
+        sp[(ty + 16 * i) * kLd + kc] = kept ? round_in(p, q) : 0.f;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -285,7 +239,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l_safe = fmaxf(l[i], 1e-30f);
     float out[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) out[c] = acc[i][c] / l_safe;
+    for (int c = 0; c < 4; ++c) out[c] = acc[i][c] / l_safe * dropout.scale;
     store4(o + (bh * Tq + row[i]) * kD + 4 * tx, out);
     if (tx == 0) lse[bh * Tq + row[i]] = m[i] + logf(l_safe);
   }
@@ -295,7 +249,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* segq, const void* segk,
                    void* o, void* lse, int B, int H, int Tq, int Tk,
-                   int causal, cudaStream_t stream) {
+                   int causal, Dropout dropout, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
@@ -306,7 +260,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<const int*>(segq), static_cast<const int*>(segk),
       static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk, causal,
-      0.125f /* 1/sqrt(64) */);
+      0.125f /* 1/sqrt(64) */, dropout);
   return cudaGetLastError();
 }
 
@@ -317,23 +271,29 @@ extern "C" {
 // q (B,H,Tq,64), k and v (B,H,Tk,64), contiguous, f32 (is_bf16 = 0) or bf16;
 // bias (B,Tk) f32; segq (B,Tq) and segk (B,Tk) int32, both null without
 // segments; o like q; lse (B,H,Tq) f32; all on CUDA device `device`.
+// With use_dropout, a probability is kept iff its Philox bits are below
+// keep_threshold, and kept ones are scaled by keep_scale (flash_common.cuh).
 // Launches on `stream` (a stream of that device) and returns
 // cudaGetLastError() after the launch (0 on success).
 int sslc_flash_attn_fwd(const void* q, const void* k, const void* v,
                         const void* bias, const void* segq, const void* segk,
                         void* o, void* lse, int B, int H, int Tq, int Tk,
-                        int causal, int is_bf16, int device, void* stream) {
+                        int causal, int is_bf16, int use_dropout,
+                        unsigned int keep_threshold, float keep_scale,
+                        unsigned long long seed, int device, void* stream) {
   // this library links its own CUDA runtime, whose current device is not
   // the caller's: make it the tensors' device before the launch
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout dropout =
+      make_dropout(use_dropout, keep_threshold, keep_scale, seed);
   if (is_bf16) {
     return launch<__nv_bfloat16>(q, k, v, bias, segq, segk, o, lse, B, H, Tq,
-                                 Tk, causal, s);
+                                 Tk, causal, dropout, s);
   }
   return launch<float>(q, k, v, bias, segq, segk, o, lse, B, H, Tq, Tk,
-                       causal, s);
+                       causal, dropout, s);
 }
 
 const char* sslc_cuda_error_string(int code) {

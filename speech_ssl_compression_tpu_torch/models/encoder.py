@@ -1,4 +1,4 @@
-"""Transformer encoder with conv positional embedding (inference).
+"""Transformer encoder with conv positional embedding.
 
 Port of ``speech_ssl_compression_tpu/models/encoder.py``. Parameters live in
 ``nn.Module``s under the reference state-dict names (``encoder.layers.{i}.
@@ -6,6 +6,17 @@ self_attn.q_proj.weight``, ``encoder.pos_conv.0.weight_v``, ...); the
 forward is the plain functions below, each named after its JAX
 counterpart. Per-layer head counts and FFN widths come from the config's
 per-layer tuples, so head- and row-pruned checkpoints load.
+
+Training (``deterministic=False``) adds the input dropout after the
+prologue, the residual, activation and attention dropouts of every layer,
+and LayerDrop. Randomness comes from one explicit host
+``torch.Generator``: :func:`encoder_forward` seeds a generator on the
+device from it for the dropout bits, and each layer draws its attention
+seed (the key of the kernels' keep bits) and its LayerDrop coin from it.
+
+``layer_norm`` is PyTorch's: in bf16 it takes its statistics in f32 and
+rounds its output to bf16, where JAX's ``layer_norm`` rounds each step of
+its bf16 arithmetic. The two agree to bf16 rounding.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from ..configs import MelHuBERTConfig
 
 from ..ops.activations import get_activation_fn
 from ..ops.attention import SelfAttention, multi_head_self_attention
+from ..ops.dropout import device_generator, draw_seed, dropout
 
 LN_EPS = 1e-5
 
@@ -129,30 +141,43 @@ def encoder_layer_forward(
     segment_ids: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
     activation_fn: str = "gelu",
+    dropout_p: float = 0.0,
+    attention_dropout: float = 0.0,
+    activation_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,  # on x's device
+    attention_seed: Optional[int] = None,
+    deterministic: bool = True,
 ):
-    """Post-LN (default) or pre-LN BERT layer, dropout-free. Returns
-    (x, context)."""
+    """Post-LN (default) or pre-LN BERT layer (reference module.py:82-133).
+    With ``deterministic=False`` the residual and activation dropouts draw
+    from ``generator`` and attention dropout keys its bits on
+    ``attention_seed``. Returns (x, context)."""
     attn = layer.self_attn
     act = get_activation_fn(activation_fn)
+
+    def drop(h, p):
+        return dropout(h, p, generator, deterministic)
 
     def self_attn(h):
         return multi_head_self_attention(
             h, attn, num_heads=attn.num_heads, head_dim=attn.head_dim,
             key_padding_mask=key_padding_mask, causal=causal,
             segment_ids=segment_ids, impl=attn_impl,
+            dropout_p=0.0 if deterministic else attention_dropout,
+            dropout_seed=attention_seed,
         )
 
     def ffn(h):
-        return layer.fc2(act(layer.fc1(h)))
+        return layer.fc2(drop(act(layer.fc1(h)), activation_dropout))
 
     if layer_norm_first:
         h, context = self_attn(layer_norm(x, layer.self_attn_layer_norm))
-        x = x + h
-        x = x + ffn(layer_norm(x, layer.final_layer_norm))
+        x = x + drop(h, dropout_p)
+        x = x + drop(ffn(layer_norm(x, layer.final_layer_norm)), dropout_p)
     else:
         h, context = self_attn(x)
-        x = layer_norm(x + h, layer.self_attn_layer_norm)
-        x = layer_norm(x + ffn(x), layer.final_layer_norm)
+        x = layer_norm(x + drop(h, dropout_p), layer.self_attn_layer_norm)
+        x = layer_norm(x + drop(ffn(x), dropout_p), layer.final_layer_norm)
     return x, context
 
 
@@ -162,16 +187,18 @@ def encoder_prologue(
     cfg: MelHuBERTConfig,
     *,
     padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = PAD
+    generator: Optional[torch.Generator] = None,  # on x's device
+    deterministic: bool = True,
 ):
     """Everything before the layers: zero padded frames, add the conv
-    positional embedding, then the encoder LayerNorm (post-LN). Split out so
-    packed extraction can run it per utterance."""
+    positional embedding, the encoder LayerNorm (post-LN), then the input
+    dropout. Split out so packed extraction can run it per utterance."""
     if padding_mask is not None:
         x = x.masked_fill(padding_mask[:, :, None], 0.0)
     x = x + pos_conv_embed(x, enc.pos_conv[0])
     if not cfg.layer_norm_first:
         x = layer_norm(x, enc.layer_norm)
-    return x
+    return dropout(x, cfg.dropout, generator, deterministic)
 
 
 def encoder_layers_forward(
@@ -184,11 +211,28 @@ def encoder_layers_forward(
     causal: bool = False,
     get_hidden: bool = False,
     attn_impl: str = "auto",
+    rng: Optional[torch.Generator] = None,  # host generator
+    generator: Optional[torch.Generator] = None,  # on x's device
+    deterministic: bool = True,
 ):
     """The layer stack + final (pre-LN) norm. Returns (x, layer_hiddens).
-    The per-layer contexts, which only head scoring reads, are dropped."""
+    The per-layer contexts, which only head scoring reads, are dropped.
+
+    In training each layer draws its attention seed from the host ``rng``
+    and, with ``encoder_layerdrop > 0``, a coin that skips the whole layer
+    (reference module.py:242-250; JAX computes the layer and selects, a
+    dropped layer here is not run). A dropped layer's input stands in its
+    ``layer_hiddens`` slot, as in JAX."""
     layer_hiddens = []
-    for layer in enc.layers:
+    for i, layer in enumerate(enc.layers):
+        seed = None
+        if not deterministic:
+            seed = draw_seed(rng)
+            if cfg.encoder_layerdrop > 0.0 and float(
+                    torch.rand((), generator=rng)) < cfg.encoder_layerdrop:
+                if get_hidden:
+                    layer_hiddens.append(x)
+                continue
         x, _ = encoder_layer_forward(
             x, layer,
             layer_norm_first=cfg.layer_norm_first,
@@ -197,6 +241,12 @@ def encoder_layers_forward(
             segment_ids=segment_ids,
             attn_impl=attn_impl,
             activation_fn=cfg.activation_fn,
+            dropout_p=cfg.dropout,
+            attention_dropout=cfg.attention_dropout,
+            activation_dropout=cfg.activation_dropout,
+            generator=generator,
+            attention_seed=seed,
+            deterministic=deterministic,
         )
         if get_hidden:
             layer_hiddens.append(x)
@@ -214,10 +264,20 @@ def encoder_forward(
     causal: bool = False,
     get_hidden: bool = False,
     attn_impl: str = "auto",
+    rng: Optional[torch.Generator] = None,  # host generator
+    deterministic: bool = True,
 ):
-    """Prologue + layer stack. Returns (x, layer_hiddens)."""
-    x = encoder_prologue(x, enc, cfg, padding_mask=padding_mask)
+    """Prologue + layer stack. Returns (x, layer_hiddens). Training
+    (``deterministic=False``) needs ``rng``, a host ``torch.Generator``."""
+    generator = None
+    if not deterministic:
+        if rng is None:
+            raise ValueError("training (deterministic=False) needs an rng")
+        generator = device_generator(rng, x.device)
+    x = encoder_prologue(x, enc, cfg, padding_mask=padding_mask,
+                         generator=generator, deterministic=deterministic)
     return encoder_layers_forward(
         x, enc, cfg, padding_mask=padding_mask, causal=causal,
-        get_hidden=get_hidden, attn_impl=attn_impl,
+        get_hidden=get_hidden, attn_impl=attn_impl, rng=rng,
+        generator=generator, deterministic=deterministic,
     )

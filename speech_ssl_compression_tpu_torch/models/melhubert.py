@@ -1,15 +1,21 @@
-"""MelHuBERT inference forward.
+"""MelHuBERT: masked cluster prediction over log-Mel input.
 
-Port of the inference path of
-``speech_ssl_compression_tpu/models/melhubert.py::melhubert_forward``:
-``pre_extract_proj`` -> encoder -> ``final_proj``, with ``no_pred`` and
-``get_hidden``. Span masking (``mask=True``) comes with the training slice.
+Port of ``speech_ssl_compression_tpu/models/melhubert.py``:
+``melhubert_forward`` (``pre_extract_proj`` -> span mask -> encoder ->
+``final_proj``, with ``no_pred``, ``get_hidden`` and the training forward),
+``masked_cross_entropy`` and ``melhubert_pretrain_loss``. Span masks are
+drawn on the host by :func:`span_mask`
+(``ops/masking.py::compute_mask_indices_np``, with the arguments JAX passes
+its device sampler) and handed to the forward as
+``teacher_mask_indices``; the grad step does so from the batch's host
+lengths. JAX's on-device sampler is not ported.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -17,6 +23,7 @@ from torch import nn
 from ..configs import MelHuBERTConfig
 
 from ..ops.activations import gelu
+from ..ops.masking import compute_mask_indices_np
 from .encoder import TransformerEncoder, encoder_forward
 
 
@@ -48,6 +55,29 @@ def pre_project(model: MelHuBERTModel, feat: torch.Tensor) -> torch.Tensor:
     return feat if proj is None else F.linear(feat, proj.weight, proj.bias)
 
 
+def span_mask(cfg: MelHuBERTConfig, lengths: np.ndarray, t: int,
+              rng: np.random.Generator) -> np.ndarray:
+    """(B, T) bool span mask for rows of valid ``lengths``, with the
+    arguments ``melhubert_forward`` (JAX) gives its sampler: ``min_masks=2``
+    and ``require_same_masks=False``, which the reference MelHuBERT passes
+    explicitly (model.py:76), so each row keeps its own mask count."""
+    return compute_mask_indices_np(
+        (len(lengths), t), np.asarray(lengths),
+        mask_prob=cfg.mask_prob, mask_length=cfg.mask_length,
+        mask_selection=cfg.mask_selection, mask_other=cfg.mask_other,
+        min_masks=2, no_overlap=cfg.no_mask_overlap,
+        min_space=cfg.mask_min_space, require_same_masks=False, rng=rng,
+    )
+
+
+def _apply_mask(x, mask_indices, model):
+    """Masked frames become ``mask_emb`` (learnable_mask_emb) or zero."""
+    mask_emb = getattr(model, "mask_emb", None)
+    fill = (torch.zeros((), dtype=x.dtype, device=x.device) if mask_emb is None
+            else mask_emb.to(x.dtype)[None, None, :])
+    return torch.where(mask_indices[:, :, None], fill, x)
+
+
 def melhubert_forward(
     model: MelHuBERTModel,
     feat: torch.Tensor,      # (B, T, feat_dim)
@@ -56,40 +86,99 @@ def melhubert_forward(
     mask: bool = False,
     no_pred: bool = False,
     get_hidden: bool = False,
+    teacher_mask_indices: Optional[torch.Tensor] = None,  # (B, T) bool
+    rng: Optional[torch.Generator] = None,  # host generator
+    deterministic: bool = True,
     attn_impl: str = "auto",
 ) -> Dict[str, Optional[object]]:
     """Returns a dict with keys
       hidden         (B, T, D) final encoder output
       logits         (B, T, num_cluster), or None with no_pred
-      mask_indices   (B, T) bool, all False (no masking at inference)
+      mask_indices   (B, T) bool span mask (all False without ``mask``)
       layer_hiddens  list of (B, T, D) with get_hidden
       pre_feat       (B, T, D) post-projection features (pre-encoder)
-    """
-    if mask:
-        raise NotImplementedError(
-            "span masking (mask=True) comes with the training slice"
-        )
+
+    ``mask=True`` masks the spans of ``teacher_mask_indices`` (drawn with
+    :func:`span_mask`). ``deterministic=False`` turns the dropouts on,
+    drawing from ``rng``, a host ``torch.Generator``."""
     cfg = model.cfg
     valid = pad_mask.to(torch.bool)
-    pre_feat = pre_project(model, feat)
+    mask_indices = torch.zeros_like(valid)
+    if mask and cfg.mask_prob > 0:
+        if teacher_mask_indices is None:
+            raise ValueError(
+                "span masking needs teacher_mask_indices: draw them on the "
+                "host with span_mask (a device sampler is not ported)")
+        mask_indices = teacher_mask_indices.to(torch.bool)
+
+    x = feat
+    if mask and cfg.mask_before_proj:
+        x = _apply_mask(x, mask_indices, model)
+    pre_feat = pre_project(model, x)
+    x = pre_feat
+    if mask and not cfg.mask_before_proj:
+        x = _apply_mask(x, mask_indices, model)
+
     layer_hiddens = []
     if cfg.encoder_layers > 0:
         hidden, layer_hiddens = encoder_forward(
-            pre_feat, model.encoder, cfg,
+            x, model.encoder, cfg,
             padding_mask=~valid,
             causal=cfg.attention_type == "causal",
             get_hidden=get_hidden,
             attn_impl=attn_impl,
+            rng=rng,
+            deterministic=deterministic,
         )
     else:
-        hidden = gelu(pre_feat)
+        hidden = gelu(x)
     out = {
         "hidden": hidden,
         "logits": None,
-        "mask_indices": torch.zeros_like(valid),
+        "mask_indices": mask_indices,
         "layer_hiddens": layer_hiddens,
         "pre_feat": pre_feat,
     }
     if not no_pred:
         out["logits"] = model.final_proj(hidden)
     return out
+
+
+def masked_cross_entropy(
+    logits: torch.Tensor,  # (B, T, C)
+    labels: torch.Tensor,  # (B, T) int, -100 = ignore
+    select: torch.Tensor,  # (B, T) bool: which frames to include
+):
+    """Mean cross entropy over the selected frames with ignore_index -100,
+    log-softmax in f32 (reference pretrain_expert.py:25,114-119 gathers the
+    frames; JAX and the port mask them). Returns (loss, count)."""
+    valid = select & (labels != -100)
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    count = valid.sum()
+    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / count.clamp_min(1)
+    return loss, count
+
+
+def melhubert_pretrain_loss(out: dict, labels: torch.Tensor,
+                            pad_mask: torch.Tensor, cfg: MelHuBERTConfig):
+    """pred_masked_weight * CE(masked) + pred_nomask_weight * CE(unmasked)
+    (reference pretrain_expert.py:114-119). Returns (loss, logs)."""
+    valid = pad_mask.to(torch.bool)
+    mask_indices = out["mask_indices"]
+    loss = 0.0
+    logs = {}
+    if not cfg.skip_masked and cfg.pred_masked_weight > 0:
+        l_m, n_m = masked_cross_entropy(out["logits"], labels,
+                                        valid & mask_indices)
+        loss = loss + cfg.pred_masked_weight * l_m
+        logs["loss_masked"] = l_m
+        logs["n_masked"] = n_m
+    if not cfg.skip_nomask and cfg.pred_nomask_weight > 0:
+        l_u, n_u = masked_cross_entropy(out["logits"], labels,
+                                        valid & ~mask_indices)
+        loss = loss + cfg.pred_nomask_weight * l_u
+        logs["loss_nomask"] = l_u
+        logs["n_nomask"] = n_u
+    return loss, logs

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface. They are compiled with
-``nvcc`` into one shared library at first use, and the library is loaded
-with ``ctypes``; no PyTorch headers are compiled. The library's name carries
-a hash of the sources and flags, so an edit rebuilds. Builds go to
-``_build/`` inside the package (listed in ``.gitignore``).
+The sources in ``csrc/`` have a plain C interface. At first use each
+``.cu`` file is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library, which is loaded with
+``ctypes``; no PyTorch headers are compiled. The library's name carries a
+hash of the sources and flags, so an edit rebuilds. Builds go to
+``_build/`` inside the package (listed in ``.gitignore``), and ptxas's
+report of registers, shared memory and spills per kernel is kept beside the
+library (:func:`ptxas_report`).
 
 Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc`` or a GPU.
@@ -25,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -58,23 +61,54 @@ def _nvcc() -> str:
     return found
 
 
+def ptxas_report() -> str:
+    """ptxas's ``-v`` lines (registers, shared memory, spills per kernel)
+    from the build of the current sources; empty before the build."""
+    path = library_path().with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
+
+
 def build() -> pathlib.Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    Raises with nvcc's stderr when the build fails."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all in parallel, then one link. Raises with
+    nvcc's stderr when a step fails."""
     lib = library_path()
     if lib.exists():
         return lib
     cu, _ = _sources()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: "
-            f"{' '.join(cmd)}\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    compiles = []
+    for src, obj in zip(cu, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    report = []
+    try:
+        failed = None
+        for cmd, proc in compiles:
+            _, err = proc.communicate()
+            report.append(err)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, err)
+        if failed is not None:
+            cmd, code, err = failed
+            raise RuntimeError(
+                f"nvcc failed with exit code {code}: {' '.join(cmd)}\n{err}")
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc link failed with exit code {proc.returncode}: "
+                f"{' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, lib)
     return lib
 
@@ -86,8 +120,14 @@ def load() -> ctypes.CDLL:
     cut to 32 bits."""
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sslc_flash_attn_fwd.argtypes = [vp] * 8 + [ci] * 7 + [vp]
-    lib.sslc_flash_attn_fwd.restype = ci
+    # ..., use_dropout, keep_threshold, keep_scale, seed, device, stream
+    dropout = [ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ci, vp]
+    for name, n_ptr in (("sslc_flash_attn_fwd", 8),
+                        ("sslc_flash_attn_bwd_dq", 10),
+                        ("sslc_flash_attn_bwd_dkv", 11)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptr + [ci] * 7 + dropout
+        fn.restype = ci
     lib.sslc_cuda_error_string.argtypes = [ci]
     lib.sslc_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,6 +8,9 @@ counts are plain shapes: after head pruning the q/k/v projections have
 ``ops/flash_attention.py::flash_attention`` (the CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor); "dense" is the plain
 O(T^2)-memory path below, and the only way a CUDA tensor reaches it.
+Attention dropout (``dropout_p`` with a ``dropout_seed``) draws the same
+keep bits on both paths (``ops/dropout.py::attention_keep_mask``), so the
+dense path is the kernel's oracle with dropout on as well.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import attention_keep_mask
 from .flash_attention import NEG_INF, flash_attention
 
 IMPLS = ("auto", "flash", "dense")
@@ -31,14 +35,19 @@ def dense_attention(
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = PAD
     causal: bool = False,
     segment_ids: Optional[torch.Tensor] = None,  # (B, T) int; equal ids attend
+    dropout_p: float = 0.0,
+    dropout_seed: Optional[int] = None,  # required when dropout_p > 0
 ) -> torch.Tensor:
-    """Port of ``dense_attention`` (JAX, dropout-free): scale q by
-    1/sqrt(d), masks and softmax in f32, probabilities cast back to the
-    input dtype for the product with v. With bf16 inputs the scores are
-    rounded to bf16 before the f32 softmax (JAX keeps them in f32)."""
-    t, d = q.shape[2], q.shape[3]
-    scale = 1.0 / d**0.5
-    logits = torch.matmul(q * scale, k.transpose(-1, -2)).float()
+    """Port of ``dense_attention`` (JAX): scale q by 1/sqrt(d) in the input
+    dtype, scores accumulated and kept in f32 (JAX's
+    ``preferred_element_type=float32``), masks and softmax in f32,
+    probabilities cast back to the input dtype, attention dropout on them,
+    then the product with v."""
+    b, h, t, d = q.shape
+    # 0-dim CPU tensors in q's dtype: combined with a CUDA tensor as
+    # scalars, with no copy to the device
+    scale = torch.reciprocal(torch.sqrt(torch.tensor(float(d), dtype=q.dtype)))
+    logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     if key_padding_mask is not None:
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
         # an additive bias in JAX; -1e30 + a score rounds to -1e30 in f32
@@ -49,6 +58,14 @@ def dense_attention(
         above = torch.ones((t, t), dtype=torch.bool, device=q.device).triu(1)
         logits = logits.masked_fill(above, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        if dropout_seed is None:
+            raise ValueError("attention dropout requires a seed")
+        keep = attention_keep_mask(dropout_seed, b, h, t, k.shape[2],
+                                   dropout_p, q.device)
+        kept_scale = torch.tensor(1.0 / (1.0 - dropout_p), dtype=q.dtype)
+        probs = torch.where(keep, probs * kept_scale,
+                            torch.zeros((), dtype=q.dtype, device=q.device))
     return torch.matmul(probs, v)
 
 
@@ -93,8 +110,10 @@ def multi_head_self_attention(
     causal: bool = False,
     segment_ids: Optional[torch.Tensor] = None,  # (B, T): sequence packing
     impl: str = "auto",
+    dropout_p: float = 0.0,
+    dropout_seed: Optional[int] = None,  # required when dropout_p > 0
 ):
-    """Port of ``multi_head_self_attention`` (JAX, dropout-free). Returns
+    """Port of ``multi_head_self_attention`` (JAX). Returns
     (out (B, T, D), context (B, H, T, d)); context is the pre-out-proj
     per-head tensor that head scoring reads."""
     if impl not in IMPLS:
@@ -104,5 +123,6 @@ def multi_head_self_attention(
     v = project_to_heads(x, attn.v_proj, num_heads, head_dim)
     attend = dense_attention if impl == "dense" else flash_attention
     context = attend(q, k, v, key_padding_mask=key_padding_mask,
-                     causal=causal, segment_ids=segment_ids)
+                     causal=causal, segment_ids=segment_ids,
+                     dropout_p=dropout_p, dropout_seed=dropout_seed)
     return output_projection(context, attn.out_proj), context

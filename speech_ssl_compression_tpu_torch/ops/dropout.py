@@ -1,0 +1,116 @@
+"""Dropout: the keep test, inverted dropout, and attention dropout's keep bits.
+
+Port of ``speech_ssl_compression_tpu/ops/dropout.py``. The keep test is one
+definition, :func:`keep_threshold`: an element is kept iff its uint32
+random bits are below it. Only the keep distribution is semantics
+(the reference's ``FairseqDropout``); the random stream is not, so the
+port's bits are not JAX's.
+
+Generators are explicit. :func:`dropout` draws its bits from a
+``torch.Generator`` on the tensor's device. Attention dropout draws none:
+:func:`attention_keep_mask` is a counter-based function of
+(seed, b, h, row, col), Philox-4x32-10 with counter (col, row, b * H + h, 0)
+and key (seed lo, seed hi), whose first word is the element's bits. The
+CUDA kernels (``csrc/flash_common.cuh``) compute the same bits in-kernel,
+so the forward, the backward kernels, this plain version and
+``dense_attention`` all see one mask, whatever their tiles.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox-4x32 multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Philox-4x32 key increments (Weyl)
+_MASK32 = 0xFFFFFFFF
+SEED_BOUND = 2**31 - 1  # seeds in [0, 2^31 - 1), the range JAX draws
+
+
+def keep_threshold(p: float) -> int:
+    """uint32 threshold with P(bits < threshold) = 1 - p up to 2^-32; the
+    -1 keeps tiny p from overflowing uint32. Same value as the JAX
+    ``keep_threshold``."""
+    return int((1.0 - p) * 4294967295.0)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One seed in [0, 2^31 - 1) from a host generator (no device sync)."""
+    return int(torch.randint(0, SEED_BOUND, (), generator=generator))
+
+
+def device_generator(generator: torch.Generator,
+                     device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from the host ``generator``: the
+    source of :func:`dropout`'s bits on that device."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(draw_seed(generator))
+    return gen
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            deterministic: bool = False) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1 - p (bits below
+    :func:`keep_threshold`), scale kept values by 1/(1 - p). The bits come
+    from ``generator``, which must live on ``x``'s device."""
+    if deterministic or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with p > 0 and deterministic=False needs "
+                         "a generator")
+    bits = torch.randint(0, 2**32, x.shape, generator=generator,
+                         device=x.device, dtype=torch.int64)
+    scale = torch.tensor(1.0 / (1.0 - p), dtype=x.dtype)  # 0-dim, on the host
+    return torch.where(bits < keep_threshold(p), x * scale,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _mulhilo(m: int, a: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product m * a, for a constant
+    m < 2^32 and an int64 tensor a of uint32 values. The product is split
+    on m's 16-bit halves so that nothing overflows int64."""
+    p_lo = a * (m & 0xFFFF)          # < 2^48
+    p_hi = a * (m >> 16)             # < 2^48
+    t = (p_lo & _MASK32) + ((p_hi & 0xFFFF) << 16)  # < 2^33
+    hi = (p_lo >> 32) + (p_hi >> 16) + (t >> 32)
+    return hi & _MASK32, t & _MASK32
+
+
+def philox4x32(counter, key, rounds: int = 10):
+    """Philox-4x32 (Salmon et al., SC'11) on int64 tensors holding uint32
+    values: ``counter`` is 4 broadcastable tensors, ``key`` 2 ints.
+    Returns the 4 output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(rounds):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def attention_keep_bits(seed: int, b: int, h: int, tq: int, tk: int,
+                        device=None) -> torch.Tensor:
+    """(b, h, tq, tk) int64 tensor of uint32 bits, one Philox draw per
+    attention-probability element at counter (col, row, bi * h + hi, 0)."""
+    seed = int(seed)
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"seed must be a uint64, got {seed}")
+    i64 = dict(dtype=torch.int64, device=device)
+    col = torch.arange(tk, **i64).view(1, 1, 1, tk)
+    row = torch.arange(tq, **i64).view(1, 1, tq, 1)
+    bh = torch.arange(b * h, **i64).view(b, h, 1, 1)
+    zero = torch.zeros((), **i64)
+    bits, _, _, _ = philox4x32((col, row, bh, zero),
+                               (seed & _MASK32, seed >> 32))
+    return bits.expand(b, h, tq, tk)
+
+
+def attention_keep_mask(seed: int, b: int, h: int, tq: int, tk: int,
+                        p: float, device=None) -> torch.Tensor:
+    """(b, h, tq, tk) bool keep mask of attention dropout with rate ``p``:
+    the mask the CUDA kernels apply in-kernel, materialized."""
+    return attention_keep_bits(seed, b, h, tq, tk, device) < keep_threshold(p)

@@ -2,8 +2,10 @@
 
 The format is plain ``np.savez``: ``params/<path>`` and ``masks/<path>``
 arrays, where ``<path>`` joins dict keys with ``/`` and list indices as
-``[i]``, plus the JSON metadata as a ``meta_json`` uint8 array. Optimizer
-state and RNG keys are JAX-only and are neither read nor written here.
+``[i]``, the optimizer state's leaves as ``opt/<i>`` in JAX's leaf order,
+plus the JSON metadata as a ``meta_json`` uint8 array. Two JAX-only
+entries are not written: ``opt_treedef`` (the string of an optax tree
+definition, which the JAX reader treats as optional) and ``rng_key``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,14 @@ def _flatten(tree, prefix: str, out: dict) -> None:
             _flatten(v, f"{prefix}/[{i}]", out)
     else:
         out[prefix] = np.asarray(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list tree in JAX's leaf order (dict
+    keys sorted, list items in order), as ``jax.tree.leaves`` gives them."""
+    flat: dict = {}
+    _flatten(tree, "", flat)
+    return list(flat.values())
 
 
 def _unflatten(flat: dict) -> Any:
@@ -79,16 +89,21 @@ def load_checkpoint(path: str) -> dict:
     }
 
 
-def save_checkpoint(path: str, params, *, masks=None,
+def save_checkpoint(path: str, params, *, opt_state=None, masks=None,
                     meta: Optional[dict] = None) -> None:
     """Write ``params`` (a JAX-layout numpy tree) in the format of
-    ``speech_ssl_compression_tpu/utils/checkpoint.py::save_checkpoint``,
-    without optimizer state or RNG key: a single atomic ``.npz`` with the
-    metadata embedded, and a ``.json`` copy beside it."""
+    ``speech_ssl_compression_tpu/utils/checkpoint.py::save_checkpoint``: a
+    single atomic ``.npz`` with the metadata embedded, and a ``.json`` copy
+    beside it. ``opt_state`` is the list of optimizer leaves in JAX's
+    order (for Adam: [count, *mu, *nu], each tree in the params' leaf
+    order and layout), stored as ``opt/<i>``; JAX's ``restore_opt_state``
+    zips them into its own optimizer state."""
     flat: dict = {}
     _flatten(params, "params", flat)
     if masks is not None:
         _flatten(masks, "masks", flat)
+    for i, leaf in enumerate(opt_state or ()):
+        flat[f"opt/{i}"] = np.asarray(leaf)
     meta_bytes = json.dumps(meta or {}, default=str).encode()
     flat["meta_json"] = np.frombuffer(meta_bytes, dtype=np.uint8)
 

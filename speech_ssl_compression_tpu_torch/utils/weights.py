@@ -19,6 +19,7 @@ import torch
 from ..configs import MelHuBERTConfig
 from speech_ssl_compression_tpu.utils.torch_convert import (
     infer_pruned_dims,
+    melhubert_state_dict_to_params,
     params_to_state_dict,
 )
 
@@ -26,6 +27,7 @@ __all__ = [
     "apply_masks",
     "infer_pruned_dims",
     "init_params_np",
+    "jax_tree_from_named",
     "load_model",
     "state_dict_from_jax_params",
 ]
@@ -57,6 +59,15 @@ def state_dict_from_jax_params(
         k: torch.tensor(np.asarray(v), dtype=torch.float32)
         for k, v in sd.items()
     }
+
+
+def jax_tree_from_named(named: Dict[str, torch.Tensor]) -> dict:
+    """Tensors under the model's parameter names (weights, or anything laid
+    out like them: gradients, Adam moments) -> a JAX-layout numpy tree
+    (kernels transposed to (in, out), ``scale`` for LayerNorm weights), the
+    inverse of :func:`state_dict_from_jax_params`."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in named.items()}
+    return melhubert_state_dict_to_params(sd, keep_masks=False)[0]
 
 
 def load_model(params: dict, cfg: MelHuBERTConfig,

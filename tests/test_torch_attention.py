@@ -95,3 +95,42 @@ def test_unknown_impl_raises():
     with pytest.raises(ValueError, match="impl"):
         multi_head_self_attention(torch.zeros(1, 4, D), attn, num_heads=1,
                                   head_dim=HEAD_DIM, impl="pallas")
+
+
+@pytest.mark.parametrize("kind", ["none", "padding", "causal"])
+def test_dense_bf16_scores_stay_f32_as_in_jax(kind):
+    """bf16 inputs: the scores are accumulated and kept in f32 (JAX's
+    preferred_element_type=float32), so the port and JAX round only the
+    probabilities and the output, and differ by at most one bf16 ulp of
+    the output's scale in a few places. Rounding the scores to bf16 first
+    (the fault this test guards against) moves most outputs."""
+    from speech_ssl_compression_tpu.ops.attention import (
+        dense_attention as jax_dense,
+    )
+
+    pad, _, causal = _masks(kind)
+    rng = np.random.default_rng(7)
+    q, k, v = (2.0 * rng.standard_normal((2, 2, T, HEAD_DIM))
+               for _ in range(3))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = np.asarray(jax_dense(
+        jq, jk, jv, causal=causal,
+        key_padding_mask=None if pad is None else jnp.asarray(pad),
+    ).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    kpm = None if pad is None else torch.from_numpy(pad)
+    got = dense_attention(tq, tk, tv, key_padding_mask=kpm,
+                          causal=causal).float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    assert np.abs(got - ref).max() <= ulp
+    assert (got != ref).mean() < 0.01
+    # the control: scores rounded to bf16 before the softmax
+    scores = (torch.matmul(tq * 0.125, tk.transpose(-1, -2)).float())
+    if kpm is not None:
+        scores = scores.masked_fill(kpm[:, None, None, :], -1e30)
+    if causal:
+        scores = scores.masked_fill(
+            torch.ones(T, T, dtype=torch.bool).triu(1), -1e30)
+    control = torch.matmul(torch.softmax(scores, -1).to(torch.bfloat16),
+                           tv).float().numpy()
+    assert (control != ref).mean() > 0.2

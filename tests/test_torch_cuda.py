@@ -1,6 +1,8 @@
-"""The flash-attention CUDA kernel against its plain PyTorch version on the
-GPU, at the shapes the serving, long, rectangular and causal paths give it.
-Needs an NVIDIA GPU and nvcc; skipped elsewhere. On a GPU machine:
+"""The flash-attention CUDA kernels (forward, with and without dropout, and
+the dQ and dK/dV backward) against their plain PyTorch versions on the
+GPU, at the shapes the serving, training, long, rectangular and causal
+paths give them. Needs an NVIDIA GPU and nvcc; skipped elsewhere. On a GPU
+machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -29,6 +31,9 @@ F32_BAR, LSE_BAR = 1e-4, 1e-4  # max |d| / mean |ref|; lse max |d|
 # the f32 results straddle a rounding point; against the plain version run
 # with the kernel's key tiles, few entries may differ at all
 BF16_ULP_BAR, BF16_SHARE_BAR = 1.0, 0.03
+# the backward also rounds dS and Pd inside, before its sums: an entry may
+# lie past one ulp by at most its straddle bound
+# (flash_attention.bf16_straddle_bounds; chip_smoke.py says more)
 
 
 @pytest.fixture(autouse=True)
@@ -43,10 +48,13 @@ def _bf16_diff(got, ref, valid):
     """(share of valid entries that differ, max |d| in bf16 ulps of
     max(|ref|, mean |ref|))"""
     got, ref = got.float()[valid], ref.float()[valid]
-    mag = ref.abs().clamp_min(float(ref.abs().mean()))
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     d = (got - ref).abs()
-    return float((d > 0).float().mean()), float((d / ulp).max())
+    return float((d > 0).float().mean()), float((d / _bf16_ulp(ref)).max())
+
+
+def _bf16_ulp(ref):
+    mag = ref.abs().clamp_min(float(ref.abs().mean()))
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def _segments(b, t, dev):
@@ -146,3 +154,115 @@ def test_kernel_refuses_what_it_does_not_take():
     q = torch.randn(1, 64, 2, 64, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q, q)
+
+
+TRAIN_SHAPE = (4, 12, 768, 64)
+
+
+def _train_masks(dev, dropout_p):
+    lens = torch.tensor([750, 750, 700, 512], device=dev)
+    pad = torch.arange(768, device=dev)[None, :] >= lens[:, None]
+    kw = dict(key_padding_mask=pad)
+    if dropout_p:
+        kw.update(dropout_p=dropout_p, dropout_seed=1234)
+    return kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_forward_kernel_matches_plain_version(dtype):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(TRAIN_SHAPE, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    masks = _train_masks(dev, 0.1)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+    block_k = None if dtype == torch.float32 else fa.KERNEL_BLOCK_K
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, block_k=block_k,
+                                                **masks)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max() / ref.abs().mean() < F32_BAR
+    else:
+        share, ulps = _bf16_diff(out, ref, slice(None))
+        assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
+    assert (lse - ref_lse).abs().max() < LSE_BAR
+
+
+BWD_CASES = {
+    # name: (q shape, key length of a rectangular case, dropout)
+    "training": (TRAIN_SHAPE, None, 0.0),
+    "training_dropout": (TRAIN_SHAPE, None, 0.1),
+    "causal": ((2, 12, 1024, 64), None, 0.0),
+    "one_head": ((4, 1, 896, 64), None, 0.0),
+    "rectangular": ((1, 12, 1024, 64), 5000, 0.0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_backward_kernels_match_plain_version(name, dtype):
+    dev = torch.device("cuda")
+    qs, tk, p = BWD_CASES[name]
+    if name.startswith("training"):
+        masks = _train_masks(dev, p)
+    else:
+        masks = _case(name, dev)[2]
+    ks = qs if tk is None else (qs[0], qs[1], tk, qs[3])
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, dout = (torch.randn(qs, generator=g, device=dev).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(ks, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    if tk is None:
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+    else:
+        out, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
+                                              **masks)
+    args = fa.backward_args(q, k, v, out, lse, dout, **masks)
+    fa.reset_launch_counts()
+    got = (fa.launch_bwd_dq(*args),) + fa.launch_bwd_dkv(*args)
+    assert fa.launch_counts["flash_attn_bwd_dq"] == 1
+    assert fa.launch_counts["flash_attn_bwd_dkv"] == 1
+    ref = (fa.reference_bwd_dq(*args),) + fa.reference_bwd_dkv(*args)
+    bounds = (fa.bf16_straddle_bounds(*args) if dtype == torch.bfloat16
+              else (None,) * 3)
+    for a, b, bound in zip(got, ref, bounds):
+        if dtype == torch.float32:
+            assert (a - b).abs().max() / b.abs().mean() < F32_BAR
+        else:
+            share, _ = _bf16_diff(a, b, slice(None))
+            assert share < BF16_SHARE_BAR
+            d = (a.float() - b.float()).abs()
+            assert (d <= _bf16_ulp(b.float()) + bound).all()
+        assert torch.isfinite(a).all()
+
+
+def test_autograd_goes_through_the_kernels():
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=g, device=dev)
+                     for _ in range(4))
+    masks = _train_masks(dev, 0.1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_counts()
+    out, lse = fa.flash_attention(*leaves, return_lse=True, **masks)
+    out.backward(dout)
+    assert set(fa.launch_counts.values()) == {1}
+    args = fa.backward_args(q, k, v, out.detach(), lse, dout, **masks)
+    want = (fa.launch_bwd_dq(*args),) + fa.launch_bwd_dkv(*args)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)  # deterministic: no atomics
+
+
+def test_kernel_keep_bits_equal_the_plain_mask():
+    from speech_ssl_compression_tpu_torch.ops.dropout import attention_keep_mask
+
+    dev = torch.device("cuda")
+    b, h, t, d = TRAIN_SHAPE
+    q = torch.zeros(TRAIN_SHAPE, device=dev)
+    k = torch.randn(TRAIN_SHAPE, device=dev)
+    v = torch.nn.functional.one_hot(torch.arange(t, device=dev) % d, d)
+    v = v.float().expand(b, h, t, d).contiguous()
+    out = fa.flash_attention(q, k, v, dropout_p=0.1, dropout_seed=5)
+    counts = torch.round(out.double() * t * 0.9).long()
+    keep = attention_keep_mask(5, b, h, t, t, 0.1, dev)
+    assert torch.equal(counts, keep.view(b, h, t, t // d, d).sum(dim=3))

@@ -1,6 +1,6 @@
 """The port's flash-attention forward on CPU tensors (its plain version)
 against the JAX Pallas kernels in interpret mode, plus the wrapper's
-routing rules. Outputs are compared on rows that see at least one key; a
+routing rules (the backward is in ``test_torch_flash_bwd.py``). Outputs are compared on rows that see at least one key; a
 fully masked row legitimately differs between the two."""
 
 import numpy as np
@@ -168,12 +168,19 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 def test_wrapper_refuses_grad_and_bad_shapes():
+    # grad is no longer refused: the autograd Function carries it (the
+    # plain backward on CPU tensors); what the kernels do not take still
+    # raises
     q, k, v = (torch.from_numpy(a) for a in _arrays(1, 2, 16))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(q.requires_grad_(), k, v)
+    out = tfa.flash_attention(q.requires_grad_(), k, v)
+    out.sum().backward()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
     with torch.no_grad():
         assert tfa.flash_attention(q, k, v).shape == q.shape
     q = q.detach()
+    with pytest.raises(NotImplementedError, match="T <= 4096"):
+        z = torch.zeros(1, 1, 4100, 64)
+        tfa.flash_attention(z, z, z, dropout_p=0.1, dropout_seed=0)
     with pytest.raises(NotImplementedError, match="square"):
         tfa.flash_attention(q, k[:, :, :8].contiguous(),
                             v[:, :, :8].contiguous(), causal=True)
@@ -188,4 +195,6 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert lib.parent == _kernels.BUILD_DIR
     assert lib.name.startswith("libsslc_kernels_") and lib.suffix == ".so"
     assert _kernels.library_path() == lib
-    assert [p.name for p in _kernels._sources()[0]] == ["flash_attn_fwd.cu"]
+    assert [p.name for p in _kernels._sources()[0]] == [
+        "flash_attn_bwd.cu", "flash_attn_fwd.cu"]
+    assert [p.name for p in _kernels._sources()[1]] == ["flash_common.cuh"]

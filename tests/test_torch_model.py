@@ -96,8 +96,9 @@ def test_zero_layer_model_is_gelu_of_projection():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="pos_conv_depth"):
         MelHuBERTModel(MelHuBERTConfig.from_dict(dict(TINY, pos_conv_depth=2)))
+    # span masking is ported; without a mask or an rng to draw one it raises
     model = MelHuBERTModel(MelHuBERTConfig.from_dict(TINY))
-    with pytest.raises(NotImplementedError, match="masking"):
+    with pytest.raises(ValueError, match="masking"):
         melhubert_forward(model, torch.zeros(1, 4, 80), torch.ones(1, 4),
                           mask=True)
 

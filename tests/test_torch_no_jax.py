@@ -1,5 +1,6 @@
-"""The port imports and runs its CPU slice with ``jax`` unimportable, as on
-a GPU machine that has no JAX."""
+"""The port imports and runs its CPU slices with ``jax`` unimportable (and,
+for training, ``pandas`` and ``yaml`` too), as on a GPU machine that has
+none of them."""
 
 import pathlib
 import subprocess
@@ -10,6 +11,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import importlib, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # `import jax` now raises ImportError
+sys.modules["pandas"] = None
+sys.modules["yaml"] = None
 sys.path.insert(0, sys.argv[1])
 
 import speech_ssl_compression_tpu_torch as pkg
@@ -49,6 +52,51 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("modules ")
+
+
+TRAIN_SCRIPT = r"""
+import pathlib, sys, tempfile
+import numpy as np
+for name in ("jax", "pandas", "yaml"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+from speech_ssl_compression_tpu_torch.train.__main__ import main
+
+d = pathlib.Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+rows = ["file_path,label_path,length"]
+for i in range(4):
+    n = 50 + 7 * i
+    np.save(d / f"f{i}.npy", rng.standard_normal((n, 40)).astype(np.float32))
+    np.save(d / f"l{i}.npy", rng.integers(0, 8, n))
+    rows.append(f"{d}/f{i}.npy,{d}/l{i}.npy,{n}")
+(d / "train.csv").write_text("\n".join(rows) + "\n")
+(d / "model.yaml").write_text(
+    "melhubert:\n  feat_emb_dim: 80\n  encoder_layers: 1\n"
+    "  encoder_embed_dim: 64\n  encoder_ffn_embed_dim: 128\n"
+    "  encoder_attention_heads: 4\n  head_dim: 16\n  num_cluster: 8\n"
+    "  conv_pos: 8\n  conv_pos_groups: 4\n  mask_length: 3\n"
+    "task:\n  sequence_length: 0\n")
+(d / "runner.yaml").write_text(
+    "runner:\n  total_steps: 2\n  gradient_accumulate_steps: 1\n"
+    "  log_step: 1\noptimizer:\n  lr: 1.0e-03\n  betas:\n  - 0.9\n"
+    "  - 0.999\ndatarc:\n  train_batch_size: 2\n  sets:\n"
+    f"  - {d}/train.csv\n")
+runner = main(["-m", "melhubert", "-g", str(d / "model.yaml"), "-c",
+               str(d / "runner.yaml"), "-n", str(d / "exp"), "--device", "cpu"])
+assert (d / "exp" / "last-step.npz").exists()
+assert all(sys.modules[n] is None for n in ("jax", "pandas", "yaml"))
+print("updates", len(runner.log_history))
+"""
+
+
+def test_port_trains_without_jax_pandas_or_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_SCRIPT, str(REPO)],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("updates 2")
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
