@@ -15,11 +15,14 @@ result line):
             version on the card, TF32 off, f32 and bf16, at the shapes the
             serving path and the long/rectangular/causal paths give it, and
             with dropout at the training shape;
-  backward  the dQ and dK/dV kernels against the plain backward at the
-            training shape (4, 12, 768, 64) with key padding, dropout 0 and
-            0.1, and at the serving, causal, one-head, long and rectangular
-            shapes; the kernels' keep rate against the binomial; the same
-            seed giving the same bits twice;
+  backward  the dQ and dK/dV kernels, as the autograd path runs them (the
+            dQ kernel computes D from its own P and hands it to the dK/dV
+            kernel), against the plain backward at the training shape
+            (4, 12, 768, 64) with key padding, dropout 0 and 0.1, and at the
+            serving, causal, one-head, long and rectangular shapes, f32 and
+            bf16; D also against JAX's rowsum(dO o O); the kernels' keep
+            rate against the binomial; the same seed giving the same bits
+            twice;
   slice     MelHuBERT-20ms at full width (12 layers, 768 wide, seeded random
             weights written as an npz checkpoint and read back through
             load_any_checkpoint) serves 16 synthetic utterances through
@@ -38,9 +41,34 @@ result line):
   train timing  the grad step with the kernels and with impl="dense", f32
             and bf16, one full update in bf16, and the backward kernels
             against the plain backward at the training shape;
+  conv      the strided-conv forward, dW and dX kernels against their plain
+            version at the shapes of HuBERT's frontend layers 1-6 in the
+            training batch and at T = 777 / 515: f32 (TF32 off) against the
+            plain version in float64, bf16 against it in bf16; dX zero past
+            the last input row an output reaches; CUDA-event times of each
+            kernel, its plain version and cuDNN's call for the same function
+            (F.conv1d, conv1d_weight, conv1d_input);
+  hubert serve  HuBERT-base at full width (configs/hubert/config_model.yaml,
+            seeded random weights) through hubert_forward(features_only=True)
+            on 8 x 491,520 samples: launch counts, the conv kernels
+            (conv_frontend_impl="tc_pallas") against cuDNN ("auto"), bf16
+            against f32, frames/s of both routes in f32 and bf16;
+  hubert train  HuBERT-base pre-training through the trainer's entry point
+            (-u hubert) on a synthetic manifest: 3 updates of 2 micro-batches
+            (B = 4, 245,760 samples), bf16; launch counts per grad step; the
+            checkpoint read back; loss and every gradient of the kernel
+            route (f32, TF32 off, dropout off, a fixed span mask) against
+            cuDNN + impl="dense" run in float64 and in f32; the grad step
+            and one update at the bench recipe with and without the conv
+            kernels, f32 and bf16;
   profile   (--profile only) device busy time, idle share and the largest
             device kernels of forward_packed from features, per path, and
-            of the bf16 grad step.
+            of the MelHuBERT and HuBERT bf16 grad steps.
+
+The conv kernels' bf16 check: kernel and plain version round only their
+outputs, so every entry must lie within one ulp and fewer than
+BF16_SHARE_BAR may differ; a control that rounds the two halves of the
+reduction to bf16 before adding them must fail that share.
 
 The bf16 kernel check. Kernel and plain version both round their output to
 bf16, so the two may differ by one bf16 ulp wherever the f32 results
@@ -67,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -101,6 +130,32 @@ F32_BAR, LSE_BAR = 1e-4, 1e-4  # max |d| / mean |ref|; lse max |d|
 BF16_ULP_BAR = 1.0     # max |d| in bf16 ulps of max(|ref|, mean |ref|)
 BF16_SHARE_BAR = 0.03  # share of valid bf16 outputs that differ at all
 SLICE_BAR, PACKED_BAR, BF16_SLICE_BAR = 1e-4, 2e-4, 5e-2
+CONV_SOURCE = "speech_ssl_compression_tpu_torch/csrc/conv1d.cu"
+CONV_REPLACES = {
+    "conv1d_fwd": "speech_ssl_compression_tpu/ops/conv1d.py:63",
+    "conv1d_dw": "speech_ssl_compression_tpu/ops/conv1d.py:106",
+    "conv1d_dx": "speech_ssl_compression_tpu/ops/conv1d.py:153",
+}
+# f32 conv kernels against the plain version run in float64: forward and dX
+# max |d| / mean |ref|, dW rel. L2 (its sums run over up to ~10^5 rows)
+CONV_F32_BAR = 1e-5
+HUBERT_YAML = ROOT / "configs" / "hubert" / "config_model.yaml"
+HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
+HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
+HUBERT_CLASSES = 504        # 500 clusters + 4 specials, the bench recipe's
+HUBERT_ACCUM = 2            # micro-batches per update in the trainer run
+# peaks of one H100 SXM (NVIDIA data sheet):
+# f32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops: float, n_bytes: float, dtype) -> tuple:
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of the FLOPs over the dtype's peak and the bytes over HBM bandwidth."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def log(phase: str, msg: str) -> None:
@@ -349,19 +404,33 @@ def phase_backward(dev, gpu: str):
                                                       **masks)
             else:
                 out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
-            args = fa.backward_args(q, k, v, out, lse, dout, **masks)
-            got = (fa.launch_bwd_dq(*args),) + fa.launch_bwd_dkv(*args)
-            ref = (fa.reference_bwd_dq(*args),) + fa.reference_bwd_dkv(*args)
+            args = fa.backward_args(q, k, v, lse, dout, **masks)
+            # the bound is built from the inputs, before the kernels run
+            bounds = (fa.bf16_straddle_bounds(*args) if dtype == torch.bfloat16
+                      else None)
+            *got, dd = fa.launch_bwd(*args)
+            *ref, ref_dd = fa.reference_bwd(*args)
             torch.cuda.synchronize()
             sel = (rows_of(valid_q, qs), rows_of(valid_k, ks),
                    rows_of(valid_k, ks))
             tag = "f32" if dtype == torch.float32 else "bf16"
             names = ("dq", "dk", "dv")
+            # D, f32 whatever the inputs, against its plain version; in f32
+            # also against JAX's D = rowsum(dO o O) from the forward's
+            # output (a bf16 O is rounded, and that D with it)
+            d_errs = [rel_err(dd, ref_dd, sel[0])]
+            detail = f"D max|d|/mean|ref| {d_errs[0]:.3e}"
+            if dtype == torch.float32:
+                d_errs.append(rel_err(dd, fa.output_dd(out, dout), sel[0]))
+                detail += f", against rowsum(dO o O) {d_errs[1]:.3e}"
+            ok = max(d_errs) < F32_BAR
+            detail += f" (bar {F32_BAR:g}); "
             if dtype == torch.float32:
                 errs = [rel_err(g, r, s) for g, r, s in zip(got, ref, sel)]
-                ok = max(errs) < F32_BAR
-                detail = ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
-                detail = f"max|d|/mean|ref| {detail} (bar {F32_BAR:g})"
+                ok = ok and max(errs) < F32_BAR
+                detail += "max|d|/mean|ref| " + ", ".join(
+                    f"{n} {e:.3e}" for n, e in zip(names, errs))
+                detail += f" (bar {F32_BAR:g})"
                 abs_errs = [float((g - r)[s].abs().max())
                             for g, r, s in zip(got, ref, sel)]
                 record[name] = dict(max_abs_err_dq=abs_errs[0],
@@ -369,17 +438,15 @@ def phase_backward(dev, gpu: str):
             else:
                 f32_args = tuple(a.float() if torch.is_tensor(a)
                                  and a.dtype == dtype else a for a in args)
-                control = ((fa.reference_bwd_dq(*f32_args),)
-                           + fa.reference_bwd_dkv(*f32_args))
-                bounds = fa.bf16_straddle_bounds(*args)
+                control = fa.reference_bwd(*f32_args)[:3]
                 diffs = [bf16_bwd_diff(g, r, b, s)
                          for g, r, b, s in zip(got, ref, bounds, sel)]
                 del bounds
                 ctl = [bf16_diff(c.to(dtype), r, s)
                        for c, r, s in zip(control, ref, sel)]
-                ok = all(sh < BF16_SHARE_BAR and need <= 1.0
-                         for sh, _, _, need, _ in diffs)
-                detail = ", ".join(
+                ok = ok and all(sh < BF16_SHARE_BAR and need <= 1.0
+                                for sh, _, _, need, _ in diffs)
+                detail += ", ".join(
                     f"{n} differ {sh:.3%} max {u:g} ulp, {nb} beyond 1 ulp "
                     f"(excess/straddle bound <= {need:.3g}; median bound "
                     f"{bm:.3g} ulp) (control {csh:.2%}, {cu:g} ulp)"
@@ -447,14 +514,14 @@ def check_determinism(dev):
     def run(seed):
         out, lse = fa.flash_attention(q, k, v, return_lse=True,
                                       dropout_seed=seed, **masks)
-        args = fa.backward_args(q, k, v, out, lse, dout, dropout_seed=seed,
+        args = fa.backward_args(q, k, v, lse, dout, dropout_seed=seed,
                                 **masks)
-        return (out, fa.launch_bwd_dq(*args)) + fa.launch_bwd_dkv(*args)
+        return (out,) + fa.launch_bwd(*args)
 
     first, second, other = run(7), run(7), run(8)
     same = all(torch.equal(a, b) for a, b in zip(first, second))
     differ = not torch.equal(first[0], other[0])
-    log("backward", f"seed 7 twice: forward, dq, dk, dv bitwise equal: "
+    log("backward", f"seed 7 twice: forward, dq, dk, dv, D bitwise equal: "
         f"{same}; seed 8 gives another output: {differ}")
     if not (same and differ):
         raise AssertionError("the kernels' dropout is not a function of the seed")
@@ -687,15 +754,23 @@ def phase_train_timing(runner, batch, gpu: str):
         q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen,
                                      device=gen.device).to(dtype)
                          for _ in range(4))
-        out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
-        args = fa.backward_args(q, k, v, out, lse, dout, **masks)
+        _, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+        args = fa.backward_args(q, k, v, lse, dout, **masks)
         tag = "f32" if dtype == torch.float32 else "bf16"
+        # dQ computes D from its own P (its plain version: reference_dd,
+        # then reference_bwd_dq); dK/dV takes that D
+        _, dd = fa.launch_bwd_dq(*args)
+        ref_dd = fa.reference_dd(*args)
+
+        def dq_plain():
+            fa.reference_bwd_dq(*args, fa.reference_dd(*args))
+
         for name, kernel, plain in (
-                ("flash_attn_bwd_dq", fa.launch_bwd_dq, fa.reference_bwd_dq),
-                ("flash_attn_bwd_dkv", fa.launch_bwd_dkv,
-                 fa.reference_bwd_dkv)):
-            kernel_ms, plain_ms = alternate(lambda: kernel(*args),
-                                            lambda: plain(*args), inner=5)
+                ("flash_attn_bwd_dq", lambda: fa.launch_bwd_dq(*args),
+                 dq_plain),
+                ("flash_attn_bwd_dkv", lambda: fa.launch_bwd_dkv(*args, dd),
+                 lambda: fa.reference_bwd_dkv(*args, ref_dd))):
+            kernel_ms, plain_ms = alternate(kernel, plain, inner=5)
             record[name, tag] = dict(ms=kernel_ms, plain_ms=plain_ms)
             log("timing", f"{name} training shape {TRAIN_SHAPE} {tag}, "
                 f"dropout {DROPOUT_P}: kernel {kernel_ms:.3f} ms, plain "
@@ -900,6 +975,625 @@ def phase_train_profile(runner, batch, gpu: str):
                       lambda: step(runner.params, batch, runner.rng), gpu)
 
 
+def hubert_cfg(impl: str):
+    """HuBERT-base from configs/hubert/config_model.yaml with the given
+    conv_frontend_impl."""
+    from speech_ssl_compression_tpu_torch.configs import hubert_config_from_yaml
+
+    return dataclasses.replace(hubert_config_from_yaml(HUBERT_YAML),
+                               conv_frontend_impl=impl)
+
+
+def conv_layer_shapes(b: int, t_wave: int, conv_layers):
+    """(B, T_in, C, K, O, stride) of the frontend layers the conv kernels
+    take (both channel counts multiples of 128)."""
+    shapes, t, c = [], t_wave, 1
+    for dim, k, s in conv_layers:
+        if c % 128 == 0 and dim % 128 == 0:
+            shapes.append((b, t, c, k, dim, s))
+        t, c = (t - k) // s + 1, dim
+    return shapes
+
+
+def conv_work(shape, dtype):
+    """{kernel: (FLOPs, bytes)} at one layer shape: 2 B T_out K C O FLOPs
+    each; bytes for every input read once and every output written once
+    (dW written in f32)."""
+    b, t, c, k, o, s = shape
+    t_out = (t - k) // s + 1
+    flops = 2.0 * b * t_out * k * c * o
+    size = torch.tensor([], dtype=dtype).element_size()
+    x, w, y = b * t * c * size, k * c * o * size, b * t_out * o * size
+    return {"conv1d_fwd": (flops, x + w + y),
+            "conv1d_dw": (flops, x + y + k * c * o * 4),
+            "conv1d_dx": (flops, y + w + x)}
+
+
+def halves_rounded(x, w, dy, stride):
+    """The control of the bf16 conv check, (forward, dW, dX): the plain
+    sums with the two halves of their reduction each rounded to bf16 before
+    the final add (forward: channels; dW: time; dX: outputs)."""
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    dt = x.dtype
+    c, o = x.shape[2], w.shape[2]
+    fwd = (tc.conv1d_strided_plain(x[..., :c // 2], w[:, :c // 2], stride)
+           .float() + tc.conv1d_strided_plain(x[..., c // 2:],
+                                              w[:, c // 2:], stride).float())
+    dx = sum(tc.plain_grads(x, w[..., half], stride, dy[..., half])[0].float()
+             for half in (slice(0, o // 2), slice(o // 2, o)))
+    h = dy.shape[1] // 2
+    k = w.shape[0]
+    x_lo = x[:, : (h - 1) * stride + k]
+    dw = (tc.plain_grads(x_lo, w, stride, dy[:, :h])[1].float()
+          + tc.plain_grads(x[:, h * stride:], w, stride, dy[:, h:])[1].float())
+    return fwd.to(dt), dw.to(dt), dx.to(dt)
+
+
+def phase_conv(dev, gpu: str):
+    """The three conv kernels against their plain version (and cuDNN's
+    time) at the training batch's layer shapes and at T = 777 / 515.
+    Returns the record for the kernels line: per kernel the worst f32
+    max |d| and, summed over the six training layers in f32, kernel,
+    plain, library and bound ms."""
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train = conv_layer_shapes(*HUBERT_TRAIN, hubert_cfg("tc_pallas")
+                              .conv_feature_layers)
+    cases = [(f"layer{i + 1}", s) for i, s in enumerate(train)]
+    cases += [("t777", (2, 777, 512, 2, 512, 2)),
+              ("t515", (2, 515, 512, 3, 512, 2))]
+    names = ("conv1d_fwd", "conv1d_dw", "conv1d_dx")
+    record = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      bound_ms=0.0, ops_ms=0.0) for n in names}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, shape in cases:
+        b, t, c, k, o, s = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            x = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
+            w = (torch.randn((k, c, o), generator=gen, device=dev)
+                 / (k * c) ** 0.5).to(dtype)
+            got_y = tc.launch_fwd(x, w, s)
+            dy = torch.randn(got_y.shape, generator=gen, device=dev).to(dtype)
+            got = (got_y, tc.launch_dw(x, dy, k, s), tc.launch_dx(dy, w, t, s))
+            torch.cuda.synchronize()
+            last = (got_y.shape[1] - 1) * s + k
+            tail_zero = bool((got[2][:, last:] == 0).all())
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            if dtype == torch.float32:
+                x64, w64, dy64 = x.double(), w.double(), dy.double()
+                ref = ((tc.conv1d_strided_plain(x64, w64, s),)
+                       + tuple(reversed(tc.plain_grads(x64, w64, s, dy64))))
+                errs = [rel_err(got[0], ref[0], ...), rel_l2(got[1], ref[1], ...),
+                        rel_err(got[2], ref[2], ...)]
+                ok = max(errs) < CONV_F32_BAR
+                detail = (f"fwd max|d|/mean|ref| {errs[0]:.3e}, dW rel L2 "
+                          f"{errs[1]:.3e} (max|d|/mean|ref| "
+                          f"{rel_err(got[1], ref[1], ...):.3e}), dX max|d|/"
+                          f"mean|ref| {errs[2]:.3e} (bar {CONV_F32_BAR:g})")
+                for n, g, r in zip(names, got, ref):
+                    rec = record[n]
+                    rec["max_abs_err"] = max(rec["max_abs_err"], float(
+                        (g.double() - r).abs().max()))
+            else:
+                ref_y = tc.conv1d_strided_plain(x, w, s)
+                ref_dx, ref_dw = tc.plain_grads(x, w, s, dy)
+                ref = (ref_y, ref_dw, ref_dx)
+                got = (got[0], got[1].to(dtype), got[2])
+                diffs = [bf16_diff(g, r, ...) for g, r in zip(got, ref)]
+                ctl = [bf16_diff(cc, r, ...)[0]
+                       for cc, r in zip(halves_rounded(x, w, dy, s), ref)]
+                ok = all(u <= BF16_ULP_BAR and sh < BF16_SHARE_BAR
+                         for sh, u in diffs)
+                detail = ", ".join(
+                    f"{n[7:]} differ {sh:.3%} max {u:g} ulp (control "
+                    f"{cs:.2%})" for n, (sh, u), cs in zip(names, diffs, ctl))
+                detail += f"; bars {BF16_SHARE_BAR:.0%}, {BF16_ULP_BAR:g} ulp"
+                if not all(cs >= BF16_SHARE_BAR for cs in ctl):
+                    raise AssertionError(
+                        f"bf16 conv check at {name} cannot tell kernels that "
+                        "round inside their sums apart")
+            finite = all(torch.isfinite(g.float()).all() for g in got)
+            log("conv", f"{name} {tag} x{(b, t, c)} K={k} s={s} O={o}: "
+                f"kernels vs plain, {detail}; dX zero past row {last}: "
+                f"{tail_zero}, {time.perf_counter() - t0:.2f} s")
+            if not (ok and finite and tail_zero):
+                raise AssertionError(f"conv kernels disagree at {name} {tag}")
+            if name.startswith("layer"):
+                conv_timing(shape, x, w, dy, tag, record, gpu)
+    for n in names:
+        rec = record[n]
+        rec["bound_by"] = ("operations" if rec.pop("ops_ms") >= rec["bound_ms"]
+                           else "bytes")
+        log("timing", f"{n}, HuBERT frontend layers 1-6 at B={HUBERT_TRAIN[0]}"
+            f" x {HUBERT_TRAIN[1]} samples, f32 summed: kernel "
+            f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, cuDNN "
+            f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+            f"({rec['bound_by']}) [{gpu}]")
+    return record
+
+
+def conv_timing(shape, x, w, dy, tag, record, gpu: str):
+    """CUDA-event times at one layer shape: each kernel against its plain
+    version (dW and dX: autograd through the plain forward, which that
+    includes) in turns, and cuDNN's call for the same function on the
+    (B, C, T) / (O, C, K) layout (the transposes are made beforehand). f32
+    times and bounds add into ``record``."""
+    from torch.nn.grad import conv1d_input, conv1d_weight
+    import torch.nn.functional as F
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    b, t, c, k, o, s = shape
+    x_nct = x.transpose(1, 2).contiguous()
+    w_oik = w.permute(2, 1, 0).contiguous()
+    dy_nct = dy.transpose(1, 2).contiguous()
+
+    def plain_grad(wrt):
+        def run():
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_(wrt == "x")
+                ww = w.detach().requires_grad_(wrt == "w")
+                y = tc.conv1d_strided_plain(xx, ww, s)
+                return torch.autograd.grad(y, xx if wrt == "x" else ww, dy)
+        return run
+
+    runs = {
+        "conv1d_fwd": (lambda: tc.launch_fwd(x, w, s),
+                       lambda: tc.conv1d_strided_plain(x, w, s),
+                       lambda: F.conv1d(x_nct, w_oik, stride=s)),
+        "conv1d_dw": (lambda: tc.launch_dw(x, dy, k, s), plain_grad("w"),
+                      lambda: conv1d_weight(x_nct, w_oik.shape, dy_nct,
+                                            stride=s)),
+        "conv1d_dx": (lambda: tc.launch_dx(dy, w, t, s), plain_grad("x"),
+                      lambda: conv1d_input(x_nct.shape, w_oik, dy_nct,
+                                           stride=s)),
+    }
+    work = conv_work(shape, x.dtype)
+    for name, (kernel, plain, library) in runs.items():
+        kernel_ms, plain_ms = alternate(kernel, plain, inner=3)
+        library_ms = cuda_ms(library, inner=3)
+        bound_ms, by = bound(*work[name], x.dtype)
+        log("timing", f"{name} {tag} x{(b, t, c)} K={k} s={s}: kernel "
+            f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN "
+            f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}) [{gpu}]")
+        if tag == "f32":
+            rec = record[name]
+            rec["ms"] += kernel_ms
+            rec["plain_ms"] += plain_ms
+            rec["library_ms"] += library_ms
+            rec["bound_ms"] += bound_ms
+            rec["ops_ms"] += work[name][0] / PEAK_FLOPS[x.dtype] * 1e3
+
+
+def launch_counts():
+    """Every kernel's launch count, attention and conv."""
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    return {**fa.launch_counts, **tc.launch_counts}
+
+
+def reset_launch_counts():
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launch_counts()
+    tc.reset_launch_counts()
+
+
+def hubert_source(b: int, t_wave: int, seed: int):
+    """(source (B, T) f32 normal noise, as train/wave_bench.py makes it,
+    host lengths): the rows are cut to a mix of lengths, zero past each."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((b, t_wave)).astype(np.float32)
+    lengths = np.full(b, t_wave, np.int64)
+    lengths[1::2] = t_wave - rng.integers(t_wave // 32, t_wave // 2, b // 2)
+    src[np.arange(t_wave)[None, :] >= lengths[:, None]] = 0.0
+    return src, lengths
+
+
+def phase_hubert_serve(dev, gpu: str):
+    """HuBERT-base extraction at the bench's batch: returns the launch
+    counts of the one main-path call."""
+    import copy
+
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.models.hubert import hubert_forward
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_hubert_params_np, load_hubert_model,
+    )
+
+    t0 = time.perf_counter()
+    cfg = hubert_cfg("tc_pallas")
+    params = init_hubert_params_np(cfg, (HUBERT_CLASSES,), seed=0)
+    models = {"kernels": load_hubert_model(params, cfg),
+              "cudnn": load_hubert_model(
+                  params, dataclasses.replace(cfg, conv_frontend_impl="auto"))}
+    for m in models.values():
+        m.to(dev).eval().requires_grad_(False)
+    b, t_wave = HUBERT_SERVE
+    src_np, lengths = hubert_source(b, t_wave, seed=0)
+    src = torch.from_numpy(src_np).to(dev)
+    n_params = sum(p.numel() for p in models["kernels"].parameters())
+    log("hubert serve", f"HuBERT-base {cfg.encoder_layers}L/"
+        f"{cfg.encoder_embed_dim}, {n_params} params, {b} x {t_wave} samples "
+        f"(lengths {lengths.tolist()}), {time.perf_counter() - t0:.2f} s")
+
+    def run(model, dtype=torch.float32):
+        with matmul_precision("highest"), torch.inference_mode():
+            return hubert_forward(model, src.to(dtype), lengths, mask=False,
+                                  features_only=True)
+
+    # the main path: counts from exactly one hubert_forward call
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = run(models["kernels"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = dict(conv1d_fwd=len(conv_layer_shapes(b, t_wave,
+                                                 cfg.conv_feature_layers)),
+                flash_attn_fwd=cfg.encoder_layers)
+    log("hubert serve", f"hubert_forward(features_only=True) f32: x "
+        f"{tuple(out['x'].shape)}, launches {counts} (expected {want}, the "
+        f"rest 0), {time.perf_counter() - t0:.2f} s")
+    if counts != {**dict.fromkeys(counts, 0), **want}:
+        raise AssertionError(f"hubert serve launches {counts}")
+    valid = ~out["padding_mask"]
+    frames = int(valid.sum())
+    if not all(torch.isfinite(out[k].float()[valid]).all()
+               for k in ("x", "features")):
+        raise AssertionError("non-finite HuBERT output")
+
+    ref = run(models["cudnn"])
+    errs = {k: rel_err(out[k], ref[k], valid) for k in ("x", "features")}
+    log("hubert serve", f"conv kernels vs cuDNN (f32, TF32 off), valid "
+        f"frames: encoder output max|d|/mean|ref| {errs['x']:.3e}, frontend "
+        f"features {errs['features']:.3e} (bar {SLICE_BAR:g})")
+    if not max(errs.values()) < SLICE_BAR:
+        raise AssertionError("HuBERT with the conv kernels disagrees with cuDNN")
+
+    for name in list(models):
+        models[name + " bf16"] = copy.deepcopy(models[name]).to(torch.bfloat16)
+    out_bf16 = run(models["kernels bf16"], torch.bfloat16)
+    err_bf16 = rel_l2(out_bf16["x"], out["x"], valid)
+    log("hubert serve", f"bf16 vs f32, encoder output: |d|_2/|ref|_2 "
+        f"{err_bf16:.3e} (bar {BF16_SLICE_BAR:g})")
+    if not (err_bf16 < BF16_SLICE_BAR
+            and torch.isfinite(out_bf16["x"].float()[valid]).all()):
+        raise AssertionError("HuBERT bf16 output disagrees with f32")
+    del out, ref, out_bf16
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "" if dtype == torch.float32 else " bf16"
+        k_ms, c_ms = alternate(lambda: run(models["kernels" + tag], dtype),
+                               lambda: run(models["cudnn" + tag], dtype))
+        log("timing", f"hubert_forward {dtype} B={b} x {t_wave} samples: "
+            f"conv kernels {k_ms:.2f} ms ({frames / k_ms * 1e3:.0f} frames/s)"
+            f", cuDNN {c_ms:.2f} ms ({frames / c_ms * 1e3:.0f} frames/s), "
+            f"{frames} valid frames [{gpu}]")
+    return counts
+
+
+def write_wav_dataset(root: pathlib.Path, n_utts: int, min_samples: int,
+                      seed: int = 0):
+    """A HuBERT pre-training set as tests/test_wave_runner.py builds one: a
+    TSV manifest of 16 kHz WAVs up to 2 s longer than ``min_samples`` (the
+    crop), train.km with 50 Hz labels < 500 and dict.km.txt."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    lines, labels = [], []
+    for i in range(n_utts):
+        n = min_samples + int(rng.integers(0, 32000))
+        pcm = (rng.uniform(-0.3, 0.3, n) * 32767).astype(np.int16)
+        wavfile.write(root / f"u{i}.wav", 16000, pcm)
+        lines.append(f"u{i}.wav\t{n}")
+        labels.append(" ".join(map(str, rng.integers(0, 500, n // 320))))
+    (root / "train.tsv").write_text(f"{root}\n" + "\n".join(lines) + "\n")
+    (root / "train.km").write_text("\n".join(labels) + "\n")
+    (root / "dict.km.txt").write_text("".join(f"{c} 1\n" for c in range(500)))
+
+
+HUBERT_RUNNER_YAML = """runner:
+  total_steps: 3
+  gradient_clipping: 10.0
+  gradient_accumulate_steps: {accum}
+  log_step: 1
+  save_every_x_epochs: 10
+  bf16: true
+optimizer:
+  lr: 0.0005
+  betas:
+  - 0.9
+  - 0.98
+  eps: 1.0e-06
+  weight_decay: 0.01
+datarc:
+  train_batch_size: {batch}
+task:
+  data: {data}
+  labels:
+  - km
+  label_rate: 50
+  sample_rate: 16000
+  max_sample_size: {samples}
+  min_sample_size: 32000
+  pad_audio: false
+  random_crop: true
+"""
+
+
+def hubert_bench_batch(runner, dev, seed: int = 0):
+    """The bench recipe's batch (train/wave_bench.py): B x 245,760 samples
+    of normal noise, full lengths, uniform random targets."""
+    from speech_ssl_compression_tpu_torch.models.conv_frontend import (
+        conv_output_length,
+    )
+
+    b, t_wave = HUBERT_TRAIN
+    rng = np.random.default_rng(seed)
+    t_frames = conv_output_length(t_wave, runner.cfg.conv_feature_layers)
+    return {
+        "source": torch.from_numpy(rng.standard_normal((b, t_wave))
+                                   .astype(np.float32)).to(dev),
+        "length": np.full(b, t_wave),
+        "target_list": [torch.from_numpy(rng.integers(
+            0, runner.num_classes[0], (b, t_frames))).to(dev)],
+        "target_valid": torch.ones((b, t_frames), dtype=torch.bool,
+                                   device=dev),
+    }
+
+
+def phase_hubert_train(dev, gpu: str, tmp: str):
+    """HuBERT-base pre-training through the trainer's entry point, then the
+    checks on its model. Returns (runner, launch counts of the run)."""
+    from speech_ssl_compression_tpu_torch.configs import HuBERTConfig
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.models.hubert import (
+        HuBERTModel, span_mask,
+    )
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_hubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import load_hubert_model
+
+    t0 = time.perf_counter()
+    b, t_wave = HUBERT_TRAIN
+    root = pathlib.Path(tmp) / "hubert"
+    write_wav_dataset(root / "data", 3 * HUBERT_ACCUM * b, t_wave)
+    # the model config as shipped, with the kernel route and without
+    # LayerDrop, so that every grad step runs all 12 layers' kernels
+    text = HUBERT_YAML.read_text()
+    if "encoder_layerdrop: 0.05" not in text:
+        raise AssertionError(f"{HUBERT_YAML} changed: update this phase")
+    model_yaml = root / "config_model.yaml"
+    model_yaml.write_text(text.replace("encoder_layerdrop: 0.05",
+                                       "encoder_layerdrop: 0.0")
+                          + "  conv_frontend_impl: tc_pallas\n")
+    runner_yaml = root / "config_runner.yaml"
+    runner_yaml.write_text(HUBERT_RUNNER_YAML.format(
+        accum=HUBERT_ACCUM, batch=b, data=root / "data", samples=t_wave))
+    expdir = root / "exp"
+    log("hubert train", f"synthetic set written ({3 * HUBERT_ACCUM * b} "
+        f"WAVs, labels < 500), {time.perf_counter() - t0:.2f} s")
+
+    # the main path: counts from exactly one run of the trainer
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    runner = train(["-m", "melhubert", "-u", "hubert", "-g", str(model_yaml),
+                    "-c", str(runner_yaml), "-n", str(expdir), "--device",
+                    str(dev), "--seed", "0"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    cfg = runner.cfg
+    steps = 3 * runner.accum_steps
+    per_step = {k: v / steps for k, v in counts.items()}
+    n_conv = len(conv_layer_shapes(b, t_wave, cfg.conv_feature_layers))
+    want = {**dict.fromkeys(("conv1d_fwd", "conv1d_dw", "conv1d_dx"), n_conv),
+            **dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
+                             "flash_attn_bwd_dkv"), cfg.encoder_layers)}
+    log("hubert train", f"HuBERT-base {cfg.encoder_layers}L/"
+        f"{cfg.encoder_embed_dim}, {runner.num_classes[0]} classes, "
+        f"{runner.compute_dtype}, 3 updates x {runner.accum_steps} "
+        f"micro-batches of {b} x {t_wave} samples: launches per grad step "
+        f"{per_step} (expected {want}), {time.perf_counter() - t0:.2f} s")
+    if per_step != want:
+        raise AssertionError(f"hubert train launches {counts}")
+    hist = runner.log_history
+    for entry in hist:
+        log("hubert train", f"update {entry['step']}: loss {entry['loss']:.6f}"
+            f", grad norm {entry['grad_norm']:.6f}")
+    if [e["step"] for e in hist] != [1, 2, 3] or not all(
+            np.isfinite([e["loss"], e["grad_norm"]]).all() for e in hist):
+        raise AssertionError(f"trainer log {hist}")
+
+    state = load_checkpoint(str(expdir / "last-step.npz"))
+    back = load_hubert_model(state["params"],
+                             HuBERTConfig.from_dict(state["meta"]["Config"]))
+    same = all(torch.equal(v, runner.params[k].detach().cpu())
+               for k, v in back.named_parameters())
+    log("hubert train", f"last-step.npz read back: Step "
+        f"{state['meta']['Step']}, weights equal to the trainer's: {same}")
+    if not (same and state["meta"]["Step"] == 3):
+        raise AssertionError("HuBERT checkpoint does not read back")
+
+    # kernels vs cuDNN + dense attention: f32, TF32 off, no dropout, one
+    # fixed span mask, the bench recipe's batch; both against that plain
+    # route run in float64
+    t0 = time.perf_counter()
+    batch = hubert_bench_batch(runner, dev)
+    t_frames = batch["target_valid"].shape[1]
+    mask = torch.from_numpy(span_mask(cfg, np.full(b, t_frames), t_frames,
+                                      np.random.default_rng(0))).to(dev)
+    cudnn_model = HuBERTModel(dataclasses.replace(
+        cfg, conv_frontend_impl="auto"), runner.num_classes).to(dev)
+    results = {}
+    for name, model, impl, dtype in (
+            ("kernels", runner.model, "auto", torch.float32),
+            ("cudnn+dense", cudnn_model, "dense", torch.float32),
+            ("cudnn+dense f64", cudnn_model, "dense", torch.float64)):
+        step = make_hubert_grad_step(model, attn_impl=impl, deterministic=True,
+                                     compute_dtype=dtype)
+        reset_launch_counts()
+        with matmul_precision("highest"):
+            loss, n, grads, _ = step(runner.params, batch, torch.Generator(),
+                                     mask_indices=mask)
+        torch.cuda.synchronize()
+        results[name] = (float(loss), int(n), grads, launch_counts())
+    (loss_k, n_k, grads_k, counts_k), (loss_d, n_d, grads_d, counts_d), (
+        loss_64, n_64, grads_64, counts_64) = results.values()
+    names = list(runner.params)
+
+    def compare(loss, grads, ref_loss, ref_grads):
+        errs = grad_errors(names, grads, ref_grads)
+        worst = int(np.argmax(errs))
+        return (abs(loss - ref_loss) / abs(ref_loss), errs[worst],
+                names[worst])
+
+    k64, d64, kd = (compare(loss_k, grads_k, loss_64, grads_64),
+                    compare(loss_d, grads_d, loss_64, grads_64),
+                    compare(loss_k, grads_k, loss_d, grads_d))
+    log("hubert train", f"grad step (TF32 off, dropout off, fixed span mask, "
+        f"{n_k} masked frames), loss rel and worst of {len(names)} "
+        f"gradients rel L2: kernels vs cuDNN + impl='dense' in float64 "
+        f"{k64[0]:.3e}, {k64[1]:.3e} ({k64[2]}), bar {GRAD_BAR:g}; the f32 "
+        f"cuDNN + dense route vs float64 {d64[0]:.3e}, {d64[1]:.3e} "
+        f"({d64[2]}); kernels vs the f32 cuDNN + dense route {kd[0]:.3e}, "
+        f"{kd[1]:.3e} ({kd[2]}), bar {GRAD_BAR:g}; losses {loss_k:.6f}, {loss_d:.6f}, "
+        f"{loss_64:.6f}; launches {counts_k}, {counts_d}, {counts_64}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (max(k64[:2]) < GRAD_BAR and max(kd[:2]) < GRAD_BAR
+            and n_k == n_d == n_64):
+        raise AssertionError("HuBERT kernel gradients disagree with the "
+                             "plain route (float64 or f32)")
+    if (counts_k != want or any(counts_d.values())
+            or any(counts_64.values())):
+        raise AssertionError("the HuBERT parity run took the wrong path")
+    del results, grads_k, grads_d, grads_64
+    return runner, counts, cudnn_model, batch
+
+
+def phase_hubert_train_timing(runner, cudnn_model, batch, gpu: str):
+    """CUDA-event medians at the bench recipe: the grad step and one update
+    (HUBERT_ACCUM grad steps + apply) with the conv kernels and with cuDNN,
+    f32 (TF32 off) and bf16, dropout on."""
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        accumulate_grads, make_hubert_grad_step,
+    )
+
+    b, t_wave = HUBERT_TRAIN
+    frames = int(batch["target_valid"].sum())
+    models = {"conv kernels": runner.model, "cuDNN": cudnn_model}
+    for dtype in (torch.float32, torch.bfloat16):
+        steps = {name: make_hubert_grad_step(
+            m, accum_steps=HUBERT_ACCUM, compute_dtype=dtype)
+            for name, m in models.items()}
+
+        def grad(name):
+            return lambda: steps[name](runner.params, batch, runner.rng)
+
+        def update(name):
+            def run():
+                acc, total = None, 0
+                for _ in range(HUBERT_ACCUM):
+                    _, n, grads, _ = steps[name](runner.params, batch,
+                                                 runner.rng)
+                    acc = accumulate_grads(acc, grads)
+                    total = total + n
+                runner.apply(acc, torch.clamp_min(total.float(), 1.0))
+            return run
+
+        with matmul_precision("highest"):
+            k_ms, c_ms = alternate(grad("conv kernels"), grad("cuDNN"))
+            ku_ms, cu_ms = alternate(update("conv kernels"), update("cuDNN"))
+        log("timing", f"HuBERT grad step B={b} x {t_wave} samples {dtype}: "
+            f"conv kernels {k_ms:.2f} ms, cuDNN {c_ms:.2f} ms; one update "
+            f"({HUBERT_ACCUM} grad steps + apply): conv kernels {ku_ms:.2f} ms"
+            f" ({1e3 / ku_ms:.3f} updates/s, "
+            f"{HUBERT_ACCUM * frames / ku_ms * 1e3:.0f} frames/s), cuDNN "
+            f"{cu_ms:.2f} ms ({1e3 / cu_ms:.3f} updates/s) [{gpu}]")
+
+
+def phase_hubert_profile(runner, cudnn_model, batch, gpu: str):
+    """The bf16 HuBERT grad step with the conv kernels and with cuDNN."""
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_hubert_grad_step,
+    )
+
+    for name, model in (("conv kernels", runner.model),
+                        ("cuDNN", cudnn_model)):
+        step = make_hubert_grad_step(model, accum_steps=HUBERT_ACCUM,
+                                     compute_dtype=torch.bfloat16)
+        profile_calls(f"HuBERT grad step bf16 {name}",
+                      lambda: step(runner.params, batch, runner.rng), gpu)
+
+
+def attention_library_ms(dev, gpu: str):
+    """F.scaled_dot_product_attention's times, the flash kernels' library
+    yardstick (timed here, never called by the port): the forward at the
+    serving shape with the packed segments as a boolean mask, and the
+    backward (dq, dk, dv in one call) at the training shape with key
+    padding and dropout 0.1. f32, TF32 off. Returns (fwd ms, bwd ms)."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seg = packed_segments(SERVE_LENGTHS, CAPACITY, dev)
+    q, k, v = (torch.randn((seg.shape[0], 12, CAPACITY, 64), generator=gen,
+                           device=dev) for _ in range(3))
+    allowed = ((seg[:, None, :, None] == seg[:, None, None, :])
+               & (seg != 0)[:, None, None, :])
+    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=allowed), inner=5)
+    q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
+                     .requires_grad_(i < 3) for i in range(4))
+    keep_keys = ~train_padding(dev)[:, None, None, :]
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=keep_keys,
+                                         dropout_p=DROPOUT_P)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), dout,
+                                                 retain_graph=True), inner=5)
+    log("timing", f"F.scaled_dot_product_attention f32: forward at the "
+        f"serving shape (segment mask) {fwd_ms:.3f} ms; backward at the "
+        f"training shape (key padding, dropout {DROPOUT_P}) {bwd_ms:.3f} ms "
+        f"[{gpu}]")
+    return fwd_ms, bwd_ms
+
+
+def attention_bounds():
+    """(ms, bound_by) per flash kernel at the line's shapes, f32: the
+    forward at the serving batch counts only the (query, key) pairs of one
+    segment (4 d FLOPs each: QK^T and PV); dQ (6 d: QK^T, dO V^T, dS K) and
+    dK/dV (8 d: and dS^T Q, Pd^T dO) at the training shape count every
+    query against the valid keys. Bytes: q, k, v, dO read once, outputs
+    written once, plus the f32 masks and statistics."""
+    lengths = np.asarray(SERVE_LENGTHS)
+    seg = packed_segments(SERVE_LENGTHS, CAPACITY, "cpu")
+    rows, h, d = seg.shape[0], 12, 64
+    pairs = float(sum(n * n for n in lengths))
+    tensor = rows * h * CAPACITY * d * 4
+    out = {"flash_attn_fwd": bound(4 * d * h * pairs,
+                                   4 * tensor + rows * CAPACITY * 12
+                                   + rows * h * CAPACITY * 4, torch.float32)}
+    b, h, t, d = TRAIN_SHAPE
+    pairs = float(t * sum(TRAIN_LENGTHS))
+    tensor = b * h * t * d * 4
+    stats = 2 * b * h * t * 4 + b * t * 4  # lse, D, bias
+    out["flash_attn_bwd_dq"] = bound(6 * d * h * pairs, 5 * tensor + stats,
+                                     torch.float32)
+    out["flash_attn_bwd_dkv"] = bound(8 * d * h * pairs, 6 * tensor + stats,
+                                      torch.float32)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -911,7 +1605,6 @@ def main() -> None:
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     from speech_ssl_compression_tpu_torch.ops import _kernels
-    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda", 0)
     gpu = gpu_name_and_power()
@@ -929,6 +1622,8 @@ def main() -> None:
 
     record = phase_kernels(dev, gpu)
     backward = phase_backward(dev, gpu)
+    conv = phase_conv(dev, gpu)
+    sdpa_fwd_ms, sdpa_bwd_ms = attention_library_ms(dev, gpu)
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, extractors, wavs = phase_slice(dev, gpu, tmp)
         phase_timing(extractors, wavs, gpu)
@@ -939,30 +1634,49 @@ def main() -> None:
         record.update(phase_train_timing(runner, batch, gpu))
         if args.profile:
             phase_train_profile(runner, batch, gpu)
+        del runner, batch
+        hubert_serve = phase_hubert_serve(dev, gpu)
+        runner, hubert_train, cudnn_model, batch = phase_hubert_train(
+            dev, gpu, tmp)
+        phase_hubert_train_timing(runner, cudnn_model, batch, gpu)
+        if args.profile:
+            phase_hubert_profile(runner, cudnn_model, batch, gpu)
 
-    serve = {"flash_attn_fwd": serve_launches,
-             "flash_attn_bwd_dq": 0, "flash_attn_bwd_dkv": 0}
+    # launches of each kernel on each main path, counted from 0 just before
+    # the path ran and read just after
+    paths = {"melhubert serve": {"flash_attn_fwd": serve_launches},
+             "melhubert train": train, "hubert serve": hubert_serve,
+             "hubert train": hubert_train}
     bwd = backward["training_dropout"]
     fwd = record["serving", "f32"]
     fwd_drop = record["training_dropout", "f32"]
+    bounds = attention_bounds()
     entries = [
         dict(name="flash_attn_fwd", source=FA_SOURCE, replaces=FA_REPLACES,
              max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
-             plain_ms=fwd["plain_ms"], dropout_max_abs_err=fwd_drop[
-                 "max_abs_err"], dropout_ms=fwd_drop["ms"],
-             dropout_plain_ms=fwd_drop["plain_ms"]),
+             plain_ms=fwd["plain_ms"], library_ms=sdpa_fwd_ms,
+             dropout_max_abs_err=fwd_drop["max_abs_err"],
+             dropout_ms=fwd_drop["ms"], dropout_plain_ms=fwd_drop["plain_ms"]),
         dict(name="flash_attn_bwd_dq", source=BWD_SOURCE,
              replaces=DQ_REPLACES, max_abs_err=bwd["max_abs_err_dq"],
-             **record["flash_attn_bwd_dq", "f32"]),
+             library_ms=sdpa_bwd_ms, **record["flash_attn_bwd_dq", "f32"]),
         dict(name="flash_attn_bwd_dkv", source=BWD_SOURCE,
              replaces=DKV_REPLACES, max_abs_err=bwd["max_abs_err_dkv"],
-             **record["flash_attn_bwd_dkv", "f32"]),
+             library_ms=sdpa_bwd_ms, **record["flash_attn_bwd_dkv", "f32"]),
     ]
     for e in entries:
-        e.update(route="cuda", launches=serve[e["name"]] + train[e["name"]],
-                 launches_by_path={"serve": serve[e["name"]],
-                                   "train": train[e["name"]]})
-    assert set(fa.launch_counts) == {e["name"] for e in entries}
+        e["bound_ms"], e["bound_by"] = bounds[e["name"]]
+    entries += [dict(name=name, source=CONV_SOURCE,
+                     replaces=CONV_REPLACES[name], **conv[name])
+                for name in ("conv1d_fwd", "conv1d_dw", "conv1d_dx")]
+    for e in entries:
+        by_path = {p: c.get(e["name"], 0) for p, c in paths.items()}
+        e.update(route="cuda", launches=sum(by_path.values()),
+                 launches_by_path=by_path)
+    assert set(launch_counts()) == {e["name"] for e in entries}
+    missing = [e["name"] for e in entries if not e["launches"]]
+    if missing:
+        raise AssertionError(f"kernels no main path launched: {missing}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {

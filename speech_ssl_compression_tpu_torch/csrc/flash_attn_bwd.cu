@@ -12,8 +12,7 @@
 // flash_attn_bwd_dq_kernel covers both dQ kernels and
 // flash_attn_bwd_dkv_kernel both dK/dV kernels, for every Tq and Tk.
 //
-// Computes, with the forward's LSE (B, H, Tq) and D = rowsum(dO o O)
-// (computed outside, in f32, as _flash_bwd_impl does):
+// Computes, with the forward's LSE (B, H, Tq) and D (B, H, Tq):
 //   S   = scale * (q . k) in f32, scale AFTER the dot, the forward's masks
 //   P   = exp(S - LSE)                  (the exact softmax)
 //   Pd  = P o M * 1/(1-p)               (M: the forward's keep bits)
@@ -23,6 +22,20 @@
 // As in the Pallas kernels, dS and Pd are cast to the input dtype before
 // their products (rounded to bf16 for bf16 inputs), accumulation is f32,
 // and the scale is applied to the f32 accumulators at the end.
+//
+// D. _flash_bwd_impl computes D = rowsum(dO o O) outside the kernels, from
+// the forward's output. Here the dQ kernel computes D = rowsum(Pd o dPd) /
+// rowsum(P) itself and writes it for the dK/dV kernel: the same number in
+// exact arithmetic (rowsum(P) = 1 and sum_j Pd_ij dPd_ij = dO_i . O_i), but
+// from the P that the backward itself recomputes, so that sum_j dS_ij
+// cancels to rounding as it does in the softmax's own backward. With D from
+// O, the forward's and the backward's roundings of P differ by ~1e-7, and
+// the LSE leaves rowsum(P) ~1e-6 off 1; where a row's keys share a large
+// common component those residuals reach dQ and dK: after 3 HuBERT updates
+// they put layer 11's q/k projection gradients 1.3-1.7e-4 (rel. L2) from a
+// float64 run, against 2e-5 for the dense path. The dQ kernel takes a first
+// pass over the key tiles for the two row sums (S and dPd twice: ~1.7x the
+// time of one pass).
 //
 // Padding. Query rows past Tq load q = dO = 0 and D = 0, so dS = 0 and Pd
 // meets dO = 0: they add nothing. Keys past Tk get S = -inf, so P = 0.
@@ -42,9 +55,10 @@
 // Pd and dS (106 KB), both as dynamic shared memory.
 //
 // What bounds it. Per score the kernels do 64 FMAs each for S, dPd and one
-// or two products with dS/Pd: 192 FMAs in dQ, 256 in dK/dV (S and dPd are
-// recomputed by both), against ~50 FLOPs per byte of q/k/v/dO read: like
-// the forward, bound by the CUDA cores' f32 FMA rate (67 TFLOP/s on an
+// or two products with dS/Pd: 320 in dQ (192, and 128 in its first pass
+// over the keys for D), 256 in dK/dV (S and dPd are recomputed by both),
+// against ~50 FLOPs per byte of q/k/v/dO read: like the forward, bound by
+// the CUDA cores' f32 FMA rate (67 TFLOP/s on an
 // H100 SXM), and with dropout by the Philox draws (~100 integer
 // instructions per score, in both kernels).
 //
@@ -118,7 +132,7 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const int* __restrict__ segk,
                          const T* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ dd, T* __restrict__ dq,
+                         float* __restrict__ dd, T* __restrict__ dq,
                          int H, int Tq, int Tk, int causal, float scale,
                          Dropout dropout) {
   extern __shared__ float4 smem_f4[];
@@ -154,7 +168,7 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool in = row[i] < Tq;
     seg_row[i] = (use_seg && in) ? segq[(size_t)b * Tq + row[i]] : 0;
     lse_r[i] = in ? lse[bh * Tq + row[i]] : 1.f;
-    dd_r[i] = in ? dd[bh * Tq + row[i]] : 0.f;
+    dd_r[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
   }
@@ -162,7 +176,9 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int n_tiles = (Tk + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  // Stage key tile kt (K, V, bias, segments) and compute this thread's S
+  // and dPd micro-tiles on it.
+  auto stage = [&](int kt, float (&s)[4][4], float (&dpd)[4][4]) {
     const int k0 = kt * kBK;
     const int k_valid = min(kBK, Tk - k0);
     __syncthreads();  // the previous tile's readers of sk/sv/sds are done
@@ -174,29 +190,64 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ssegk[tid] = (use_seg && in) ? segk[(size_t)b * Tk + k0 + tid] : 0;
     }
     __syncthreads();
-
-    float s[4][4], dpd[4][4];
     tile_dot(s, sq, sk, tx, ty);
     tile_dot(dpd, sdo, sv, tx, ty);
+  };
+  // P = exp(S - LSE) of element (i, j) of tile kt, and its dropped-out and
+  // scaled Pd; both 0 outside the valid rows and keys.
+  auto probs = [&](int kt, int i, int j, float s, float& pd) {
+    const int k0 = kt * kBK;
+    const int kc = tx + 16 * j;
+    pd = 0.f;
+    if (kc >= min(kBK, Tk - k0) || row[i] >= Tq) return 0.f;
+    const float x = masked_score(s, scale, sbias[kc], seg_row[i], ssegk[kc],
+                                 use_seg, causal, row[i], k0 + kc);
+    const float p = expf(x - lse_r[i]);
+    pd = p;
+    if (dropout.on) {
+      pd = keep(dropout, k0 + kc, row[i], (uint32_t)bh) ? p * dropout.scale
+                                                        : 0.f;
+    }
+    return p;
+  };
+
+  {  // D = rowsum(Pd o dPd) / rowsum(P), written for dK/dV
+    float l_r[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      float s[4][4], dpd[4][4];
+      stage(kt, s, dpd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float pd;
+          l_r[i] += probs(kt, i, j, s[i][j], pd);
+          dd_r[i] = fmaf(pd, dpd[i][j], dd_r[i]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        dd_r[i] += __shfl_xor_sync(0xffffffffu, dd_r[i], off);
+        l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], off);
+      }
+      dd_r[i] = l_r[i] > 0.f ? dd_r[i] / l_r[i] : 0.f;
+      if (tx == 0 && row[i] < Tq) dd[bh * Tq + row[i]] = dd_r[i];
+    }
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    float s[4][4], dpd[4][4];
+    stage(kt, s, dpd);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kc = tx + 16 * j;
-        float ds = 0.f;
-        if (kc < k_valid && row[i] < Tq) {
-          const float x = masked_score(s[i][j], scale, sbias[kc], seg_row[i],
-                                       ssegk[kc], use_seg, causal, row[i],
-                                       k0 + kc);
-          const float p = expf(x - lse_r[i]);
-          float pd = p;
-          if (dropout.on) {
-            pd = keep(dropout, k0 + kc, row[i], (uint32_t)bh)
-                     ? p * dropout.scale : 0.f;
-          }
-          ds = pd * dpd[i][j] - p * dd_r[i];
-        }
-        sds[(ty + 16 * i) * kLd + kc] = round_in(ds, q);
+        float pd;
+        const float p = probs(kt, i, j, s[i][j], pd);
+        const float ds = pd * dpd[i][j] - p * dd_r[i];
+        sds[(ty + 16 * i) * kLd + tx + 16 * j] = round_in(ds, q);
       }
     __syncthreads();
 
@@ -369,8 +420,8 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* bias, const void* segq, const void* segk,
-                      const void* dout, const void* lse, const void* dd,
-                      void* dq, int B, int H, int Tq, int Tk, int causal,
+                      const void* dout, const void* lse, void* dd, void* dq,
+                      int B, int H, int Tq, int Tk, int causal,
                       Dropout dropout, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -382,7 +433,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<const int*>(segq), static_cast<const int*>(segk),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<T*>(dq), H, Tq, Tk, causal,
+      static_cast<float*>(dd), static_cast<T*>(dq), H, Tq, Tk, causal,
       0.125f /* 1/sqrt(64) */, dropout);
   return cudaGetLastError();
 }
@@ -414,15 +465,18 @@ extern "C" {
 
 // q, dout (B,H,Tq,64), k and v (B,H,Tk,64), contiguous, f32 (is_bf16 = 0)
 // or bf16; bias (B,Tk) f32; segq (B,Tq) and segk (B,Tk) int32, both null
-// without segments; lse and dd (B,H,Tq) f32; dq like q. Dropout arguments
-// as sslc_flash_attn_fwd's, with the forward's seed. Launches on `stream`
-// of CUDA device `device` and returns cudaGetLastError() (0 on success).
+// without segments; lse (B,H,Tq) f32; dq like q; dd (B,H,Tq) f32 is an
+// output: the kernel computes D = rowsum(Pd o dPd) / rowsum(P) and writes
+// it there, for sslc_flash_attn_bwd_dkv. Dropout arguments as
+// sslc_flash_attn_fwd's, with the forward's seed. Launches on `stream` of
+// CUDA device `device` and returns cudaGetLastError() (0 on success).
 int sslc_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                            const void* bias, const void* segq,
                            const void* segk, const void* dout,
-                           const void* lse, const void* dd, void* dq, int B,
-                           int H, int Tq, int Tk, int causal, int is_bf16,
-                           int use_dropout, unsigned int keep_threshold,
+                           const void* lse, void* dd, void* dq, int B, int H,
+                           int Tq, int Tk, int causal, int is_bf16,
+                           int use_dropout,
+                           unsigned int keep_threshold,
                            float keep_scale, unsigned long long seed,
                            int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
@@ -438,7 +492,8 @@ int sslc_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                           Tq, Tk, causal, dropout, s);
 }
 
-// As sslc_flash_attn_bwd_dq; dk and dv like k.
+// As sslc_flash_attn_bwd_dq, with dd the D it wrote (an input here); dk
+// and dv like k.
 int sslc_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* bias, const void* segq,
                             const void* segk, const void* dout,

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from .configs import MelHuBERTConfig
-from speech_ssl_compression_tpu.data.audio import read_audio
-
+from .data.audio import read_audio
 from .models.encoder import encoder_layers_forward, encoder_prologue
 from .models.melhubert import melhubert_forward, pre_project
 from .ops.fbank import kaldi_fbank_np, normalize_fbank, stack_frame_pairs_np
@@ -73,9 +72,7 @@ def load_any_checkpoint(path: str):
         heads, ffns = infer_pruned_dims(params, cfg.head_dim)
         cfg = cfg.with_heads(heads).with_ffn_dims(ffns)
         return params, cfg, meta
-    from speech_ssl_compression_tpu.utils.torch_convert import (
-        load_reference_checkpoint,
-    )
+    from .utils.torch_convert import load_reference_checkpoint
 
     params, _, cfg, extras = load_reference_checkpoint(path)
     return params, cfg, extras  # masks already folded by the converter

@@ -1,6 +1,7 @@
 """Transformer encoder with conv positional embedding.
 
-Port of ``speech_ssl_compression_tpu/models/encoder.py``. Parameters live in
+Port of ``speech_ssl_compression_tpu/models/encoder.py``, for MelHuBERT and
+HuBERT (both configs carry the encoder's fields). Parameters live in
 ``nn.Module``s under the reference state-dict names (``encoder.layers.{i}.
 self_attn.q_proj.weight``, ``encoder.pos_conv.0.weight_v``, ...); the
 forward is the plain functions below, each named after its JAX
@@ -26,8 +27,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from ..configs import MelHuBERTConfig
 
 from ..ops.activations import get_activation_fn
 from ..ops.attention import SelfAttention, multi_head_self_attention
@@ -67,7 +66,7 @@ class EncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     """Encoder parameters: ``pos_conv.0``, ``layer_norm``, ``layers.{i}``."""
 
-    def __init__(self, cfg: MelHuBERTConfig):
+    def __init__(self, cfg):
         super().__init__()
         if getattr(cfg, "pos_emb_type", "conv") != "conv":
             raise NotImplementedError(
@@ -94,10 +93,6 @@ def _check_ported(cfg) -> None:
     if getattr(cfg, "pos_conv_depth", 1) > 1:
         raise NotImplementedError(
             "pos_conv_depth > 1 (pos_conv_embed_deep) is not ported yet"
-        )
-    if int(getattr(cfg, "required_seq_len_multiple", 1) or 1) > 1:
-        raise NotImplementedError(
-            "required_seq_len_multiple > 1 is not ported yet"
         )
 
 
@@ -184,7 +179,7 @@ def encoder_layer_forward(
 def encoder_prologue(
     x: torch.Tensor,  # (B, T, D)
     enc: TransformerEncoder,
-    cfg: MelHuBERTConfig,
+    cfg,
     *,
     padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = PAD
     generator: Optional[torch.Generator] = None,  # on x's device
@@ -204,7 +199,7 @@ def encoder_prologue(
 def encoder_layers_forward(
     x: torch.Tensor,  # (B, T, D)
     enc: TransformerEncoder,
-    cfg: MelHuBERTConfig,
+    cfg,
     *,
     padding_mask: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
@@ -258,7 +253,7 @@ def encoder_layers_forward(
 def encoder_forward(
     x: torch.Tensor,  # (B, T, D)
     enc: TransformerEncoder,
-    cfg: MelHuBERTConfig,
+    cfg,
     *,
     padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool, True = PAD
     causal: bool = False,
@@ -268,7 +263,12 @@ def encoder_forward(
     deterministic: bool = True,
 ):
     """Prologue + layer stack. Returns (x, layer_hiddens). Training
-    (``deterministic=False``) needs ``rng``, a host ``torch.Generator``."""
+    (``deterministic=False``) needs ``rng``, a host ``torch.Generator``.
+
+    ``cfg.required_seq_len_multiple`` (the HuBERT/wav2vec 2.0 encoders) is
+    kept as in JAX (reference module.py:492-541): after the prologue T is
+    padded up to the next multiple, the padded tail is key-padding-masked
+    through the layers, and the outputs are cut back to T."""
     generator = None
     if not deterministic:
         if rng is None:
@@ -276,8 +276,20 @@ def encoder_forward(
         generator = device_generator(rng, x.device)
     x = encoder_prologue(x, enc, cfg, padding_mask=padding_mask,
                          generator=generator, deterministic=deterministic)
-    return encoder_layers_forward(
+    t = x.shape[1]
+    pad = -t % int(getattr(cfg, "required_seq_len_multiple", 1) or 1)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        if padding_mask is None:
+            padding_mask = torch.zeros(x.shape[:1] + (t,), dtype=torch.bool,
+                                       device=x.device)
+        padding_mask = F.pad(padding_mask, (0, pad), value=True)
+    x, layer_hiddens = encoder_layers_forward(
         x, enc, cfg, padding_mask=padding_mask, causal=causal,
         get_hidden=get_hidden, attn_impl=attn_impl, rng=rng,
         generator=generator, deterministic=deterministic,
     )
+    if pad:
+        x = x[:, :t]
+        layer_hiddens = [h[:, :t] for h in layer_hiddens]
+    return x, layer_hiddens

@@ -122,11 +122,19 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # ..., use_dropout, keep_threshold, keep_scale, seed, device, stream
     dropout = [ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ci, vp]
-    for name, n_ptr in (("sslc_flash_attn_fwd", 8),
-                        ("sslc_flash_attn_bwd_dq", 10),
-                        ("sslc_flash_attn_bwd_dkv", 11)):
+    # ..., B, H, Tq, Tk, causal, is_bf16, use_dropout, ...
+    for name, n_ptr, n_int in (("sslc_flash_attn_fwd", 8, 7),
+                               ("sslc_flash_attn_bwd_dq", 10, 7),
+                               ("sslc_flash_attn_bwd_dkv", 11, 7)):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * n_ptr + [ci] * 7 + dropout
+        fn.argtypes = [vp] * n_ptr + [ci] * n_int + dropout
+        fn.restype = ci
+    # ..., is_bf16, device, stream
+    for name, n_ptr, n_int in (("sslc_conv1d_fwd", 3, 6),
+                               ("sslc_conv1d_dx", 3, 6),
+                               ("sslc_conv1d_dw", 4, 8)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptr + [ci] * (n_int + 2) + [vp]
         fn.restype = ci
     lib.sslc_cuda_error_string.argtypes = [ci]
     lib.sslc_cuda_error_string.restype = ctypes.c_char_p

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .activations import at_least_f32
 from .dropout import attention_keep_mask
 from .flash_attention import NEG_INF, flash_attention
 
@@ -47,7 +48,8 @@ def dense_attention(
     # 0-dim CPU tensors in q's dtype: combined with a CUDA tensor as
     # scalars, with no copy to the device
     scale = torch.reciprocal(torch.sqrt(torch.tensor(float(d), dtype=q.dtype)))
-    logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    logits = torch.matmul(at_least_f32(q * scale),
+                          at_least_f32(k).transpose(-1, -2))
     if key_padding_mask is not None:
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
         # an additive bias in JAX; -1e30 + a score rounds to -1e30 in f32

@@ -5,14 +5,20 @@ Port of ``speech_ssl_compression_tpu/ops/flash_attention.py``
 (``flash_attention`` and ``flash_attention_kv_full`` with their custom VJPs
 ``_flash`` and ``_flash_rect``). One ``torch.autograd.Function``,
 :class:`_FlashAttention`, stands behind both. Its forward saves
-(q, k, v, bias, segments, seed, out, lse), never the dropout mask; its
-backward computes D = rowsum(dO o O) in f32 and then dQ and dK/dV.
+(q, k, v, bias, segments, seed, lse), never the dropout mask; its
+backward computes dQ and dK/dV with D = rowsum(Pd o dPd) / rowsum(P),
+taken from the P the backward recomputes (the dQ kernel computes it;
+:func:`reference_dd` is its plain version). JAX takes D = rowsum(dO o O)
+from the forward's output (:func:`output_dd`), the same number in exact
+arithmetic; the recomputed form keeps sum_j dS_ij at rounding, as the
+softmax's own backward does (``csrc/flash_attn_bwd.cu`` says why).
 
 Routing is by device, and only by device: for CUDA tensors the wrappers
 launch the hand-written kernels (``csrc/flash_attn_fwd.cu``,
 ``csrc/flash_attn_bwd.cu``) or raise; CPU tensors go to the plain PyTorch
-versions, :func:`_reference_fwd`, :func:`reference_bwd_dq` and
-:func:`reference_bwd_dkv`, which write the same formulas out in full
+versions, :func:`_reference_fwd` and :func:`reference_bwd` (D by
+:func:`reference_dd`, then :func:`reference_bwd_dq` and
+:func:`reference_bwd_dkv`), which write the same formulas out in full
 (B, H, Tq, Tk) matrices. ``chip_smoke.py`` holds each kernel against its
 plain version on the card.
 
@@ -147,9 +153,28 @@ def _reference_ds(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
     return p, pd, pd * dpd - p * dd[..., None]
 
 
-def _dd(out, dout):
-    """D = rowsum(dO o O) in f32, (B, H, Tq), as ``_flash_bwd_impl``."""
+def output_dd(out, dout):
+    """JAX's D = rowsum(dO o O) in f32, (B, H, Tq), as ``_flash_bwd_impl``
+    takes it from the forward's output. The port's backward takes D from
+    its own P instead (:func:`reference_dd`); tests hold the plain
+    backward's formulas against JAX's with this D."""
     return (dout.float() * out.float()).sum(dim=-1)
+
+
+def reference_dd(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
+                 dout):
+    """Plain version of the D that the dQ kernel computes: D = rowsum(Pd o
+    dPd) / rowsum(P) in f32, (B, H, Tq), from P = exp(S - LSE) as the
+    backward recomputes it (0 for a row without keys). Dividing by
+    rowsum(P), 1 up to the LSE's rounding, makes sum_j dS_ij cancel."""
+    p = torch.exp(_scores(q, k, bias, segq, segk, causal) - lse[..., None])
+    keep = _keep(q, k, dropout_p, seed)
+    pd = p if keep is None else torch.where(
+        keep, p * _keep_scale(dropout_p), torch.zeros((), device=p.device))
+    dpd = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    l = p.sum(dim=-1)
+    return torch.where(l > 0, (pd * dpd).sum(dim=-1) / l,
+                       torch.zeros((), device=l.device))
 
 
 def reference_bwd_dq(q, k, v, bias, segq, segk, causal, dropout_p, seed,
@@ -175,17 +200,30 @@ def reference_bwd_dkv(q, k, v, bias, segq, segk, causal, dropout_p, seed,
     return (scale * dk).to(k.dtype), dv.to(v.dtype)
 
 
+def reference_bwd(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
+                  dout):
+    """Plain version of :func:`launch_bwd`: (dq, dk, dv, D), with D from
+    :func:`reference_dd`."""
+    args = (q, k, v, bias, segq, segk, causal, dropout_p, seed, lse, dout)
+    dd = reference_dd(*args)
+    return ((reference_bwd_dq(*args, dd),) + reference_bwd_dkv(*args, dd)
+            + (dd,))
+
+
 def bf16_straddle_bounds(q, k, v, bias, segq, segk, causal, dropout_p, seed,
-                         lse, dout, dd):
-    """Per entry of (dq, dk, dv), f32: how far a straddle can move a bf16
-    backward kernel's gradient from the plain backward's.
+                         lse, dout):
+    """Per entry of (dq, dk, dv), f32: how far a straddle can move the bf16
+    backward kernels' gradients from :func:`reference_bwd`'s.
 
     Both round dS and Pd to bf16 before their sums, from f32 values that
     differ by at most e: two orders of a d-term dot by 2 d 2^-24 of its sum
-    of |terms|, expf and torch.exp by 2 ulps each, and each product and
-    difference by one rounding a side. Where [x - e, x + e] holds a bf16
-    rounding point, the two may round x to neighbouring values. The bound
-    of an entry is the sum, over the terms of its sum, of
+    of |terms|, expf and torch.exp by 2 ulps each, each product and
+    difference by one rounding a side, and D, which each side sums over the
+    Tk keys in its own order, by 2 Tk 2^-24 of the sums of |terms| of its
+    numerator and of rowsum(P), on top of the errors of those terms. Where
+    [x - e, x + e] holds a bf16 rounding point, the two may round x to
+    neighbouring values. The bound of an entry is the sum, over the terms
+    of its sum, of
     |bf16(x + e) - bf16(x - e)| times the |operand| that x multiplies: the
     most that rounding those x the other way can move it. Built from the
     inputs alone, before any kernel runs."""
@@ -203,10 +241,24 @@ def bf16_straddle_bounds(q, k, v, bias, segq, segk, causal, dropout_p, seed,
         keep, p * _keep_scale(dropout_p), torch.zeros((), device=p.device))
     e_pd = pd * (e_p + 2 * u)
     dpd = torch.matmul(dout.float(), v.float().mT)
+    e_dpd = dot * torch.matmul(da, va.mT)
+    # D = num / l: num = rowsum(Pd o dPd), l = rowsum(P)
+    tk = k.shape[2]
+    t = (pd * dpd).abs()
+    l = p.sum(dim=-1)
+    e_num = ((dpd.abs() * e_pd + pd * e_dpd + 2 * u * t).sum(dim=-1)
+             + 2 * tk * u * t.sum(dim=-1))
+    e_l = (p * e_p).sum(dim=-1) + 2 * tk * u * l
+    dd = torch.where(l > 0, (pd * dpd).sum(dim=-1) / l,
+                     torch.zeros((), device=l.device))
+    e_dd = torch.where(l > 0, (e_num + dd.abs() * e_l)
+                       / (l - e_l).clamp_min(l * 0.5) + 2 * u * dd.abs(),
+                       torch.zeros((), device=l.device))
+    del l, e_num, e_l
     pdd = p * dd.abs()[..., None]
-    e_ds = (pd * dot * torch.matmul(da, va.mT) + dpd.abs() * e_pd
-            + pdd * e_p + 4 * u * ((pd * dpd).abs() + pdd))
-    del e_p, pdd
+    e_ds = (pd * e_dpd + dpd.abs() * e_pd + pdd * e_p
+            + p * e_dd[..., None] + 4 * u * (t + pdd))
+    del e_p, e_dpd, pdd, t
     ds = pd * dpd - p * dd[..., None]
     del p, dpd
 
@@ -290,8 +342,11 @@ def _check_bwd_inputs(q, k, v, bias, segq, segk, lse, dout, dd):
 
 
 def launch_bwd_dq(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
-                  dout, dd):
-    """The dQ kernel on CUDA tensors."""
+                  dout):
+    """The dQ kernel on CUDA tensors: (dq, D). The kernel computes D =
+    rowsum(Pd o dPd) / rowsum(P) (plain version :func:`reference_dd`),
+    uses it and writes it for :func:`launch_bwd_dkv`."""
+    dd = torch.empty_like(lse)
     _check_bwd_inputs(q, k, v, bias, segq, segk, lse, dout, dd)
     b, h, tq, _ = q.shape
     lib = _kernels.load()
@@ -306,12 +361,13 @@ def launch_bwd_dq(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
     )
     _kernels.check(lib, err, "flash_attn_bwd_dq launch")
     launch_counts["flash_attn_bwd_dq"] += 1
-    return dq
+    return dq, dd
 
 
 def launch_bwd_dkv(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
                    dout, dd):
-    """The dK/dV kernel on CUDA tensors: (dk, dv)."""
+    """The dK/dV kernel on CUDA tensors, with the D that
+    :func:`launch_bwd_dq` returned: (dk, dv)."""
     _check_bwd_inputs(q, k, v, bias, segq, segk, lse, dout, dd)
     b, h, tq, _ = q.shape
     lib = _kernels.load()
@@ -330,6 +386,14 @@ def launch_bwd_dkv(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
     return dk, dv
 
 
+def launch_bwd(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
+               dout):
+    """The dQ kernel, then the dK/dV kernel on its D: (dq, dk, dv, D)."""
+    args = (q, k, v, bias, segq, segk, causal, dropout_p, seed, lse, dout)
+    dq, dd = launch_bwd_dq(*args)
+    return (dq,) + launch_bwd_dkv(*args, dd) + (dd,)
+
+
 def _route(q):
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention: no route for device {q.device}")
@@ -338,8 +402,8 @@ def _route(q):
 
 class _FlashAttention(torch.autograd.Function):
     """Port of the custom VJPs ``_flash`` and ``_flash_rect``: the forward
-    kernel (or its plain version on the CPU) and, for the gradient, D in
-    plain torch followed by the dQ and dK/dV kernels (or their plain
+    kernel (or its plain version on the CPU) and, for the gradient, the dQ
+    kernel, which also computes D, then the dK/dV kernel (or their plain
     versions). Returns (out, lse); lse carries no gradient."""
 
     @staticmethod
@@ -350,23 +414,18 @@ class _FlashAttention(torch.autograd.Function):
         else:
             out, lse = _reference_fwd(q, k, v, bias, segq, segk, causal,
                                       dropout_p=dropout_p, seed=seed)
-        ctx.save_for_backward(q, k, v, bias, segq, segk, out, lse)
+        ctx.save_for_backward(q, k, v, bias, segq, segk, lse)
         ctx.causal, ctx.dropout_p, ctx.seed = causal, dropout_p, seed
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, bias, segq, segk, out, lse = ctx.saved_tensors
+        q, k, v, bias, segq, segk, lse = ctx.saved_tensors
         dout = dout.contiguous()
         args = (q, k, v, bias, segq, segk, ctx.causal, ctx.dropout_p,
-                ctx.seed, lse, dout, _dd(out, dout))
-        if _route(q):
-            dq = launch_bwd_dq(*args)
-            dk, dv = launch_bwd_dkv(*args)
-        else:
-            dq = reference_bwd_dq(*args)
-            dk, dv = reference_bwd_dkv(*args)
+                ctx.seed, lse, dout)
+        dq, dk, dv, _ = (launch_bwd if _route(q) else reference_bwd)(*args)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -471,15 +530,17 @@ def flash_attention_reference(
 
 
 def backward_args(
-    q, k, v, out, lse, dout, *,
+    q, k, v, lse, dout, *,
     key_padding_mask=None, causal=False, segment_ids=None,
     dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
 ):
-    """The argument tuple that :func:`launch_bwd_dq`,
-    :func:`launch_bwd_dkv` and their plain versions take, for the
-    forward's (out, lse), the output gradient ``dout`` and the forward's
-    arguments: (q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
-    dout, D)."""
+    """The argument tuple that :func:`launch_bwd`, :func:`launch_bwd_dq`,
+    :func:`reference_bwd`, :func:`reference_dd` and
+    :func:`bf16_straddle_bounds` take, for the forward's lse, the output
+    gradient ``dout`` and the forward's arguments: (q, k, v, bias, segq,
+    segk, causal, dropout_p, seed, lse, dout). :func:`launch_bwd_dkv`,
+    :func:`reference_bwd_dq` and :func:`reference_bwd_dkv` take it with D
+    appended."""
     bias, seg = _masks(k, key_padding_mask, segment_ids)
     return (q, k, v, bias, seg, seg, causal, dropout_p, dropout_seed, lse,
-            dout, _dd(out, dout))
+            dout)

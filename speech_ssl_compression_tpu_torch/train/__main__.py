@@ -1,15 +1,20 @@
-"""Training CLI of the port, for MelHuBERT pre-training:
+"""Training CLI of the port, for MelHuBERT and HuBERT pre-training:
 
     python -m speech_ssl_compression_tpu_torch.train -m melhubert \\
         -g configs/melhubert/config_model_20ms.yaml -c <runner.yaml> \\
         -n <expdir> [-u melhubert] [-f {10,20}] [--seed N] [--device cuda]
+    python -m speech_ssl_compression_tpu_torch.train -m melhubert -u hubert \\
+        -g configs/hubert/config_model.yaml -c <runner.yaml with task:> \\
+        -n <expdir> [--seed N] [--device cuda]
 
 Port of the repository's ``train.py`` (the reference's flags), with
-``--device`` in place of ``--backend``. The YAMLs are read without PyYAML
-(``configs.py::read_yaml``), and the two config files are copied into the
-experiment directory for provenance. Only the ``melhubert`` mode and
-upstream are ported; the other choices, ``-i`` and the parallel flags
-raise ``NotImplementedError``.
+``--device`` in place of ``--backend``: ``-u melhubert`` goes to
+``train/runner.py``, ``-u hubert`` to ``train/wave_runner.py``. The YAMLs
+are read without PyYAML (``configs.py::read_yaml``), and the two config
+files are copied into the experiment directory for provenance. Only
+pre-training (``-m melhubert``) is ported; the compression modes,
+``-u wav2vec2``, ``-i`` and the parallel flags raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,14 +54,14 @@ def get_args(argv=None):
 def main(argv=None):
     """Run the trainer; returns the Runner after training."""
     from ..configs import read_yaml
-    from .runner import Runner
 
     args = get_args(argv)
-    if args.upstream != "melhubert":
-        raise NotImplementedError(
-            f"upstream {args.upstream!r} is not ported yet (melhubert only)")
     runner_config = read_yaml(args.runner_config)
     upstream_config = read_yaml(args.upstream_config)
+    if args.upstream == "melhubert":
+        from .runner import Runner
+    else:  # the waveform models (train.py:108-116)
+        from .wave_runner import WaveRunner as Runner
     runner = Runner(args, runner_config, upstream_config)
     # config provenance copies (reference train.py:43-44)
     shutil.copy(args.upstream_config,

@@ -42,7 +42,7 @@ _UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
 class Runner:
     """``Runner(args, runner_config, upstream_config).train()``, as the JAX
     runner, for ``args.mode == "melhubert"``. ``args.device`` names the
-    torch device."""
+    torch device (``cuda`` when absent: the CPU only when asked for)."""
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
         if args.mode != "melhubert":
@@ -59,7 +59,7 @@ class Runner:
         self.runner_config = runner_config
         self.upstream_config = upstream_config
         self.mode = args.mode
-        self.device = resolve_device(getattr(args, "device", "cpu"))
+        self.device = resolve_device(getattr(args, "device", "cuda"))
         self.expdir = args.expdir
         os.makedirs(self.expdir, exist_ok=True)
 

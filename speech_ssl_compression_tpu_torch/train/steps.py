@@ -1,11 +1,14 @@
 """The pre-training grad step and the optimizer's apply step.
 
-Port of ``speech_ssl_compression_tpu/train/steps.py`` for the ``melhubert``
-mode. Grad semantics match JAX's, which match the reference:
+Port of ``speech_ssl_compression_tpu/train/steps.py`` for MelHuBERT
+pre-training, and of the HuBERT grad step of
+``speech_ssl_compression_tpu/train/wave_runner.py``. Grad semantics match
+JAX's, which match the reference:
 
   * the micro-batch loss is divided by ``gradient_accumulate_steps``;
-  * the accumulated grads are divided again by ``sample_size`` (the number
-    of micro-batches) in the apply step;
+  * the accumulated grads are divided again by ``sample_size`` in the apply
+    step (MelHuBERT: the number of micro-batches; HuBERT: the number of
+    masked frames the loss summed over);
   * the global-norm clip is trigger-style at ``gradient_clipping``;
   * a non-finite grad norm skips the update, and the Adam count with it.
 
@@ -258,5 +261,42 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         return loss.detach(), grads, logs
+
+    return grad_step
+
+
+def make_hubert_grad_step(model, *, accum_steps: int = 1,
+                          compute_dtype=torch.float32,
+                          attn_impl: str = "auto",
+                          deterministic: bool = False):
+    """Returns ``grad_step(params, batch, rng, mask_indices=None) ->
+    (loss, sample_size, grads, logs)``, port of the HuBERT branch of JAX
+    ``WaveRunner._build_grad_step``.
+
+    ``params`` maps ``model``'s (a ``HuBERTModel``) parameter names to the
+    f32 masters; ``batch`` holds the device tensors ``source`` (B, T_wave),
+    ``target_list`` (list of (B, T') int64) and ``target_valid`` (B, T')
+    bool, and the host ``length`` (B,) numpy. The span mask is drawn on the
+    host from ``rng`` unless ``mask_indices`` is given. Returns the summed
+    NCE loss / accum_steps (detached), the masked-frame count (a device
+    tensor), the gradients in ``params``' order (zeros for unused ones)
+    and the loss's logs. ``deterministic=True`` turns the dropouts off."""
+
+    def grad_step(params: Dict[str, torch.Tensor], batch: dict,
+                  rng: torch.Generator, mask_indices=None):
+        out = functional_call(
+            model, cast_for_compute(params, compute_dtype),
+            (batch["source"].to(compute_dtype), batch["length"]),
+            dict(mask=True, mask_indices=mask_indices, rng=rng,
+                 deterministic=deterministic, attn_impl=attn_impl,
+                 target_list=batch["target_list"],
+                 target_valid=batch["target_valid"]),
+        )
+        loss = out["loss"] / accum_steps
+        leaves = list(params.values())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return loss.detach(), out["sample_size"], grads, out["logs"]
 
     return grad_step

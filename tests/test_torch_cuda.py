@@ -213,19 +213,21 @@ def test_backward_kernels_match_plain_version(name, dtype):
     k, v = (torch.randn(ks, generator=g, device=dev).to(dtype)
             for _ in range(2))
     if tk is None:
-        out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+        _, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
     else:
-        out, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
-                                              **masks)
-    args = fa.backward_args(q, k, v, out, lse, dout, **masks)
+        _, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
+                                            **masks)
+    args = fa.backward_args(q, k, v, lse, dout, **masks)
     fa.reset_launch_counts()
-    got = (fa.launch_bwd_dq(*args),) + fa.launch_bwd_dkv(*args)
+    got = fa.launch_bwd(*args)
     assert fa.launch_counts["flash_attn_bwd_dq"] == 1
     assert fa.launch_counts["flash_attn_bwd_dkv"] == 1
-    ref = (fa.reference_bwd_dq(*args),) + fa.reference_bwd_dkv(*args)
+    ref = fa.reference_bwd(*args)
+    dd, ref_dd = got[3], ref[3]
+    assert (dd - ref_dd).abs().max() / ref_dd.abs().mean() < F32_BAR
     bounds = (fa.bf16_straddle_bounds(*args) if dtype == torch.bfloat16
               else (None,) * 3)
-    for a, b, bound in zip(got, ref, bounds):
+    for a, b, bound in zip(got[:3], ref[:3], bounds):
         if dtype == torch.float32:
             assert (a - b).abs().max() / b.abs().mean() < F32_BAR
         else:
@@ -247,8 +249,9 @@ def test_autograd_goes_through_the_kernels():
     out, lse = fa.flash_attention(*leaves, return_lse=True, **masks)
     out.backward(dout)
     assert set(fa.launch_counts.values()) == {1}
-    args = fa.backward_args(q, k, v, out.detach(), lse, dout, **masks)
-    want = (fa.launch_bwd_dq(*args),) + fa.launch_bwd_dkv(*args)
+    # the autograd path is the dQ kernel, then the dK/dV kernel on its D
+    args = fa.backward_args(q, k, v, lse, dout, **masks)
+    want = fa.launch_bwd(*args)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)  # deterministic: no atomics
 
@@ -266,3 +269,114 @@ def test_kernel_keep_bits_equal_the_plain_mask():
     counts = torch.round(out.double() * t * 0.9).long()
     keep = attention_keep_mask(5, b, h, t, t, 0.1, dev)
     assert torch.equal(counts, keep.view(b, h, t, t // d, d).sum(dim=3))
+
+
+# ------------------------------------------------- strided conv kernels
+
+CONV_F32_BAR = 1e-5  # against the plain version in float64
+CONV_SHAPES = {
+    # name: (B, T, C, K, O, stride)
+    "t777": (2, 777, 512, 2, 512, 2),
+    "t515": (2, 515, 512, 3, 512, 2),
+    "layer5": (4, 3071, 512, 2, 512, 2),
+}
+
+
+def _conv_inputs(shape, dtype, seed=0):
+    b, t, c, k, o, s = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, t, c), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((k, c, o), generator=g, device="cuda")
+         / (k * c) ** 0.5).to(dtype)
+    t_out = (t - k) // s + 1
+    dy = torch.randn((b, t_out, o), generator=g, device="cuda").to(dtype)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CONV_SHAPES))
+def test_conv_kernels_match_plain_version(name, dtype):
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    shape = CONV_SHAPES[name]
+    b, t, c, k, o, s = shape
+    x, w, dy = _conv_inputs(shape, dtype)
+    tc.reset_launch_counts()
+    got = (tc.launch_fwd(x, w, s), tc.launch_dw(x, dy, k, s),
+           tc.launch_dx(dy, w, t, s))
+    torch.cuda.synchronize()
+    assert set(tc.launch_counts.values()) == {1}
+    last = (got[0].shape[1] - 1) * s + k
+    assert not got[2][:, last:].any()  # no output reaches these rows
+    if dtype == torch.float32:
+        x64, w64, dy64 = x.double(), w.double(), dy.double()
+        dx64, dw64 = tc.plain_grads(x64, w64, s, dy64)
+        ref = (tc.conv1d_strided_plain(x64, w64, s), dw64, dx64)
+        for a, r in zip(got, ref):
+            assert (a.double() - r).abs().max() / r.abs().mean() < CONV_F32_BAR
+    else:
+        dx, dw = tc.plain_grads(x, w, s, dy)
+        ref = (tc.conv1d_strided_plain(x, w, s), dw, dx)
+        for a, r in zip((got[0], got[1].to(dtype), got[2]), ref):
+            share, ulps = _bf16_diff(a, r, slice(None))
+            assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
+
+
+def test_conv_autograd_goes_through_the_kernels_deterministically():
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    x, w, dy = _conv_inputs(CONV_SHAPES["t515"], torch.float32, seed=1)
+
+    def grads():
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+        tc.conv1d_strided(*leaves, 2).backward(dy)
+        return [leaf.grad for leaf in leaves]
+
+    tc.reset_launch_counts()
+    first, second = grads(), grads()
+    assert set(tc.launch_counts.values()) == {2}
+    assert all(torch.equal(a, b) for a, b in zip(first, second))  # no atomics
+
+
+def test_conv_kernels_refuse_what_they_do_not_take():
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    x = torch.randn(1, 64, 128, device="cuda")
+    w = torch.randn(3, 128, 128, device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tc.launch_fwd(x.half(), w.half(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.launch_fwd(torch.randn(1, 128, 64, device="cuda").transpose(1, 2),
+                      w, 2)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tc.launch_fwd(x[..., :96].contiguous(), w[:, :96].contiguous(), 2)
+    with pytest.raises(TypeError, match="one dtype"):
+        tc.launch_fwd(x, w.bfloat16(), 2)
+
+
+@pytest.mark.parametrize("name", ["training_dropout", "causal", "rectangular"])
+def test_dq_kernel_computes_d_from_its_own_p(name):
+    dev = torch.device("cuda")
+    qs, tk, p = BWD_CASES[name]
+    masks = (_train_masks(dev, p) if name.startswith("training")
+             else _case(name, dev)[2])
+    ks = qs if tk is None else (qs[0], qs[1], tk, qs[3])
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, dout = (torch.randn(qs, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(ks, generator=g, device=dev) for _ in range(2))
+    if tk is None:
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+    else:
+        out, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
+                                              **masks)
+    args = fa.backward_args(q, k, v, lse, dout, **masks)
+    dq, dd = fa.launch_bwd_dq(*args)
+    dk, dv = fa.launch_bwd_dkv(*args, dd)
+    ref_dd = fa.reference_dd(*args)
+    assert (dd - ref_dd).abs().max() / ref_dd.abs().mean() < F32_BAR
+    # the same D as JAX's, rowsum(dO o O), to f32 rounding
+    jax_dd = fa.output_dd(out, dout)
+    assert (dd - jax_dd).abs().max() / jax_dd.abs().mean() < F32_BAR
+    ref = fa.reference_bwd(*args)
+    for a, b in zip((dq, dk, dv), ref):
+        assert (a - b).abs().max() / b.abs().mean() < F32_BAR

@@ -92,7 +92,8 @@ def test_checkpoint_reader_matches_jax(ckpts):
 def test_load_any_checkpoint_folds_like_jax(ckpts, kind):
     params, cfg, meta = port.load_any_checkpoint(ckpts[kind])
     ref_params, ref_cfg, ref_meta = jax_load_any_checkpoint(ckpts[kind])
-    assert cfg == ref_cfg and meta == ref_meta
+    # the port's config is its own class with JAX's fields
+    assert cfg.to_dict() == ref_cfg.to_dict() and meta == ref_meta
     assert _tree_equal(params, jax.tree.map(np.asarray, ref_params))
     if kind == "masked":
         fc1 = params["encoder"]["layers"][1]["fc1"]["kernel"]
@@ -246,4 +247,4 @@ def test_model_yaml_reader_matches_yaml_safe_load(name):
     path = REPO / "configs" / "melhubert" / name
     with open(path) as f:
         want = MelHuBERTConfig.from_dict(yaml.safe_load(f)["melhubert"])
-    assert melhubert_config_from_yaml(path) == want
+    assert melhubert_config_from_yaml(path).to_dict() == want.to_dict()

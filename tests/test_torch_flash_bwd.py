@@ -138,11 +138,18 @@ def test_plain_backward_matches_autograd_through_plain_forward(name):
         _valid_rows(b, t, seg))[:, None, :, None]
     out.backward(dout_t)
     args = tfa.backward_args(qt.detach(), kt.detach(), vt.detach(),
-                             out.detach(), lse.detach(), dout_t, **kw)
-    got = (tfa.reference_bwd_dq(*args),) + tfa.reference_bwd_dkv(*args)
+                             lse.detach(), dout_t, **kw)
+    # with JAX's D, from the forward's output
+    jax_args = args + (tfa.output_dd(out.detach(), dout_t),)
+    got = ((tfa.reference_bwd_dq(*jax_args),)
+           + tfa.reference_bwd_dkv(*jax_args))
     for name_, g, r in zip("qkv", got, (qt.grad, kt.grad, vt.grad)):
         assert _rel(g.numpy(), r.numpy()) < BAR, name_
-    # and the autograd Function's backward is that plain backward on CPU
+    # and the autograd Function's backward is the plain backward on CPU,
+    # with D taken from the recomputed P (reference_dd)
+    got = tfa.reference_bwd(*args)[:3]
+    for name_, g, r in zip("qkv", got, (qt.grad, kt.grad, vt.grad)):
+        assert _rel(g.numpy(), r.numpy()) < BAR, name_
     func = _torch_grads(q, k, v, dout_t.numpy(), **kw)
     for g, r in zip(func, got):
         np.testing.assert_array_equal(g, r.numpy())
@@ -190,10 +197,11 @@ def test_dropout_refuses_long_sequences_and_a_missing_seed():
 
 
 def _backward_f64(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
-                  dout, dd, round_inner=True):
-    """The backward's formulas in float64 (no segments), dS and Pd rounded
-    to the input dtype before the sums unless ``round_inner`` is False:
-    a backward whose f32 values differ from the plain one's by rounding."""
+                  dout, round_inner=True):
+    """The backward's formulas in float64 (no segments), D from its own P,
+    dS and Pd rounded to the input dtype before the sums unless
+    ``round_inner`` is False: a backward whose f32 values differ from the
+    plain one's by rounding."""
     qd, kd, vd, dod = (t.double() for t in (q, k, v, dout))
     s = qd @ kd.mT / 8.0 + bias.double()[:, None, None, :]
     if causal:
@@ -204,7 +212,9 @@ def _backward_f64(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
     if dropout_p:
         keep = attention_keep_mask(seed, *q.shape[:3], k.shape[2], dropout_p)
         pd = torch.where(keep, p / (1 - dropout_p), 0.0)
-    ds = pd * (dod @ vd.mT) - p * dd.double()[..., None]
+    dpd = dod @ vd.mT
+    dd = (pd * dpd).sum(dim=-1) / p.sum(dim=-1)
+    ds = pd * dpd - p * dd[..., None]
     if round_inner:
         ds, pd = (t.to(q.dtype).double() for t in (ds, pd))
     return tuple(t.to(q.dtype) for t in (ds @ kd / 8.0, ds.mT @ qd / 8.0,
@@ -231,9 +241,9 @@ def test_bf16_straddle_bounds_hold_for_another_rounding(causal, dropout_p):
     kw = dict(key_padding_mask=torch.from_numpy(_padding([128, 90], 128)),
               causal=causal, dropout_p=dropout_p,
               dropout_seed=11 if dropout_p else None)
-    out, lse = tfa.flash_attention_reference(q, k, v, **kw)
-    args = tfa.backward_args(q, k, v, out, lse, dout, **kw)
-    ref = (tfa.reference_bwd_dq(*args),) + tfa.reference_bwd_dkv(*args)
+    _, lse = tfa.flash_attention_reference(q, k, v, **kw)
+    args = tfa.backward_args(q, k, v, lse, dout, **kw)
+    ref = tfa.reference_bwd(*args)[:3]
     bounds = tfa.bf16_straddle_bounds(*args)
     assert all(torch.isfinite(b).all() and (b >= 0).all() for b in bounds)
     for got, r, b in zip(_backward_f64(*args), ref, bounds):

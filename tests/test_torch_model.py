@@ -16,6 +16,9 @@ from speech_ssl_compression_tpu.models import (
     init_melhubert_params,
     melhubert_forward as jax_forward,
 )
+from speech_ssl_compression_tpu_torch.configs import (
+    MelHuBERTConfig as PortConfig,
+)
 from speech_ssl_compression_tpu_torch.models import (
     MelHuBERTModel,
     melhubert_forward,
@@ -37,6 +40,11 @@ def _cfg(variant):
     if variant == "pruned":
         cfg = cfg.with_heads((2, 1)).with_ffn_dims((256, 96))
     return cfg
+
+
+def _port(cfg):
+    """The port's own config for a JAX one (the two classes differ)."""
+    return PortConfig.from_dict(cfg.to_dict())
 
 
 def _inputs(seed=0, b=3, t=40):
@@ -61,7 +69,7 @@ def test_forward_matches_jax(variant, attn_impl):
     feat, pad_mask = _inputs()
     ref = jax_forward(params, cfg, jnp.asarray(feat), jnp.asarray(pad_mask),
                       get_hidden=True, attn_impl="dense")
-    model = load_model(params, cfg)
+    model = load_model(params, _port(cfg))
     if variant == "pruned":
         layers = model.encoder.layers
         assert [l.self_attn.num_heads for l in layers] == [2, 1]
@@ -85,7 +93,7 @@ def test_zero_layer_model_is_gelu_of_projection():
     feat, pad_mask = _inputs(seed=1)
     ref = jax_forward(params, cfg, jnp.asarray(feat), jnp.asarray(pad_mask))
     with torch.no_grad():
-        out = melhubert_forward(load_model(params, cfg),
+        out = melhubert_forward(load_model(params, _port(cfg)),
                                 torch.from_numpy(feat),
                                 torch.from_numpy(pad_mask))
     valid = pad_mask.astype(bool)
@@ -95,9 +103,9 @@ def test_zero_layer_model_is_gelu_of_projection():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="pos_conv_depth"):
-        MelHuBERTModel(MelHuBERTConfig.from_dict(dict(TINY, pos_conv_depth=2)))
+        MelHuBERTModel(PortConfig.from_dict(dict(TINY, pos_conv_depth=2)))
     # span masking is ported; without a mask or an rng to draw one it raises
-    model = MelHuBERTModel(MelHuBERTConfig.from_dict(TINY))
+    model = MelHuBERTModel(PortConfig.from_dict(TINY))
     with pytest.raises(ValueError, match="masking"):
         melhubert_forward(model, torch.zeros(1, 4, 80), torch.ones(1, 4),
                           mask=True)
@@ -115,7 +123,7 @@ def test_forward_matches_golden_oracle():
                     "encoder_layers", "num_cluster", "conv_pos",
                     "conv_pos_groups")
     })
-    model = MelHuBERTModel(cfg)
+    model = MelHuBERTModel(_port(cfg))
     model.load_state_dict(sd)  # strict: every reference name is matched
     with torch.no_grad():
         out = melhubert_forward(

@@ -29,7 +29,10 @@ from speech_ssl_compression_tpu.utils.checkpoint import (
     load_checkpoint as jax_load_checkpoint,
     restore_opt_state,
 )
-from speech_ssl_compression_tpu_torch.configs import read_yaml
+from speech_ssl_compression_tpu_torch.configs import (
+    MelHuBERTConfig as PortConfig,
+    read_yaml,
+)
 from speech_ssl_compression_tpu_torch.data.bucket_dataset import MelFeatBuckets
 from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
 from speech_ssl_compression_tpu_torch.models.encoder import encoder_forward
@@ -88,7 +91,7 @@ def test_model_span_mask_uses_jax_model_arguments():
     # melhubert_forward (JAX) passes min_masks=2 and require_same_masks=False
     cfg = MelHuBERTConfig.from_dict(dict(TINY, mask_prob=0.02))
     lengths = np.array([60, 20])
-    got = span_mask(cfg, lengths, 64, np.random.default_rng(0))
+    got = span_mask(_port(cfg), lengths, 64, np.random.default_rng(0))
     ref = jmask.compute_mask_indices_np(
         (2, 64), lengths, mask_prob=0.02, mask_length=3, min_masks=2,
         mask_selection="static", require_same_masks=False, min_space=1,
@@ -98,6 +101,11 @@ def test_model_span_mask_uses_jax_model_arguments():
 
 
 # ------------------------------------------------- pretrain loss and grads
+
+def _port(cfg):
+    """The port's own config for a JAX one (the two classes differ)."""
+    return PortConfig.from_dict(cfg.to_dict())
+
 
 def _cfg(variant):
     if variant == "post_ln":
@@ -119,7 +127,7 @@ def _batch(cfg, seed=0, b=3, t=40):
     pad = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
     label = rng.integers(0, cfg.num_cluster, (b, t)).astype(np.int32)
     label[pad == 0] = -100
-    mask = span_mask(cfg, lengths, t, np.random.default_rng(seed + 1))
+    mask = span_mask(_port(cfg), lengths, t, np.random.default_rng(seed + 1))
     return feat, pad, label, lengths, mask
 
 
@@ -168,7 +176,7 @@ def test_pretrain_loss_and_grads_match_jax(variant, attn_impl):
         return jax_loss(out, jnp.asarray(label), jnp.asarray(pad), cfg)[0]
 
     ref_loss, ref_grads = jax.value_and_grad(loss_fn)(params)
-    model = load_model(params, cfg)
+    model = load_model(params, _port(cfg))
     step = tsteps.make_melhubert_grad_step(model, attn_impl=attn_impl,
                                            deterministic=True)
     named = dict(model.named_parameters())
@@ -191,7 +199,7 @@ def test_pretrain_loss_and_grads_match_jax(variant, attn_impl):
 def test_grad_step_draws_its_mask_from_the_host_lengths():
     cfg = _cfg("post_ln")
     model = load_model(jax.tree.map(np.asarray, init_melhubert_params(
-        jax.random.PRNGKey(4), cfg)), cfg)
+        jax.random.PRNGKey(4), cfg)), _port(cfg))
     feat, pad, label, lengths, _ = _batch(cfg, seed=2)
     batch = {"feat": torch.from_numpy(feat), "pad_mask": torch.from_numpy(pad),
              "label": torch.from_numpy(label).long(), "length": lengths}
@@ -208,7 +216,7 @@ def test_grad_step_draws_its_mask_from_the_host_lengths():
 def test_fixed_batch_loss_falls():
     cfg = _cfg("post_ln")
     model = load_model(jax.tree.map(np.asarray, init_melhubert_params(
-        jax.random.PRNGKey(5), cfg)), cfg)
+        jax.random.PRNGKey(5), cfg)), _port(cfg))
     feat, pad, label, lengths, mask = _batch(cfg, seed=3)
     batch = {"feat": torch.from_numpy(feat), "pad_mask": torch.from_numpy(pad),
              "label": torch.from_numpy(label).long(), "length": lengths}
@@ -236,7 +244,7 @@ def _enc_model(**over):
                                      "activation_dropout": 0.1, **over})
     params = jax.tree.map(np.asarray,
                           init_melhubert_params(jax.random.PRNGKey(6), cfg))
-    return load_model(params, cfg), cfg
+    return load_model(params, _port(cfg)), _port(cfg)
 
 
 def test_training_forward_dropout_is_seeded_and_off_when_deterministic():
@@ -528,7 +536,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
             str(tmp_path / "runner.yaml"), "-n", str(tmp_path / "e"),
             "--device", "cpu"]
     for extra, exc in ((["-m", "head-pruning"], NotImplementedError),
-                       (["-m", "melhubert", "-u", "hubert"],
+                       (["-m", "melhubert", "-u", "wav2vec2"],
                         NotImplementedError),
                        (["-m", "melhubert", "-i", "x.npz"],
                         NotImplementedError),
