@@ -10,27 +10,34 @@ Phases (any failure raises, and the script exits non-zero without a
 result line):
   build     compile csrc/ with nvcc (speech_ssl_compression_tpu_torch/ops/
             _kernels.py, one nvcc per source in parallel), print the build
-            time and ptxas's registers and spills per kernel;
+            time, ptxas's registers and spills per kernel, and the HGMMA
+            (tensor-core) instructions per kernel in cuobjdump -sass; fails
+            if the bf16 dQ or dK/dV kernel has none;
   kernels   the flash-attention forward kernel against its plain PyTorch
             version on the card, TF32 off, f32 and bf16, at the shapes the
             serving path and the long/rectangular/causal paths give it, and
-            with dropout at the training shape;
+            with dropout at the training shape; CUDA-event times of kernel
+            and plain version at the serving, training, long and
+            rectangular shapes;
   backward  the dQ and dK/dV kernels, as the autograd path runs them (the
             dQ kernel computes D from its own P and hands it to the dK/dV
             kernel), against the plain backward at the training shape
             (4, 12, 768, 64) with key padding, dropout 0 and 0.1, and at the
-            serving, causal, one-head, long and rectangular shapes, f32 and
-            bf16; D also against JAX's rowsum(dO o O); the kernels' keep
-            rate against the binomial; the same seed giving the same bits
-            twice;
+            serving, causal, one-head, long and rectangular shapes, and at
+            the ragged T = 777 (key padding, dropout) and T = 65, f32 and
+            bf16; D also against JAX's rowsum(dO o O); times of both kernels
+            and their plain versions at the long and rectangular shapes; the
+            kernels' keep rate against the binomial; the same seed giving
+            the same bits twice, f32 and bf16;
   slice     MelHuBERT-20ms at full width (12 layers, 768 wide, seeded random
             weights written as an npz checkpoint and read back through
             load_any_checkpoint) serves 16 synthetic utterances through
             MelHuBERTExtractor.forward_packed: launch counts, the dense
             path, the unpacked path, bf16 against f32;
-  timing    CUDA-event medians of 3 after a warm-up: the kernel against its
-            plain version at the serving shape, and serve-batch frames/s
-            with the kernel and with impl="dense", f32 and bf16;
+  timing    CUDA-event medians of 3 after a warm-up: serve-batch frames/s
+            with the kernel and with impl="dense", f32 and bf16; then
+            F.scaled_dot_product_attention's forward and backward at the
+            attention kernels' timed shapes, f32 and bf16;
   train     MelHuBERT-20ms pre-training at full width on a synthetic
             dataset, through the trainer's entry point (python -m
             speech_ssl_compression_tpu_torch.train): 3 updates of 8
@@ -87,8 +94,16 @@ entry must lie within one ulp plus its straddle bound
 within the f32 error bound of a rounding point the other way can move
 it), built from the inputs before the kernels run.
 
-The line before the last holds the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The line before the last holds the kernels' JSON record: per kernel its
+f32 numbers at its main case (the serving batch for the forward, the
+training shape with dropout for the backward kernels, HuBERT's frontend
+layers 1-6 summed for the conv kernels) and, under keys ending in _bf16,
+its bf16 ones; ms (CUDA events), plain_ms, library_ms (F.scaled_dot_
+product_attention or cuDNN, timed only), bound_ms (the larger of the
+FLOPs at the dtype's peak, 67 TFLOP/s f32 on the CUDA cores or 989
+TFLOP/s bf16 on the tensor cores, and the bytes at 3.35 TB/s) and
+bound_by; the attention kernels' other timed shapes under "cases". The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -111,10 +126,22 @@ ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG_YAML = ROOT / "configs" / "melhubert" / "config_model_20ms.yaml"
 MEAN_STD = ROOT / "example" / "libri-960-mean-std.npy"
 FA_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_fwd.cu"
-FA_REPLACES = "speech_ssl_compression_tpu/ops/flash_attention.py:66"
 BWD_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_bwd.cu"
-DQ_REPLACES = "speech_ssl_compression_tpu/ops/flash_attention.py:473"
-DKV_REPLACES = "speech_ssl_compression_tpu/ops/flash_attention.py:537"
+BWD_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
+ATTN_SOURCES = {"flash_attn_fwd": FA_SOURCE, "flash_attn_bwd_dq": BWD_SOURCE,
+                "flash_attn_bwd_dkv": BWD_SOURCE}
+ATTN_REPLACES = {
+    "flash_attn_fwd": "speech_ssl_compression_tpu/ops/flash_attention.py:66",
+    "flash_attn_bwd_dq": "speech_ssl_compression_tpu/ops/flash_attention.py:473",
+    "flash_attn_bwd_dkv":
+        "speech_ssl_compression_tpu/ops/flash_attention.py:537",
+}
+# the kernels' names in the built library's symbols
+KERNEL_SYMBOLS = ("flash_attn_fwd_kernel", "flash_attn_bwd_dq_bf16_kernel",
+                  "flash_attn_bwd_dkv_bf16_kernel", "flash_attn_bwd_dq_kernel",
+                  "flash_attn_bwd_dkv_kernel", "conv1d_fwd_kernel",
+                  "conv1d_dw_reduce_kernel", "conv1d_dw_kernel",
+                  "conv1d_dx_kernel")
 # the melhubert_pretrain batch: B = 4 utterances cropped to 750 stacked
 # frames (sequence_length), padded to 768
 TRAIN_SHAPE = (4, 12, 768, 64)
@@ -126,6 +153,8 @@ GRAD_BAR = 1e-4  # rel. L2, loss and every gradient: kernels vs impl="dense"
 # bench.py tiles into its 16-utterance serve batch
 SERVE_LENGTHS = (101,) * 8 + (792,) * 8
 CAPACITY = 896  # pack row width those lengths give (792 rounded up to 128)
+RECT_VALID_KEYS = 4800  # of the 5000 keys of the rectangular case
+TIMED_CASES = ("serving", "training_dropout", "long", "rectangular")
 F32_BAR, LSE_BAR = 1e-4, 1e-4  # max |d| / mean |ref|; lse max |d|
 BF16_ULP_BAR = 1.0     # max |d| in bf16 ulps of max(|ref|, mean |ref|)
 BF16_SHARE_BAR = 0.03  # share of valid bf16 outputs that differ at all
@@ -248,6 +277,13 @@ def train_padding(dev):
     return torch.arange(TRAIN_SHAPE[2], device=dev)[None, :] >= lens[:, None]
 
 
+def rect_padding(dev):
+    """Key padding (1, 5000) of the rectangular case: the last 200 keys."""
+    pad = torch.zeros((1, 5000), dtype=torch.bool, device=dev)
+    pad[0, RECT_VALID_KEYS:] = True
+    return pad
+
+
 def kernel_cases(dev):
     """(name, q shape, k shape, mask kwargs, valid rows (B, Tq) bool)."""
     seg = packed_segments(SERVE_LENGTHS, CAPACITY, dev)
@@ -255,8 +291,7 @@ def kernel_cases(dev):
     pad_tail[1, 900:] = True
     lens = torch.tensor([896, 700, 500, 101], device=dev)
     pad_1h = torch.arange(896, device=dev)[None, :] >= lens[:, None]
-    pad_rect = torch.zeros((1, 5000), dtype=torch.bool, device=dev)
-    pad_rect[0, 4800:] = True
+    pad_rect = rect_padding(dev)
     ones = lambda b, t: torch.ones((b, t), dtype=torch.bool, device=dev)
     return [
         ("serving", (seg.shape[0], 12, CAPACITY, 64), None,
@@ -334,17 +369,20 @@ def phase_kernels(dev, gpu: str):
                 f"plain, {detail}, {time.perf_counter() - t0:.2f} s")
             if not (ok and torch.isfinite(got.float()[rows]).all()):
                 raise AssertionError(f"kernel disagrees at {name} {tag}")
-            if name in ("serving", "training_dropout"):
-                def run_kernel(q=q, k=k, v=v, masks=masks):
-                    fa.flash_attention(q, k, v, **masks)
+            if name in TIMED_CASES:
+                attend = (fa.flash_attention_kv_full if ks != qs
+                          else fa.flash_attention)
+
+                def run_kernel(q=q, k=k, v=v, masks=masks, attend=attend):
+                    attend(q, k, v, **masks)
 
                 def run_plain(q=q, k=k, v=v, masks=masks):
                     fa.flash_attention_reference(q, k, v, **masks)
 
                 kernel_ms, plain_ms = alternate(run_kernel, run_plain,
                                                 inner=5)
-                record[name, tag] = dict(max_abs_err=max_abs, ms=kernel_ms,
-                                         plain_ms=plain_ms)
+                record["flash_attn_fwd", name, tag] = dict(
+                    max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms)
                 log("timing", f"flash_attn_fwd {name} {tag} {tuple(qs)}: "
                     f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms "
                     f"[{gpu}]")
@@ -363,15 +401,24 @@ def alternate(run_kernel, run_plain, inner: int = 1):
 
 def backward_cases(dev):
     """(name, q shape, k shape, forward kwargs, valid query rows (B, Tq),
-    valid keys (B, Tk)): the training shape with dropout 0 and 0.1, and
-    the forward's other shapes (dropout-free; the rectangular one is the
-    backward of flash_attention_kv_full)."""
+    valid keys (B, Tk)): the training shape with dropout 0 and 0.1, the
+    forward's other shapes (dropout-free; the rectangular one is the
+    backward of flash_attention_kv_full), and two ragged edges of the
+    tiles and of the kernels' two-stage ring: T = 777 with key padding and
+    dropout, and T = 65."""
+    lens = torch.tensor([777, 600], device=dev)
+    pad = torch.arange(777, device=dev)[None, :] >= lens[:, None]
+    ones = lambda b, t: torch.ones((b, t), dtype=torch.bool, device=dev)
+    edges = [("ragged_777", (2, 12, 777, 64), None,
+              dict(key_padding_mask=pad, dropout_p=DROPOUT_P,
+                   dropout_seed=DROPOUT_SEED), ones(2, 777)),
+             ("t65", (2, 12, 65, 64), None, {}, ones(2, 65))]
     cases = []
-    for name, qs, ks, masks, valid in training_cases(dev) + kernel_cases(dev):
+    for name, qs, ks, masks, valid in (training_cases(dev) + kernel_cases(dev)
+                                       + edges):
         kpm = masks.get("key_padding_mask")
         tk = (ks or qs)[2]
-        valid_k = (torch.ones(qs[0], tk, dtype=torch.bool, device=dev)
-                   if kpm is None else ~kpm)
+        valid_k = ones(qs[0], tk) if kpm is None else ~kpm
         cases.append((name, qs, ks, masks, valid, valid_k))
     return cases
 
@@ -415,6 +462,12 @@ def phase_backward(dev, gpu: str):
                    rows_of(valid_k, ks))
             tag = "f32" if dtype == torch.float32 else "bf16"
             names = ("dq", "dk", "dv")
+            abs_errs = [float((g.float() - r.float())[s].abs().max())
+                        for g, r, s in zip(got, ref, sel)]
+            record.setdefault(("flash_attn_bwd_dq", name, tag), {})[
+                "max_abs_err"] = abs_errs[0]
+            record.setdefault(("flash_attn_bwd_dkv", name, tag), {})[
+                "max_abs_err"] = max(abs_errs[1:])
             # D, f32 whatever the inputs, against its plain version; in f32
             # also against JAX's D = rowsum(dO o O) from the forward's
             # output (a bf16 O is rounded, and that D with it)
@@ -431,10 +484,6 @@ def phase_backward(dev, gpu: str):
                 detail += "max|d|/mean|ref| " + ", ".join(
                     f"{n} {e:.3e}" for n, e in zip(names, errs))
                 detail += f" (bar {F32_BAR:g})"
-                abs_errs = [float((g - r)[s].abs().max())
-                            for g, r, s in zip(got, ref, sel)]
-                record[name] = dict(max_abs_err_dq=abs_errs[0],
-                                    max_abs_err_dkv=max(abs_errs[1:]))
             else:
                 f32_args = tuple(a.float() if torch.is_tensor(a)
                                  and a.dtype == dtype else a for a in args)
@@ -464,9 +513,37 @@ def phase_backward(dev, gpu: str):
                 f"vs plain, {detail}, {time.perf_counter() - t0:.2f} s")
             if not (ok and finite):
                 raise AssertionError(f"backward kernels disagree at {name} {tag}")
+            if name in ("long", "rectangular"):
+                backward_timing(args, name, tag, record, gpu)
+            del args, got, ref
     check_keep_bits(dev)
     check_determinism(dev)
     return record
+
+
+def backward_timing(args, case: str, tag: str, record: dict, gpu: str):
+    """CUDA-event times, in turns, of the dQ kernel against its plain
+    version (reference_dd, then reference_bwd_dq: the kernel computes D
+    itself) and of the dK/dV kernel against reference_bwd_dkv, on one
+    backward_args tuple; into record[kernel, case, tag]."""
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    _, dd = fa.launch_bwd_dq(*args)
+    ref_dd = fa.reference_dd(*args)
+
+    def dq_plain():
+        fa.reference_bwd_dq(*args, fa.reference_dd(*args))
+
+    for name, kernel, plain in (
+            ("flash_attn_bwd_dq", lambda: fa.launch_bwd_dq(*args), dq_plain),
+            ("flash_attn_bwd_dkv", lambda: fa.launch_bwd_dkv(*args, dd),
+             lambda: fa.reference_bwd_dkv(*args, ref_dd))):
+        kernel_ms, plain_ms = alternate(kernel, plain, inner=5)
+        record.setdefault((name, case, tag), {}).update(ms=kernel_ms,
+                                                        plain_ms=plain_ms)
+        log("timing", f"{name} {case} q{tuple(args[0].shape)} "
+            f"k{tuple(args[1].shape)} {tag}: kernel {kernel_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms [{gpu}]")
 
 
 def check_keep_bits(dev):
@@ -502,29 +579,31 @@ def check_keep_bits(dev):
 
 
 def check_determinism(dev):
-    """The same seed gives the same forward and backward bits twice; another
-    seed gives another output."""
+    """The same seed gives the same forward and backward bits twice, in f32
+    and in bf16; another seed gives another output."""
     from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
-                     .bfloat16() for _ in range(4))
     masks = dict(key_padding_mask=train_padding(dev), dropout_p=DROPOUT_P)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
+                         .to(dtype) for _ in range(4))
 
-    def run(seed):
-        out, lse = fa.flash_attention(q, k, v, return_lse=True,
-                                      dropout_seed=seed, **masks)
-        args = fa.backward_args(q, k, v, lse, dout, dropout_seed=seed,
-                                **masks)
-        return (out,) + fa.launch_bwd(*args)
+        def run(seed):
+            out, lse = fa.flash_attention(q, k, v, return_lse=True,
+                                          dropout_seed=seed, **masks)
+            args = fa.backward_args(q, k, v, lse, dout, dropout_seed=seed,
+                                    **masks)
+            return (out,) + fa.launch_bwd(*args)
 
-    first, second, other = run(7), run(7), run(8)
-    same = all(torch.equal(a, b) for a, b in zip(first, second))
-    differ = not torch.equal(first[0], other[0])
-    log("backward", f"seed 7 twice: forward, dq, dk, dv, D bitwise equal: "
-        f"{same}; seed 8 gives another output: {differ}")
-    if not (same and differ):
-        raise AssertionError("the kernels' dropout is not a function of the seed")
+        first, second, other = run(7), run(7), run(8)
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        differ = not torch.equal(first[0], other[0])
+        log("backward", f"{dtype}, seed 7 twice: forward, dq, dk, dv, D "
+            f"bitwise equal: {same}; seed 8 gives another output: {differ}")
+        if not (same and differ):
+            raise AssertionError(
+                f"the kernels' dropout is not a function of the seed ({dtype})")
 
 
 def write_dataset(root: pathlib.Path, n_utts: int = 32, seed: int = 0) -> str:
@@ -757,24 +836,7 @@ def phase_train_timing(runner, batch, gpu: str):
         _, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
         args = fa.backward_args(q, k, v, lse, dout, **masks)
         tag = "f32" if dtype == torch.float32 else "bf16"
-        # dQ computes D from its own P (its plain version: reference_dd,
-        # then reference_bwd_dq); dK/dV takes that D
-        _, dd = fa.launch_bwd_dq(*args)
-        ref_dd = fa.reference_dd(*args)
-
-        def dq_plain():
-            fa.reference_bwd_dq(*args, fa.reference_dd(*args))
-
-        for name, kernel, plain in (
-                ("flash_attn_bwd_dq", lambda: fa.launch_bwd_dq(*args),
-                 dq_plain),
-                ("flash_attn_bwd_dkv", lambda: fa.launch_bwd_dkv(*args, dd),
-                 lambda: fa.reference_bwd_dkv(*args, ref_dd))):
-            kernel_ms, plain_ms = alternate(kernel, plain, inner=5)
-            record[name, tag] = dict(ms=kernel_ms, plain_ms=plain_ms)
-            log("timing", f"{name} training shape {TRAIN_SHAPE} {tag}, "
-                f"dropout {DROPOUT_P}: kernel {kernel_ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms [{gpu}]")
+        backward_timing(args, "training_dropout", tag, record, gpu)
     return record
 
 
@@ -1034,8 +1096,8 @@ def phase_conv(dev, gpu: str):
     """The three conv kernels against their plain version (and cuDNN's
     time) at the training batch's layer shapes and at T = 777 / 515.
     Returns the record for the kernels line: per kernel the worst f32
-    max |d| and, summed over the six training layers in f32, kernel,
-    plain, library and bound ms."""
+    max |d| and, summed over the six training layers, kernel, plain,
+    library and bound ms in f32 and (keys ending in _bf16) in bf16."""
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1046,8 +1108,10 @@ def phase_conv(dev, gpu: str):
     cases += [("t777", (2, 777, 512, 2, 512, 2)),
               ("t515", (2, 515, 512, 3, 512, 2))]
     names = ("conv1d_fwd", "conv1d_dw", "conv1d_dx")
-    record = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                      bound_ms=0.0, ops_ms=0.0) for n in names}
+    sums = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms")
+    record = {n: dict(max_abs_err=0.0, **{k + sfx: 0.0 for k in sums
+                                          for sfx in ("", "_bf16")})
+              for n in names}
     gen = torch.Generator(device=dev).manual_seed(4)
     for name, shape in cases:
         b, t, c, k, o, s = shape
@@ -1106,13 +1170,17 @@ def phase_conv(dev, gpu: str):
                 conv_timing(shape, x, w, dy, tag, record, gpu)
     for n in names:
         rec = record[n]
-        rec["bound_by"] = ("operations" if rec.pop("ops_ms") >= rec["bound_ms"]
-                           else "bytes")
-        log("timing", f"{n}, HuBERT frontend layers 1-6 at B={HUBERT_TRAIN[0]}"
-            f" x {HUBERT_TRAIN[1]} samples, f32 summed: kernel "
-            f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, cuDNN "
-            f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-            f"({rec['bound_by']}) [{gpu}]")
+        for sfx, tag in (("", "f32"), ("_bf16", "bf16")):
+            rec["bound_by" + sfx] = (
+                "operations" if rec.pop("ops_ms" + sfx) >= rec["bound_ms" + sfx]
+                else "bytes")
+            log("timing", f"{n}, HuBERT frontend layers 1-6 at B="
+                f"{HUBERT_TRAIN[0]} x {HUBERT_TRAIN[1]} samples, {tag} summed: "
+                f"kernel {rec['ms' + sfx]:.3f} ms, plain "
+                f"{rec['plain_ms' + sfx]:.3f} ms, cuDNN "
+                f"{rec['library_ms' + sfx]:.3f} ms, bound "
+                f"{rec['bound_ms' + sfx]:.3f} ms ({rec['bound_by' + sfx]}) "
+                f"[{gpu}]")
     return record
 
 
@@ -1120,8 +1188,9 @@ def conv_timing(shape, x, w, dy, tag, record, gpu: str):
     """CUDA-event times at one layer shape: each kernel against its plain
     version (dW and dX: autograd through the plain forward, which that
     includes) in turns, and cuDNN's call for the same function on the
-    (B, C, T) / (O, C, K) layout (the transposes are made beforehand). f32
-    times and bounds add into ``record``."""
+    (B, C, T) / (O, C, K) layout (the transposes are made beforehand).
+    Times and bounds add into ``record``, bf16's under keys ending in
+    _bf16."""
     from torch.nn.grad import conv1d_input, conv1d_weight
     import torch.nn.functional as F
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
@@ -1159,13 +1228,12 @@ def conv_timing(shape, x, w, dy, tag, record, gpu: str):
         log("timing", f"{name} {tag} x{(b, t, c)} K={k} s={s}: kernel "
             f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN "
             f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}) [{gpu}]")
-        if tag == "f32":
-            rec = record[name]
-            rec["ms"] += kernel_ms
-            rec["plain_ms"] += plain_ms
-            rec["library_ms"] += library_ms
-            rec["bound_ms"] += bound_ms
-            rec["ops_ms"] += work[name][0] / PEAK_FLOPS[x.dtype] * 1e3
+        rec, sfx = record[name], "" if tag == "f32" else "_bf16"
+        rec["ms" + sfx] += kernel_ms
+        rec["plain_ms" + sfx] += plain_ms
+        rec["library_ms" + sfx] += library_ms
+        rec["bound_ms" + sfx] += bound_ms
+        rec["ops_ms" + sfx] += work[name][0] / PEAK_FLOPS[x.dtype] * 1e3
 
 
 def launch_counts():
@@ -1537,61 +1605,172 @@ def phase_hubert_profile(runner, cudnn_model, batch, gpu: str):
                       lambda: step(runner.params, batch, runner.rng), gpu)
 
 
-def attention_library_ms(dev, gpu: str):
-    """F.scaled_dot_product_attention's times, the flash kernels' library
-    yardstick (timed here, never called by the port): the forward at the
-    serving shape with the packed segments as a boolean mask, and the
-    backward (dq, dk, dv in one call) at the training shape with key
-    padding and dropout 0.1. f32, TF32 off. Returns (fwd ms, bwd ms)."""
+def attention_library_ms(dev, gpu: str, dtype):
+    """F.scaled_dot_product_attention's times in ``dtype`` (f32 with TF32
+    off), the flash kernels' library yardstick (timed here, never called by
+    the port): {(kernel, case): ms}. The forward at the serving shape with
+    the packed segments as a boolean mask, at the training shape with key
+    padding and dropout 0.1 (its own random mask), at T = 5000 and at
+    1024 x 5000 with key padding; the backward (dq, dk and dv in one call,
+    the yardstick of the dQ and dK/dV pair) at the training shape with key
+    padding and dropout 0.1, at T = 5000 and at 1024 x 5000."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(5)
     seg = packed_segments(SERVE_LENGTHS, CAPACITY, dev)
-    q, k, v = (torch.randn((seg.shape[0], 12, CAPACITY, 64), generator=gen,
-                           device=dev) for _ in range(3))
-    allowed = ((seg[:, None, :, None] == seg[:, None, None, :])
-               & (seg != 0)[:, None, None, :])
-    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=allowed), inner=5)
-    q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
-                     .requires_grad_(i < 3) for i in range(4))
-    keep_keys = ~train_padding(dev)[:, None, None, :]
-    out = F.scaled_dot_product_attention(q, k, v, attn_mask=keep_keys,
-                                         dropout_p=DROPOUT_P)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), dout,
-                                                 retain_graph=True), inner=5)
-    log("timing", f"F.scaled_dot_product_attention f32: forward at the "
-        f"serving shape (segment mask) {fwd_ms:.3f} ms; backward at the "
-        f"training shape (key padding, dropout {DROPOUT_P}) {bwd_ms:.3f} ms "
-        f"[{gpu}]")
-    return fwd_ms, bwd_ms
 
+    def randn(shape, grad=False):
+        return (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                .requires_grad_(grad))
 
-def attention_bounds():
-    """(ms, bound_by) per flash kernel at the line's shapes, f32: the
-    forward at the serving batch counts only the (query, key) pairs of one
-    segment (4 d FLOPs each: QK^T and PV); dQ (6 d: QK^T, dO V^T, dS K) and
-    dK/dV (8 d: and dS^T Q, Pd^T dO) at the training shape count every
-    query against the valid keys. Bytes: q, k, v, dO read once, outputs
-    written once, plus the f32 masks and statistics."""
-    lengths = np.asarray(SERVE_LENGTHS)
-    seg = packed_segments(SERVE_LENGTHS, CAPACITY, "cpu")
-    rows, h, d = seg.shape[0], 12, 64
-    pairs = float(sum(n * n for n in lengths))
-    tensor = rows * h * CAPACITY * d * 4
-    out = {"flash_attn_fwd": bound(4 * d * h * pairs,
-                                   4 * tensor + rows * CAPACITY * 12
-                                   + rows * h * CAPACITY * 4, torch.float32)}
-    b, h, t, d = TRAIN_SHAPE
-    pairs = float(t * sum(TRAIN_LENGTHS))
-    tensor = b * h * t * d * 4
-    stats = 2 * b * h * t * 4 + b * t * 4  # lse, D, bias
-    out["flash_attn_bwd_dq"] = bound(6 * d * h * pairs, 5 * tensor + stats,
-                                     torch.float32)
-    out["flash_attn_bwd_dkv"] = bound(8 * d * h * pairs, 6 * tensor + stats,
-                                      torch.float32)
+    def keep(pad):  # (B, Tk) padding -> a mask that keeps the valid keys
+        return ~pad[:, None, None, :]
+
+    pad_rect = rect_padding(dev)
+    cases = {
+        "serving": ((seg.shape[0], 12, CAPACITY, 64), None,
+                    (seg[:, None, :, None] == seg[:, None, None, :])
+                    & (seg != 0)[:, None, None, :], 0.0),
+        "training_dropout": (TRAIN_SHAPE, None, keep(train_padding(dev)),
+                             DROPOUT_P),
+        "long": ((1, 12, 5000, 64), None, None, 0.0),
+        "rectangular": ((1, 12, 1024, 64), (1, 12, 5000, 64), keep(pad_rect),
+                        0.0),
+    }
+    out = {}
+    for case, (qs, ks, mask, p) in cases.items():
+        q = randn(qs, True)
+        k, v = randn(ks or qs, True), randn(ks or qs, True)
+
+        def fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  dropout_p=p)
+
+        with torch.no_grad():
+            out["flash_attn_fwd", case] = cuda_ms(fwd, inner=5)
+        if case == "serving":
+            continue
+        o = fwd()
+        dout = randn(qs)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), dout,
+                                                     retain_graph=True),
+                         inner=5)
+        out["flash_attn_bwd_dq", case] = out["flash_attn_bwd_dkv", case] = (
+            bwd_ms)
+        del o, q, k, v, dout
+    log("timing", f"F.scaled_dot_product_attention {dtype}: " + ", ".join(
+        f"{'forward' if n == 'flash_attn_fwd' else 'backward'} at {c} "
+        f"{ms:.3f} ms" for (n, c), ms in out.items()
+        if n != "flash_attn_bwd_dkv") + f" [{gpu}]")
     return out
+
+
+def attention_work(q_shape, tk: int, pairs: float, dtype,
+                   segments: bool = False) -> dict:
+    """{kernel: (FLOPs, bytes)} of the forward, dQ and dK/dV kernels for q
+    (B, H, Tq, d) against tk keys, where ``pairs`` (query, key) pairs per
+    head, summed over the batch, survive the masks: 4 d (QK^T and PV),
+    6 d (QK^T, dO V^T, dS K) and 8 d (and dS^T Q, Pd^T dO) FLOPs per pair
+    and head. Bytes: every input read once and every output written once,
+    q/k/v/dO/out and their gradients in ``dtype``, the bias, LSE and D in
+    f32, segment ids in int32."""
+    b, h, tq, d = q_shape
+    size = torch.tensor([], dtype=dtype).element_size()
+    q_t, k_t = b * h * tq * d * size, b * h * tk * d * size
+    row_f32, key_f32 = b * h * tq * 4, b * tk * 4  # LSE or D; the bias
+    masks = key_f32 + (4 * b * (tq + tk) if segments else 0)
+    return {"flash_attn_fwd": (4 * d * h * pairs,
+                               2 * q_t + 2 * k_t + masks + row_f32),
+            "flash_attn_bwd_dq": (6 * d * h * pairs,
+                                  3 * q_t + 2 * k_t + masks + 2 * row_f32),
+            "flash_attn_bwd_dkv": (8 * d * h * pairs,
+                                   2 * q_t + 4 * k_t + masks + 2 * row_f32)}
+
+
+def attention_bounds(dtype) -> dict:
+    """{(kernel, case): (ms, bound_by)} of the flash kernels in ``dtype`` at
+    the line's shapes: the forward at the serving batch, counting only the
+    (query, key) pairs of one segment; every kernel at the training shape
+    (every query row against the valid keys), at T = 5000 (every pair) and
+    at 1024 x 5000 (every query against the 4,800 valid keys)."""
+    seg = packed_segments(SERVE_LENGTHS, CAPACITY, "cpu")
+    serving = (seg.shape[0], 12, CAPACITY, 64)
+    work = {
+        "serving": attention_work(serving, CAPACITY,
+                                  float(sum(n * n for n in SERVE_LENGTHS)),
+                                  dtype, segments=True),
+        "training_dropout": attention_work(
+            TRAIN_SHAPE, TRAIN_SHAPE[2],
+            float(TRAIN_SHAPE[2] * sum(TRAIN_LENGTHS)), dtype),
+        "long": attention_work((1, 12, 5000, 64), 5000, 5000.0 * 5000, dtype),
+        "rectangular": attention_work((1, 12, 1024, 64), 5000,
+                                      1024.0 * RECT_VALID_KEYS, dtype),
+    }
+    out = {}
+    for case, per_kernel in work.items():
+        for name, (flops, n_bytes) in per_kernel.items():
+            if case == "serving" and name != "flash_attn_fwd":
+                continue
+            out[name, case] = bound(flops, n_bytes, dtype)
+    return out
+
+
+def merge(into: dict, more: dict) -> None:
+    """Adds the fields of ``more``'s records to ``into``'s, key by key."""
+    for key, fields in more.items():
+        into.setdefault(key, {}).update(fields)
+
+
+def check_tensor_cores(kernels) -> dict:
+    """HGMMA instructions (Hopper's warpgroup tensor-core products) per
+    kernel of the built library, from cuobjdump -sass; fails unless both
+    bf16 backward kernels have some. Returns {backward kernel: count of its
+    bf16 version}."""
+    counts = kernels.sass_instruction_counts("HGMMA")
+    for symbol, n in counts.items():
+        short = next((k for k in KERNEL_SYMBOLS if k in symbol), symbol[:80])
+        if "I13__nv_bfloat16" in symbol:
+            short += "<bf16>"
+        elif "IfE" in symbol:
+            short += "<f32>"
+        log("build", f"SASS: {n} HGMMA in {short}")
+    out = {}
+    for name, symbol in (("flash_attn_bwd_dq", "flash_attn_bwd_dq_bf16_kernel"),
+                         ("flash_attn_bwd_dkv",
+                          "flash_attn_bwd_dkv_bf16_kernel")):
+        out[name] = sum(n for sym, n in counts.items() if symbol in sym)
+        if not out[name]:
+            raise AssertionError(f"{symbol} has no HGMMA instruction: the "
+                                 "bf16 backward does not run on the tensor "
+                                 "cores")
+    return out
+
+
+def attention_entry(name: str, record: dict, bounds: dict,
+                    library: dict) -> dict:
+    """The kernels-line entry of one flash kernel: at its main case (the
+    serving batch for the forward, the training shape with dropout for the
+    backward) its f32 numbers and, under keys ending in _bf16, its bf16
+    ones; every other timed case under "cases", per dtype."""
+    def numbers(case, dtype, tag):
+        ms, by = bounds[dtype][name, case]
+        return dict(record[name, case, tag], bound_ms=ms, bound_by=by,
+                    library_ms=library[dtype].get((name, case)))
+
+    main = "serving" if name == "flash_attn_fwd" else "training_dropout"
+    entry = dict(name=name, source=ATTN_SOURCES[name],
+                 replaces=ATTN_REPLACES[name],
+                 **numbers(main, torch.float32, "f32"))
+    entry.update({k + "_bf16": v for k, v in
+                  numbers(main, torch.bfloat16, "bf16").items()})
+    entry["cases"] = {
+        case: {tag: numbers(case, dtype, tag) for dtype, tag in
+               ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
+        for case in TIMED_CASES
+        if case != main and (name, case, "f32") in record
+        and "ms" in record[name, case, "f32"]}
+    return entry
 
 
 def main() -> None:
@@ -1619,11 +1798,13 @@ def main() -> None:
     for line in _kernels.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build", line.strip())
+    hgmma = check_tensor_cores(_kernels)
 
     record = phase_kernels(dev, gpu)
-    backward = phase_backward(dev, gpu)
+    merge(record, phase_backward(dev, gpu))
     conv = phase_conv(dev, gpu)
-    sdpa_fwd_ms, sdpa_bwd_ms = attention_library_ms(dev, gpu)
+    library = {dtype: attention_library_ms(dev, gpu, dtype)
+               for dtype in (torch.float32, torch.bfloat16)}
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, extractors, wavs = phase_slice(dev, gpu, tmp)
         phase_timing(extractors, wavs, gpu)
@@ -1631,7 +1812,7 @@ def main() -> None:
             phase_profile(extractors, wavs, gpu)
         del extractors
         runner, batch, train = phase_train(dev, gpu, tmp)
-        record.update(phase_train_timing(runner, batch, gpu))
+        merge(record, phase_train_timing(runner, batch, gpu))
         if args.profile:
             phase_train_profile(runner, batch, gpu)
         del runner, batch
@@ -1647,25 +1828,14 @@ def main() -> None:
     paths = {"melhubert serve": {"flash_attn_fwd": serve_launches},
              "melhubert train": train, "hubert serve": hubert_serve,
              "hubert train": hubert_train}
-    bwd = backward["training_dropout"]
-    fwd = record["serving", "f32"]
-    fwd_drop = record["training_dropout", "f32"]
-    bounds = attention_bounds()
-    entries = [
-        dict(name="flash_attn_fwd", source=FA_SOURCE, replaces=FA_REPLACES,
-             max_abs_err=fwd["max_abs_err"], ms=fwd["ms"],
-             plain_ms=fwd["plain_ms"], library_ms=sdpa_fwd_ms,
-             dropout_max_abs_err=fwd_drop["max_abs_err"],
-             dropout_ms=fwd_drop["ms"], dropout_plain_ms=fwd_drop["plain_ms"]),
-        dict(name="flash_attn_bwd_dq", source=BWD_SOURCE,
-             replaces=DQ_REPLACES, max_abs_err=bwd["max_abs_err_dq"],
-             library_ms=sdpa_bwd_ms, **record["flash_attn_bwd_dq", "f32"]),
-        dict(name="flash_attn_bwd_dkv", source=BWD_SOURCE,
-             replaces=DKV_REPLACES, max_abs_err=bwd["max_abs_err_dkv"],
-             library_ms=sdpa_bwd_ms, **record["flash_attn_bwd_dkv", "f32"]),
-    ]
-    for e in entries:
-        e["bound_ms"], e["bound_by"] = bounds[e["name"]]
+    bounds = {dtype: attention_bounds(dtype)
+              for dtype in (torch.float32, torch.bfloat16)}
+    entries = [attention_entry(name, record, bounds, library)
+               for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                            "flash_attn_bwd_dkv")]
+    for e in entries[1:]:
+        e["source_bf16"] = BWD_SM90_SOURCE
+        e["hgmma_bf16"] = hgmma[e["name"]]
     entries += [dict(name=name, source=CONV_SOURCE,
                      replaces=CONV_REPLACES[name], **conv[name])
                 for name in ("conv1d_fwd", "conv1d_dw", "conv1d_dx")]

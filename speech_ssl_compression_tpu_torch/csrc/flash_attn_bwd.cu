@@ -1,5 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA cores, f32 or bf16 in,
-// with the forward's in-kernel attention dropout regenerated.
+// Flash-attention backward for Hopper (sm_90a), with the forward's in-kernel
+// attention dropout regenerated: the C entry points for both input dtypes,
+// and the f32 kernels on the CUDA cores. bf16 inputs go to the tensor-core
+// kernels of flash_attn_bwd_sm90.cu (wgmma, TMA), which compute the same
+// function with the same rounding points; see "The bf16 route" below.
 //
 // Replaces the four Pallas TPU backward kernels of
 // speech_ssl_compression_tpu/ops/flash_attention.py:
@@ -62,15 +65,47 @@
 // H100 SXM), and with dropout by the Philox draws (~100 integer
 // instructions per score, in both kernels).
 //
-// What this simple design leaves on the table: the tensor cores (wgmma on
-// bf16 tiles), TMA and a multi-stage ring for the loads, one fused kernel
-// that computes S and dPd once (FlashAttention-2 computes dK/dV in one
-// pass and adds dQ with atomics; this port keeps the deterministic
-// two-kernel split), and causal skipping below tile granularity.
+// What this simple design leaves on the table: TMA and a multi-stage ring
+// for the loads, one fused kernel that computes S and dPd once
+// (FlashAttention-2 computes dK/dV in one pass and adds dQ with atomics;
+// this port keeps the deterministic two-kernel split), and causal skipping
+// below tile granularity. f32 keeps this design: its bars (1e-4 against
+// the plain version, the HuBERT gradients within 1e-4 of float64) leave no
+// room for TF32 on the tensor cores.
+//
+// The bf16 route (flash_attn_bwd_sm90.cu). The five products (S, dPd, dQ,
+// dK, dV) run on the tensor cores with wgmma: bf16 tiles in shared memory,
+// loaded by TMA through a two-stage ring of mbarriers, f32 accumulators in
+// registers, and dS and Pd fed back as bf16 register fragments. Each
+// score's keep bit is drawn once per kernel: the dQ kernel packs its rows'
+// bits into a shared-memory bitmask in its D pass and reads them in its dQ
+// pass, and one Philox call serves four adjacent keys. What bounds the bf16
+// kernels now is neither the tensor cores (~0.01 ms a kernel at the
+// training shape) nor the bytes (~0.008 ms), but the per-score scalar work
+// on the CUDA cores (masks, expf, dS, packing, and ~20% for the draws):
+// 0.27-0.28 ms (dQ) and 0.14-0.15 ms (dK/dV) with dropout on one H100 SXM,
+// against 0.86 and 0.63 ms here; that file's header says more.
 
 #include <math.h>
 
 #include "flash_common.cuh"
+
+namespace sslc {
+// the bf16 kernels' launchers (flash_attn_bwd_sm90.cu)
+cudaError_t launch_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                               const void* bias, const void* segq,
+                               const void* segk, const void* dout,
+                               const void* lse, void* dd, void* dq, int B,
+                               int H, int Tq, int Tk, int causal,
+                               const Dropout& dropout, cudaStream_t stream);
+cudaError_t launch_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                                const void* bias, const void* segq,
+                                const void* segk, const void* dout,
+                                const void* lse, const void* dd, void* dk,
+                                void* dv, int B, int H, int Tq, int Tk,
+                                int causal, const Dropout& dropout,
+                                cudaStream_t stream);
+}  // namespace sslc
 
 namespace {
 
@@ -485,8 +520,8 @@ int sslc_flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   const Dropout dropout =
       make_dropout(use_dropout, keep_threshold, keep_scale, seed);
   if (is_bf16) {
-    return launch_dq<__nv_bfloat16>(q, k, v, bias, segq, segk, dout, lse, dd,
-                                    dq, B, H, Tq, Tk, causal, dropout, s);
+    return launch_bwd_dq_sm90(q, k, v, bias, segq, segk, dout, lse, dd, dq, B,
+                              H, Tq, Tk, causal, dropout, s);
   }
   return launch_dq<float>(q, k, v, bias, segq, segk, dout, lse, dd, dq, B, H,
                           Tq, Tk, causal, dropout, s);
@@ -509,8 +544,8 @@ int sslc_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   const Dropout dropout =
       make_dropout(use_dropout, keep_threshold, keep_scale, seed);
   if (is_bf16) {
-    return launch_dkv<__nv_bfloat16>(q, k, v, bias, segq, segk, dout, lse, dd,
-                                     dk, dv, B, H, Tq, Tk, causal, dropout, s);
+    return launch_bwd_dkv_sm90(q, k, v, bias, segq, segk, dout, lse, dd, dk,
+                               dv, B, H, Tq, Tk, causal, dropout, s);
   }
   return launch_dkv<float>(q, k, v, bias, segq, segk, dout, lse, dd, dk, dv,
                            B, H, Tq, Tk, causal, dropout, s);

@@ -3,11 +3,14 @@
 The sources in ``csrc/`` have a plain C interface. At first use each
 ``.cu`` file is compiled by its own ``nvcc`` process, all started together,
 and the objects are linked into one shared library, which is loaded with
-``ctypes``; no PyTorch headers are compiled. The library's name carries a
+``ctypes``; no PyTorch headers are compiled. The library links the CUDA
+driver (``-lcuda``) for ``cuTensorMapEncodeTiled``, which builds the TMA
+descriptors of the bf16 backward kernels. The library's name carries a
 hash of the sources and flags, so an edit rebuilds. Builds go to
 ``_build/`` inside the package (listed in ``.gitignore``), and ptxas's
 report of registers, shared memory and spills per kernel is kept beside the
-library (:func:`ptxas_report`).
+library (:func:`ptxas_report`); :func:`sass_instruction_counts` reads the
+built machine code.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on machines without ``nvcc`` or a GPU.
@@ -30,6 +33,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-lcuda",)
 
 
 def _sources():
@@ -38,27 +42,47 @@ def _sources():
 
 def library_path() -> pathlib.Path:
     """Where the library for the current sources lives once built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sum(_sources(), []):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsslc_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME:
-        path = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        path = pathlib.Path(CUDA_HOME) / "bin" / name
         if path.exists():
             return str(path)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
         raise RuntimeError(
-            "nvcc not found (no CUDA toolkit): the port's CUDA kernels "
-            "cannot be built on this machine"
+            f"{name} not found (no CUDA toolkit): the port's CUDA kernels "
+            "cannot be built or read on this machine"
         )
     return found
+
+
+def sass_instruction_counts(opcode: str) -> dict:
+    """{kernel symbol: number of SASS instructions whose opcode starts with
+    ``opcode``} in the built library, from ``cuobjdump -sass`` (e.g.
+    ``HGMMA``: Hopper's warpgroup tensor-core product)."""
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(build())],
+                         capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "*/" in line:
+            op = line.split("*/", 1)[1].split()
+            if op and op[0].startswith("@"):  # a predicate guard
+                op = op[1:]
+            if op and op[0].startswith(opcode):
+                counts[name] += 1
+    return counts
 
 
 def ptxas_report() -> str:
@@ -77,7 +101,7 @@ def build() -> pathlib.Path:
         return lib
     cu, _ = _sources()
     BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = _cuda_tool("nvcc")
     tag = f"{lib.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     compiles = []
@@ -98,7 +122,13 @@ def build() -> pathlib.Path:
             raise RuntimeError(
                 f"nvcc failed with exit code {code}: {' '.join(cmd)}\n{err}")
         tmp = BUILD_DIR / f"{tag}.tmp.so"
-        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        # the driver library's link stub, where the toolkit keeps one
+        cuda = pathlib.Path(nvcc).resolve().parent.parent
+        stubs = [f"-L{d}" for d in (cuda / "lib64" / "stubs",
+                                    cuda / "targets" / "x86_64-linux" / "lib"
+                                    / "stubs") if d.is_dir()]
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs), *stubs,
+               *LINK_FLAGS]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

@@ -9,11 +9,12 @@ port's bits are not JAX's.
 Generators are explicit. :func:`dropout` draws its bits from a
 ``torch.Generator`` on the tensor's device. Attention dropout draws none:
 :func:`attention_keep_mask` is a counter-based function of
-(seed, b, h, row, col), Philox-4x32-10 with counter (col, row, b * H + h, 0)
-and key (seed lo, seed hi), whose first word is the element's bits. The
-CUDA kernels (``csrc/flash_common.cuh``) compute the same bits in-kernel,
-so the forward, the backward kernels, this plain version and
-``dense_attention`` all see one mask, whatever their tiles.
+(seed, b, h, row, col): one Philox-4x32-10 call at counter
+(col // 4, row, b * H + h, 0) and key (seed lo, seed hi) serves four
+adjacent keys, and key col takes its word col mod 4. The CUDA kernels
+(``csrc/flash_common.cuh``) compute the same bits in-kernel, so the
+forward, the backward kernels, this plain version and ``dense_attention``
+all see one mask, whatever their tiles.
 """
 
 from __future__ import annotations
@@ -94,19 +95,22 @@ def philox4x32(counter, key, rounds: int = 10):
 
 def attention_keep_bits(seed: int, b: int, h: int, tq: int, tk: int,
                         device=None) -> torch.Tensor:
-    """(b, h, tq, tk) int64 tensor of uint32 bits, one Philox draw per
-    attention-probability element at counter (col, row, bi * h + hi, 0)."""
+    """(b, h, tq, tk) int64 tensor of uint32 bits of the attention
+    probabilities: element (row, col) of head (bi, hi) is word col mod 4 of
+    one Philox call at counter (col // 4, row, bi * h + hi, 0), so each call
+    serves four adjacent keys."""
     seed = int(seed)
     if not 0 <= seed < 2**64:
         raise ValueError(f"seed must be a uint64, got {seed}")
     i64 = dict(dtype=torch.int64, device=device)
-    col = torch.arange(tk, **i64).view(1, 1, 1, tk)
+    groups = (tk + 3) // 4
+    col4 = torch.arange(groups, **i64).view(1, 1, 1, groups)
     row = torch.arange(tq, **i64).view(1, 1, tq, 1)
     bh = torch.arange(b * h, **i64).view(b, h, 1, 1)
     zero = torch.zeros((), **i64)
-    bits, _, _, _ = philox4x32((col, row, bh, zero),
-                               (seed & _MASK32, seed >> 32))
-    return bits.expand(b, h, tq, tk)
+    words = philox4x32((col4, row, bh, zero), (seed & _MASK32, seed >> 32))
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    return bits.reshape(b, h, tq, 4 * groups)[..., :tk]
 
 
 def attention_keep_mask(seed: int, b: int, h: int, tq: int, tk: int,

@@ -1,0 +1,105 @@
+"""The pieces of ``chip_smoke.py`` that need no GPU: the attention kernels'
+work and bounds per dtype (the kernels line's bound_ms and bound_by), the
+layout of an attention kernel's entry in that line, and the check that the
+bf16 backward kernels run on the tensor cores (HGMMA in their SASS)."""
+
+import pathlib
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+@pytest.mark.parametrize("dtype,size,peak", [(torch.float32, 4, 67e12),
+                                             (torch.bfloat16, 2, 989e12)])
+def test_attention_bounds_per_dtype(dtype, size, peak):
+    assert chip_smoke.PEAK_FLOPS[dtype] == peak
+    b, h, t, d = chip_smoke.TRAIN_SHAPE
+    pairs = float(t * sum(chip_smoke.TRAIN_LENGTHS))
+    work = chip_smoke.attention_work(chip_smoke.TRAIN_SHAPE, t, pairs, dtype)
+    # 4 d, 6 d and 8 d FLOPs per (query, key) pair and head
+    for name, per_pair in zip(KERNELS, (4, 6, 8)):
+        assert work[name][0] == per_pair * d * h * pairs
+    # q/k/v/dO and their outputs at the dtype's size, statistics in f32:
+    # forward 4 tensors, dQ 5 (q, k, v, dO, dq), dK/dV 6
+    tensor, rows, keys = b * h * t * d, b * h * t * 4, b * t * 4
+    assert work["flash_attn_fwd"][1] == 4 * tensor * size + keys + rows
+    assert work["flash_attn_bwd_dq"][1] == 5 * tensor * size + keys + 2 * rows
+    assert work["flash_attn_bwd_dkv"][1] == 6 * tensor * size + keys + 2 * rows
+    bounds = chip_smoke.attention_bounds(dtype)
+    for name in KERNELS:
+        flops, n_bytes = work[name]
+        want = max(flops / peak, n_bytes / chip_smoke.PEAK_BYTES) * 1e3
+        ms, by = bounds[name, "training_dropout"]
+        assert ms == pytest.approx(want, rel=1e-12)
+        assert by == "operations"  # 64 dims: above the ridge in both dtypes
+    # the pair's bf16 bounds at the training shape, ~0.01 ms each
+    if dtype == torch.bfloat16:
+        assert bounds["flash_attn_bwd_dq", "training_dropout"][0] == (
+            pytest.approx(0.0097, rel=0.01))
+        assert bounds["flash_attn_bwd_dkv", "training_dropout"][0] == (
+            pytest.approx(0.0129, rel=0.01))
+    # every timed case has a bound; the serving batch only the forward's
+    assert set(bounds) == {(n, c) for n in KERNELS
+                           for c in chip_smoke.TIMED_CASES
+                           if c != "serving" or n == "flash_attn_fwd"}
+    # the long shape is more work than the training shape
+    assert bounds["flash_attn_fwd", "long"][0] > bounds[
+        "flash_attn_fwd", "training_dropout"][0]
+
+
+def test_attention_entry_has_both_dtypes_and_every_timed_case():
+    record, bounds, library = {}, {}, {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        bounds[dtype] = chip_smoke.attention_bounds(dtype)
+        library[dtype] = {("flash_attn_bwd_dq", c): 1.0
+                          for c in ("training_dropout", "long")}
+        for case in ("training_dropout", "long", "training"):
+            record["flash_attn_bwd_dq", case, tag] = dict(max_abs_err=0.1)
+            if case != "training":  # timed
+                record["flash_attn_bwd_dq", case, tag].update(ms=2.0,
+                                                              plain_ms=3.0)
+    e = chip_smoke.attention_entry("flash_attn_bwd_dq", record, bounds,
+                                   library)
+    for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        assert key in e and key + "_bf16" in e
+    assert e["source"].endswith("csrc/flash_attn_bwd.cu")
+    assert e["replaces"].endswith("ops/flash_attention.py:473")
+    assert e["bound_ms"] > e["bound_ms_bf16"]
+    assert set(e["cases"]) == {"long"}  # untimed cases stay out
+    assert set(e["cases"]["long"]) == {"f32", "bf16"}
+    assert e["cases"]["long"]["bf16"]["library_ms"] == 1.0
+
+
+class _Kernels:
+    def __init__(self, counts):
+        self.counts = counts
+
+    def sass_instruction_counts(self, opcode):
+        assert opcode == "HGMMA"
+        return self.counts
+
+
+def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
+    counts = {"_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dq_bf16_kernelE": 12,
+              "_ZN4sslc12_GLOBAL__N_130flash_attn_bwd_dkv_bf16_kernelE": 16,
+              "_ZN12_GLOBAL__N_124flash_attn_bwd_dq_kernelIfEEv": 0}
+    got = chip_smoke.check_tensor_cores(_Kernels(counts))
+    assert got == {"flash_attn_bwd_dq": 12, "flash_attn_bwd_dkv": 16}
+    assert "16 HGMMA in flash_attn_bwd_dkv_bf16_kernel" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("missing", ["dq", "dkv"])
+def test_tensor_core_check_fails_without_hgmma(missing):
+    counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE":
+              0 if k == missing else 8 for k in ("dq", "dkv")}
+    with pytest.raises(AssertionError, match="tensor cores"):
+        chip_smoke.check_tensor_cores(_Kernels(counts))

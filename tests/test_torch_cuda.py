@@ -194,7 +194,30 @@ BWD_CASES = {
     "causal": ((2, 12, 1024, 64), None, 0.0),
     "one_head": ((4, 1, 896, 64), None, 0.0),
     "rectangular": ((1, 12, 1024, 64), 5000, 0.0),
+    # the packed serving shape with segments, and ragged edges of the tiles
+    # and of the two-stage ring: T = 777 with key padding and dropout, one
+    # row, one row past a tile
+    "serving": ((8, 12, 896, 64), None, 0.0),
+    "ragged_777": ((2, 12, 777, 64), None, 0.1),
+    "t1": ((2, 12, 1, 64), None, 0.0),
+    "t65": ((2, 12, 65, 64), None, 0.0),
 }
+
+
+def _bwd_masks(name, dev):
+    """(forward kwargs, valid query rows (B, Tq)) of a BWD_CASES entry."""
+    qs, _, p = BWD_CASES[name]
+    valid = torch.ones(qs[0], qs[2], dtype=torch.bool, device=dev)
+    if name.startswith("training"):
+        return _train_masks(dev, p), valid
+    if name == "ragged_777":
+        lens = torch.tensor([777, 600], device=dev)
+        pad = torch.arange(777, device=dev)[None, :] >= lens[:, None]
+        return dict(key_padding_mask=pad, dropout_p=p, dropout_seed=1234), valid
+    if name in SHAPES:
+        _, _, masks, valid = _case(name, dev)
+        return masks, valid
+    return {}, valid
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -202,14 +225,13 @@ BWD_CASES = {
 def test_backward_kernels_match_plain_version(name, dtype):
     dev = torch.device("cuda")
     qs, tk, p = BWD_CASES[name]
-    if name.startswith("training"):
-        masks = _train_masks(dev, p)
-    else:
-        masks = _case(name, dev)[2]
+    masks, valid = _bwd_masks(name, dev)
     ks = qs if tk is None else (qs[0], qs[1], tk, qs[3])
     g = torch.Generator(device=dev).manual_seed(1)
     q, dout = (torch.randn(qs, generator=g, device=dev).to(dtype)
                for _ in range(2))
+    # padded query rows carry dO = 0, as they do in the model
+    dout = dout.masked_fill(~valid[:, None, :, None], 0.0)
     k, v = (torch.randn(ks, generator=g, device=dev).to(dtype)
             for _ in range(2))
     if tk is None:
@@ -227,6 +249,15 @@ def test_backward_kernels_match_plain_version(name, dtype):
     assert (dd - ref_dd).abs().max() / ref_dd.abs().mean() < F32_BAR
     bounds = (fa.bf16_straddle_bounds(*args) if dtype == torch.bfloat16
               else (None,) * 3)
+    if k.shape[2] == 1:
+        # one key: dS = P o dPd - P o D cancels, so dQ and dK are zero up to
+        # rounding on both sides, at the size dS K would otherwise have
+        size = float((dout.float() @ v.float().mT).abs().mean()
+                     * k.float().abs().mean() / 8.0)
+        for a, b in zip(got[:2], ref[:2]):
+            assert float(a.float().abs().max()) < F32_BAR * size
+            assert float(b.float().abs().max()) < F32_BAR * size
+        got, ref, bounds = got[2:3], ref[2:3], bounds[2:3]
     for a, b, bound in zip(got[:3], ref[:3], bounds):
         if dtype == torch.float32:
             assert (a - b).abs().max() / b.abs().mean() < F32_BAR
@@ -238,11 +269,12 @@ def test_backward_kernels_match_plain_version(name, dtype):
         assert torch.isfinite(a).all()
 
 
-def test_autograd_goes_through_the_kernels():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_goes_through_the_kernels(dtype):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=g, device=dev)
-                     for _ in range(4))
+                     .to(dtype) for _ in range(4))
     masks = _train_masks(dev, 0.1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.reset_launch_counts()

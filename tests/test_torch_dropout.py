@@ -37,15 +37,48 @@ def test_keep_threshold_matches_jax(p):
 
 
 def test_keep_bits_are_one_philox_draw_per_element():
+    # an element's bits are word col mod 4 of the one draw at counter
+    # (col // 4, row, b * H + h, 0) that its group of four keys shares
     seed = (5 << 32) | 123  # both key words in use
     bits = tdrop.attention_keep_bits(seed, 2, 3, 5, 7)
     rng = np.random.default_rng(0)
     for _ in range(10):
         bi, hi, r, c = (int(rng.integers(n)) for n in (2, 3, 5, 7))
         want = tdrop.philox4x32(
-            (torch.tensor(c), torch.tensor(r), torch.tensor(bi * 3 + hi),
-             torch.tensor(0)), (123, 5))[0]
+            (torch.tensor(c // 4), torch.tensor(r), torch.tensor(bi * 3 + hi),
+             torch.tensor(0)), (123, 5))[c % 4]
         assert int(bits[bi, hi, r, c]) == int(want)
+
+
+@pytest.mark.parametrize("tk", [1, 4, 13, 64])
+def test_one_philox_call_serves_four_adjacent_keys(tk):
+    # every element, for key counts that do and do not fill the last group
+    seed = (7 << 32) | 99
+    b, h, tq = 2, 3, 6
+    bits = tdrop.attention_keep_bits(seed, b, h, tq, tk)
+    assert bits.shape == (b, h, tq, tk)
+    i64 = dict(dtype=torch.int64)
+    col = torch.arange(tk, **i64).view(1, 1, 1, tk)
+    row = torch.arange(tq, **i64).view(1, 1, tq, 1)
+    bh = torch.arange(b * h, **i64).view(b, h, 1, 1)
+    words = tdrop.philox4x32((col // 4, row, bh, torch.zeros((), **i64)),
+                             (99, 7))
+    want = torch.zeros(b, h, tq, tk, **i64)
+    for w in range(4):
+        want = torch.where(col % 4 == w, words[w], want)
+    assert torch.equal(bits, want)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_keep_bits_of_one_call_are_independent(p):
+    # the four words of one call are four keys: pairs of neighbours in a
+    # group agree as often as two independent draws would (p^2 + (1-p)^2)
+    mask = tdrop.attention_keep_mask(77, 2, 4, 128, 128, p)
+    agree = (mask[..., 0::4] == mask[..., 1::4]).float()
+    n = agree.numel()
+    want = p * p + (1 - p) * (1 - p)
+    assert abs(float(agree.mean()) - want) < SIGMAS * math.sqrt(
+        want * (1 - want) / n)
 
 
 def test_keep_mask_is_deterministic_and_tiling_free():

@@ -196,5 +196,6 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert lib.name.startswith("libsslc_kernels_") and lib.suffix == ".so"
     assert _kernels.library_path() == lib
     assert [p.name for p in _kernels._sources()[0]] == [
-        "conv1d.cu", "flash_attn_bwd.cu", "flash_attn_fwd.cu"]
+        "conv1d.cu", "flash_attn_bwd.cu", "flash_attn_bwd_sm90.cu",
+        "flash_attn_fwd.cu"]
     assert [p.name for p in _kernels._sources()[1]] == ["flash_common.cuh"]

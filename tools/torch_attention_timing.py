@@ -1,0 +1,210 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's flash-attention kernels, and the bf16 grad steps
+that run them, on one CUDA device, for the port found under ``--root``
+(this checkout by default). Pointing ``--root`` at an unpacked older tree
+times that tree's kernels, so two trees can be compared in one session on
+one card, in turns (old, new, new, old).
+
+    python3 tools/torch_attention_timing.py [--root DIR] [--label NAME]
+                                            [--grad-steps] [--json OUT]
+
+Prints one JSON line (appended to OUT with ``--json``): the label, the
+card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
+  * ``fwd``: ``launch_fwd`` at the serving batch (8 packed rows of 896
+    frames, 12 heads, segments) and at the training shape with dropout 0.1;
+  * ``dq`` and ``dkv``: ``launch_bwd_dq`` and ``launch_bwd_dkv`` at the
+    training shape (4, 12, 768, 64) with key padding (lengths 750, 750,
+    700, 512), dropout 0 and 0.1;
+  each f32 (TF32 off) and bf16, 20 launches per timing, median of 5, after
+  a warm-up;
+  * with ``--grad-steps``: the bf16 grad step of MelHuBERT-20ms (B = 4,
+    T = 768, 8-step accumulation, dropout on) and of HuBERT-base with the
+    cuDNN frontend (B = 4 x 245,760 samples, LayerDrop 0), full width,
+    seeded random weights, median of 5 single steps.
+Needs a CUDA device; imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+TRAIN_SHAPE = (4, 12, 768, 64)
+# stacked 20 ms frame counts of bench.py's 16-utterance serve batch, packed
+# into rows of 896 frames
+SERVE_LENGTHS = (101,) * 8 + (792,) * 8
+CAPACITY = 896
+TRAIN_LENGTHS = (750, 750, 700, 512)
+HUBERT_TRAIN = (4, 245760)
+HUBERT_CLASSES = 504
+
+
+def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median over ``reps`` of CUDA-event time per call, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def kernel_times(dev) -> dict:
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.ops.packing import (
+        build_pack_arrays, plan_packing,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lengths = torch.tensor(TRAIN_LENGTHS, device=dev)
+    pad = torch.arange(TRAIN_SHAPE[2], device=dev)[None, :] >= lengths[:, None]
+    rows = plan_packing(SERVE_LENGTHS, CAPACITY)
+    _, seg, _ = build_pack_arrays(SERVE_LENGTHS, rows, CAPACITY, CAPACITY)
+    seg = torch.from_numpy(seg).to(dev)
+    serving = (seg.shape[0], 12, CAPACITY, 64)
+    times = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for case, shape, masks in (
+                ("serving", serving,
+                 dict(segment_ids=seg, key_padding_mask=seg == 0)),
+                ("training p=0.1", TRAIN_SHAPE,
+                 dict(key_padding_mask=pad, dropout_p=0.1,
+                      dropout_seed=1234))):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            times[f"fwd {tag} {case}"] = cuda_ms(
+                lambda: fa.flash_attention(q, k, v, **masks), inner=20)
+        q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
+                         .to(dtype) for _ in range(4))
+        for p in (0.0, 0.1):
+            masks = dict(key_padding_mask=pad)
+            if p:
+                masks.update(dropout_p=p, dropout_seed=1234)
+            _, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+            args = fa.backward_args(q, k, v, lse, dout, **masks)
+            _, dd = fa.launch_bwd_dq(*args)
+            times[f"dq {tag} p={p}"] = cuda_ms(
+                lambda: fa.launch_bwd_dq(*args), inner=20)
+            times[f"dkv {tag} p={p}"] = cuda_ms(
+                lambda: fa.launch_bwd_dkv(*args, dd), inner=20)
+    return times
+
+
+def melhubert_step_ms(root: pathlib.Path, dev) -> float:
+    from speech_ssl_compression_tpu_torch.configs import (
+        melhubert_config_from_yaml,
+    )
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_params_np, load_model,
+    )
+
+    cfg = melhubert_config_from_yaml(
+        root / "configs" / "melhubert" / "config_model_20ms.yaml")
+    model = load_model(init_params_np(cfg, seed=0), cfg).to(dev)
+    params = dict(model.named_parameters())
+    rng = np.random.default_rng(0)
+    b, t = TRAIN_SHAPE[0], TRAIN_SHAPE[2]
+    lengths = np.asarray(TRAIN_LENGTHS, np.int32)
+    valid = np.arange(t)[None, :] < lengths[:, None]
+    label = np.where(valid, rng.integers(0, 512, (b, t)), -100)
+    batch = {
+        "feat": torch.from_numpy(rng.standard_normal((b, t, 80))
+                                 .astype(np.float32)).to(dev),
+        "label": torch.from_numpy(label).to(dev),
+        "pad_mask": torch.from_numpy(valid.astype(np.float32)).to(dev),
+        "length": lengths,
+    }
+    step = make_melhubert_grad_step(model, accum_steps=8,
+                                    compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    return cuda_ms(lambda: step(params, batch, gen))
+
+
+def hubert_step_ms(root: pathlib.Path, dev) -> float:
+    from speech_ssl_compression_tpu_torch.configs import hubert_config_from_yaml
+    from speech_ssl_compression_tpu_torch.models.conv_frontend import (
+        conv_output_length,
+    )
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_hubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_hubert_params_np, load_hubert_model,
+    )
+
+    cfg = dataclasses.replace(
+        hubert_config_from_yaml(root / "configs" / "hubert" / "config_model.yaml"),
+        encoder_layerdrop=0.0, conv_frontend_impl="auto")
+    model = load_hubert_model(
+        init_hubert_params_np(cfg, (HUBERT_CLASSES,), seed=0), cfg).to(dev)
+    params = dict(model.named_parameters())
+    b, t_wave = HUBERT_TRAIN
+    rng = np.random.default_rng(0)
+    t_frames = conv_output_length(t_wave, cfg.conv_feature_layers)
+    batch = {
+        "source": torch.from_numpy(rng.standard_normal((b, t_wave))
+                                   .astype(np.float32)).to(dev),
+        "length": np.full(b, t_wave),
+        "target_list": [torch.from_numpy(rng.integers(
+            0, HUBERT_CLASSES, (b, t_frames))).to(dev)],
+        "target_valid": torch.ones((b, t_frames), dtype=torch.bool,
+                                   device=dev),
+    }
+    step = make_hubert_grad_step(model, accum_steps=2,
+                                 compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    return cuda_ms(lambda: step(params, batch, gen))
+
+
+def main() -> None:
+    here = pathlib.Path(__file__).resolve().parent.parent
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=str(here),
+                        help="the tree whose port is timed")
+    parser.add_argument("--label", default="")
+    parser.add_argument("--grad-steps", action="store_true")
+    parser.add_argument("--json", help="append the JSON line to this file")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_attention_timing: no CUDA device")
+    root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    dev = torch.device("cuda", 0)
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    times = kernel_times(dev)
+    if args.grad_steps:
+        times["melhubert grad step bf16"] = melhubert_step_ms(root, dev)
+        times["hubert grad step bf16 (cuDNN frontend)"] = hubert_step_ms(
+            root, dev)
+    line = json.dumps({"label": args.label, "root": str(root), "gpu": gpu,
+                       "ms": times})
+    print(line, flush=True)
+    if args.json:
+        with open(args.json, "a") as f:
+            f.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()
