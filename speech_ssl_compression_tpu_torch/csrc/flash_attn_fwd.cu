@@ -1,5 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA cores, f32 or bf16 in,
-// with optional in-kernel attention dropout.
+// Flash-attention forward for Hopper (sm_90a), with optional in-kernel
+// attention dropout: the C entry point for both input dtypes, and the f32
+// kernel on the CUDA cores. bf16 inputs go to the tensor-core kernel of
+// flash_attn_fwd_sm90.cu (wgmma, TMA), which computes the same function
+// with the same rounding points.
 //
 // Replaces the two Pallas TPU forward kernels of
 // speech_ssl_compression_tpu/ops/flash_attention.py:
@@ -34,15 +37,15 @@
 // too. M comes from flash_common.cuh's counter-based generator, one draw
 // per (row, key), so the backward kernels regenerate it.
 //
-// Design. One block of 256 threads per (64-query tile, head, batch); a loop
-// inside the block walks the 64-key tiles that the TPU walked as a
-// sequential grid axis (under causal, up to the diagonal tile). Q, the
-// current K and V tiles and the P tile are staged in shared memory as f32
-// (70 KB, dynamic shared memory). Each thread owns a 4 x 4 register
-// micro-tile of S (rows ty + 16 i, keys tx + 16 j) and of the output
-// accumulator (rows ty + 16 i, dims 4 tx .. 4 tx + 3); the 16 threads of a
-// row share its max and sum by warp shuffles. The online-softmax
-// statistics and the accumulator stay in f32 registers.
+// Design (f32). One block of 256 threads per (64-query tile, head,
+// batch); a loop inside the block walks the 64-key tiles that the TPU
+// walked as a sequential grid axis (under causal, up to the diagonal
+// tile). Q, the current K and V tiles and the P tile are staged in shared
+// memory as f32 (70 KB, dynamic shared memory). Each thread owns a 4 x 4
+// register micro-tile of S (rows ty + 16 i, keys tx + 16 j) and of the
+// output accumulator (rows ty + 16 i, dims 4 tx .. 4 tx + 3); the 16
+// threads of a row share its max and sum by warp shuffles. The
+// online-softmax statistics and the accumulator stay in f32 registers.
 //
 // What bounds it. At the serving shape (8 packed rows of 896 frames, 12
 // heads, d = 64) each (b, h) reads 3 * 896 * 64 values and does
@@ -57,17 +60,27 @@
 // threads holds ~32K of an SM's 64K registers: registers, not the 70 KB of
 // shared memory (which would allow 3), cap it at 2 blocks (16 warps) per SM.
 //
-// What this simple design leaves on the table: the tensor cores (wgmma on
-// bf16 tiles, ~15x the f32 CUDA-core rate), TMA loads into a multi-stage
-// ring so the next K/V tile arrives during this tile's math (here loads
-// and math alternate behind __syncthreads), occupancy (the 4 x 4 S and
-// accumulator micro-tiles hold the registers that cap it; bf16 staging in
-// shared memory alone would not raise it), and causal skipping below the
-// diagonal's tile granularity. Those are later work.
+// What this simple design leaves on the table: TMA loads into a
+// multi-stage ring so the next K/V tile arrives during this tile's math
+// (here loads and math alternate behind __syncthreads), occupancy (the
+// 4 x 4 S and accumulator micro-tiles hold the registers that cap it), and
+// causal skipping below the diagonal's tile granularity. Those are later
+// work. The tensor cores are not among them for f32: its bar (1e-4 against
+// the plain version, TF32 off) leaves no room for TF32, and the kernel is
+// within a few percent of SDPA's f32 time at the serving shape.
 
 #include <math.h>
 
 #include "flash_common.cuh"
+
+namespace sslc {
+// the bf16 kernel's launcher (flash_attn_fwd_sm90.cu)
+cudaError_t launch_fwd_sm90(const void* q, const void* k, const void* v,
+                            const void* bias, const void* segq,
+                            const void* segk, void* o, void* lse, int B,
+                            int H, int Tq, int Tk, int causal,
+                            const Dropout& dropout, cudaStream_t stream);
+}  // namespace sslc
 
 namespace {
 
@@ -289,8 +302,8 @@ int sslc_flash_attn_fwd(const void* q, const void* k, const void* v,
   const Dropout dropout =
       make_dropout(use_dropout, keep_threshold, keep_scale, seed);
   if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, bias, segq, segk, o, lse, B, H, Tq,
-                                 Tk, causal, dropout, s);
+    return launch_fwd_sm90(q, k, v, bias, segq, segk, o, lse, B, H, Tq, Tk,
+                           causal, dropout, s);
   }
   return launch<float>(q, k, v, bias, segq, segk, o, lse, B, H, Tq, Tk,
                        causal, dropout, s);

@@ -1,5 +1,5 @@
 // Pieces shared by the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu, flash_attn_bwd_sm90.cu): the tile geometry, the f32
+// flash_attn_bwd.cu and their bf16 _sm90 files): the tile geometry, the f32
 // staging of q/k/v/dO tiles in shared memory, the bf16 rounding points, and
 // the counter-based keep bits of attention dropout.
 //
@@ -14,8 +14,8 @@
 // forward, both backward kernels and the plain PyTorch version
 // (ops/dropout.py::attention_keep_mask) compute the same mask, and no mask
 // is ever stored in device memory. keep() gives one score's bit, one call
-// per score (the forward, and the f32 backward kernels); keep_word() the
-// bits of 32 adjacent keys from eight calls (the bf16 backward kernels).
+// per score (the f32 kernels); keep_word() the bits of 32 adjacent keys
+// from eight calls (the bf16 kernels).
 
 #pragma once
 

@@ -5,7 +5,7 @@ The sources in ``csrc/`` have a plain C interface. At first use each
 and the objects are linked into one shared library, which is loaded with
 ``ctypes``; no PyTorch headers are compiled. The library links the CUDA
 driver (``-lcuda``) for ``cuTensorMapEncodeTiled``, which builds the TMA
-descriptors of the bf16 backward kernels. The library's name carries a
+descriptors of the bf16 attention kernels. The library's name carries a
 hash of the sources and flags, so an edit rebuilds. Builds go to
 ``_build/`` inside the package (listed in ``.gitignore``), and ptxas's
 report of registers, shared memory and spills per kernel is kept beside the

@@ -15,12 +15,17 @@ softmax's own backward does (``csrc/flash_attn_bwd.cu`` says why).
 
 Routing is by device, and only by device: for CUDA tensors the wrappers
 launch the hand-written kernels (``csrc/flash_attn_fwd.cu``,
-``csrc/flash_attn_bwd.cu``) or raise; CPU tensors go to the plain PyTorch
+``csrc/flash_attn_bwd.cu``; bf16 inputs go on to the tensor-core kernels
+of their ``_sm90`` files) or raise; CPU tensors go to the plain PyTorch
 versions, :func:`_reference_fwd` and :func:`reference_bwd` (D by
 :func:`reference_dd`, then :func:`reference_bwd_dq` and
 :func:`reference_bwd_dkv`), which write the same formulas out in full
 (B, H, Tq, Tk) matrices. ``chip_smoke.py`` holds each kernel against its
-plain version on the card.
+plain version on the card; in bf16 within one ulp, where the forward's
+entries past it must be p rounded the other way
+(:func:`bf16_forward_straddle_bounds`,
+:func:`bf16_forward_straddle_flips`) and the backward's within
+:func:`bf16_straddle_bounds`.
 
 Masking semantics, kept exactly: padding is an additive ``NEG_INF`` bias,
 segments and causality replace the score with ``NEG_INF``; the finite
@@ -43,6 +48,9 @@ from .dropout import attention_keep_mask, keep_threshold
 NEG_INF = -1e30
 HEAD_DIM = 64  # the only head dim the CUDA kernels take
 KERNEL_BLOCK_K = 64  # keys per tile of the forward kernel's online softmax
+# straddling p per row that bf16_forward_straddle_flips tries rounding the
+# other way, in every subset (2^16 of them)
+FLIP_KEYS = 16
 DROPOUT_MAX_T = 4096  # flash_attention with dropout refuses longer T, as JAX
 
 # launches of the CUDA kernels, counted where each is launched (read and
@@ -96,6 +104,18 @@ def _keep(q, k, dropout_p, seed):
     return attention_keep_mask(seed, b, h, tq, k.shape[2], dropout_p, q.device)
 
 
+def _tile_maxima(s, block_k):
+    """The running row max of the kernels' online softmax after each key
+    tile of ``block_k``: one (..., 1) tensor per tile. Tile t's p is
+    exp(s - maxima[t]); the last is the row's max."""
+    maxima, m = [], torch.full_like(s[..., :1], NEG_INF)
+    for k0 in range(0, s.shape[-1], block_k):
+        m = torch.maximum(m, s[..., k0:k0 + block_k].amax(dim=-1,
+                                                          keepdim=True))
+        maxima.append(m)
+    return maxima
+
+
 def _reference_fwd(q, k, v, bias, segq, segk, causal, block_k=None,
                    dropout_p=0.0, seed=None):
     """Plain version of the forward kernel: the whole score matrix, same
@@ -124,9 +144,9 @@ def _reference_fwd(q, k, v, bias, segq, segk, causal, block_k=None,
         m = torch.full_like(s[..., :1], NEG_INF)
         l = torch.zeros_like(m)
         acc = s.new_zeros(s.shape[:-1] + v.shape[-1:])
-        for k0 in range(0, s.shape[-1], block_k):
+        for k0, m_new in zip(range(0, s.shape[-1], block_k),
+                             _tile_maxima(s, block_k)):
             st = s[..., k0:k0 + block_k]
-            m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             p = torch.exp(st - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
@@ -529,6 +549,139 @@ def flash_attention_reference(
                           dropout_p, dropout_seed)
 
 
+def _forward_straddles(q, k, key_padding_mask, causal, segment_ids, block_k,
+                       dropout_p, dropout_seed):
+    """Yields, per key tile of ``block_k``, (k0, pb, lo, hi, w), each
+    (B, H, Tq, tile) f32: pb, the plain version's p = exp(s - m) rounded
+    to q's dtype; lo and hi, the two values the bf16 forward kernel may
+    round its own p to; w, the weight of a rounded p in the output.
+
+    Kernel and plain version round each key tile's p = exp(s - m) to bf16
+    before P.V, from scores that differ by rounding: the kernel sums a
+    score's d products on the tensor cores (truncating, within d 2^-23 of
+    the sum of |terms|), the plain version in f32 (within d 2^-24), so the
+    two differ by at most 3 d 2^-24 of it, and the running max m, one of
+    the row's scores, by as much; x = s - m by one rounding a side; exp
+    (expf in the kernel, torch.exp here) by 2 ulps a side. So the kernel's
+    p lies within e of the plain one's and rounds to lo = bf16(p - e) or
+    hi = bf16(p + e); where the two differ, p straddles a rounding point.
+    w = exp(m - m_final) / l, times 1 / (1 - dropout_p) where the key is
+    kept, 0 where it is dropped."""
+    u = 2.0 ** -24
+    bias, seg = _masks(k, key_padding_mask, segment_ids)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, bias, seg, seg, causal)
+    e_s = (3 * q.shape[-1] * u * scale) * torch.matmul(q.float().abs(),
+                                                       k.float().abs().mT)
+    e_m = e_s.amax(dim=-1, keepdim=True)
+    keep = _keep(q, k, dropout_p, seed=dropout_seed)
+    tiles = list(zip(range(0, s.shape[-1], block_k), _tile_maxima(s, block_k)))
+    m = tiles[-1][1]
+    l = sum(torch.exp(s[..., k0:k0 + block_k] - mt).sum(dim=-1, keepdim=True)
+            * torch.exp(mt - m) for k0, mt in tiles)
+    l_safe = l.clamp_min(1e-30)
+    for k0, mt in tiles:
+        x = s[..., k0:k0 + block_k] - mt
+        p = torch.exp(x)
+        e = p * (e_s[..., k0:k0 + block_k] + e_m + 2 * u * x.abs() + 8 * u)
+        lo, hi = ((p + sign * e).to(q.dtype).float() for sign in (-1, 1))
+        w = (torch.exp(mt - m) / l_safe).expand_as(p)
+        if keep is not None:
+            w = w.masked_fill(~keep[..., k0:k0 + block_k], 0.0) * _keep_scale(
+                dropout_p)
+        yield k0, p.to(q.dtype).float(), lo, hi, w
+
+
+def bf16_forward_straddle_bounds(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
+    block_k: int = KERNEL_BLOCK_K,
+    dropout_p: float = 0.0,
+    dropout_seed: Optional[int] = None,
+):
+    """Per output entry (B, H, Tq, d), f32: how far p rounded the other
+    way can move the bf16 forward kernel's output from
+    :func:`flash_attention_reference`'s with the same ``block_k``
+    (arguments as there): the sum over the keys of (hi - lo) w |v|, with
+    lo, hi and w of :func:`_forward_straddles`. The f32 sums (P.V, l)
+    differ far below an ulp; the one ulp the check allows takes them.
+    Built from the inputs alone, before any kernel runs."""
+    bound = 0.0
+    for k0, _, lo, hi, w in _forward_straddles(
+            q, k, key_padding_mask, causal, segment_ids, block_k, dropout_p,
+            dropout_seed):
+        bound = bound + torch.matmul((hi - lo) * w,
+                                     v[..., k0:k0 + block_k, :].float().abs())
+    return bound
+
+
+def bf16_forward_straddle_flips(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    rows: torch.Tensor,
+    ulp: torch.Tensor,
+    *,
+    key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    segment_ids: Optional[torch.Tensor] = None,
+    block_k: int = KERNEL_BLOCK_K,
+    dropout_p: float = 0.0,
+    dropout_seed: Optional[int] = None,
+):
+    """Whether straddling p rounded the other way account for the bf16
+    forward kernel's output ``out`` (B, H, Tq, d) at ``rows``, (n, 3)
+    indices (b, h, i) of query rows (other arguments as
+    :func:`bf16_forward_straddle_bounds`). Each row of the plain output is
+    recomputed from its bf16 p with every subset of its straddling p
+    rounded the other way (hi for lo, lo for hi; the FLIP_KEYS that move
+    the row most) and held against ``out`` in units of ``ulp``
+    (B, H, Tq, d). Returns per row (number of straddling p, number flipped
+    in the subset that comes closest, max |out - plain| / ulp with no p
+    flipped, the same with that subset)."""
+    b, h, i = rows.unbind(-1)
+    parts = [tuple(t[b, h, i] for t in tile[1:]) for tile in _forward_straddles(
+        q, k, key_padding_mask, causal, segment_ids, block_k, dropout_p,
+        dropout_seed)]
+    pb, lo, hi, w = (torch.cat(t, dim=-1) for t in zip(*parts))
+    vals, got, ulps = v.float()[b, h], out.float()[b, h, i], ulp[b, h, i]
+    base = torch.einsum("nk,nkd->nd", pb * w, vals)
+    step = (torch.where(pb == hi, lo, hi) - pb) * w
+    found = []
+    for r in range(rows.shape[0]):
+        keys = (hi[r] != lo[r]).nonzero().squeeze(-1)
+        moves = step[r, keys, None] * vals[r, keys]
+        moves = moves[moves.abs().amax(dim=-1).argsort(descending=True)
+                      [:FLIP_KEYS]]
+        n = moves.shape[0]
+        subsets = ((torch.arange(2 ** n, device=out.device)[:, None]
+                    >> torch.arange(n, device=out.device)) & 1).float()
+        tried = (base[r] + subsets @ moves).to(out.dtype).float()
+        err = ((tried - got[r]).abs() / ulps[r]).amax(dim=-1)
+        best = int(err.argmin())
+        found.append((len(keys), int(subsets[best].sum()), float(err[0]),
+                      float(err[best])))
+    return found
+
+
+def forward_args(
+    q, k, v, *,
+    key_padding_mask=None, causal=False, segment_ids=None,
+    dropout_p: float = 0.0, dropout_seed: Optional[int] = None,
+):
+    """The argument tuple that :func:`launch_fwd` and :func:`_reference_fwd`
+    take for :func:`flash_attention`'s arguments: (q, k, v, bias, segq,
+    segk, causal, dropout_p, seed)."""
+    bias, seg = _masks(k, key_padding_mask, segment_ids)
+    return (q, k, v, bias, seg, seg, causal, dropout_p, dropout_seed)
+
+
 def backward_args(
     q, k, v, lse, dout, *,
     key_padding_mask=None, causal=False, segment_ids=None,
@@ -537,10 +690,11 @@ def backward_args(
     """The argument tuple that :func:`launch_bwd`, :func:`launch_bwd_dq`,
     :func:`reference_bwd`, :func:`reference_dd` and
     :func:`bf16_straddle_bounds` take, for the forward's lse, the output
-    gradient ``dout`` and the forward's arguments: (q, k, v, bias, segq,
-    segk, causal, dropout_p, seed, lse, dout). :func:`launch_bwd_dkv`,
+    gradient ``dout`` and the forward's arguments: :func:`forward_args`'s
+    tuple with (lse, dout) appended. :func:`launch_bwd_dkv`,
     :func:`reference_bwd_dq` and :func:`reference_bwd_dkv` take it with D
     appended."""
-    bias, seg = _masks(k, key_padding_mask, segment_ids)
-    return (q, k, v, bias, seg, seg, causal, dropout_p, dropout_seed, lse,
-            dout)
+    return forward_args(q, k, v, key_padding_mask=key_padding_mask,
+                        causal=causal, segment_ids=segment_ids,
+                        dropout_p=dropout_p,
+                        dropout_seed=dropout_seed) + (lse, dout)

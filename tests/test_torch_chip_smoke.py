@@ -1,7 +1,8 @@
 """The pieces of ``chip_smoke.py`` that need no GPU: the attention kernels'
 work and bounds per dtype (the kernels line's bound_ms and bound_by), the
 layout of an attention kernel's entry in that line, and the check that the
-bf16 backward kernels run on the tensor cores (HGMMA in their SASS)."""
+bf16 attention kernels (forward, dQ, dK/dV) run on the tensor cores (HGMMA
+in their SASS)."""
 
 import pathlib
 import sys
@@ -88,18 +89,44 @@ class _Kernels:
         return self.counts
 
 
+FWD = ("_ZN4sslc12_GLOBAL__N_126flash_attn_fwd_bf16_kernelILb{}ELb{}EEEv"
+       "14CUtensorMap")
+FWD_FLAGS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
 def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
+    # and per forward: its four instances (with and without dropout and
+    # segment ids) summed
     counts = {"_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dq_bf16_kernelE": 12,
               "_ZN4sslc12_GLOBAL__N_130flash_attn_bwd_dkv_bf16_kernelE": 16,
+              "_ZN12_GLOBAL__N_121flash_attn_fwd_kernelIfEEv": 0,
               "_ZN12_GLOBAL__N_124flash_attn_bwd_dq_kernelIfEEv": 0}
+    counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
     got = chip_smoke.check_tensor_cores(_Kernels(counts))
-    assert got == {"flash_attn_bwd_dq": 12, "flash_attn_bwd_dkv": 16}
-    assert "16 HGMMA in flash_attn_bwd_dkv_bf16_kernel" in capsys.readouterr().out
+    assert got == {"flash_attn_fwd": 32, "flash_attn_bwd_dq": 12,
+                   "flash_attn_bwd_dkv": 16}
+    out = capsys.readouterr().out
+    assert "16 HGMMA in flash_attn_bwd_dkv_bf16_kernel" in out
+    assert "8 HGMMA in flash_attn_fwd_bf16_kernel<dropout, segments>" in out
+    assert ("8 HGMMA in flash_attn_fwd_bf16_kernel<no dropout, no segments>"
+            in out)
+    assert "0 HGMMA in flash_attn_fwd_kernel<f32>" in out
 
 
-@pytest.mark.parametrize("missing", ["dq", "dkv"])
+@pytest.mark.parametrize("missing", ["fwd", "dq", "dkv"])
 def test_tensor_core_check_fails_without_hgmma(missing):
     counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE":
               0 if k == missing else 8 for k in ("dq", "dkv")}
+    counts.update({FWD.format(*f): 0 if missing == "fwd" else 8
+                   for f in FWD_FLAGS})
     with pytest.raises(AssertionError, match="tensor cores"):
+        chip_smoke.check_tensor_cores(_Kernels(counts))
+
+
+def test_tensor_core_check_fails_when_one_forward_instance_has_none():
+    counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE": 8
+              for k in ("dq", "dkv")}
+    counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
+    counts[FWD.format(1, 0)] = 0
+    with pytest.raises(AssertionError, match="bf16 flash_attn_fwd"):
         chip_smoke.check_tensor_cores(_Kernels(counts))

@@ -10,8 +10,10 @@ one card, in turns (old, new, new, old).
 
 Prints one JSON line (appended to OUT with ``--json``): the label, the
 card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
-  * ``fwd``: ``launch_fwd`` at the serving batch (8 packed rows of 896
-    frames, 12 heads, segments) and at the training shape with dropout 0.1;
+  * ``fwd``: the forward kernel at the serving batch (8 packed rows of 896
+    frames, 12 heads, segments), at the training shape with dropout 0.1,
+    at T = 5000 (1 x 12 heads) and at 1024 queries against 5000 keys
+    (``flash_attention_kv_full``, the last 200 keys padded);
   * ``dq`` and ``dkv``: ``launch_bwd_dq`` and ``launch_bwd_dkv`` at the
     training shape (4, 12, 768, 64) with key padding (lengths 750, 750,
     700, 512), dropout 0 and 0.1;
@@ -90,6 +92,16 @@ def kernel_times(dev) -> dict:
                        for _ in range(3))
             times[f"fwd {tag} {case}"] = cuda_ms(
                 lambda: fa.flash_attention(q, k, v, **masks), inner=20)
+        q, k, v = (torch.randn((1, 12, 5000, 64), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        times[f"fwd {tag} T=5000"] = cuda_ms(
+            lambda: fa.flash_attention(q, k, v), inner=20)
+        q_rect = q[:, :, :1024].contiguous()
+        rect_pad = torch.arange(5000, device=dev)[None, :] >= 4800
+        times[f"fwd {tag} 1024x5000"] = cuda_ms(
+            lambda: fa.flash_attention_kv_full(q_rect, k, v,
+                                               key_padding_mask=rect_pad),
+            inner=20)
         q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
                          .to(dtype) for _ in range(4))
         for p in (0.0, 0.1):
