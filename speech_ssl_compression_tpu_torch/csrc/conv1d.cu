@@ -1,6 +1,7 @@
-// Strided 1-D convolution for Hopper (sm_90a), CUDA cores, f32 or bf16 in,
-// f32 accumulation: the forward, dW and dX kernels of the waveform
-// frontend's layers 1-6.
+// Strided 1-D convolution for Hopper (sm_90a), CUDA cores, f32 accumulation:
+// the forward, dW and dX kernels of the waveform frontend's layers 1-6, f32
+// in, and the dX kernel for bf16 in. The bf16 forward and dW run on the
+// tensor cores (conv1d_sm90.cu); the C entry points below route them there.
 //
 // Replaces the three Pallas TPU kernels of
 // speech_ssl_compression_tpu/ops/conv1d.py:
@@ -45,16 +46,27 @@
 // What bounds it. Every kernel does 2 B T_out K C O FLOPs (300 GFLOP for
 // one pass over layers 1-6 at the training batch) against at most a few
 // hundred MB of traffic, so it is bound by arithmetic: the CUDA cores' f32
-// FMA rate (67 TFLOP/s on an H100 SXM) here, also for bf16 inputs. What
-// this simple design leaves on the table: the tensor cores (wgmma on bf16
-// tiles, ~15x the f32 CUDA-core rate, and TF32 where f32 tolerates it),
-// TMA loads into a deeper ring, and occupancy (with the two 8 x 8 register
-// tiles ptxas gives the kernels 197-219 registers, no spills: one block of
-// 8 warps per SM).
+// FMA rate (67 TFLOP/s on an H100 SXM) here, also for bf16 dX. What this
+// simple design leaves on the table: the tensor cores (conv1d_sm90.cu
+// takes them for the bf16 forward and dW; TF32 breaks the f32 route's
+// 1e-5 bar), TMA loads into a deeper ring, and occupancy (with the two
+// 8 x 8 register tiles ptxas gives the kernels 197-219 registers, no
+// spills: one block of 8 warps per SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace sslc {
+// the bf16 forward and dW partial sums (conv1d_sm90.cu)
+cudaError_t launch_conv1d_fwd_sm90(const void* x, const void* w, void* out,
+                                   int B, int T_in, int C, int K, int O,
+                                   int stride, cudaStream_t s);
+cudaError_t launch_conv1d_dw_sm90(const void* x, const void* dy, float* slots,
+                                  int B, int T_in, int C, int K, int O,
+                                  int stride, int chunk, int n_split,
+                                  cudaStream_t s);
+}  // namespace sslc
 
 namespace {
 
@@ -354,29 +366,35 @@ int out_len(int T_in, int K, int stride) { return (T_in - K) / stride + 1; }
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, void* out, int B,
-                       int T_in, int C, int K, int O, int stride,
-                       cudaStream_t s) {
+cudaError_t launch_fwd_f32(const void* x, const void* w, void* out, int B,
+                           int T_in, int C, int K, int O, int stride,
+                           cudaStream_t s) {
   const int T_out = out_len(T_in, K, stride);
   const dim3 grid((unsigned)cdiv((long long)B * T_out, kBM), O / kBN);
-  conv1d_fwd_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      B, T_in, C, K, O, stride, T_out);
+  conv1d_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), B, T_in, C, K, O, stride, T_out);
   return cudaGetLastError();
 }
 
-template <typename T>
+// The partial sums (f32: chunks of `chunk` rows of B * T_out; bf16: of
+// `chunk` 64-row steps, conv1d_sm90.cu), then their fixed-order sum.
 cudaError_t launch_dw(const void* x, const void* dy, void* partial, void* dw,
                       int B, int T_in, int C, int K, int O, int stride,
-                      int chunk, int n_split, cudaStream_t s) {
+                      int chunk, int n_split, int is_bf16, cudaStream_t s) {
   const int T_out = out_len(T_in, K, stride);
-  const dim3 grid(C / kBM, O / kBN, K * n_split);
   float* slots = static_cast<float*>(n_split == 1 ? dw : partial);
-  conv1d_dw_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), slots, B, T_in, C,
-      K, O, stride, T_out, chunk);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (is_bf16) {
+    err = sslc::launch_conv1d_dw_sm90(x, dy, slots, B, T_in, C, K, O, stride,
+                                      chunk, n_split, s);
+  } else {
+    const dim3 grid(C / kBM, O / kBN, K * n_split);
+    conv1d_dw_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), slots, B,
+        T_in, C, K, O, stride, T_out, chunk);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || n_split == 1) return err;
   const long long n = (long long)K * C * O;
   conv1d_dw_reduce_kernel<<<(unsigned)cdiv(n / 4, 256), 256, 0, s>>>(
@@ -403,8 +421,8 @@ extern "C" {
 
 // x (B, T_in, C), w (K, C, O), out (B, T_out, O); contiguous, f32
 // (is_bf16 = 0) or bf16, 16-byte aligned, C and O multiples of 128,
-// stride <= K. Launches on `stream` of CUDA device `device` and returns
-// cudaGetLastError() after the launch (0 on success).
+// stride <= K (bf16: stride <= 8). Launches on `stream` of CUDA device
+// `device` and returns cudaGetLastError() after the launch (0 on success).
 int sslc_conv1d_fwd(const void* x, const void* w, void* out, int B, int T_in,
                     int C, int K, int O, int stride, int is_bf16, int device,
                     void* stream) {
@@ -412,25 +430,24 @@ int sslc_conv1d_fwd(const void* x, const void* w, void* out, int B, int T_in,
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_fwd<__nv_bfloat16>(x, w, out, B, T_in, C, K, O, stride, s);
-  return launch_fwd<float>(x, w, out, B, T_in, C, K, O, stride, s);
+    return sslc::launch_conv1d_fwd_sm90(x, w, out, B, T_in, C, K, O, stride,
+                                        s);
+  return launch_fwd_f32(x, w, out, B, T_in, C, K, O, stride, s);
 }
 
 // dW (K, C, O) f32 from x (B, T_in, C) and dy (B, T_out, O) of one dtype.
-// The B * T_out rows are cut into n_split chunks of `chunk` rows (a
-// multiple of 8); with n_split > 1, `partial` is f32 scratch of
-// n_split * K * C * O floats, summed into dw in chunk order.
+// The reduction is cut into n_split chunks of `chunk` units: f32, rows of
+// B * T_out (a multiple of 8); bf16, 64-row steps of one batch row each,
+// T_out / 64 rounded up a batch, in (b, t) order
+// (ops/conv1d.py::dw_tile_splits). With n_split > 1, `partial` is f32
+// scratch of n_split * K * C * O floats, summed into dw in chunk order.
 int sslc_conv1d_dw(const void* x, const void* dy, void* partial, void* dw,
                    int B, int T_in, int C, int K, int O, int stride, int chunk,
                    int n_split, int is_bf16, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dw<__nv_bfloat16>(x, dy, partial, dw, B, T_in, C, K, O,
-                                    stride, chunk, n_split, s);
-  return launch_dw<float>(x, dy, partial, dw, B, T_in, C, K, O, stride, chunk,
-                          n_split, s);
+  return launch_dw(x, dy, partial, dw, B, T_in, C, K, O, stride, chunk,
+                   n_split, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // dX (B, T_in, C) in dy's dtype from dy (B, T_out, O) and w (K, C, O).

@@ -1,9 +1,12 @@
-// Pieces shared by the Hopper (sm_90a) bf16 attention kernels
-// (flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu): the 64 x 64 bf16 tile,
-// its TMA load into shared memory with the 128-byte swizzle, completing on
-// an mbarrier, the wgmma descriptor of that tile, the two wgmma shapes the
-// kernels use (both operands in shared memory; A from registers, B read
-// transposed), and the accumulator layout.
+// Pieces shared by the Hopper (sm_90a) bf16 kernels (flash_attn_fwd_sm90.cu,
+// flash_attn_bwd_sm90.cu, conv1d_sm90.cu): the 64 x 64 bf16 tile, its TMA
+// load into shared memory with the 128-byte swizzle, completing on an
+// mbarrier, the wgmma descriptor of that tile, the two wgmma shapes the
+// attention kernels use (both operands in shared memory; A from registers,
+// B read transposed), and the accumulator layout. At the end, the pieces
+// only the conv kernels use: TMA loads at any coordinates, the descriptor
+// of an operand wider than one swizzle atom, and the m64n128k16 product
+// with either operand K- or MN-major.
 
 #pragma once
 
@@ -214,6 +217,101 @@ cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, int T, int BH) {
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ------------------------------------------- the conv kernels' pieces
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// One box of a 2-D or 3-D tensor map at coordinates (c0, c1[, c2]),
+// innermost first, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Descriptor of an operand made of 64-wide boxes as TMA's 128-byte swizzle
+// lays them out (rows of 128 bytes, 8-row groups 1024 bytes apart: the
+// stride byte offset). For an MN-major operand wider than one 128-byte
+// atom (n = 128: two boxes side by side along N), the leading byte offset
+// is the distance from one 64-wide box to the next; for a K-major operand,
+// or an MN-major one 64 wide, it is not read.
+__device__ __forceinline__ uint64_t box_desc(const void* box,
+                                             uint32_t atom_bytes) {
+  uint64_t desc = (smem_addr(box) & 0x3FFFF) >> 4;      // start address
+  desc |= (uint64_t)((atom_bytes >> 4) & 0x3FFF) << 16;  // leading byte offset
+  desc |= (uint64_t)(1024 >> 4) << 32;                   // stride byte offset
+  desc |= (uint64_t)1 << 62;                             // 128-byte swizzle
+  return desc;
+}
+
+template <int kGroups>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kGroups)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define SSLC_WGMMA_D64                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define SSLC_WGMMA_D64_OPS(d)                                               \
+  SSLC_WGMMA_D_OPS(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A B for a 64 x 128 x 16 step, both operands in shared memory, B
+// MN-major; A K-major (kTransA = 0) or MN-major (1). accumulate = 0
+// overwrites d. The accumulator layout is the 64 x 64 one above, its
+// column groups c8 running to 15.
+template <int kTransA>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SSLC_WGMMA_D64
+      ", %64, %65, p, 1, 1, %67, 1;\n"
+      "}\n"
+      : SSLC_WGMMA_D64_OPS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA));
 }
 
 }  // namespace

@@ -11,12 +11,15 @@ backward is the dW kernel (f32, cast to w's dtype, as JAX casts it) and the
 dX kernel (in x's dtype; input rows that no output reaches get 0).
 
 Routing is by device, and only by device: for CUDA tensors the wrappers
-launch the hand-written kernels (``csrc/conv1d.cu``) or raise; CPU tensors
-go to :func:`conv1d_strided_plain`, a per-tap version in plain PyTorch,
-and its dX and dW come from autograd through it. ``chip_smoke.py`` holds
-each kernel against that plain version on the card. Scope and error text
-are JAX's ``_validate``: C and O multiples of 128, stride <= K <= 8 *
-stride (every frontend layer after the first).
+launch the hand-written kernels or raise: f32, and bf16 dX, on the CUDA
+cores (``csrc/conv1d.cu``); the bf16 forward and dW on the tensor cores
+(``csrc/conv1d_sm90.cu``, which reads x through one TMA map per stride
+phase, so it takes stride <= SM90_MAX_STRIDE). CPU tensors go to
+:func:`conv1d_strided_plain`, a per-tap version in plain PyTorch, and its
+dX and dW come from autograd through it. ``chip_smoke.py`` holds each
+kernel against that plain version on the card. Scope and error text are
+JAX's ``_validate``: C and O multiples of 128, stride <= K <= 8 * stride
+(every frontend layer after the first).
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ from . import _kernels
 _SLACK = 8  # JAX's bound on K / stride, kept for the same scope
 DW_MIN_CHUNK = 256  # fewest rows of B * T_out per partial sum of dW
 DW_WAVES = 4  # blocks of the dW kernel: about this many per SM
+# the bf16 kernels (csrc/conv1d_sm90.cu): the per-phase TMA maps a launch
+# carries, and the rows t of one batch in a dW reduction step
+SM90_MAX_STRIDE = 8
+DW_STEP = 64
 
 # launches of the CUDA kernels, counted where each is launched (read and
 # reset by chip_smoke.py to show which path a run took)
@@ -112,6 +119,18 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def phase_rows(t_in: int, stride: int) -> list:
+    """Rows of x per batch in each stride phase r, as the bf16 kernels'
+    TMA maps take them: phase r holds rows r, r + s, ..., so
+    n_r = (T_in - 1 - r) // s + 1 (tap j = s q + r of output t reads its
+    row t + q). Raises past the SM90_MAX_STRIDE maps a launch carries."""
+    if stride > SM90_MAX_STRIDE:
+        raise ValueError(
+            f"the bf16 conv kernels take stride <= {SM90_MAX_STRIDE} (one "
+            f"TMA map per phase); got stride={stride}")
+    return [(t_in - 1 - r) // stride + 1 for r in range(stride)]
+
+
 def launch_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """The forward kernel on CUDA tensors x (B, T, C), w (K, C, O)."""
     _check_kernel_inputs("conv1d_fwd", x, w, "x and w")
@@ -120,6 +139,8 @@ def launch_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     if c_w != c:
         raise ValueError(f"conv1d_fwd: w {tuple(w.shape)} does not take C={c}")
     _validate(k, c, o, stride)
+    if x.dtype == torch.bfloat16:
+        phase_rows(t_in, stride)
     if t_in < k:
         raise ValueError(f"conv1d_fwd: T={t_in} is shorter than K={k}")
     out = torch.empty((b, output_length(t_in, k, stride), o), dtype=x.dtype,
@@ -133,18 +154,54 @@ def launch_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     return out
 
 
-def dw_splits(rows: int, blocks_per_split: int, n_sm: int):
-    """(chunk, n_split): the dW kernel's partial sums over ``rows`` =
-    B * T_out rows. Enough splits that the grid, ``blocks_per_split``
-    blocks (one per SM at a time) each, gives every one of the ``n_sm`` SMs
-    about DW_WAVES blocks, and no more: the f32 scratch holds n_split dW's
-    and the reduction reads them all. Chunks are a multiple of 8 rows and,
-    where there are that many rows, at least DW_MIN_CHUNK; the sum order
-    is fixed by the shape and the card."""
+def _n_splits(units: int, min_units: int, blocks_per_split: int,
+              n_sm: int) -> int:
+    """Enough splits that the grid, ``blocks_per_split`` blocks each, gives
+    every one of the ``n_sm`` SMs about DW_WAVES blocks, and no more (the
+    f32 scratch holds one dW per split and the reduction reads them all),
+    with at least ``min_units`` units a split where there are that many."""
     want = max(1, (DW_WAVES * n_sm) // blocks_per_split)
-    n_split = max(1, min(want, rows // DW_MIN_CHUNK))
+    return max(1, min(want, units // min_units))
+
+
+def dw_splits(rows: int, blocks_per_split: int, n_sm: int):
+    """(chunk, n_split): the f32 dW kernel's partial sums over ``rows`` =
+    B * T_out rows, split by :func:`_n_splits`. Chunks are a multiple of 8
+    rows and, where there are that many rows, at least DW_MIN_CHUNK; the
+    sum order is fixed by the shape and the card."""
+    n_split = _n_splits(rows, DW_MIN_CHUNK, blocks_per_split, n_sm)
     chunk = -(-(-(-rows // n_split)) // 8) * 8
     return chunk, -(-rows // chunk)
+
+
+def dw_tile_splits(b: int, t_out: int, blocks_per_split: int, n_sm: int):
+    """(chunk, n_split) of the bf16 dW kernel, in reduction steps: step i
+    is batch i // s_b, rows t = DW_STEP * (i % s_b) .. + DW_STEP - 1 (those
+    past T_out read dy as zeros), with s_b = ceil(T_out / DW_STEP) steps a
+    batch. Split k sums steps k * chunk .. min(B s_b, (k + 1) chunk) - 1 in
+    that order. The number of splits is :func:`_n_splits`'s (about
+    DW_WAVES blocks per SM, at least DW_MIN_CHUNK rows a chunk), so the sum
+    order is a function of the shape and the card alone."""
+    total = b * -(-t_out // DW_STEP)
+    n_split = _n_splits(total, DW_MIN_CHUNK // DW_STEP, blocks_per_split,
+                        n_sm)
+    chunk = -(-total // n_split)
+    return chunk, -(-total // chunk)
+
+
+def dw_plan(dtype, b: int, t_out: int, k: int, c: int, o: int, n_sm: int):
+    """(chunk, n_split, scratch shape or None) of the dW kernels: f32
+    chunks count rows of B * T_out (:func:`dw_splits`), bf16 ones 64-row
+    steps (:func:`dw_tile_splits`); both use one block per (128 x 128
+    tile of dW, tap, chunk). With more than one chunk, each writes its own
+    f32 (K, C, O) slot of the scratch, and a second kernel adds the slots
+    in chunk order."""
+    blocks = k * (c // 128) * (o // 128)
+    if dtype == torch.bfloat16:
+        chunk, n_split = dw_tile_splits(b, t_out, blocks, n_sm)
+    else:
+        chunk, n_split = dw_splits(b * t_out, blocks, n_sm)
+    return chunk, n_split, (n_split, k, c, o) if n_split > 1 else None
 
 
 def launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
@@ -158,12 +215,13 @@ def launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
     if dy.shape[:2] != (b, output_length(t_in, k, stride)):
         raise ValueError(f"conv1d_dw: dy {tuple(dy.shape)} is not the output "
                          f"of x {tuple(x.shape)} at K={k}, stride={stride}")
+    if x.dtype == torch.bfloat16:
+        phase_rows(t_in, stride)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunk, n_split = dw_splits(b * dy.shape[1], k * (c // 128) * (o // 128),
-                               n_sm)
+    chunk, n_split, scratch = dw_plan(x.dtype, b, dy.shape[1], k, c, o, n_sm)
     dw = torch.empty((k, c, o), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((n_split, k, c, o), dtype=torch.float32,
-                           device=x.device) if n_split > 1 else None)
+    partial = (torch.empty(scratch, dtype=torch.float32, device=x.device)
+               if scratch else None)
     lib = _kernels.load()
     err = lib.sslc_conv1d_dw(
         x.data_ptr(), dy.data_ptr(),

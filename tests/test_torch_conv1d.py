@@ -126,3 +126,79 @@ def test_dw_splits_cover_every_row():
             assert chunk >= min(tconv.DW_MIN_CHUNK, -(-rows // 8) * 8)
             # the scratch stays at what fills the SMs, whatever the rows
             assert n * blocks <= max(blocks, tconv.DW_WAVES * 132)
+
+
+# (B, T_out) of HuBERT's layers 1-6 in the training batch and of the card's
+# ragged test shapes (one output row, one past a 64-row step, three batches)
+TILE_CASES = [(4, 49151), (4, 24575), (4, 12287), (4, 6143), (4, 3071),
+              (4, 1535), (2, 1), (2, 65), (3, 388), (1, 64), (1, 63)]
+
+
+@pytest.mark.parametrize("b,t_out", TILE_CASES)
+@pytest.mark.parametrize("blocks", [48, 16, 3])
+def test_dw_tile_splits_cover_every_step_once_in_order(b, t_out, blocks):
+    # the bf16 dW kernel's plan: step i is batch i // s_b, rows 64 (i % s_b)
+    # .. + 63, so a step never straddles two batches, and split k sums steps
+    # k chunk .. (k + 1) chunk - 1; together they cover every (b, t) row once
+    chunk, n = tconv.dw_tile_splits(b, t_out, blocks, 132)
+    s_b = -(-t_out // tconv.DW_STEP)
+    total = b * s_b
+    order = [i for k in range(n)
+             for i in range(k * chunk, min(total, (k + 1) * chunk))]
+    assert order == list(range(total))  # every step once, in (b, t) order
+    assert all(k * chunk < total for k in range(n))  # no empty split
+    rows = [(i // s_b, t) for i in order
+            for t in range(tconv.DW_STEP * (i % s_b),
+                           min(t_out, tconv.DW_STEP * (i % s_b + 1)))]
+    assert rows == [(bb, t) for bb in range(b) for t in range(t_out)]
+    # at least DW_MIN_CHUNK rows a split where there are that many, at most
+    # DW_WAVES blocks per SM, and at least one block per SM where the steps
+    # allow it (132 SMs, an H100 SXM)
+    assert chunk * tconv.DW_STEP >= min(tconv.DW_MIN_CHUNK,
+                                        total * tconv.DW_STEP)
+    assert n * blocks <= max(blocks, tconv.DW_WAVES * 132)
+    if total >= 132 * tconv.DW_MIN_CHUNK // tconv.DW_STEP:
+        assert n * blocks >= 132
+    # the sum order is a function of the shape and the card alone
+    assert tconv.dw_tile_splits(b, t_out, blocks, 132) == (chunk, n)
+
+
+@pytest.mark.parametrize("t_in,s", [(3, 2), (131, 2), (300, 2), (302, 2),
+                                    (400, 3), (49152, 5), (64, 8), (9, 1)])
+def test_phase_rows_hold_every_row_an_output_reads(t_in, s):
+    # the bf16 kernels' per-phase TMA maps: phase r holds rows r, r + s, ...
+    # of each batch; tap j = s q + r of output t reads phase row t + q, which
+    # lies below n_r for every t < T_out and K the scope allows
+    n = tconv.phase_rows(t_in, s)
+    assert n == [len(range(r, t_in, s)) for r in range(s)]
+    assert sum(n) == t_in
+    for k in range(s, min(8 * s, t_in) + 1):
+        t_out = tconv.output_length(t_in, k, s)
+        for j in range(k):
+            q, r = divmod(j, s)
+            assert (t_out - 1) + q < n[r]
+            assert s * (t_out - 1 + q) + r == s * (t_out - 1) + j < t_in
+
+
+def test_phase_rows_refuse_strides_past_the_maps_a_launch_carries():
+    assert len(tconv.phase_rows(100, tconv.SM90_MAX_STRIDE)) == 8
+    with pytest.raises(ValueError, match="stride <= 8"):
+        tconv.phase_rows(100, tconv.SM90_MAX_STRIDE + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t_out,k,c,o", [(4, 24575, 3, 512, 512),
+                                           (2, 1, 3, 512, 512),
+                                           (2, 257, 3, 256, 384),
+                                           (1, 40, 2, 128, 128)])
+def test_dw_plan_scratch_holds_one_slot_per_split(dtype, b, t_out, k, c, o):
+    chunk, n, scratch = tconv.dw_plan(dtype, b, t_out, k, c, o, 132)
+    blocks = k * (c // 128) * (o // 128)
+    if dtype == torch.bfloat16:
+        assert (chunk, n) == tconv.dw_tile_splits(b, t_out, blocks, 132)
+    else:
+        assert (chunk, n) == tconv.dw_splits(b * t_out, blocks, 132)
+    # one f32 (K, C, O) slot per split; none where one split writes dW
+    assert scratch == ((n, k, c, o) if n > 1 else None)
+    if scratch:
+        assert np.prod(scratch) * 4 <= tconv.DW_WAVES * 132 * 128 * 128 * 4
