@@ -13,7 +13,7 @@ result line):
             time, ptxas's registers and spills per kernel, and the HGMMA
             (tensor-core) instructions per kernel in cuobjdump -sass; fails
             if the bf16 attention forward, dQ or dK/dV kernel, or the bf16
-            conv forward or dW kernel, has none;
+            conv forward, dW or dX kernel, has none;
   kernels   the flash-attention forward kernels (f32 on the CUDA cores,
             bf16 on the tensor cores) against their plain PyTorch version
             on the card, TF32 off, f32 and bf16, at the shapes the serving
@@ -61,8 +61,8 @@ result line):
             training batch, at T = 777 / 515 and at the ragged edges of the
             bf16 kernels' tiles (CONV_EDGE_CASES): f32 (TF32 off) against
             the plain version in float64, bf16 against it in bf16, the bf16
-            forward and dW bitwise repeatable; dX zero past the last input
-            row an output reaches; CUDA-event times of each
+            forward, dW and dX bitwise repeatable; dX zero past the last
+            input row an output reaches; CUDA-event times of each
             kernel, its plain version and cuDNN's call for the same function
             (F.conv1d, conv1d_weight, conv1d_input);
   hubert serve  HuBERT-base at full width (configs/hubert/config_model.yaml,
@@ -131,9 +131,8 @@ launch_bwd_dkv on prebuilt masks); the forward's wrapper_ms times
 flash_attention (or flash_attention_kv_full), the call the model makes,
 host work included, as library_ms times SDPA's. The attention kernels'
 other timed shapes are under "cases". Every entry names the file of its
-bf16 kernel (source_bf16) and that kernel's HGMMA count (hgmma_bf16; 0 for
-the bf16 dX, which stays on the CUDA cores). The last line is
-{"ok": true, "device": {...}}.
+bf16 kernel (source_bf16) and that kernel's HGMMA count (hgmma_bf16). The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -175,13 +174,14 @@ KERNEL_SYMBOLS = ("flash_attn_fwd_kernel", "flash_attn_fwd_bf16_kernel",
                   "flash_attn_bwd_dkv_kernel", "conv1d_fwd_kernel",
                   "conv1d_dw_reduce_kernel", "conv1d_dw_kernel",
                   "conv1d_dx_kernel", "conv1d_fwd_bf16_kernel",
-                  "conv1d_dw_bf16_kernel")
+                  "conv1d_dw_bf16_kernel", "conv1d_dx_bf16_kernel")
 # the bf16 kernels that must run on the tensor cores: {name: symbol}
 TENSOR_CORE_KERNELS = {"flash_attn_fwd": "flash_attn_fwd_bf16_kernel",
                        "flash_attn_bwd_dq": "flash_attn_bwd_dq_bf16_kernel",
                        "flash_attn_bwd_dkv": "flash_attn_bwd_dkv_bf16_kernel",
                        "conv1d_fwd": "conv1d_fwd_bf16_kernel",
-                       "conv1d_dw": "conv1d_dw_bf16_kernel"}
+                       "conv1d_dw": "conv1d_dw_bf16_kernel",
+                       "conv1d_dx": "conv1d_dx_bf16_kernel"}
 # the melhubert_pretrain batch: B = 4 utterances cropped to 750 stacked
 # frames (sequence_length), padded to 768
 TRAIN_SHAPE = (4, 12, 768, 64)
@@ -1292,9 +1292,10 @@ def phase_conv(dev, gpu: str):
                 ref_y = tc.conv1d_strided_plain(x, w, s)
                 ref_dx, ref_dw = tc.plain_grads(x, w, s, dy)
                 ref = (ref_y, ref_dw, ref_dx)
-                # the tensor-core forward and dW give the same bits again
+                # the tensor-core forward, dW and dX give the same bits again
                 repeat = (torch.equal(tc.launch_fwd(x, w, s), got[0])
-                          and torch.equal(tc.launch_dw(x, dy, k, s), got[1]))
+                          and torch.equal(tc.launch_dw(x, dy, k, s), got[1])
+                          and torch.equal(tc.launch_dx(dy, w, t, s), got[2]))
                 got = (got[0], got[1].to(dtype), got[2])
                 diffs = [bf16_diff(g, r, ...) for g, r in zip(got, ref)]
                 ctl = [bf16_diff(cc, r, ...)[0]
@@ -1305,7 +1306,8 @@ def phase_conv(dev, gpu: str):
                     f"{n[7:]} differ {sh:.3%} max {u:g} ulp (control "
                     f"{cs:.2%})" for n, (sh, u), cs in zip(names, diffs, ctl))
                 detail += (f"; bars {BF16_SHARE_BAR:.0%}, {BF16_ULP_BAR:g} "
-                           f"ulp; fwd and dW bitwise repeatable: {repeat}")
+                           f"ulp; fwd, dW and dX bitwise repeatable: "
+                           f"{repeat}")
                 if not all(cs >= BF16_SHARE_BAR for cs in ctl):
                     raise AssertionError(
                         f"bf16 conv check at {name} cannot tell kernels that "
@@ -1876,10 +1878,10 @@ def check_tensor_cores(kernels) -> dict:
     """HGMMA instructions (Hopper's warpgroup tensor-core products) per
     kernel of the built library, from cuobjdump -sass; fails unless every
     instance of each TENSOR_CORE_KERNELS kernel (the bf16 attention
-    forward, dQ and dK/dV; the bf16 conv forward and dW) has some. Returns
-    {kernel: count of its bf16 version, summed over its instances (the
-    attention forward has four: with and without dropout, with and without
-    segment ids)}."""
+    forward, dQ and dK/dV; the bf16 conv forward, dW and dX) has some.
+    Returns {kernel: count of its bf16 version, summed over its instances
+    (the attention forward has four: with and without dropout, with and
+    without segment ids)}."""
     counts = kernels.sass_instruction_counts("HGMMA")
     for symbol, n in counts.items():
         short = next((k for k in KERNEL_SYMBOLS if k in symbol), symbol[:80])
@@ -1995,8 +1997,7 @@ def main() -> None:
                             else BWD_SM90_SOURCE)
     entries += [dict(name=name, source=CONV_SOURCE,
                      replaces=CONV_REPLACES[name], **conv[name],
-                     source_bf16=(CONV_SOURCE if name == "conv1d_dx"
-                                  else CONV_SM90_SOURCE))
+                     source_bf16=CONV_SM90_SOURCE)
                 for name in ("conv1d_fwd", "conv1d_dw", "conv1d_dx")]
     for e in entries:
         e["hgmma_bf16"] = hgmma.get(e["name"], 0)

@@ -1,7 +1,7 @@
 // Strided 1-D convolution for Hopper (sm_90a), CUDA cores, f32 accumulation:
 // the forward, dW and dX kernels of the waveform frontend's layers 1-6, f32
-// in, and the dX kernel for bf16 in. The bf16 forward and dW run on the
-// tensor cores (conv1d_sm90.cu); the C entry points below route them there.
+// in. The bf16 forward, dW and dX run on the tensor cores (conv1d_sm90.cu);
+// the C entry points below route them there.
 //
 // Replaces the three Pallas TPU kernels of
 // speech_ssl_compression_tpu/ops/conv1d.py:
@@ -46,19 +46,17 @@
 // What bounds it. Every kernel does 2 B T_out K C O FLOPs (300 GFLOP for
 // one pass over layers 1-6 at the training batch) against at most a few
 // hundred MB of traffic, so it is bound by arithmetic: the CUDA cores' f32
-// FMA rate (67 TFLOP/s on an H100 SXM) here, also for bf16 dX. What this
-// simple design leaves on the table: the tensor cores (conv1d_sm90.cu
-// takes them for the bf16 forward and dW; TF32 breaks the f32 route's
-// 1e-5 bar), TMA loads into a deeper ring, and occupancy (with the two
-// 8 x 8 register tiles ptxas gives the kernels 197-219 registers, no
-// spills: one block of 8 warps per SM).
+// FMA rate (67 TFLOP/s on an H100 SXM) here. What this simple design
+// leaves on the table: the tensor cores (conv1d_sm90.cu takes them for
+// bf16; TF32 breaks the f32 route's 1e-5 bar), TMA loads into a deeper
+// ring, and occupancy (with the two 8 x 8 register tiles ptxas gives the
+// kernels 197-209 registers, no spills: one block of 8 warps per SM).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sslc {
-// the bf16 forward and dW partial sums (conv1d_sm90.cu)
+// the bf16 forward, dW partial sums and dX (conv1d_sm90.cu)
 cudaError_t launch_conv1d_fwd_sm90(const void* x, const void* w, void* out,
                                    int B, int T_in, int C, int K, int O,
                                    int stride, cudaStream_t s);
@@ -66,6 +64,9 @@ cudaError_t launch_conv1d_dw_sm90(const void* x, const void* dy, float* slots,
                                   int B, int T_in, int C, int K, int O,
                                   int stride, int chunk, int n_split,
                                   cudaStream_t s);
+cudaError_t launch_conv1d_dx_sm90(const void* dy, const void* w, void* dx,
+                                  int B, int T_in, int C, int K, int O,
+                                  int stride, cudaStream_t s);
 }  // namespace sslc
 
 namespace {
@@ -77,17 +78,8 @@ constexpr int kThreads = 256;
 constexpr int kLdA = kBM + 4;  // padded smem row strides (floats): a multiple
 constexpr int kLdB = kBN + 4;  // of 4 keeps float4 alignment
 
-// Four consecutive elements as f32.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 template <typename T>
@@ -97,12 +89,6 @@ __device__ __forceinline__ float4 load4_or_zero(const T* p) {
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
-                         __floats2bfloat162_rn(v.z, v.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
 // A 4-element chunk of reduction indices k4 .. k4 + 3 of operand row `row`,
@@ -402,16 +388,15 @@ cudaError_t launch_dw(const void* x, const void* dy, void* partial, void* dw,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dx(const void* dy, const void* w, void* dx, int B,
-                      int T_in, int C, int K, int O, int stride,
-                      cudaStream_t s) {
+cudaError_t launch_dx_f32(const void* dy, const void* w, void* dx, int B,
+                          int T_in, int C, int K, int O, int stride,
+                          cudaStream_t s) {
   const int T_out = out_len(T_in, K, stride);
   const int U = (int)cdiv(T_in, stride);
   const dim3 grid((unsigned)cdiv((long long)B * U, kBM), C / kBN, stride);
-  conv1d_dx_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(w),
-      static_cast<T*>(dx), B, T_in, C, K, O, stride, T_out, U);
+  conv1d_dx_kernel<float><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(w),
+      static_cast<float*>(dx), B, T_in, C, K, O, stride, T_out, U);
   return cudaGetLastError();
 }
 
@@ -421,7 +406,7 @@ extern "C" {
 
 // x (B, T_in, C), w (K, C, O), out (B, T_out, O); contiguous, f32
 // (is_bf16 = 0) or bf16, 16-byte aligned, C and O multiples of 128,
-// stride <= K (bf16: stride <= 8). Launches on `stream` of CUDA device
+// stride <= K (bf16 forward and dW: stride <= 8). Launches on `stream` of CUDA device
 // `device` and returns cudaGetLastError() after the launch (0 on success).
 int sslc_conv1d_fwd(const void* x, const void* w, void* out, int B, int T_in,
                     int C, int K, int O, int stride, int is_bf16, int device,
@@ -458,8 +443,9 @@ int sslc_conv1d_dx(const void* dy, const void* w, void* dx, int B, int T_in,
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dx<__nv_bfloat16>(dy, w, dx, B, T_in, C, K, O, stride, s);
-  return launch_dx<float>(dy, w, dx, B, T_in, C, K, O, stride, s);
+    return sslc::launch_conv1d_dx_sm90(dy, w, dx, B, T_in, C, K, O, stride,
+                                       s);
+  return launch_dx_f32(dy, w, dx, B, T_in, C, K, O, stride, s);
 }
 
 }  // extern "C"

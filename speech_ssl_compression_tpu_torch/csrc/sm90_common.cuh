@@ -258,7 +258,9 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // stride byte offset). For an MN-major operand wider than one 128-byte
 // atom (n = 128: two boxes side by side along N), the leading byte offset
 // is the distance from one 64-wide box to the next; for a K-major operand,
-// or an MN-major one 64 wide, it is not read.
+// or an MN-major one 64 wide, it is not read. A K-major B 128 rows long
+// (n = 128) is 16 eight-row groups 1024 bytes apart, so its second 64-row
+// box must directly follow the first.
 __device__ __forceinline__ uint64_t box_desc(const void* box,
                                              uint32_t atom_bytes) {
   uint64_t desc = (smem_addr(box) & 0x3FFFF) >> 4;      // start address
@@ -295,11 +297,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
-// d (+)= A B for a 64 x 128 x 16 step, both operands in shared memory, B
-// MN-major; A K-major (kTransA = 0) or MN-major (1). accumulate = 0
-// overwrites d. The accumulator layout is the 64 x 64 one above, its
+// d (+)= A B for a 64 x 128 x 16 step, both operands in shared memory; A
+// K-major (kTransA = 0) or MN-major (1), B likewise (kTransB). accumulate =
+// 0 overwrites d. The accumulator layout is the 64 x 64 one above, its
 // column groups c8 running to 15.
-template <int kTransA>
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a,
                                               uint64_t desc_b,
                                               int accumulate) {
@@ -308,10 +310,11 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a,
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SSLC_WGMMA_D64
-      ", %64, %65, p, 1, 1, %67, 1;\n"
+      ", %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : SSLC_WGMMA_D64_OPS(d)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA),
+        "n"(kTransB));
 }
 
 }  // namespace

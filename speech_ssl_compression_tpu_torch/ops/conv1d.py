@@ -11,10 +11,11 @@ backward is the dW kernel (f32, cast to w's dtype, as JAX casts it) and the
 dX kernel (in x's dtype; input rows that no output reaches get 0).
 
 Routing is by device, and only by device: for CUDA tensors the wrappers
-launch the hand-written kernels or raise: f32, and bf16 dX, on the CUDA
-cores (``csrc/conv1d.cu``); the bf16 forward and dW on the tensor cores
-(``csrc/conv1d_sm90.cu``, which reads x through one TMA map per stride
-phase, so it takes stride <= SM90_MAX_STRIDE). CPU tensors go to
+launch the hand-written kernels or raise: f32 on the CUDA cores
+(``csrc/conv1d.cu``), bf16 on the tensor cores (``csrc/conv1d_sm90.cu``;
+its forward and dW read x through one TMA map per stride phase, so they
+take stride <= SM90_MAX_STRIDE; its dX reads dy and w and stores its rows
+directly, so it takes any stride). CPU tensors go to
 :func:`conv1d_strided_plain`, a per-tap version in plain PyTorch, and its
 dX and dW come from autograd through it. ``chip_smoke.py`` holds each
 kernel against that plain version on the card. Scope and error text are
@@ -24,6 +25,8 @@ JAX's ``_validate``: C and O multiples of 128, stride <= K <= 8 * stride
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _kernels
@@ -31,8 +34,8 @@ from . import _kernels
 _SLACK = 8  # JAX's bound on K / stride, kept for the same scope
 DW_MIN_CHUNK = 256  # fewest rows of B * T_out per partial sum of dW
 DW_WAVES = 4  # blocks of the dW kernel: about this many per SM
-# the bf16 kernels (csrc/conv1d_sm90.cu): the per-phase TMA maps a launch
-# carries, and the rows t of one batch in a dW reduction step
+# the bf16 forward and dW (csrc/conv1d_sm90.cu): the per-phase TMA maps a
+# launch carries, and the rows t of one batch in a dW reduction step
 SM90_MAX_STRIDE = 8
 DW_STEP = 64
 
@@ -119,11 +122,20 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    """The SMs of a CUDA device, looked up once per process: the lookup
+    costs a few microseconds, a measurable share of the host work of a dW
+    launch at the frontend's smallest layers (PERF.md §6)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def phase_rows(t_in: int, stride: int) -> list:
-    """Rows of x per batch in each stride phase r, as the bf16 kernels'
-    TMA maps take them: phase r holds rows r, r + s, ..., so
+    """Rows of x per batch in each stride phase r, as the bf16 forward and
+    dW kernels' TMA maps take them: phase r holds rows r, r + s, ..., so
     n_r = (T_in - 1 - r) // s + 1 (tap j = s q + r of output t reads its
-    row t + q). Raises past the SM90_MAX_STRIDE maps a launch carries."""
+    row t + q; the bf16 dX kernel writes the same rows of dX, phase by
+    phase). Raises past the SM90_MAX_STRIDE maps a launch carries."""
     if stride > SM90_MAX_STRIDE:
         raise ValueError(
             f"the bf16 conv kernels take stride <= {SM90_MAX_STRIDE} (one "
@@ -217,8 +229,8 @@ def launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
                          f"of x {tuple(x.shape)} at K={k}, stride={stride}")
     if x.dtype == torch.bfloat16:
         phase_rows(t_in, stride)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunk, n_split, scratch = dw_plan(x.dtype, b, dy.shape[1], k, c, o, n_sm)
+    chunk, n_split, scratch = dw_plan(x.dtype, b, dy.shape[1], k, c, o,
+                                      _sm_count(x.device.index))
     dw = torch.empty((k, c, o), dtype=torch.float32, device=x.device)
     partial = (torch.empty(scratch, dtype=torch.float32, device=x.device)
                if scratch else None)
@@ -236,7 +248,8 @@ def launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
 def launch_dx(dy: torch.Tensor, w: torch.Tensor, t_in: int,
               stride: int) -> torch.Tensor:
     """The dX kernel on CUDA tensors dy (B, T_out, O), w (K, C, O): dX
-    (B, t_in, C) in dy's dtype."""
+    (B, t_in, C) in dy's dtype, any stride the scope allows (the bf16
+    kernel has no per-phase maps to cap it)."""
     _check_kernel_inputs("conv1d_dx", dy, w, "dy and w")
     b, t_out, o = dy.shape
     k, c, o_w = w.shape

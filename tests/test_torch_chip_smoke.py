@@ -1,8 +1,8 @@
 """The pieces of ``chip_smoke.py`` that need no GPU: the attention kernels'
 work and bounds per dtype (the kernels line's bound_ms and bound_by), the
 layout of an attention kernel's entry in that line, and the check that the
-bf16 attention kernels (forward, dQ, dK/dV) and the bf16 conv forward and
-dW run on the tensor cores (HGMMA in their SASS)."""
+bf16 attention kernels (forward, dQ, dK/dV) and the bf16 conv forward, dW
+and dX run on the tensor cores (HGMMA in their SASS)."""
 
 import pathlib
 import sys
@@ -92,14 +92,18 @@ class _Kernels:
 FWD = ("_ZN4sslc12_GLOBAL__N_126flash_attn_fwd_bf16_kernelILb{}ELb{}EEEv"
        "14CUtensorMap")
 FWD_FLAGS = ((0, 0), (0, 1), (1, 0), (1, 1))
-CONV = ("_ZN4sslc47_GLOBAL__N__0f33a512_14_conv1d_sm90_cu_9b4ff5a7{}"
-        "conv1d_{}_bf16_kernelENS0_9PhaseMapsE14CUtensorMap_st")
+SM90 = "_ZN4sslc47_GLOBAL__N__0f33a512_14_conv1d_sm90_cu_9b4ff5a7"
+PHASE_MAPS = "ENS0_9PhaseMapsE14CUtensorMap_st"
+CONV = {"fwd": SM90 + "22conv1d_fwd_bf16_kernel" + PHASE_MAPS,
+        "dw": SM90 + "21conv1d_dw_bf16_kernel" + PHASE_MAPS,
+        "dx": SM90 + "21conv1d_dx_bf16_kernelE14CUtensorMapS1_P13__nv_bfloat16"
+                     "iiiiiii"}
 
 
-def _conv_counts(fwd=4, dw=4):
-    return {CONV.format(22, "fwd"): fwd, CONV.format(21, "dw"): dw,
+def _conv_counts(fwd=4, dw=4, dx=4):
+    return {CONV["fwd"]: fwd, CONV["dw"]: dw, CONV["dx"]: dx,
             "_ZN41_GLOBAL__N__c3d384cc_9_conv1d_cu_d3ed901e16conv1d_dx_kernel"
-            "I13__nv_bfloat16EEvPKT_S4_PS2_iiiiiiii": 0}
+            "IfEEvPKT_S2_PS0_iiiiiiii": 0}
 
 
 def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
@@ -110,14 +114,16 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
               "_ZN12_GLOBAL__N_121flash_attn_fwd_kernelIfEEv": 0,
               "_ZN12_GLOBAL__N_124flash_attn_bwd_dq_kernelIfEEv": 0}
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
-    counts.update(_conv_counts(fwd=4, dw=6))
+    counts.update(_conv_counts(fwd=4, dw=6, dx=8))
     got = chip_smoke.check_tensor_cores(_Kernels(counts))
     assert got == {"flash_attn_fwd": 32, "flash_attn_bwd_dq": 12,
-                   "flash_attn_bwd_dkv": 16, "conv1d_fwd": 4, "conv1d_dw": 6}
+                   "flash_attn_bwd_dkv": 16, "conv1d_fwd": 4, "conv1d_dw": 6,
+                   "conv1d_dx": 8}
     out = capsys.readouterr().out
     assert "4 HGMMA in conv1d_fwd_bf16_kernel" in out
     assert "6 HGMMA in conv1d_dw_bf16_kernel" in out
-    assert "0 HGMMA in conv1d_dx_kernel<bf16>" in out  # CUDA cores
+    assert "8 HGMMA in conv1d_dx_bf16_kernel" in out
+    assert "0 HGMMA in conv1d_dx_kernel<f32>" in out  # CUDA cores
     assert "16 HGMMA in flash_attn_bwd_dkv_bf16_kernel" in out
     assert "8 HGMMA in flash_attn_fwd_bf16_kernel<dropout, segments>" in out
     assert ("8 HGMMA in flash_attn_fwd_bf16_kernel<no dropout, no segments>"
@@ -126,27 +132,29 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
 
 
 @pytest.mark.parametrize("missing", ["fwd", "dq", "dkv", "conv_fwd",
-                                     "conv_dw"])
+                                     "conv_dw", "conv_dx"])
 def test_tensor_core_check_fails_without_hgmma(missing):
     counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE":
               0 if k == missing else 8 for k in ("dq", "dkv")}
     counts.update({FWD.format(*f): 0 if missing == "fwd" else 8
                    for f in FWD_FLAGS})
     counts.update(_conv_counts(fwd=0 if missing == "conv_fwd" else 4,
-                               dw=0 if missing == "conv_dw" else 4))
+                               dw=0 if missing == "conv_dw" else 4,
+                               dx=0 if missing == "conv_dx" else 4))
     with pytest.raises(AssertionError, match="tensor cores"):
         chip_smoke.check_tensor_cores(_Kernels(counts))
 
 
-@pytest.mark.parametrize("absent", ["fwd", "dw"])
+@pytest.mark.parametrize("absent", ["fwd", "dw", "dx"])
 def test_tensor_core_check_fails_without_a_conv_bf16_kernel(absent):
-    # a library whose bf16 conv forward or dW is not the tensor-core kernel
-    # at all (only the CUDA-core template instance, no HGMMA) fails too
+    # a library whose bf16 conv forward, dW or dX is not the tensor-core
+    # kernel at all (only the CUDA-core template instance, no HGMMA) fails
+    # too
     counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE": 8
               for k in ("dq", "dkv")}
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
     counts.update(_conv_counts())
-    del counts[CONV.format(22 if absent == "fwd" else 21, absent)]
+    del counts[CONV[absent]]
     counts[f"_ZN12_GLOBAL__N_117conv1d_{absent}_kernelI13__nv_bfloat16EEv"] = 0
     with pytest.raises(AssertionError,
                        match=f"conv1d_{absent}_bf16_kernel has no HGMMA"):

@@ -64,6 +64,48 @@ def test_plain_grads_equal_autograd_through_the_function(k, s, t):
     assert torch.equal(dx, xg.grad) and torch.equal(dw, wg.grad)
 
 
+def by_phase_dx(dy, w, t_in, s):
+    """dX as the bf16 dX kernel decomposes it: one GEMM per stride phase r.
+    Input row s u + r, for u < n_r = (T_in - 1 - r) // s + 1, sums over the
+    taps q < ceil((K - r) / s) dy row u - q (zero outside [0, T_out)) times
+    w[s q + r] transposed."""
+    b, t_out, o = dy.shape
+    k, c, _ = w.shape
+    dx = torch.zeros((b, t_in, c), dtype=dy.dtype)
+    for r in range(s):
+        n_r = (t_in - 1 - r) // s + 1
+        u = torch.arange(n_r)
+        acc = torch.zeros((b, n_r, c), dtype=dy.dtype)
+        for q in range(-(-(k - r) // s)):
+            reached = (u - q >= 0) & (u - q < t_out)
+            rows = torch.zeros((b, n_r, o), dtype=dy.dtype)
+            rows[:, reached] = dy[:, (u - q)[reached]]
+            acc += rows @ w[s * q + r].T
+        dx[:, r::s] = acc
+    return dx
+
+
+# CASES, taps over three phases, and one output row (B, T) = (2, 3)
+BY_PHASE_CASES = [(k, s, t, 2) for k, s, t in CASES] + [(7, 3, 400, 2),
+                                                         (3, 2, 3, 2)]
+
+
+@pytest.mark.parametrize("k,s,t,b", BY_PHASE_CASES)
+def test_by_phase_dx_equals_the_plain_dx(k, s, t, b):
+    # the bf16 dX kernel's index maths (phases, rows per phase, taps per
+    # phase, dy rows read as zeros outside [0, T_out)) give the plain dX,
+    # which test_plain_forward_and_grads_match_jax_interpret holds against
+    # JAX's Pallas dX; float64, so only the order of the additions differs
+    x, w, rng = _inputs(k, t, seed=4, b=b)
+    x64, w64 = torch.from_numpy(x).double(), torch.from_numpy(w).double()
+    t_out = tconv.output_length(t, k, s)
+    dy = torch.from_numpy(rng.standard_normal((b, t_out, 128)))
+    want = tconv.plain_grads(x64, w64, s, dy)[0]
+    got = by_phase_dx(dy, w64, t, s)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert not got[:, (t_out - 1) * s + k:].any()
+
+
 def test_plain_bf16_rounds_only_the_output():
     x, w, _ = _inputs(3, 301, seed=2)
     xb = torch.from_numpy(x).bfloat16()

@@ -429,10 +429,11 @@ def test_conv_autograd_goes_through_the_kernels_deterministically():
 
 
 def test_conv_bf16_kernels_run_on_the_tensor_cores_bitwise_repeatably():
-    # a bf16 CUDA tensor launches the wgmma forward and dW kernels
+    # a bf16 CUDA tensor launches the wgmma forward, dW and dX kernels
     # (csrc/conv1d_sm90.cu): the library holds no CUDA-core bf16 instance
-    # of either, and the same inputs give the same bits twice (the split-K
-    # dW adds its slots in a fixed order)
+    # of any of them, and the same inputs give the same bits twice (the
+    # split-K dW adds its slots in a fixed order; one block sums each dX
+    # element)
     from speech_ssl_compression_tpu_torch.ops import _kernels
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
 
@@ -450,7 +451,7 @@ def test_conv_bf16_kernels_run_on_the_tensor_cores_bitwise_repeatably():
                                 "conv1d_dx": 2}
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     hgmma = _kernels.sass_instruction_counts("HGMMA")
-    for name in ("conv1d_fwd", "conv1d_dw"):
+    for name in ("conv1d_fwd", "conv1d_dw", "conv1d_dx"):
         assert [n for sym, n in hgmma.items() if f"{name}_bf16_kernel" in sym
                 ] and all(n for sym, n in hgmma.items()
                           if f"{name}_bf16_kernel" in sym)
@@ -469,6 +470,26 @@ def test_conv_bf16_kernels_refuse_strides_past_their_maps():
     with pytest.raises(ValueError, match="stride <= 8"):
         tc.launch_dw(x, torch.zeros(1, 7, 128, device="cuda").bfloat16(), s, s)
     tc.launch_fwd(x.float(), w.float(), s)  # the f32 kernel takes any stride
+
+
+def test_conv_bf16_dx_takes_strides_past_the_forwards_maps():
+    # the bf16 dX kernel reads dy and w and stores its rows directly, so it
+    # has no per-phase maps and no stride cap: K = s = 9 against the plain
+    # version, with the bf16 bar of test_conv_kernels_match_plain_version
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    s = tc.SM90_MAX_STRIDE + 1
+    b, t, c, k, o = 2, 400, 128, s, 128
+    _, w, dy = _conv_inputs((b, t, c, k, o, s), torch.bfloat16, seed=3)
+    tc.reset_launch_counts()
+    got = tc.launch_dx(dy, w, t, s)
+    torch.cuda.synchronize()
+    assert tc.launch_counts["conv1d_dx"] == 1
+    x = torch.zeros((b, t, c), device="cuda", dtype=torch.bfloat16)
+    ref = tc.plain_grads(x, w, s, dy)[0]
+    share, ulps = _bf16_diff(got, ref, slice(None))
+    assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
+    assert not got[:, (dy.shape[1] - 1) * s + k:].any()
 
 
 def test_conv_kernels_refuse_what_they_do_not_take():
