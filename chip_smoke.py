@@ -12,8 +12,9 @@ result line):
             _kernels.py, one nvcc per source in parallel), print the build
             time, ptxas's registers and spills per kernel, and the HGMMA
             (tensor-core) instructions per kernel in cuobjdump -sass; fails
-            if the bf16 attention forward, dQ or dK/dV kernel, or the bf16
-            conv forward, dW or dX kernel, has none;
+            if the bf16 attention forward, dQ or dK/dV kernel, the f32 dQ
+            or dK/dV kernel (split TF32), or the bf16 conv forward, dW or
+            dX kernel, has none;
   kernels   the flash-attention forward kernels (f32 on the CUDA cores,
             bf16 on the tensor cores) against their plain PyTorch version
             on the card, TF32 off, f32 and bf16, at the shapes the serving
@@ -24,14 +25,19 @@ result line):
             kernel's launches (launch_fwd, without the wrapper's host work)
             and of the plain version at the serving, training, long and
             rectangular shapes;
-  backward  the dQ and dK/dV kernels, as the autograd path runs them (the
+  backward  the dQ and dK/dV kernels (both dtypes on the tensor cores; f32
+            in split TF32), as the autograd path runs them (the
             dQ kernel computes D from its own P and hands it to the dK/dV
             kernel), against the plain backward at the training shape
             (4, 12, 768, 64) with key padding, dropout 0 and 0.1, and at the
             serving, causal, one-head, long and rectangular shapes, and at
             the ragged T = 777 (key padding, dropout) and T = 65, f32 and
             bf16 (bf16: fewer than BF16_BEYOND_BAR of each gradient's valid
-            entries past one ulp); D also against JAX's rowsum(dO o O);
+            entries past one ulp; f32: dq, dk, dv against the plain
+            backward run in float64, which the f32 plain version itself
+            misses by up to ~2e-4 at the causal case, and its distance
+            from the f32 one printed); D also against JAX's
+            rowsum(dO o O);
             times of both kernels
             and their plain versions at the long and rectangular shapes; the
             forward kernels' keep bits and keep rate against the plain mask
@@ -124,14 +130,16 @@ layers 1-6 summed for the conv kernels) and, under keys ending in _bf16,
 its bf16 ones: ms (CUDA events), plain_ms, library_ms
 (F.scaled_dot_product_attention or cuDNN, timed only: one Python call
 each, its dispatch included), bound_ms (the larger of the FLOPs at the
-dtype's peak, 67 TFLOP/s f32 on the CUDA cores or 989 TFLOP/s bf16 on the
-tensor cores, and the bytes at 3.35 TB/s) and bound_by. The attention
+dtype's peak, 165 TFLOP/s f32 (495 / 3: f32-accurate products in split
+TF32 on the tensor cores) or 989 TFLOP/s bf16, and the bytes at 3.35
+TB/s) and bound_by. The attention
 kernels' ms times their launches alone (launch_fwd, launch_bwd_dq,
 launch_bwd_dkv on prebuilt masks); the forward's wrapper_ms times
 flash_attention (or flash_attention_kv_full), the call the model makes,
 host work included, as library_ms times SDPA's. The attention kernels'
 other timed shapes are under "cases". Every entry names the file of its
-bf16 kernel (source_bf16) and that kernel's HGMMA count (hgmma_bf16). The
+bf16 kernel (source_bf16) and the HGMMA counts of its f32 and bf16
+kernels (hgmma, hgmma_bf16: 0 for a kernel on the CUDA cores). The
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -156,11 +164,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG_YAML = ROOT / "configs" / "melhubert" / "config_model_20ms.yaml"
 MEAN_STD = ROOT / "example" / "libri-960-mean-std.npy"
 FA_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_fwd.cu"
-BWD_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_bwd.cu"
+BWD_F32_SOURCE = (
+    "speech_ssl_compression_tpu_torch/csrc/flash_attn_bwd_f32_sm90.cu")
 FWD_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
 BWD_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
-ATTN_SOURCES = {"flash_attn_fwd": FA_SOURCE, "flash_attn_bwd_dq": BWD_SOURCE,
-                "flash_attn_bwd_dkv": BWD_SOURCE}
+ATTN_SOURCES = {"flash_attn_fwd": FA_SOURCE,
+                "flash_attn_bwd_dq": BWD_F32_SOURCE,
+                "flash_attn_bwd_dkv": BWD_F32_SOURCE}
 ATTN_REPLACES = {
     "flash_attn_fwd": "speech_ssl_compression_tpu/ops/flash_attention.py:66",
     "flash_attn_bwd_dq": "speech_ssl_compression_tpu/ops/flash_attention.py:473",
@@ -170,18 +180,22 @@ ATTN_REPLACES = {
 # the kernels' names in the built library's symbols
 KERNEL_SYMBOLS = ("flash_attn_fwd_kernel", "flash_attn_fwd_bf16_kernel",
                   "flash_attn_bwd_dq_bf16_kernel",
-                  "flash_attn_bwd_dkv_bf16_kernel", "flash_attn_bwd_dq_kernel",
-                  "flash_attn_bwd_dkv_kernel", "conv1d_fwd_kernel",
+                  "flash_attn_bwd_dkv_bf16_kernel",
+                  "flash_attn_bwd_dq_f32_kernel",
+                  "flash_attn_bwd_dkv_f32_kernel", "conv1d_fwd_kernel",
                   "conv1d_dw_reduce_kernel", "conv1d_dw_kernel",
                   "conv1d_dx_kernel", "conv1d_fwd_bf16_kernel",
                   "conv1d_dw_bf16_kernel", "conv1d_dx_bf16_kernel")
-# the bf16 kernels that must run on the tensor cores: {name: symbol}
-TENSOR_CORE_KERNELS = {"flash_attn_fwd": "flash_attn_fwd_bf16_kernel",
-                       "flash_attn_bwd_dq": "flash_attn_bwd_dq_bf16_kernel",
-                       "flash_attn_bwd_dkv": "flash_attn_bwd_dkv_bf16_kernel",
-                       "conv1d_fwd": "conv1d_fwd_bf16_kernel",
-                       "conv1d_dw": "conv1d_dw_bf16_kernel",
-                       "conv1d_dx": "conv1d_dx_bf16_kernel"}
+# the kernels that must run on the tensor cores: {(name, dtype tag): symbol}
+TENSOR_CORE_KERNELS = {
+    ("flash_attn_fwd", "bf16"): "flash_attn_fwd_bf16_kernel",
+    ("flash_attn_bwd_dq", "bf16"): "flash_attn_bwd_dq_bf16_kernel",
+    ("flash_attn_bwd_dkv", "bf16"): "flash_attn_bwd_dkv_bf16_kernel",
+    ("flash_attn_bwd_dq", "f32"): "flash_attn_bwd_dq_f32_kernel",
+    ("flash_attn_bwd_dkv", "f32"): "flash_attn_bwd_dkv_f32_kernel",
+    ("conv1d_fwd", "bf16"): "conv1d_fwd_bf16_kernel",
+    ("conv1d_dw", "bf16"): "conv1d_dw_bf16_kernel",
+    ("conv1d_dx", "bf16"): "conv1d_dx_bf16_kernel"}
 # the melhubert_pretrain batch: B = 4 utterances cropped to 750 stacked
 # frames (sequence_length), padded to 768
 TRAIN_SHAPE = (4, 12, 768, 64)
@@ -232,9 +246,11 @@ HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
 HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
 HUBERT_CLASSES = 504        # 500 clusters + 4 specials, the bench recipe's
 HUBERT_ACCUM = 2            # micro-batches per update in the trainer run
-# peaks of one H100 SXM (NVIDIA data sheet):
-# f32 on the CUDA cores, bf16 on the tensor cores, HBM bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# peaks of one H100 SXM (NVIDIA data sheet): f32-accurate products on the
+# tensor cores in split TF32, three TF32 products each (495 / 3 TFLOP/s;
+# the CUDA cores' 67 would read below the f32 backward kernels' times),
+# bf16 on the tensor cores, HBM bandwidth
+PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -601,11 +617,24 @@ def phase_backward(dev, gpu: str):
             ok = max(d_errs) < F32_BAR
             detail += f" (bar {F32_BAR:g}); "
             if dtype == torch.float32:
-                errs = [rel_err(g, r, s) for g, r, s in zip(got, ref, sel)]
+                # the kernels' products are f32-accurate (split TF32) but
+                # not rounded where the f32 plain version's are, which lies
+                # up to ~2e-4 from the exact function itself (the causal
+                # case): dq, dk and dv are held to the plain version run in
+                # float64
+                exact = fa.reference_bwd(*fa.float64_args(args))[:3]
+                errs = [rel_err(g, r, s) for g, r, s in zip(got, exact, sel)]
+                plain = [rel_err(g, r, s) for g, r, s in zip(got, ref, sel)]
+                own = [rel_err(r, e, s) for r, e, s in zip(ref, exact, sel)]
+                del exact
                 ok = ok and max(errs) < F32_BAR
-                detail += "max|d|/mean|ref| " + ", ".join(
-                    f"{n} {e:.3e}" for n, e in zip(names, errs))
-                detail += f" (bar {F32_BAR:g})"
+                detail += "max|d|/mean|ref| against the plain version in " + \
+                    "float64 " + ", ".join(
+                        f"{n} {e:.3e}" for n, e in zip(names, errs))
+                detail += f" (bar {F32_BAR:g}); against it in f32 " + ", ".join(
+                    f"{n} {e:.3e}" for n, e in zip(names, plain))
+                detail += " (that f32 version's own distance from float64 " + \
+                    ", ".join(f"{n} {e:.3e}" for n, e in zip(names, own)) + ")"
             else:
                 f32_args = tuple(a.float() if torch.is_tensor(a)
                                  and a.dtype == dtype else a for a in args)
@@ -1162,16 +1191,20 @@ def phase_profile(extractors, wavs, gpu: str):
 
 
 def phase_train_profile(runner, batch, gpu: str):
-    """The bf16 grad step, with the kernels and with impl="dense"."""
+    """The bf16 grad step, with the kernels and with impl="dense", and the
+    f32 grad step with the kernels."""
     from speech_ssl_compression_tpu_torch.train.steps import (
         make_melhubert_grad_step,
     )
 
-    for impl in ("auto", "dense"):
+    for dtype, impl in ((runner.compute_dtype, "auto"),
+                        (runner.compute_dtype, "dense"),
+                        (torch.float32, "auto")):
         step = make_melhubert_grad_step(
             runner.model, accum_steps=runner.accum_steps,
-            compute_dtype=runner.compute_dtype, attn_impl=impl)
-        profile_calls(f"grad step B=4 T=768 bf16 attn={impl}",
+            compute_dtype=dtype, attn_impl=impl)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        profile_calls(f"grad step B=4 T=768 {tag} attn={impl}",
                       lambda: step(runner.params, batch, runner.rng), gpu)
 
 
@@ -1878,10 +1911,10 @@ def check_tensor_cores(kernels) -> dict:
     """HGMMA instructions (Hopper's warpgroup tensor-core products) per
     kernel of the built library, from cuobjdump -sass; fails unless every
     instance of each TENSOR_CORE_KERNELS kernel (the bf16 attention
-    forward, dQ and dK/dV; the bf16 conv forward, dW and dX) has some.
-    Returns {kernel: count of its bf16 version, summed over its instances
-    (the attention forward has four: with and without dropout, with and
-    without segment ids)}."""
+    forward, dQ and dK/dV; the f32 dQ and dK/dV; the bf16 conv forward, dW
+    and dX) has some. Returns {(kernel, "bf16" or "f32"): count, summed
+    over its instances (the bf16 attention forward has four: with and
+    without dropout, with and without segment ids)}."""
     counts = kernels.sass_instruction_counts("HGMMA")
     for symbol, n in counts.items():
         short = next((k for k in KERNEL_SYMBOLS if k in symbol), symbol[:80])
@@ -1896,13 +1929,13 @@ def check_tensor_cores(kernels) -> dict:
                   zip(flags.groups(), ("dropout", "segments"))))
         log("build", f"SASS: {n} HGMMA in {short}")
     out = {}
-    for name, symbol in TENSOR_CORE_KERNELS.items():
+    for (name, tag), symbol in TENSOR_CORE_KERNELS.items():
         found = [n for sym, n in counts.items() if symbol in sym]
         if not found or not all(found):
             raise AssertionError(f"{symbol} has no HGMMA instruction: the "
-                                 f"bf16 {name} does not run on the tensor "
+                                 f"{tag} {name} does not run on the tensor "
                                  "cores")
-        out[name] = sum(found)
+        out[name, tag] = sum(found)
     return out
 
 
@@ -2000,7 +2033,8 @@ def main() -> None:
                      source_bf16=CONV_SM90_SOURCE)
                 for name in ("conv1d_fwd", "conv1d_dw", "conv1d_dx")]
     for e in entries:
-        e["hgmma_bf16"] = hgmma.get(e["name"], 0)
+        e["hgmma"] = hgmma.get((e["name"], "f32"), 0)
+        e["hgmma_bf16"] = hgmma.get((e["name"], "bf16"), 0)
         by_path = {p: c.get(e["name"], 0) for p, c in paths.items()}
         e.update(route="cuda", launches=sum(by_path.values()),
                  launches_by_path=by_path)

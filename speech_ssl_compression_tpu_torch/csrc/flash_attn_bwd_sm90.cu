@@ -5,8 +5,9 @@
 // speech_ssl_compression_tpu/ops/flash_attention.py: _fa_bwd_dq_kernel and
 // _fa_bwd_dkv_kernel (launched by _flash_bwd_impl) and their streamed
 // versions _fa_bwd_dq_stream_kernel and _fa_bwd_dkv_stream_kernel (launched
-// by _flash_bwd_stream). f32 inputs keep the CUDA-core kernels of
-// flash_attn_bwd.cu, whose header states the arithmetic both routes share:
+// by _flash_bwd_stream). f32 inputs go to the split-TF32 kernels of
+// flash_attn_bwd_f32_sm90.cu; flash_attn_bwd.cu's header states the
+// arithmetic both routes share:
 // S = scale * (q . k) with the forward's masks, P = exp(S - LSE),
 // Pd = P o M / (1 - p), dPd = dO . V^T, dS = Pd o dPd - P o D, dS and Pd
 // rounded to bf16 before their products, f32 accumulation, the scale on the

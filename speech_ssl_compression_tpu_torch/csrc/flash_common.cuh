@@ -1,7 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu and their bf16 _sm90 files): the tile geometry, the f32
-// staging of q/k/v/dO tiles in shared memory, the bf16 rounding points, and
-// the counter-based keep bits of attention dropout.
+// Pieces shared by the flash-attention kernels (flash_attn_fwd.cu and the
+// _sm90 files): the tile geometry, the f32 staging of q/k/v tiles in shared
+// memory, the bf16 rounding points, and the counter-based keep bits of
+// attention dropout.
 //
 // The keep bits. Pallas seeds the TPU's hardware generator once per score
 // tile (_tile_keep_mask, speech_ssl_compression_tpu/ops/flash_attention.py:49)
@@ -14,8 +14,9 @@
 // forward, both backward kernels and the plain PyTorch version
 // (ops/dropout.py::attention_keep_mask) compute the same mask, and no mask
 // is ever stored in device memory. keep() gives one score's bit, one call
-// per score (the f32 kernels); keep_word() the bits of 32 adjacent keys
-// from eight calls (the bf16 kernels).
+// per score (the f32 forward); keep_word() the bits of 32 adjacent keys
+// from eight calls (the bf16 kernels; the f32 backward draws 16 keys from
+// four calls the same way).
 
 #pragma once
 
@@ -33,7 +34,6 @@ constexpr int kLd = 68;        // padded smem row stride in floats; a multiple
                                // of 4 keeps float4 alignment, and rows land
                                // 4 banks apart
 constexpr float kNegInf = -1e30f;
-constexpr size_t kTileFloats = (size_t)kBQ * kLd;
 
 static_assert(kD == 64 && kBQ == 64 && kBK == 64,
               "the thread layouts assume 64 x 64 tiles");

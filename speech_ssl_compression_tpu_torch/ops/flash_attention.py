@@ -81,18 +81,31 @@ def _keep_scale(dropout_p: float) -> float:
     return 1.0 / (1.0 - dropout_p)
 
 
+_NEG_INF_F32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
+
+
+def _wide(t):
+    """``t`` in the plain versions' arithmetic: f32, or float64 for float64
+    inputs (the backward's exact evaluation, which the f32 kernels are held
+    to)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _scores(q, k, bias, segq, segk, causal):
-    """S = scale * (q . k) in f32 with the kernels' masks, (B, H, Tq, Tk)."""
+    """S = scale * (q . k) in f32 (float64 for float64 inputs) with the
+    kernels' masks, (B, H, Tq, Tk). A masked score is NEG_INF as f32 holds
+    it in either type, so that a fully masked row meets the kernels' f32 LSE
+    with exp(0) in float64 too."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
     s = s + bias[:, None, None, :]
     if segq is not None:
         s = s.masked_fill(segq[:, None, :, None] != segk[:, None, None, :],
-                          NEG_INF)
+                          _NEG_INF_F32)
     if causal:
         tq, tk = s.shape[-2], s.shape[-1]
         above = torch.ones((tq, tk), dtype=torch.bool, device=s.device).triu(1)
-        s = s.masked_fill(above, NEG_INF)
+        s = s.masked_fill(above, _NEG_INF_F32)
     return s
 
 
@@ -169,7 +182,7 @@ def _reference_ds(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
     keep = _keep(q, k, dropout_p, seed)
     pd = p if keep is None else torch.where(
         keep, p * _keep_scale(dropout_p), torch.zeros((), device=p.device))
-    dpd = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    dpd = torch.matmul(_wide(dout), _wide(v).transpose(-1, -2))
     return p, pd, pd * dpd - p * dd[..., None]
 
 
@@ -191,7 +204,7 @@ def reference_dd(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
     keep = _keep(q, k, dropout_p, seed)
     pd = p if keep is None else torch.where(
         keep, p * _keep_scale(dropout_p), torch.zeros((), device=p.device))
-    dpd = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    dpd = torch.matmul(_wide(dout), _wide(v).transpose(-1, -2))
     l = p.sum(dim=-1)
     return torch.where(l > 0, (pd * dpd).sum(dim=-1) / l,
                        torch.zeros((), device=l.device))
@@ -204,7 +217,7 @@ def reference_bwd_dq(q, k, v, bias, segq, segk, causal, dropout_p, seed,
     _, _, ds = _reference_ds(q, k, v, bias, segq, segk, causal, dropout_p,
                              seed, lse, dout, dd)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    dq = torch.matmul(ds.to(q.dtype).float(), k.float())
+    dq = torch.matmul(_wide(ds.to(q.dtype)), _wide(k))
     return (scale * dq).to(q.dtype)
 
 
@@ -215,8 +228,8 @@ def reference_bwd_dkv(q, k, v, bias, segq, segk, causal, dropout_p, seed,
     _, pd, ds = _reference_ds(q, k, v, bias, segq, segk, causal, dropout_p,
                               seed, lse, dout, dd)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
-    dv = torch.matmul(pd.to(q.dtype).float().transpose(-1, -2), dout.float())
+    dk = torch.matmul(_wide(ds.to(q.dtype)).transpose(-1, -2), _wide(q))
+    dv = torch.matmul(_wide(pd.to(q.dtype)).transpose(-1, -2), _wide(dout))
     return (scale * dk).to(k.dtype), dv.to(v.dtype)
 
 
@@ -680,6 +693,14 @@ def forward_args(
     segk, causal, dropout_p, seed)."""
     bias, seg = _masks(k, key_padding_mask, segment_ids)
     return (q, k, v, bias, seg, seg, causal, dropout_p, dropout_seed)
+
+
+def float64_args(args):
+    """A :func:`backward_args` tuple with its float tensors in float64: the
+    plain backward on it is the exact evaluation of the kernels' function
+    (:func:`_wide`)."""
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
 
 
 def backward_args(

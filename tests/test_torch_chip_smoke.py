@@ -1,8 +1,9 @@
 """The pieces of ``chip_smoke.py`` that need no GPU: the attention kernels'
 work and bounds per dtype (the kernels line's bound_ms and bound_by), the
 layout of an attention kernel's entry in that line, and the check that the
-bf16 attention kernels (forward, dQ, dK/dV) and the bf16 conv forward, dW
-and dX run on the tensor cores (HGMMA in their SASS)."""
+bf16 attention kernels (forward, dQ, dK/dV), the f32 dQ and dK/dV and the
+bf16 conv forward, dW and dX run on the tensor cores (HGMMA in their
+SASS)."""
 
 import pathlib
 import sys
@@ -18,7 +19,7 @@ import chip_smoke  # noqa: E402
 KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 
 
-@pytest.mark.parametrize("dtype,size,peak", [(torch.float32, 4, 67e12),
+@pytest.mark.parametrize("dtype,size,peak", [(torch.float32, 4, 495e12 / 3),
                                              (torch.bfloat16, 2, 989e12)])
 def test_attention_bounds_per_dtype(dtype, size, peak):
     assert chip_smoke.PEAK_FLOPS[dtype] == peak
@@ -72,7 +73,7 @@ def test_attention_entry_has_both_dtypes_and_every_timed_case():
     for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"):
         assert key in e and key + "_bf16" in e
-    assert e["source"].endswith("csrc/flash_attn_bwd.cu")
+    assert e["source"].endswith("csrc/flash_attn_bwd_f32_sm90.cu")
     assert e["replaces"].endswith("ops/flash_attention.py:473")
     assert e["bound_ms"] > e["bound_ms_bf16"]
     assert set(e["cases"]) == {"long"}  # untimed cases stay out
@@ -100,6 +101,14 @@ CONV = {"fwd": SM90 + "22conv1d_fwd_bf16_kernel" + PHASE_MAPS,
                      "iiiiiii"}
 
 
+def _bwd_counts(missing=None):
+    """HGMMA counts of the four backward kernels (bf16 and f32 dQ, dK/dV),
+    0 in the one named by ``missing`` ("dq", "dkv", "dq_f32", "dkv_f32")."""
+    return {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_{t}_kernelE":
+            0 if missing == (k if t == "bf16" else f"{k}_f32") else 8
+            for k in ("dq", "dkv") for t in ("bf16", "f32")}
+
+
 def _conv_counts(fwd=4, dw=4, dx=4):
     return {CONV["fwd"]: fwd, CONV["dw"]: dw, CONV["dx"]: dx,
             "_ZN41_GLOBAL__N__c3d384cc_9_conv1d_cu_d3ed901e16conv1d_dx_kernel"
@@ -111,31 +120,36 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
     # segment ids) summed
     counts = {"_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dq_bf16_kernelE": 12,
               "_ZN4sslc12_GLOBAL__N_130flash_attn_bwd_dkv_bf16_kernelE": 16,
-              "_ZN12_GLOBAL__N_121flash_attn_fwd_kernelIfEEv": 0,
-              "_ZN12_GLOBAL__N_124flash_attn_bwd_dq_kernelIfEEv": 0}
+              "_ZN4sslc12_GLOBAL__N_128flash_attn_bwd_dq_f32_kernelE": 72,
+              "_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dkv_f32_kernelE": 70,
+              "_ZN12_GLOBAL__N_121flash_attn_fwd_kernelIfEEv": 0}
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
     counts.update(_conv_counts(fwd=4, dw=6, dx=8))
     got = chip_smoke.check_tensor_cores(_Kernels(counts))
-    assert got == {"flash_attn_fwd": 32, "flash_attn_bwd_dq": 12,
-                   "flash_attn_bwd_dkv": 16, "conv1d_fwd": 4, "conv1d_dw": 6,
-                   "conv1d_dx": 8}
+    assert got == {("flash_attn_fwd", "bf16"): 32,
+                   ("flash_attn_bwd_dq", "bf16"): 12,
+                   ("flash_attn_bwd_dkv", "bf16"): 16,
+                   ("flash_attn_bwd_dq", "f32"): 72,
+                   ("flash_attn_bwd_dkv", "f32"): 70,
+                   ("conv1d_fwd", "bf16"): 4, ("conv1d_dw", "bf16"): 6,
+                   ("conv1d_dx", "bf16"): 8}
     out = capsys.readouterr().out
     assert "4 HGMMA in conv1d_fwd_bf16_kernel" in out
     assert "6 HGMMA in conv1d_dw_bf16_kernel" in out
     assert "8 HGMMA in conv1d_dx_bf16_kernel" in out
     assert "0 HGMMA in conv1d_dx_kernel<f32>" in out  # CUDA cores
     assert "16 HGMMA in flash_attn_bwd_dkv_bf16_kernel" in out
+    assert "72 HGMMA in flash_attn_bwd_dq_f32_kernel" in out
     assert "8 HGMMA in flash_attn_fwd_bf16_kernel<dropout, segments>" in out
     assert ("8 HGMMA in flash_attn_fwd_bf16_kernel<no dropout, no segments>"
             in out)
     assert "0 HGMMA in flash_attn_fwd_kernel<f32>" in out
 
 
-@pytest.mark.parametrize("missing", ["fwd", "dq", "dkv", "conv_fwd",
-                                     "conv_dw", "conv_dx"])
+@pytest.mark.parametrize("missing", ["fwd", "dq", "dkv", "dq_f32", "dkv_f32",
+                                     "conv_fwd", "conv_dw", "conv_dx"])
 def test_tensor_core_check_fails_without_hgmma(missing):
-    counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE":
-              0 if k == missing else 8 for k in ("dq", "dkv")}
+    counts = _bwd_counts(missing)
     counts.update({FWD.format(*f): 0 if missing == "fwd" else 8
                    for f in FWD_FLAGS})
     counts.update(_conv_counts(fwd=0 if missing == "conv_fwd" else 4,
@@ -150,8 +164,7 @@ def test_tensor_core_check_fails_without_a_conv_bf16_kernel(absent):
     # a library whose bf16 conv forward, dW or dX is not the tensor-core
     # kernel at all (only the CUDA-core template instance, no HGMMA) fails
     # too
-    counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE": 8
-              for k in ("dq", "dkv")}
+    counts = _bwd_counts()
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
     counts.update(_conv_counts())
     del counts[CONV[absent]]
@@ -162,8 +175,7 @@ def test_tensor_core_check_fails_without_a_conv_bf16_kernel(absent):
 
 
 def test_tensor_core_check_fails_when_one_forward_instance_has_none():
-    counts = {f"_ZN4sslc12_GLOBAL__N_1flash_attn_bwd_{k}_bf16_kernelE": 8
-              for k in ("dq", "dkv")}
+    counts = _bwd_counts()
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
     counts.update(_conv_counts())
     counts[FWD.format(1, 0)] = 0

@@ -369,6 +369,7 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert _kernels.library_path() == lib
     assert [p.name for p in _kernels._sources()[0]] == [
         "conv1d.cu", "conv1d_sm90.cu", "flash_attn_bwd.cu",
-        "flash_attn_bwd_sm90.cu", "flash_attn_fwd.cu", "flash_attn_fwd_sm90.cu"]
+        "flash_attn_bwd_f32_sm90.cu", "flash_attn_bwd_sm90.cu",
+        "flash_attn_fwd.cu", "flash_attn_fwd_sm90.cu"]
     assert [p.name for p in _kernels._sources()[1]] == [
         "flash_common.cuh", "sm90_common.cuh"]

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's flash-attention kernels, and the bf16 grad steps
-that run them, on one CUDA device, for the port found under ``--root``
+"""Time the PyTorch port's flash-attention kernels, and the grad steps that
+run them, on one CUDA device, for the port found under ``--root``
 (this checkout by default). Pointing ``--root`` at an unpacked older tree
 times that tree's kernels, so two trees can be compared in one session on
 one card, in turns (old, new, new, old).
 
     python3 tools/torch_attention_timing.py [--root DIR] [--label NAME]
-                                            [--grad-steps] [--json OUT]
+                                            [--grad-steps] [--profile]
+                                            [--json OUT]
 
 Prints one JSON line (appended to OUT with ``--json``): the label, the
 card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
@@ -16,13 +17,19 @@ card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
     (``flash_attention_kv_full``, the last 200 keys padded);
   * ``dq`` and ``dkv``: ``launch_bwd_dq`` and ``launch_bwd_dkv`` at the
     training shape (4, 12, 768, 64) with key padding (lengths 750, 750,
-    700, 512), dropout 0 and 0.1;
+    700, 512), dropout 0 and 0.1, at T = 5000 and at 1024 x 5000 (the
+    forward's long and rectangular cases);
   each f32 (TF32 off) and bf16, 20 launches per timing, median of 5, after
   a warm-up;
-  * with ``--grad-steps``: the bf16 grad step of MelHuBERT-20ms (B = 4,
-    T = 768, 8-step accumulation, dropout on) and of HuBERT-base with the
-    cuDNN frontend (B = 4 x 245,760 samples, LayerDrop 0), full width,
-    seeded random weights, median of 5 single steps.
+  * with ``--grad-steps``: the bf16 and f32 grad steps of MelHuBERT-20ms
+    (B = 4, T = 768, 8-step accumulation, dropout on; f32 at PyTorch's
+    TF32 defaults: matmuls in f32, cuDNN's convolutions in TF32)
+    and the bf16 grad step of HuBERT-base with the cuDNN frontend (B = 4 x
+    245,760 samples, LayerDrop 0), full width, seeded random weights,
+    median of 5 single steps;
+  * with ``--profile``: torch.profiler over 3 f32 MelHuBERT grad steps:
+    device busy ms per step and the largest device kernels, under
+    ``profile`` in the line.
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
 
@@ -102,23 +109,32 @@ def kernel_times(dev) -> dict:
             lambda: fa.flash_attention_kv_full(q_rect, k, v,
                                                key_padding_mask=rect_pad),
             inner=20)
+        dout = torch.randn((1, 12, 5000, 64), generator=gen,
+                           device=dev).to(dtype)
+        long_cases = (("T=5000", q, k, v, dout, {}),
+                      ("1024x5000", q_rect, k, v,
+                       dout[:, :, :1024].contiguous(),
+                       dict(key_padding_mask=rect_pad)))
         q, k, v, dout = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
                          .to(dtype) for _ in range(4))
-        for p in (0.0, 0.1):
-            masks = dict(key_padding_mask=pad)
-            if p:
-                masks.update(dropout_p=p, dropout_seed=1234)
-            _, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+        cases = [(f"p={p}", q, k, v, dout, dict(key_padding_mask=pad) | (
+            dict(dropout_p=p, dropout_seed=1234) if p else {}))
+                 for p in (0.0, 0.1)] + list(long_cases)
+        for case, q, k, v, dout, masks in cases:
+            fwd = (fa.flash_attention if q.shape == k.shape
+                   else fa.flash_attention_kv_full)
+            _, lse = fwd(q, k, v, return_lse=True, **masks)
             args = fa.backward_args(q, k, v, lse, dout, **masks)
             _, dd = fa.launch_bwd_dq(*args)
-            times[f"dq {tag} p={p}"] = cuda_ms(
+            times[f"dq {tag} {case}"] = cuda_ms(
                 lambda: fa.launch_bwd_dq(*args), inner=20)
-            times[f"dkv {tag} p={p}"] = cuda_ms(
+            times[f"dkv {tag} {case}"] = cuda_ms(
                 lambda: fa.launch_bwd_dkv(*args, dd), inner=20)
     return times
 
 
-def melhubert_step_ms(root: pathlib.Path, dev) -> float:
+def melhubert_step(root: pathlib.Path, dev, dtype):
+    """A callable that runs one MelHuBERT-20ms grad step in ``dtype``."""
     from speech_ssl_compression_tpu_torch.configs import (
         melhubert_config_from_yaml,
     )
@@ -146,9 +162,42 @@ def melhubert_step_ms(root: pathlib.Path, dev) -> float:
         "length": lengths,
     }
     step = make_melhubert_grad_step(model, accum_steps=8,
-                                    compute_dtype=torch.bfloat16)
+                                    compute_dtype=dtype)
     gen = torch.Generator().manual_seed(0)
-    return cuda_ms(lambda: step(params, batch, gen))
+    return lambda: step(params, batch, gen)
+
+
+def profile_ms(fn, calls: int = 3) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn`` after 2 warm-ups:
+    {"busy": device busy ms per call, kernel name: device ms per call} for
+    the 8 largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise SystemExit("torch_attention_timing: the profiler saw no "
+                         "device activity")
+    busy, end = 0.0, float("-inf")  # the union of the kernels' intervals
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    per_name = {}
+    for e in events:
+        per_name[e.name] = (per_name.get(e.name, 0.0)
+                            + e.time_range.elapsed_us() / 1e3 / calls)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"busy": busy / 1e3 / calls, **{n[:80]: ms for n, ms in top}}
 
 
 def hubert_step_ms(root: pathlib.Path, dev) -> float:
@@ -194,6 +243,7 @@ def main() -> None:
                         help="the tree whose port is timed")
     parser.add_argument("--label", default="")
     parser.add_argument("--grad-steps", action="store_true")
+    parser.add_argument("--profile", action="store_true")
     parser.add_argument("--json", help="append the JSON line to this file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -206,12 +256,17 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     times = kernel_times(dev)
+    profiled = None
     if args.grad_steps:
-        times["melhubert grad step bf16"] = melhubert_step_ms(root, dev)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            times[f"melhubert grad step {tag}"] = cuda_ms(
+                melhubert_step(root, dev, dtype))
         times["hubert grad step bf16 (cuDNN frontend)"] = hubert_step_ms(
             root, dev)
+    if args.profile:
+        profiled = profile_ms(melhubert_step(root, dev, torch.float32))
     line = json.dumps({"label": args.label, "root": str(root), "gpu": gpu,
-                       "ms": times})
+                       "ms": times, "profile": profiled})
     print(line, flush=True)
     if args.json:
         with open(args.json, "a") as f:
