@@ -12,19 +12,20 @@ result line):
             _kernels.py, one nvcc per source in parallel), print the build
             time, ptxas's registers and spills per kernel, and the HGMMA
             (tensor-core) instructions per kernel in cuobjdump -sass; fails
-            if the bf16 attention forward, dQ or dK/dV kernel, the f32 dQ
-            or dK/dV kernel (split TF32), or the bf16 conv forward, dW or
-            dX kernel, has none;
-  kernels   the flash-attention forward kernels (f32 on the CUDA cores,
-            bf16 on the tensor cores) against their plain PyTorch version
-            on the card, TF32 off, f32 and bf16, at the shapes the serving
-            path and the long/rectangular/causal paths give them, with
-            dropout at the training shape, and at the ragged edges of the
-            tiles and of the bf16 kernel's two-stage ring: T = 777 (key
-            padding, dropout), T = 65 and T = 1; CUDA-event times of the
-            kernel's launches (launch_fwd, without the wrapper's host work)
-            and of the plain version at the serving, training, long and
-            rectangular shapes;
+            if the attention forward, dQ or dK/dV kernel (bf16, and f32 in
+            split TF32), the f32 conv forward (split TF32) or the bf16 conv
+            forward, dW or dX kernel, has none;
+  kernels   the flash-attention forward kernels (both on the tensor cores,
+            f32 in split TF32) against their plain PyTorch version on the
+            card, TF32 off, f32 (against the plain version run in float64,
+            its distance from the f32 one printed) and bf16, at the shapes
+            the serving path and the long/rectangular/causal paths give
+            them, with dropout at the training shape, and at the ragged
+            edges of the tiles and of the kernels' two-stage rings: T =
+            777 (key padding, dropout), T = 65 and T = 1; CUDA-event times
+            of the kernel's launches (launch_fwd, without the wrapper's
+            host work) and of the plain version at the serving, training,
+            long and rectangular shapes;
   backward  the dQ and dK/dV kernels (both dtypes on the tensor cores; f32
             in split TF32), as the autograd path runs them (the
             dQ kernel computes D from its own P and hands it to the dK/dV
@@ -66,8 +67,9 @@ result line):
             version at the shapes of HuBERT's frontend layers 1-6 in the
             training batch, at T = 777 / 515 and at the ragged edges of the
             bf16 kernels' tiles (CONV_EDGE_CASES): f32 (TF32 off) against
-            the plain version in float64, bf16 against it in bf16, the bf16
-            forward, dW and dX bitwise repeatable; dX zero past the last
+            the plain version in float64, bf16 against it in bf16, the f32
+            forward and the bf16 forward, dW and dX bitwise repeatable; dX
+            zero past the last
             input row an output reaches; CUDA-event times of each
             kernel, its plain version and cuDNN's call for the same function
             (F.conv1d, conv1d_weight, conv1d_input);
@@ -132,15 +134,17 @@ its bf16 ones: ms (CUDA events), plain_ms, library_ms
 each, its dispatch included), bound_ms (the larger of the FLOPs at the
 dtype's peak, 165 TFLOP/s f32 (495 / 3: f32-accurate products in split
 TF32 on the tensor cores) or 989 TFLOP/s bf16, and the bytes at 3.35
-TB/s) and bound_by. The attention
+TB/s) and bound_by; launches (the main paths' runs), launches_by_dtype and
+launches_by_path (per dtype). The attention
 kernels' ms times their launches alone (launch_fwd, launch_bwd_dq,
 launch_bwd_dkv on prebuilt masks); the forward's wrapper_ms times
 flash_attention (or flash_attention_kv_full), the call the model makes,
 host work included, as library_ms times SDPA's. The attention kernels'
-other timed shapes are under "cases". Every entry names the file of its
-bf16 kernel (source_bf16) and the HGMMA counts of its f32 and bf16
-kernels (hgmma, hgmma_bf16: 0 for a kernel on the CUDA cores). The
-last line is {"ok": true, "device": {...}}.
+other timed shapes are under "cases". The f32 forward's max_abs_err is
+against the plain version in float64. Every entry names the file of its
+f32 kernel (source) and of its bf16 kernel (source_bf16) and the HGMMA
+counts of both (hgmma, hgmma_bf16: 0 for a kernel on the CUDA cores).
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -163,12 +167,13 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 CONFIG_YAML = ROOT / "configs" / "melhubert" / "config_model_20ms.yaml"
 MEAN_STD = ROOT / "example" / "libri-960-mean-std.npy"
-FA_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_fwd.cu"
+FWD_F32_SOURCE = (
+    "speech_ssl_compression_tpu_torch/csrc/flash_attn_fwd_f32_sm90.cu")
 BWD_F32_SOURCE = (
     "speech_ssl_compression_tpu_torch/csrc/flash_attn_bwd_f32_sm90.cu")
 FWD_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
 BWD_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
-ATTN_SOURCES = {"flash_attn_fwd": FA_SOURCE,
+ATTN_SOURCES = {"flash_attn_fwd": FWD_F32_SOURCE,
                 "flash_attn_bwd_dq": BWD_F32_SOURCE,
                 "flash_attn_bwd_dkv": BWD_F32_SOURCE}
 ATTN_REPLACES = {
@@ -178,21 +183,24 @@ ATTN_REPLACES = {
         "speech_ssl_compression_tpu/ops/flash_attention.py:537",
 }
 # the kernels' names in the built library's symbols
-KERNEL_SYMBOLS = ("flash_attn_fwd_kernel", "flash_attn_fwd_bf16_kernel",
+KERNEL_SYMBOLS = ("flash_attn_fwd_f32_kernel", "flash_attn_fwd_bf16_kernel",
                   "flash_attn_bwd_dq_bf16_kernel",
                   "flash_attn_bwd_dkv_bf16_kernel",
                   "flash_attn_bwd_dq_f32_kernel",
-                  "flash_attn_bwd_dkv_f32_kernel", "conv1d_fwd_kernel",
-                  "conv1d_dw_reduce_kernel", "conv1d_dw_kernel",
-                  "conv1d_dx_kernel", "conv1d_fwd_bf16_kernel",
-                  "conv1d_dw_bf16_kernel", "conv1d_dx_bf16_kernel")
+                  "flash_attn_bwd_dkv_f32_kernel", "conv1d_fwd_f32_kernel",
+                  "conv1d_split_w_kernel", "conv1d_dw_reduce_kernel",
+                  "conv1d_dw_kernel", "conv1d_dx_kernel",
+                  "conv1d_fwd_bf16_kernel", "conv1d_dw_bf16_kernel",
+                  "conv1d_dx_bf16_kernel")
 # the kernels that must run on the tensor cores: {(name, dtype tag): symbol}
 TENSOR_CORE_KERNELS = {
+    ("flash_attn_fwd", "f32"): "flash_attn_fwd_f32_kernel",
     ("flash_attn_fwd", "bf16"): "flash_attn_fwd_bf16_kernel",
     ("flash_attn_bwd_dq", "bf16"): "flash_attn_bwd_dq_bf16_kernel",
     ("flash_attn_bwd_dkv", "bf16"): "flash_attn_bwd_dkv_bf16_kernel",
     ("flash_attn_bwd_dq", "f32"): "flash_attn_bwd_dq_f32_kernel",
     ("flash_attn_bwd_dkv", "f32"): "flash_attn_bwd_dkv_f32_kernel",
+    ("conv1d_fwd", "f32"): "conv1d_fwd_f32_kernel",
     ("conv1d_fwd", "bf16"): "conv1d_fwd_bf16_kernel",
     ("conv1d_dw", "bf16"): "conv1d_dw_bf16_kernel",
     ("conv1d_dx", "bf16"): "conv1d_dx_bf16_kernel"}
@@ -220,8 +228,13 @@ BF16_BEYOND_BAR = 0.001
 STRADDLE_CASES = ("serving",)
 MAX_STRADDLE_ROWS = 64  # rows past one ulp the flip search takes
 SLICE_BAR, PACKED_BAR, BF16_SLICE_BAR = 1e-4, 2e-4, 5e-2
-CONV_SOURCE = "speech_ssl_compression_tpu_torch/csrc/conv1d.cu"
 CONV_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/conv1d_sm90.cu"
+# the f32 conv kernels: the forward in split TF32, dW and dX on the CUDA cores
+CONV_SOURCES = {
+    "conv1d_fwd": "speech_ssl_compression_tpu_torch/csrc/conv1d_f32_sm90.cu",
+    "conv1d_dw": "speech_ssl_compression_tpu_torch/csrc/conv1d.cu",
+    "conv1d_dx": "speech_ssl_compression_tpu_torch/csrc/conv1d.cu",
+}
 # (B, T, C, K, O, stride) at the ragged edges of the bf16 kernels' 128-row
 # tiles and 64-row steps: one output row, one row past a tile, three
 # batches, C != O, the last input row read (T - K divisible by s) or not,
@@ -424,9 +437,25 @@ def phase_kernels(dev, gpu: str):
             lse_err = float((lse - ref_lse)[rows].abs().max())
             tag = "f32" if dtype == torch.float32 else "bf16"
             if dtype == torch.float32:
+                # the kernel's products are f32-accurate (split TF32) but
+                # not rounded where the f32 plain version's are: out and lse
+                # are held to the plain version run in float64, and their
+                # distance from the f32 one is printed
+                exact, exact_lse = fa.flash_attention_reference(
+                    q.double(), k.double(), v.double(), **masks)
+                plain_err, plain_lse = err, lse_err
+                err = rel_err(got, exact, rows)
+                max_abs = float((got.double() - exact)[rows].abs().max())
+                lse_err = float((lse.double() - exact_lse)[rows].abs().max())
+                own = rel_err(ref, exact, rows)
+                del exact, exact_lse
                 ok = err < F32_BAR and lse_err < LSE_BAR
-                detail = (f"max|d|/mean|ref| {err:.3e} (bar {F32_BAR:g}), "
-                          f"lse max|d| {lse_err:.3e} (bar {LSE_BAR:g})")
+                detail = (f"against the plain version in float64: "
+                          f"max|d|/mean|ref| {err:.3e} (bar {F32_BAR:g}), "
+                          f"lse max|d| {lse_err:.3e} (bar {LSE_BAR:g}); "
+                          f"against it in f32: {plain_err:.3e}, lse "
+                          f"{plain_lse:.3e} (that f32 version's own "
+                          f"distance from float64 {own:.3e})")
             else:
                 tiled, _ = fa.flash_attention_reference(
                     q, k, v, block_k=fa.KERNEL_BLOCK_K, **masks)
@@ -829,7 +858,7 @@ def grad_errors(names, got, ref):
 def phase_train(dev, gpu: str, tmp: str):
     """Pre-training through the trainer's entry point, then the checks on
     its model. Returns (runner, fixed batch, launch counts of the training
-    run)."""
+    run per dtype)."""
     from speech_ssl_compression_tpu_torch.extract import (
         load_any_checkpoint, matmul_precision,
     )
@@ -851,12 +880,13 @@ def phase_train(dev, gpu: str, tmp: str):
 
     # the main path: counts from exactly one run of the trainer
     t0 = time.perf_counter()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     runner = train(["-m", "melhubert", "-g", str(CONFIG_YAML), "-c",
                     str(runner_yaml), "-n", str(expdir), "--device", "cuda",
                     "--seed", "0"])
     torch.cuda.synchronize()
     counts = dict(fa.launch_counts)
+    by_dtype = dtype_launch_counts()
     cfg = runner.cfg
     micro = 3 * runner.accum_steps
     per_micro = {k: v / micro for k, v in counts.items()}
@@ -942,7 +972,7 @@ def phase_train(dev, gpu: str, tmp: str):
         f"{time.perf_counter() - t0:.2f} s")
     if not (np.isfinite(losses).all() and last < first):
         raise AssertionError("the loss does not fall on a fixed batch")
-    return runner, batch, counts
+    return runner, batch, by_dtype
 
 
 def phase_train_timing(runner, batch, gpu: str):
@@ -1047,10 +1077,11 @@ def phase_slice(dev, gpu: str, tmp: str):
 
     # the main path: counts from exactly one forward_packed call
     t0 = time.perf_counter()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     out = ext.forward_packed(wavs)
     torch.cuda.synchronize()
     launches = fa.launch_counts["flash_attn_fwd"]
+    by_dtype = dtype_launch_counts()
     n_layers = cfg.encoder_layers
     log("slice", f"forward_packed f32: {out['n_packed_rows']} rows of "
         f"{CAPACITY}, flash_attn_fwd launches {launches} (expected "
@@ -1111,7 +1142,7 @@ def phase_slice(dev, gpu: str, tmp: str):
         ("bf16", "kernel"): ext_bf16,
         ("bf16", "dense"): extractor(torch.bfloat16, "dense"),
     }
-    return launches, extractors, wavs
+    return by_dtype, extractors, wavs
 
 
 def phase_timing(extractors, wavs, gpu: str):
@@ -1312,11 +1343,14 @@ def phase_conv(dev, gpu: str):
                        + tuple(reversed(tc.plain_grads(x64, w64, s, dy64))))
                 errs = [rel_err(got[0], ref[0], ...), rel_l2(got[1], ref[1], ...),
                         rel_err(got[2], ref[2], ...)]
-                ok = max(errs) < CONV_F32_BAR
+                # the split-TF32 forward gives the same bits again
+                repeat = torch.equal(tc.launch_fwd(x, w, s), got[0])
+                ok = max(errs) < CONV_F32_BAR and repeat
                 detail = (f"fwd max|d|/mean|ref| {errs[0]:.3e}, dW rel L2 "
                           f"{errs[1]:.3e} (max|d|/mean|ref| "
                           f"{rel_err(got[1], ref[1], ...):.3e}), dX max|d|/"
-                          f"mean|ref| {errs[2]:.3e} (bar {CONV_F32_BAR:g})")
+                          f"mean|ref| {errs[2]:.3e} (bar {CONV_F32_BAR:g}); "
+                          f"fwd bitwise repeatable: {repeat}")
                 for n, g, r in zip(names, got, ref):
                     rec = record[n]
                     rec["max_abs_err"] = max(rec["max_abs_err"], float(
@@ -1429,6 +1463,16 @@ def launch_counts():
     return {**fa.launch_counts, **tc.launch_counts}
 
 
+def dtype_launch_counts():
+    """Every kernel's launch count per input dtype: {name: {"f32": n,
+    "bf16": n}}, a copy."""
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    return {name: dict(counts) for name, counts in
+            {**fa.dtype_launch_counts, **tc.dtype_launch_counts}.items()}
+
+
 def reset_launch_counts():
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
     from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
@@ -1450,7 +1494,7 @@ def hubert_source(b: int, t_wave: int, seed: int):
 
 def phase_hubert_serve(dev, gpu: str):
     """HuBERT-base extraction at the bench's batch: returns the launch
-    counts of the one main-path call."""
+    counts of the one main-path call per dtype."""
     import copy
 
     from speech_ssl_compression_tpu_torch.extract import matmul_precision
@@ -1486,6 +1530,7 @@ def phase_hubert_serve(dev, gpu: str):
     out = run(models["kernels"])
     torch.cuda.synchronize()
     counts = launch_counts()
+    by_dtype = dtype_launch_counts()
     want = dict(conv1d_fwd=len(conv_layer_shapes(b, t_wave,
                                                  cfg.conv_feature_layers)),
                 flash_attn_fwd=cfg.encoder_layers)
@@ -1527,7 +1572,7 @@ def phase_hubert_serve(dev, gpu: str):
             f"conv kernels {k_ms:.2f} ms ({frames / k_ms * 1e3:.0f} frames/s)"
             f", cuDNN {c_ms:.2f} ms ({frames / c_ms * 1e3:.0f} frames/s), "
             f"{frames} valid frames [{gpu}]")
-    return counts
+    return by_dtype
 
 
 def write_wav_dataset(root: pathlib.Path, n_utts: int, min_samples: int,
@@ -1603,7 +1648,8 @@ def hubert_bench_batch(runner, dev, seed: int = 0):
 
 def phase_hubert_train(dev, gpu: str, tmp: str):
     """HuBERT-base pre-training through the trainer's entry point, then the
-    checks on its model. Returns (runner, launch counts of the run)."""
+    checks on its model. Returns (runner, launch counts of the run per
+    dtype, the cuDNN-route model, the bench batch)."""
     from speech_ssl_compression_tpu_torch.configs import HuBERTConfig
     from speech_ssl_compression_tpu_torch.extract import matmul_precision
     from speech_ssl_compression_tpu_torch.models.hubert import (
@@ -1646,6 +1692,7 @@ def phase_hubert_train(dev, gpu: str, tmp: str):
                     str(dev), "--seed", "0"])
     torch.cuda.synchronize()
     counts = launch_counts()
+    by_dtype = dtype_launch_counts()
     cfg = runner.cfg
     steps = 3 * runner.accum_steps
     per_step = {k: v / steps for k, v in counts.items()}
@@ -1731,7 +1778,7 @@ def phase_hubert_train(dev, gpu: str, tmp: str):
             or any(counts_64.values())):
         raise AssertionError("the HuBERT parity run took the wrong path")
     del results, grads_k, grads_d, grads_64
-    return runner, counts, cudnn_model, batch
+    return runner, by_dtype, cudnn_model, batch
 
 
 def phase_hubert_train_timing(runner, cudnn_model, batch, gpu: str):
@@ -1901,6 +1948,18 @@ def attention_bounds(dtype) -> dict:
     return out
 
 
+def launch_fields(name: str, paths: dict) -> dict:
+    """A kernel's launches on the main paths, from {path: {kernel: {"f32":
+    n, "bf16": n}}}: in all (launches), per dtype (launches_by_dtype) and
+    per path and dtype (launches_by_path)."""
+    by_path = {p: dict(counts.get(name, {"f32": 0, "bf16": 0}))
+               for p, counts in paths.items()}
+    by_dtype = {tag: sum(c[tag] for c in by_path.values())
+                for tag in ("f32", "bf16")}
+    return dict(launches=sum(by_dtype.values()), launches_by_dtype=by_dtype,
+                launches_by_path=by_path)
+
+
 def merge(into: dict, more: dict) -> None:
     """Adds the fields of ``more``'s records to ``into``'s, key by key."""
     for key, fields in more.items():
@@ -1998,7 +2057,7 @@ def main() -> None:
     library = {dtype: attention_library_ms(dev, gpu, dtype)
                for dtype in (torch.float32, torch.bfloat16)}
     with tempfile.TemporaryDirectory() as tmp:
-        serve_launches, extractors, wavs = phase_slice(dev, gpu, tmp)
+        serve, extractors, wavs = phase_slice(dev, gpu, tmp)
         phase_timing(extractors, wavs, gpu)
         if args.profile:
             phase_profile(extractors, wavs, gpu)
@@ -2015,11 +2074,10 @@ def main() -> None:
         if args.profile:
             phase_hubert_profile(runner, cudnn_model, batch, gpu)
 
-    # launches of each kernel on each main path, counted from 0 just before
-    # the path ran and read just after
-    paths = {"melhubert serve": {"flash_attn_fwd": serve_launches},
-             "melhubert train": train, "hubert serve": hubert_serve,
-             "hubert train": hubert_train}
+    # launches of each kernel on each main path per dtype, counted from 0
+    # just before the path ran and read just after
+    paths = {"melhubert serve": serve, "melhubert train": train,
+             "hubert serve": hubert_serve, "hubert train": hubert_train}
     bounds = {dtype: attention_bounds(dtype)
               for dtype in (torch.float32, torch.bfloat16)}
     entries = [attention_entry(name, record, bounds, library)
@@ -2028,16 +2086,14 @@ def main() -> None:
     for e in entries:
         e["source_bf16"] = (FWD_SM90_SOURCE if e["name"] == "flash_attn_fwd"
                             else BWD_SM90_SOURCE)
-    entries += [dict(name=name, source=CONV_SOURCE,
+    entries += [dict(name=name, source=CONV_SOURCES[name],
                      replaces=CONV_REPLACES[name], **conv[name],
                      source_bf16=CONV_SM90_SOURCE)
                 for name in ("conv1d_fwd", "conv1d_dw", "conv1d_dx")]
     for e in entries:
         e["hgmma"] = hgmma.get((e["name"], "f32"), 0)
         e["hgmma_bf16"] = hgmma.get((e["name"], "bf16"), 0)
-        by_path = {p: c.get(e["name"], 0) for p, c in paths.items()}
-        e.update(route="cuda", launches=sum(by_path.values()),
-                 launches_by_path=by_path)
+        e.update(route="cuda", **launch_fields(e["name"], paths))
     assert set(launch_counts()) == {e["name"] for e in entries}
     missing = [e["name"] for e in entries if not e["launches"]]
     if missing:

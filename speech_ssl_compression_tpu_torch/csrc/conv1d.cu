@@ -1,7 +1,8 @@
-// Strided 1-D convolution for Hopper (sm_90a), CUDA cores, f32 accumulation:
-// the forward, dW and dX kernels of the waveform frontend's layers 1-6, f32
-// in. The bf16 forward, dW and dX run on the tensor cores (conv1d_sm90.cu);
-// the C entry points below route them there.
+// Strided 1-D convolution for Hopper (sm_90a): the C entry points of the
+// forward, dW and dX for both input dtypes, and the f32 dW and dX kernels
+// on the CUDA cores (f32 accumulation). The f32 forward runs on the tensor
+// cores in split TF32 (conv1d_f32_sm90.cu), the bf16 forward, dW and dX on
+// them in bf16 (conv1d_sm90.cu); the C entry points below route them there.
 //
 // Replaces the three Pallas TPU kernels of
 // speech_ssl_compression_tpu/ops/conv1d.py:
@@ -25,15 +26,15 @@
 //   dX       rows (b, u) of one phase r = i mod s (i = s u + r) x cols c,
 //            reduction over (q, o) with tap j = s q + r and t = u - q
 //
-// Design. One block of 256 threads computes a 128 x 128 output tile; each
-// thread owns an 8 x 8 register micro-tile (rows 4 ty + {0..3} and
-// 64 + 4 ty + {0..3}, columns likewise from tx). The reduction walks
-// stages of 8, staged as f32 in two shared-memory buffers: the next stage's
-// global loads go to registers while the current stage is multiplied, so
-// each stage costs one __syncthreads. Each stage's 8 products are summed
-// in a register tile before they join the running sum, which cuts the f32
-// rounding of long sums (K C = 1536 terms in the forward) by ~3x. C and O
-// are multiples of 128 (ops/conv1d.py::_validate), so column tiles and
+// Design (the f32 dW and dX here). One block of 256 threads computes a
+// 128 x 128 output tile; each thread owns an 8 x 8 register micro-tile
+// (rows 4 ty + {0..3} and 64 + 4 ty + {0..3}, columns likewise from tx).
+// The reduction walks stages of 8, staged as f32 in two shared-memory
+// buffers: the next stage's global loads go to registers while the current
+// stage is multiplied, so each stage costs one __syncthreads. Each stage's
+// 8 products are summed in a register tile before they join the running
+// sum, which cuts the f32 rounding of long sums by ~3x. C and O are
+// multiples of 128 (ops/conv1d.py::_validate), so column tiles and
 // reduction stages never straddle a channel edge; rows are masked.
 //
 // dW sums over B * T_out rows (98,300 at layer 1 of the training batch).
@@ -43,19 +44,25 @@
 // adds the slots in a fixed order. No atomics anywhere: every gradient is
 // the same bits run to run.
 //
-// What bounds it. Every kernel does 2 B T_out K C O FLOPs (300 GFLOP for
+// What bounds them. Every kernel does 2 B T_out K C O FLOPs (300 GFLOP for
 // one pass over layers 1-6 at the training batch) against at most a few
-// hundred MB of traffic, so it is bound by arithmetic: the CUDA cores' f32
-// FMA rate (67 TFLOP/s on an H100 SXM) here. What this simple design
-// leaves on the table: the tensor cores (conv1d_sm90.cu takes them for
-// bf16; TF32 breaks the f32 route's 1e-5 bar), TMA loads into a deeper
-// ring, and occupancy (with the two 8 x 8 register tiles ptxas gives the
-// kernels 197-209 registers, no spills: one block of 8 warps per SM).
+// hundred MB of traffic, so it is bound by arithmetic. These two run at
+// the CUDA cores' f32 FMA rate (67 TFLOP/s on an H100 SXM); split TF32 on
+// the tensor cores (165 TFLOP/s of f32-accurate products, 495 / 3) holds
+// the f32 route's 1e-5 bar, as the f32 forward shows, and is the way to
+// their bound. No main path launches them in f32 (the trainers run bf16),
+// so they stay here; with the two 8 x 8 register tiles ptxas gives them
+// 201-209 registers, no spills: one block of 8 warps per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sslc {
+// the f32 forward (conv1d_f32_sm90.cu)
+cudaError_t launch_conv1d_fwd_f32_sm90(const void* x, const void* w,
+                                       void* wt, void* out, int B, int T_in,
+                                       int C, int K, int O, int stride,
+                                       cudaStream_t s);
 // the bf16 forward, dW partial sums and dX (conv1d_sm90.cu)
 cudaError_t launch_conv1d_fwd_sm90(const void* x, const void* w, void* out,
                                    int B, int T_in, int C, int K, int O,
@@ -157,60 +164,6 @@ __device__ __forceinline__ void run_stages(int n_stages, float (*As)[kBK * kLdA]
     multiply_stage(As[cur], Bs[cur], tx, ty, acc);
     if (more) put(As[cur ^ 1], Bs[cur ^ 1], ra, rb);
     __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-conv1d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  T* __restrict__ out, int B, int T_in, int C, int K, int O,
-                  int stride, int T_out) {
-  __shared__ __align__(16) float As[2][kBK * kLdA];
-  __shared__ __align__(16) float Bs[2][kBK * kLdB];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long M = (long long)B * T_out;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  // A: output row (b, t) reads x row s t + j, channels c0 + a_k4 .. + 3
-  const int a_row = tid >> 1, a_k4 = (tid & 1) * 4;
-  const T* a_base = nullptr;
-  if (m0 + a_row < M) {
-    const long long m = m0 + a_row;
-    const long long b = m / T_out, t = m - b * T_out;
-    a_base = x + (b * T_in + t * stride) * C + a_k4;
-  }
-  // B: reduction row (j, c0 + b_k) of w, columns n0 + b_n4 .. + 3
-  const int b_k = tid >> 5, b_n4 = (tid & 31) * 4;
-  const T* b_base = w + (size_t)b_k * O + n0 + b_n4;
-  const int c_stages = C / kBK;
-
-  auto fetch = [&](int st, float4& ra, float4& rb) {
-    const int j = st / c_stages;
-    const int c0 = (st - j * c_stages) * kBK;
-    ra = load4_or_zero(a_base ? a_base + (size_t)j * C + c0 : nullptr);
-    rb = load4(b_base + ((size_t)j * C + c0) * O);
-  };
-  auto put = [&](float* as, float* bs, float4 ra, float4 rb) {
-    put_transposed(as, kLdA, a_row, a_k4, ra);
-    store4(bs + b_k * kLdB + b_n4, rb);
-  };
-  float acc[8][8];
-  run_stages(K * c_stages, As, Bs, tx, ty, acc, fetch, put);
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + micro(ty, i);
-    if (m >= M) continue;
-    T* row = out + m * O + n0;
-    store4(row + 4 * tx,
-           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    store4(row + 64 + 4 * tx,
-           make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
   }
 }
 
@@ -352,17 +305,6 @@ int out_len(int T_in, int K, int stride) { return (T_in - K) / stride + 1; }
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
-cudaError_t launch_fwd_f32(const void* x, const void* w, void* out, int B,
-                           int T_in, int C, int K, int O, int stride,
-                           cudaStream_t s) {
-  const int T_out = out_len(T_in, K, stride);
-  const dim3 grid((unsigned)cdiv((long long)B * T_out, kBM), O / kBN);
-  conv1d_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), B, T_in, C, K, O, stride, T_out);
-  return cudaGetLastError();
-}
-
 // The partial sums (f32: chunks of `chunk` rows of B * T_out; bf16: of
 // `chunk` 64-row steps, conv1d_sm90.cu), then their fixed-order sum.
 cudaError_t launch_dw(const void* x, const void* dy, void* partial, void* dw,
@@ -406,18 +348,21 @@ extern "C" {
 
 // x (B, T_in, C), w (K, C, O), out (B, T_out, O); contiguous, f32
 // (is_bf16 = 0) or bf16, 16-byte aligned, C and O multiples of 128,
-// stride <= K (bf16 forward and dW: stride <= 8). Launches on `stream` of CUDA device
-// `device` and returns cudaGetLastError() after the launch (0 on success).
-int sslc_conv1d_fwd(const void* x, const void* w, void* out, int B, int T_in,
-                    int C, int K, int O, int stride, int is_bf16, int device,
-                    void* stream) {
+// stride <= K and stride <= 8 (one TMA map per stride phase); f32 also
+// takes `wt`, scratch of 2 O K C floats for w^T's split (null for bf16).
+// Launches on `stream` of CUDA device `device` and returns
+// cudaGetLastError() after the launch (0 on success).
+int sslc_conv1d_fwd(const void* x, const void* w, void* wt, void* out, int B,
+                    int T_in, int C, int K, int O, int stride, int is_bf16,
+                    int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return sslc::launch_conv1d_fwd_sm90(x, w, out, B, T_in, C, K, O, stride,
                                         s);
-  return launch_fwd_f32(x, w, out, B, T_in, C, K, O, stride, s);
+  return sslc::launch_conv1d_fwd_f32_sm90(x, w, wt, out, B, T_in, C, K, O,
+                                          stride, s);
 }
 
 // dW (K, C, O) f32 from x (B, T_in, C) and dy (B, T_out, O) of one dtype.

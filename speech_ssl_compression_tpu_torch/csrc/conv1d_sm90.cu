@@ -12,8 +12,9 @@
 //       dX[b, i, c] = sum_{j, t : s t + j = i} sum_o dy[b, t, o] w[j, c, o]
 //     (bf16 out; rows no output reaches are 0)
 // with x (B, T_in, C), w (K, C, O), dy (B, T_out, O), T_out = (T_in - K) / s
-// + 1. f32 inputs keep the CUDA-core kernels of conv1d.cu, whose header
-// states the same functions; conv1d.cu routes bf16 here. The kernels sum in
+// + 1. For f32 inputs the forward runs in split TF32 (conv1d_f32_sm90.cu),
+// dW and dX on the CUDA cores (conv1d.cu, whose header states the same
+// functions); conv1d.cu routes bf16 here. The kernels sum in
 // f32 and round only their outputs, as the plain version
 // (ops/conv1d.py::conv1d_strided_plain) does; the tensor cores add the
 // products in another order, so an output whose f32 sum lies near a bf16

@@ -6,16 +6,17 @@
 // speech_ssl_compression_tpu/ops/flash_attention.py: _fa_fwd_kernel (both
 // branches, dropout-free and dropout with _tile_keep_mask; launched by
 // _flash_fwd_impl) and _fa_fwd_stream_kernel (launched by _flash_fwd_stream
-// past T = 4096 and for rectangular q-vs-k attention). f32 inputs keep the
-// CUDA-core kernel of flash_attn_fwd.cu, whose header states the function
-// both compute: S = scale * (q . k) in f32 with the scale after the dot,
-// + bias[key], -1e30 where the segments differ and where key > row under
-// causal, -inf for keys past Tk; an online softmax over 64-key tiles with
-// each tile's unnormalized p = exp(s - m_new) rounded to bf16 before P V;
-// with dropout, l sums every p, P V sees p only where the keep bit is set,
-// and O = acc / l / (1 - p); LSE = m + log(max(l, 1e-30)). The plain
+// past T = 4096 and for rectangular q-vs-k attention). f32 inputs go to the
+// split-TF32 kernel of flash_attn_fwd_f32_sm90.cu; flash_attn_fwd.cu's
+// header states the function both compute: S = scale * (q . k) in f32 with
+// the scale after the dot, + bias[key], -1e30 where the segments differ and
+// where key > row under causal, -inf for keys past Tk; an online softmax
+// over 64-key tiles with each tile's unnormalized p = exp(s - m_new)
+// rounded to bf16 before P V; with dropout, l sums every p, P V sees p
+// only where the keep bit is set, and O = acc / l / (1 - p); LSE = m +
+// log(max(l, 1e-30)). The plain
 // version, ops/flash_attention.py::_reference_fwd(..., block_k=64), rounds
-// at the same points; exp is expf here, as in the CUDA-core kernel. The
+// at the same points; exp is expf here, as in the f32 kernel. The
 // scores come from another summation order, so a p that lies within their
 // rounding of a bf16 rounding point may round the other way:
 // ops/flash_attention.py::bf16_forward_straddle_bounds says how far that
@@ -53,7 +54,7 @@
 // SM and overlap them. __expf in place of expf (2^(x log2 e) on the
 // special-function unit) held 92-96 registers, five blocks per SM, and was
 // 11-22% faster on an H100 with the same share of outputs differing from
-// the plain version; it would leave the CUDA-core kernel's function.
+// the plain version; it would leave the f32 kernel's function.
 // Issuing the next tile's S before this tile's softmax, or P V of the
 // previous tile beside this tile's S (FlashAttention-3's order), did not
 // pay: the second score buffer and a deeper ring cost blocks per SM, and
@@ -73,40 +74,6 @@ constexpr int kStages = 2;  // K/V ring
 constexpr size_t kFwdSmemBytes = (1 + 2 * kStages) * (size_t)kTileBytes +
                                  2 * kStages * kTile * 4 + 2 * kTile * 4 +
                                  (1 + kStages) * 8 + 1024;
-
-// Scales and masks a tile's scores in place (keys k0 .. k0 + 63) and
-// returns each row's maximum. kEdge: the tile holds keys past Tk, or under
-// causal keys past some row of the block; the other tiles skip those two
-// tests. Each key's bias and segment id are read once for both rows.
-template <bool kEdge, bool kSeg>
-__device__ __forceinline__ void mask_scores(float (&s)[32], float (&mx)[2],
-                                            const float* tb, const int* tseg,
-                                            const int (&seg_r)[2], int causal,
-                                            const int (&row)[2], int k0,
-                                            int Tk, int t4, float scale) {
-  mx[0] = mx[1] = -INFINITY;
-#pragma unroll
-  for (int c8 = 0; c8 < 8; ++c8) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = 8 * c8 + 2 * t4 + j;
-      const float kb = tb[c];
-      const int ks = kSeg ? tseg[c] : 0;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int e = 4 * c8 + 2 * i + j;
-        float x = s[e] * scale + kb;
-        if (kSeg && seg_r[i] != ks) x = kNegInf;
-        if (kEdge) {
-          if (causal && k0 + c > row[i]) x = kNegInf;
-          if (k0 + c >= Tk) x = -INFINITY;
-        }
-        s[e] = x;
-        mx[i] = fmaxf(mx[i], x);
-      }
-    }
-  }
-}
 
 // kDropout, kSeg: a kernel with and without dropout, with and without
 // segment ids, so that each carries only the code its masks need.

@@ -1,16 +1,19 @@
-// Pieces shared by the Hopper (sm_90a) bf16 kernels (flash_attn_fwd_sm90.cu,
-// flash_attn_bwd_sm90.cu, conv1d_sm90.cu): the 64 x 64 bf16 tile, its TMA
+// Pieces shared by the Hopper (sm_90a) kernels (the bf16 ones,
+// flash_attn_fwd_sm90.cu, flash_attn_bwd_sm90.cu, conv1d_sm90.cu, and
+// through split_tf32.cuh the f32 ones): the 64 x 64 bf16 tile, its TMA
 // load into shared memory with the 128-byte swizzle, completing on an
 // mbarrier, the wgmma descriptor of that tile, the two wgmma shapes the
-// attention kernels use (both operands in shared memory; A from registers,
-// B read transposed), and the accumulator layout. At the end, the pieces
-// only the conv kernels use: TMA loads at any coordinates, the descriptor
-// of an operand wider than one swizzle atom, and the m64n128k16 product
-// with either operand K- or MN-major.
+// bf16 attention kernels use (both operands in shared memory; A from
+// registers, B read transposed), the accumulator layout and the attention
+// forwards' score masks. At the end, the pieces the conv kernels use: TMA
+// loads at any coordinates, the descriptor of an operand wider than one
+// swizzle atom, and the m64n128k16 product with either operand K- or
+// MN-major.
 
 #pragma once
 
 #include <cuda.h>
+#include <math.h>
 
 #include "flash_common.cuh"
 
@@ -196,6 +199,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 2 (c8 % 2) + i of step c8 / 2 packs the pair j = 0, 1.
 __device__ __forceinline__ int frag_reg(int c8, int i) {
   return 2 * (c8 & 1) + i;
+}
+
+// Scales and masks a tile's scores in place (keys k0 .. k0 + 2 kRegs - 1
+// of a 64 x 2 kRegs accumulator, the layout above) and returns each row's
+// maximum, for the attention forwards. kEdge: the tile holds keys past Tk,
+// or under causal keys past some row of the block; the other tiles skip
+// those two tests. Each key's bias and segment id are read once for both
+// rows.
+template <bool kEdge, bool kSeg, int kRegs>
+__device__ __forceinline__ void mask_scores(float (&s)[kRegs], float (&mx)[2],
+                                            const float* tb, const int* tseg,
+                                            const int (&seg_r)[2], int causal,
+                                            const int (&row)[2], int k0,
+                                            int Tk, int t4, float scale) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int c8 = 0; c8 < kRegs / 4; ++c8) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = 8 * c8 + 2 * t4 + j;
+      const float kb = tb[c];
+      const int ks = kSeg ? tseg[c] : 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 4 * c8 + 2 * i + j;
+        float x = s[e] * scale + kb;
+        if (kSeg && seg_r[i] != ks) x = kNegInf;
+        if (kEdge) {
+          if (causal && k0 + c > row[i]) x = kNegInf;
+          if (k0 + c >= Tk) x = -INFINITY;
+        }
+        s[e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {

@@ -5,7 +5,7 @@ The sources in ``csrc/`` have a plain C interface. At first use each
 and the objects are linked into one shared library, which is loaded with
 ``ctypes``; no PyTorch headers are compiled. The library links the CUDA
 driver (``-lcuda``) for ``cuTensorMapEncodeTiled``, which builds the TMA
-descriptors of the bf16 attention kernels. The library's name carries a
+descriptors of the tensor-core kernels. The library's name carries a
 hash of the sources and flags, so an edit rebuilds. Builds go to
 ``_build/`` inside the package (listed in ``.gitignore``), and ptxas's
 report of registers, shared memory and spills per kernel is kept beside the
@@ -160,7 +160,7 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + dropout
         fn.restype = ci
     # ..., is_bf16, device, stream
-    for name, n_ptr, n_int in (("sslc_conv1d_fwd", 3, 6),
+    for name, n_ptr, n_int in (("sslc_conv1d_fwd", 4, 6),
                                ("sslc_conv1d_dx", 3, 6),
                                ("sslc_conv1d_dw", 4, 8)):
         fn = getattr(lib, name)

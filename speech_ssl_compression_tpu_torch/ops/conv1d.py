@@ -11,11 +11,14 @@ backward is the dW kernel (f32, cast to w's dtype, as JAX casts it) and the
 dX kernel (in x's dtype; input rows that no output reaches get 0).
 
 Routing is by device, and only by device: for CUDA tensors the wrappers
-launch the hand-written kernels or raise: f32 on the CUDA cores
-(``csrc/conv1d.cu``), bf16 on the tensor cores (``csrc/conv1d_sm90.cu``;
-its forward and dW read x through one TMA map per stride phase, so they
-take stride <= SM90_MAX_STRIDE; its dX reads dy and w and stores its rows
-directly, so it takes any stride). CPU tensors go to
+launch the hand-written kernels or raise: the f32 forward on the tensor
+cores in split TF32 (``csrc/conv1d_f32_sm90.cu``, with w^T split into hi
+and lo in scratch by a kernel of its own), the f32 dW and dX on the CUDA
+cores (``csrc/conv1d.cu``), bf16 on the tensor cores
+(``csrc/conv1d_sm90.cu``). Both forwards and the bf16 dW read x through
+one TMA map per stride phase, so they take stride <= SM90_MAX_STRIDE; the
+bf16 dX reads dy and w and stores its rows directly, and the f32 dW and dX
+gather their operands, so those take any stride. CPU tensors go to
 :func:`conv1d_strided_plain`, a per-tap version in plain PyTorch, and its
 dX and dW come from autograd through it. ``chip_smoke.py`` holds each
 kernel against that plain version on the card. Scope and error text are
@@ -34,19 +37,29 @@ from . import _kernels
 _SLACK = 8  # JAX's bound on K / stride, kept for the same scope
 DW_MIN_CHUNK = 256  # fewest rows of B * T_out per partial sum of dW
 DW_WAVES = 4  # blocks of the dW kernel: about this many per SM
-# the bf16 forward and dW (csrc/conv1d_sm90.cu): the per-phase TMA maps a
-# launch carries, and the rows t of one batch in a dW reduction step
+# both forwards and the bf16 dW (csrc/conv1d_f32_sm90.cu, conv1d_sm90.cu):
+# the per-phase TMA maps a launch carries; the rows t of one batch in a
+# bf16 dW reduction step
 SM90_MAX_STRIDE = 8
 DW_STEP = 64
 
 # launches of the CUDA kernels, counted where each is launched (read and
-# reset by chip_smoke.py to show which path a run took)
+# reset by chip_smoke.py to show which path a run took): in all, and per
+# input dtype
 launch_counts = {"conv1d_fwd": 0, "conv1d_dw": 0, "conv1d_dx": 0}
+dtype_launch_counts = {name: {"f32": 0, "bf16": 0} for name in launch_counts}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+        dtype_launch_counts[name] = {"f32": 0, "bf16": 0}
+
+
+def _count(name: str, t: torch.Tensor) -> None:
+    launch_counts[name] += 1
+    dtype_launch_counts[name]["bf16" if t.dtype == torch.bfloat16
+                              else "f32"] += 1
 
 
 def _validate(k, c, o, stride):
@@ -131,15 +144,16 @@ def _sm_count(device_index: int) -> int:
 
 
 def phase_rows(t_in: int, stride: int) -> list:
-    """Rows of x per batch in each stride phase r, as the bf16 forward and
-    dW kernels' TMA maps take them: phase r holds rows r, r + s, ..., so
-    n_r = (T_in - 1 - r) // s + 1 (tap j = s q + r of output t reads its
-    row t + q; the bf16 dX kernel writes the same rows of dX, phase by
-    phase). Raises past the SM90_MAX_STRIDE maps a launch carries."""
+    """Rows of x per batch in each stride phase r, as the TMA maps of both
+    forward kernels and the bf16 dW kernel take them: phase r holds rows
+    r, r + s, ..., so n_r = (T_in - 1 - r) // s + 1 (tap j = s q + r of
+    output t reads its row t + q; the bf16 dX kernel writes the same rows
+    of dX, phase by phase). Raises past the SM90_MAX_STRIDE maps a launch
+    carries."""
     if stride > SM90_MAX_STRIDE:
         raise ValueError(
-            f"the bf16 conv kernels take stride <= {SM90_MAX_STRIDE} (one "
-            f"TMA map per phase); got stride={stride}")
+            f"the conv forward and bf16 dW kernels take stride <= "
+            f"{SM90_MAX_STRIDE} (one TMA map per phase); got stride={stride}")
     return [(t_in - 1 - r) // stride + 1 for r in range(stride)]
 
 
@@ -151,18 +165,21 @@ def launch_fwd(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     if c_w != c:
         raise ValueError(f"conv1d_fwd: w {tuple(w.shape)} does not take C={c}")
     _validate(k, c, o, stride)
-    if x.dtype == torch.bfloat16:
-        phase_rows(t_in, stride)
+    phase_rows(t_in, stride)
     if t_in < k:
         raise ValueError(f"conv1d_fwd: T={t_in} is shorter than K={k}")
     out = torch.empty((b, output_length(t_in, k, stride), o), dtype=x.dtype,
                       device=x.device)
+    # the f32 kernel's w^T (O, K C), split into hi and lo
+    wt = (None if x.dtype == torch.bfloat16 else
+          torch.empty((2, o, k * c), dtype=torch.float32, device=x.device))
     lib = _kernels.load()
-    err = lib.sslc_conv1d_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(), b,
-                              t_in, c, k, o, stride, _is_bf16(x),
-                              x.device.index, _stream(x))
+    err = lib.sslc_conv1d_fwd(x.data_ptr(), w.data_ptr(),
+                              None if wt is None else wt.data_ptr(),
+                              out.data_ptr(), b, t_in, c, k, o, stride,
+                              _is_bf16(x), x.device.index, _stream(x))
     _kernels.check(lib, err, "conv1d_fwd launch")
-    launch_counts["conv1d_fwd"] += 1
+    _count("conv1d_fwd", x)
     return out
 
 
@@ -241,7 +258,7 @@ def launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
         b, t_in, c, k, o, stride, chunk, n_split, _is_bf16(x),
         x.device.index, _stream(x))
     _kernels.check(lib, err, "conv1d_dw launch")
-    launch_counts["conv1d_dw"] += 1
+    _count("conv1d_dw", x)
     return dw
 
 
@@ -265,7 +282,7 @@ def launch_dx(dy: torch.Tensor, w: torch.Tensor, t_in: int,
                              t_in, c, k, o, stride, _is_bf16(dy),
                              dy.device.index, _stream(dy))
     _kernels.check(lib, err, "conv1d_dx launch")
-    launch_counts["conv1d_dx"] += 1
+    _count("conv1d_dx", dy)
     return dx
 
 

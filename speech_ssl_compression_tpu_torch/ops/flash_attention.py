@@ -14,15 +14,17 @@ arithmetic; the recomputed form keeps sum_j dS_ij at rounding, as the
 softmax's own backward does (``csrc/flash_attn_bwd.cu`` says why).
 
 Routing is by device, and only by device: for CUDA tensors the wrappers
-launch the hand-written kernels (``csrc/flash_attn_fwd.cu``,
-``csrc/flash_attn_bwd.cu``; bf16 inputs go on to the tensor-core kernels
-of their ``_sm90`` files) or raise; CPU tensors go to the plain PyTorch
-versions, :func:`_reference_fwd` and :func:`reference_bwd` (D by
-:func:`reference_dd`, then :func:`reference_bwd_dq` and
-:func:`reference_bwd_dkv`), which write the same formulas out in full
-(B, H, Tq, Tk) matrices. ``chip_smoke.py`` holds each kernel against its
-plain version on the card; in bf16 within one ulp, where the forward's
-entries past it must be p rounded the other way
+launch the hand-written kernels (the C entry points of
+``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``, which send f32
+inputs on to the split-TF32 tensor-core kernels of their ``_f32_sm90``
+files and bf16 inputs to those of their ``_sm90`` files) or raise; CPU
+tensors go to the plain PyTorch versions, :func:`_reference_fwd` and
+:func:`reference_bwd` (D by :func:`reference_dd`, then
+:func:`reference_bwd_dq` and :func:`reference_bwd_dkv`), which write the
+same formulas out in full (B, H, Tq, Tk) matrices. ``chip_smoke.py`` holds
+each kernel against its plain version on the card: in f32 against it run
+in float64 (:func:`float64_args`); in bf16 within one ulp, where the
+forward's entries past it must be p rounded the other way
 (:func:`bf16_forward_straddle_bounds`,
 :func:`bf16_forward_straddle_flips`) and the backward's within
 :func:`bf16_straddle_bounds`.
@@ -54,14 +56,23 @@ FLIP_KEYS = 16
 DROPOUT_MAX_T = 4096  # flash_attention with dropout refuses longer T, as JAX
 
 # launches of the CUDA kernels, counted where each is launched (read and
-# reset by chip_smoke.py to show which path a run took)
+# reset by chip_smoke.py to show which path a run took): in all, and per
+# input dtype
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                  "flash_attn_bwd_dkv": 0}
+dtype_launch_counts = {name: {"f32": 0, "bf16": 0} for name in launch_counts}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+        dtype_launch_counts[name] = {"f32": 0, "bf16": 0}
+
+
+def _count(name: str, q: torch.Tensor) -> None:
+    launch_counts[name] += 1
+    dtype_launch_counts[name]["bf16" if q.dtype == torch.bfloat16
+                              else "f32"] += 1
 
 
 def _masks(k, key_padding_mask, segment_ids):
@@ -86,8 +97,7 @@ _NEG_INF_F32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
 
 def _wide(t):
     """``t`` in the plain versions' arithmetic: f32, or float64 for float64
-    inputs (the backward's exact evaluation, which the f32 kernels are held
-    to)."""
+    inputs (the exact evaluation, which the f32 kernels are held to)."""
     return t if t.dtype == torch.float64 else t.float()
 
 
@@ -132,7 +142,9 @@ def _tile_maxima(s, block_k):
 def _reference_fwd(q, k, v, bias, segq, segk, causal, block_k=None,
                    dropout_p=0.0, seed=None):
     """Plain version of the forward kernel: the whole score matrix, same
-    masks, f32 statistics. Returns (out in q's dtype, lse (B, H, Tq) f32).
+    masks, f32 statistics (float64 for float64 inputs: the exact evaluation
+    that the f32 kernel is held to, :func:`_wide`). Returns (out in q's
+    dtype, lse (B, H, Tq) f32, or float64).
 
     With ``block_k``, the softmax and P.V walk the keys in tiles of that
     size by the online-softmax recurrence, as the kernel does, so that a
@@ -152,7 +164,7 @@ def _reference_fwd(q, k, v, bias, segq, segk, causal, block_k=None,
         m = s.amax(dim=-1, keepdim=True)
         p = torch.exp(s - m)
         l = p.sum(dim=-1, keepdim=True)
-        acc = torch.matmul(kept(p).to(q.dtype).float(), v.float())
+        acc = torch.matmul(_wide(kept(p).to(q.dtype)), _wide(v))
     else:
         m = torch.full_like(s[..., :1], NEG_INF)
         l = torch.zeros_like(m)
@@ -164,8 +176,8 @@ def _reference_fwd(q, k, v, bias, segq, segk, causal, block_k=None,
             p = torch.exp(st - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             acc = acc * alpha + torch.matmul(
-                kept(p, k0).to(q.dtype).float(),
-                v[..., k0:k0 + block_k, :].float())
+                _wide(kept(p, k0).to(q.dtype)),
+                _wide(v[..., k0:k0 + block_k, :]))
             m = m_new
     l_safe = l.clamp_min(1e-30)
     out = acc / l_safe
@@ -356,7 +368,7 @@ def launch_fwd(q, k, v, bias, segq, segk, causal, dropout_p=0.0, seed=None):
         *_dropout_args(dropout_p, seed), q.device.index, stream,
     )
     _kernels.check(lib, err, "flash_attn_fwd launch")
-    launch_counts["flash_attn_fwd"] += 1
+    _count("flash_attn_fwd", q)
     return out, lse
 
 
@@ -393,7 +405,7 @@ def launch_bwd_dq(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(lib, err, "flash_attn_bwd_dq launch")
-    launch_counts["flash_attn_bwd_dq"] += 1
+    _count("flash_attn_bwd_dq", q)
     return dq, dd
 
 
@@ -415,7 +427,7 @@ def launch_bwd_dkv(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(lib, err, "flash_attn_bwd_dkv launch")
-    launch_counts["flash_attn_bwd_dkv"] += 1
+    _count("flash_attn_bwd_dkv", q)
     return dk, dv
 
 
@@ -696,9 +708,9 @@ def forward_args(
 
 
 def float64_args(args):
-    """A :func:`backward_args` tuple with its float tensors in float64: the
-    plain backward on it is the exact evaluation of the kernels' function
-    (:func:`_wide`)."""
+    """A :func:`forward_args` or :func:`backward_args` tuple with its float
+    tensors in float64: the plain forward or backward on it is the exact
+    evaluation of the kernels' function (:func:`_wide`)."""
     return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
                  else a for a in args)
 

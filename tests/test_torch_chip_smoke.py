@@ -1,8 +1,9 @@
 """The pieces of ``chip_smoke.py`` that need no GPU: the attention kernels'
 work and bounds per dtype (the kernels line's bound_ms and bound_by), the
-layout of an attention kernel's entry in that line, and the check that the
-bf16 attention kernels (forward, dQ, dK/dV), the f32 dQ and dK/dV and the
-bf16 conv forward, dW and dX run on the tensor cores (HGMMA in their
+layout of an attention kernel's entry in that line, the launches per dtype
+and path in it, and the check that the attention kernels (forward, dQ,
+dK/dV; bf16, and f32 in split TF32), the f32 conv forward (split TF32) and
+the bf16 conv forward, dW and dX run on the tensor cores (HGMMA in their
 SASS)."""
 
 import pathlib
@@ -92,13 +93,18 @@ class _Kernels:
 
 FWD = ("_ZN4sslc12_GLOBAL__N_126flash_attn_fwd_bf16_kernelILb{}ELb{}EEEv"
        "14CUtensorMap")
+FWD_F32 = ("_ZN4sslc12_GLOBAL__N_125flash_attn_fwd_f32_kernelILb{}ELb{}EEEv"
+           "14CUtensorMap")
 FWD_FLAGS = ((0, 0), (0, 1), (1, 0), (1, 1))
 SM90 = "_ZN4sslc47_GLOBAL__N__0f33a512_14_conv1d_sm90_cu_9b4ff5a7"
 PHASE_MAPS = "ENS0_9PhaseMapsE14CUtensorMap_st"
 CONV = {"fwd": SM90 + "22conv1d_fwd_bf16_kernel" + PHASE_MAPS,
         "dw": SM90 + "21conv1d_dw_bf16_kernel" + PHASE_MAPS,
         "dx": SM90 + "21conv1d_dx_bf16_kernelE14CUtensorMapS1_P13__nv_bfloat16"
-                     "iiiiiii"}
+                     "iiiiiii",
+        "fwd_f32": "_ZN4sslc51_GLOBAL__N__3c1f27aa_18_conv1d_f32_sm90_cu_5e1d"
+                   "2b1a21conv1d_fwd_f32_kernelENS0_12F32PhaseMapsE14CUtensor"
+                   "MapPfiiiiii"}
 
 
 def _bwd_counts(missing=None):
@@ -109,8 +115,9 @@ def _bwd_counts(missing=None):
             for k in ("dq", "dkv") for t in ("bf16", "f32")}
 
 
-def _conv_counts(fwd=4, dw=4, dx=4):
+def _conv_counts(fwd=4, dw=4, dx=4, fwd_f32=12):
     return {CONV["fwd"]: fwd, CONV["dw"]: dw, CONV["dx"]: dx,
+            CONV["fwd_f32"]: fwd_f32,
             "_ZN41_GLOBAL__N__c3d384cc_9_conv1d_cu_d3ed901e16conv1d_dx_kernel"
             "IfEEvPKT_S2_PS0_iiiiiiii": 0}
 
@@ -121,16 +128,18 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
     counts = {"_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dq_bf16_kernelE": 12,
               "_ZN4sslc12_GLOBAL__N_130flash_attn_bwd_dkv_bf16_kernelE": 16,
               "_ZN4sslc12_GLOBAL__N_128flash_attn_bwd_dq_f32_kernelE": 72,
-              "_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dkv_f32_kernelE": 70,
-              "_ZN12_GLOBAL__N_121flash_attn_fwd_kernelIfEEv": 0}
+              "_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dkv_f32_kernelE": 70}
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
-    counts.update(_conv_counts(fwd=4, dw=6, dx=8))
+    counts.update({FWD_F32.format(*f): 36 for f in FWD_FLAGS})
+    counts.update(_conv_counts(fwd=4, dw=6, dx=8, fwd_f32=12))
     got = chip_smoke.check_tensor_cores(_Kernels(counts))
-    assert got == {("flash_attn_fwd", "bf16"): 32,
+    assert got == {("flash_attn_fwd", "f32"): 144,
+                   ("flash_attn_fwd", "bf16"): 32,
                    ("flash_attn_bwd_dq", "bf16"): 12,
                    ("flash_attn_bwd_dkv", "bf16"): 16,
                    ("flash_attn_bwd_dq", "f32"): 72,
                    ("flash_attn_bwd_dkv", "f32"): 70,
+                   ("conv1d_fwd", "f32"): 12,
                    ("conv1d_fwd", "bf16"): 4, ("conv1d_dw", "bf16"): 6,
                    ("conv1d_dx", "bf16"): 8}
     out = capsys.readouterr().out
@@ -143,18 +152,24 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
     assert "8 HGMMA in flash_attn_fwd_bf16_kernel<dropout, segments>" in out
     assert ("8 HGMMA in flash_attn_fwd_bf16_kernel<no dropout, no segments>"
             in out)
-    assert "0 HGMMA in flash_attn_fwd_kernel<f32>" in out
+    assert ("36 HGMMA in flash_attn_fwd_f32_kernel<dropout, no segments>"
+            in out)
+    assert "12 HGMMA in conv1d_fwd_f32_kernel" in out
 
 
 @pytest.mark.parametrize("missing", ["fwd", "dq", "dkv", "dq_f32", "dkv_f32",
-                                     "conv_fwd", "conv_dw", "conv_dx"])
+                                     "conv_fwd", "conv_dw", "conv_dx",
+                                     "fwd_f32", "conv_fwd_f32"])
 def test_tensor_core_check_fails_without_hgmma(missing):
     counts = _bwd_counts(missing)
     counts.update({FWD.format(*f): 0 if missing == "fwd" else 8
                    for f in FWD_FLAGS})
+    counts.update({FWD_F32.format(*f): 0 if missing == "fwd_f32" else 36
+                   for f in FWD_FLAGS})
     counts.update(_conv_counts(fwd=0 if missing == "conv_fwd" else 4,
                                dw=0 if missing == "conv_dw" else 4,
-                               dx=0 if missing == "conv_dx" else 4))
+                               dx=0 if missing == "conv_dx" else 4,
+                               fwd_f32=0 if missing == "conv_fwd_f32" else 12))
     with pytest.raises(AssertionError, match="tensor cores"):
         chip_smoke.check_tensor_cores(_Kernels(counts))
 
@@ -166,6 +181,7 @@ def test_tensor_core_check_fails_without_a_conv_bf16_kernel(absent):
     # too
     counts = _bwd_counts()
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
+    counts.update({FWD_F32.format(*f): 36 for f in FWD_FLAGS})
     counts.update(_conv_counts())
     del counts[CONV[absent]]
     counts[f"_ZN12_GLOBAL__N_117conv1d_{absent}_kernelI13__nv_bfloat16EEv"] = 0
@@ -174,10 +190,46 @@ def test_tensor_core_check_fails_without_a_conv_bf16_kernel(absent):
         chip_smoke.check_tensor_cores(_Kernels(counts))
 
 
-def test_tensor_core_check_fails_when_one_forward_instance_has_none():
+@pytest.mark.parametrize("fwd,tag", [(FWD, "bf16"), (FWD_F32, "f32")])
+def test_tensor_core_check_fails_when_one_forward_instance_has_none(fwd, tag):
     counts = _bwd_counts()
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
+    counts.update({FWD_F32.format(*f): 36 for f in FWD_FLAGS})
     counts.update(_conv_counts())
-    counts[FWD.format(1, 0)] = 0
-    with pytest.raises(AssertionError, match="bf16 flash_attn_fwd"):
+    counts[fwd.format(1, 0)] = 0
+    with pytest.raises(AssertionError, match=f"{tag} flash_attn_fwd"):
         chip_smoke.check_tensor_cores(_Kernels(counts))
+
+
+def test_tensor_core_check_fails_without_the_f32_conv_forward():
+    # a library whose f32 conv forward is not the split-TF32 kernel at all
+    # (a CUDA-core instance, no HGMMA) fails
+    counts = _bwd_counts()
+    counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
+    counts.update({FWD_F32.format(*f): 36 for f in FWD_FLAGS})
+    counts.update(_conv_counts())
+    del counts[CONV["fwd_f32"]]
+    counts["_ZN12_GLOBAL__N_117conv1d_fwd_kernelIfEEvPKT_S2_PS0_iiiiiiii"] = 0
+    with pytest.raises(AssertionError,
+                       match="conv1d_fwd_f32_kernel has no HGMMA"):
+        chip_smoke.check_tensor_cores(_Kernels(counts))
+
+
+def test_launch_fields_count_per_dtype_and_path():
+    # the kernels line's launches: in all, per dtype and per path and dtype;
+    # a kernel a path never counted has 0 there
+    paths = {"melhubert serve": {"flash_attn_fwd": {"f32": 12, "bf16": 0}},
+             "melhubert train": {"flash_attn_fwd": {"f32": 0, "bf16": 288},
+                                 "conv1d_fwd": {"f32": 0, "bf16": 0}},
+             "hubert serve": {"flash_attn_fwd": {"f32": 12, "bf16": 0},
+                              "conv1d_fwd": {"f32": 6, "bf16": 0}}}
+    fwd = chip_smoke.launch_fields("flash_attn_fwd", paths)
+    assert fwd["launches"] == 312
+    assert fwd["launches_by_dtype"] == {"f32": 24, "bf16": 288}
+    assert fwd["launches_by_path"]["melhubert train"] == {"f32": 0,
+                                                           "bf16": 288}
+    conv = chip_smoke.launch_fields("conv1d_fwd", paths)
+    assert conv["launches"] == 6
+    assert conv["launches_by_dtype"] == {"f32": 6, "bf16": 0}
+    assert conv["launches_by_path"]["melhubert serve"] == {"f32": 0,
+                                                           "bf16": 0}

@@ -1,8 +1,9 @@
 """The flash-attention CUDA kernels (forward, with and without dropout, and
-the dQ and dK/dV backward) against their plain PyTorch versions on the
-GPU, at the shapes the serving, training, long, rectangular and causal
-paths give them and at the ragged edges of the tiles. Needs an NVIDIA GPU
-and nvcc; skipped elsewhere. On a GPU machine:
+the dQ and dK/dV backward) and the strided-conv kernels against their plain
+PyTorch versions on the GPU, at the shapes the serving, training, long,
+rectangular and causal paths give them and at the ragged edges of the
+tiles; the f32 kernels against the plain versions run in float64. Needs an
+NVIDIA GPU and nvcc; skipped elsewhere. On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
@@ -153,8 +154,12 @@ def test_kernel_matches_plain_version(name, dtype):
     assert fa.launch_counts["flash_attn_fwd"] == 1
     rows = valid[:, None, :].expand(lse.shape)
     if dtype == torch.float32:
-        ref, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
-        d = (out - ref)[rows].abs().max()
+        # the split-TF32 kernel's products are f32-accurate but not rounded
+        # where the f32 plain version's are: it is held to the plain
+        # version run in float64, out and lse
+        ref, ref_lse = fa.flash_attention_reference(
+            q.double(), k.double(), v.double(), **masks)
+        d = (out.double() - ref)[rows].abs().max()
         assert d / ref[rows].abs().mean() < F32_BAR
     else:
         ref, ref_lse = fa.flash_attention_reference(
@@ -222,15 +227,42 @@ def test_dropout_forward_kernel_matches_plain_version(dtype):
                for _ in range(3))
     masks = _train_masks(dev, 0.1)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
-    block_k = None if dtype == torch.float32 else fa.KERNEL_BLOCK_K
-    ref, ref_lse = fa.flash_attention_reference(q, k, v, block_k=block_k,
-                                                **masks)
-    if dtype == torch.float32:
-        assert (out - ref).abs().max() / ref.abs().mean() < F32_BAR
+    if dtype == torch.float32:  # against float64, as above
+        ref, ref_lse = fa.flash_attention_reference(
+            q.double(), k.double(), v.double(), **masks)
+        assert (out.double() - ref).abs().max() / ref.abs().mean() < F32_BAR
     else:
+        ref, ref_lse = fa.flash_attention_reference(
+            q, k, v, block_k=fa.KERNEL_BLOCK_K, **masks)
         share, ulps = _bf16_diff(out, ref, slice(None))
         assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
     assert (lse - ref_lse).abs().max() < LSE_BAR
+
+
+def test_f32_forward_runs_on_the_tensor_cores_bitwise_repeatably():
+    # f32 CUDA tensors launch the split-TF32 wgmma forward
+    # (csrc/flash_attn_fwd_f32_sm90.cu): every instance of it (with and
+    # without dropout and segment ids) has HGMMA, the library holds no
+    # CUDA-core forward, and the same inputs (dropout and segments
+    # included) give the same bits twice
+    from speech_ssl_compression_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(TRAIN_SHAPE, generator=g, device=dev)
+               for _ in range(3))
+    seg = _segments(TRAIN_SHAPE[0], TRAIN_SHAPE[2], dev)
+    fa.reset_launch_counts()
+    for masks in (_train_masks(dev, 0.1),
+                  dict(segment_ids=seg, key_padding_mask=seg == 0)):
+        first = fa.flash_attention(q, k, v, return_lse=True, **masks)
+        second = fa.flash_attention(q, k, v, return_lse=True, **masks)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert fa.dtype_launch_counts["flash_attn_fwd"] == {"f32": 4, "bf16": 0}
+    hgmma = _kernels.sass_instruction_counts("HGMMA")
+    found = [n for sym, n in hgmma.items() if "flash_attn_fwd_f32_kernel" in sym]
+    assert len(found) == 4 and all(found)
+    assert not [sym for sym in hgmma if "flash_attn_fwd_kernel" in sym]
 
 
 BWD_CASES = {
@@ -377,6 +409,8 @@ CONV_SHAPES = {
     "k2s2_last_row": (2, 300, 512, 2, 512, 2),
     "k3s2_short": (2, 302, 512, 3, 512, 2),
     "k7s3": (2, 400, 128, 7, 128, 3),
+    # the largest stride the forwards' per-phase maps take
+    "k8s8": (2, 400, 128, 8, 128, 8),
 }
 
 
@@ -468,16 +502,40 @@ def test_conv_bf16_kernels_run_on_the_tensor_cores_bitwise_repeatably():
 
 
 def test_conv_bf16_kernels_refuse_strides_past_their_maps():
+    # and so does the f32 forward, which reads x through per-phase maps too;
+    # the f32 dW gathers its operands and takes any stride
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
 
     s = tc.SM90_MAX_STRIDE + 1
     x = torch.randn(1, 64, 128, device="cuda").bfloat16()
     w = torch.randn(s, 128, 128, device="cuda").bfloat16()
+    dy = torch.zeros(1, 7, 128, device="cuda")
     with pytest.raises(ValueError, match="stride <= 8"):
         tc.launch_fwd(x, w, s)
     with pytest.raises(ValueError, match="stride <= 8"):
-        tc.launch_dw(x, torch.zeros(1, 7, 128, device="cuda").bfloat16(), s, s)
-    tc.launch_fwd(x.float(), w.float(), s)  # the f32 kernel takes any stride
+        tc.launch_dw(x, dy.bfloat16(), s, s)
+    with pytest.raises(ValueError, match="stride <= 8"):
+        tc.launch_fwd(x.float(), w.float(), s)
+    tc.launch_dw(x.float(), dy, s, s)
+
+
+def test_conv_f32_forward_runs_on_the_tensor_cores_bitwise_repeatably():
+    # an f32 CUDA tensor launches the split-TF32 wgmma forward
+    # (csrc/conv1d_f32_sm90.cu), which has HGMMA, and no CUDA-core forward
+    # is left in the library; the same inputs give the same bits twice (one
+    # block sums each output in one fixed order), through autograd too
+    from speech_ssl_compression_tpu_torch.ops import _kernels
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    x, w, _ = _conv_inputs(CONV_SHAPES["b3"], torch.float32, seed=5)
+    tc.reset_launch_counts()
+    first, second = tc.launch_fwd(x, w, 2), tc.conv1d_strided(x, w, 2)
+    assert torch.equal(first, second)
+    assert tc.dtype_launch_counts["conv1d_fwd"] == {"f32": 2, "bf16": 0}
+    hgmma = _kernels.sass_instruction_counts("HGMMA")
+    found = [n for sym, n in hgmma.items() if "conv1d_fwd_f32_kernel" in sym]
+    assert found and all(found)
+    assert not [sym for sym in hgmma if "conv1d_fwd_kernel" in sym]
 
 
 def test_conv_bf16_dx_takes_strides_past_the_forwards_maps():

@@ -368,8 +368,9 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert lib.name.startswith("libsslc_kernels_") and lib.suffix == ".so"
     assert _kernels.library_path() == lib
     assert [p.name for p in _kernels._sources()[0]] == [
-        "conv1d.cu", "conv1d_sm90.cu", "flash_attn_bwd.cu",
-        "flash_attn_bwd_f32_sm90.cu", "flash_attn_bwd_sm90.cu",
-        "flash_attn_fwd.cu", "flash_attn_fwd_sm90.cu"]
+        "conv1d.cu", "conv1d_f32_sm90.cu", "conv1d_sm90.cu",
+        "flash_attn_bwd.cu", "flash_attn_bwd_f32_sm90.cu",
+        "flash_attn_bwd_sm90.cu", "flash_attn_fwd.cu",
+        "flash_attn_fwd_f32_sm90.cu", "flash_attn_fwd_sm90.cu"]
     assert [p.name for p in _kernels._sources()[1]] == [
-        "flash_common.cuh", "sm90_common.cuh"]
+        "flash_common.cuh", "sm90_common.cuh", "split_tf32.cuh"]

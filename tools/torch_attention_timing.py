@@ -6,15 +6,17 @@ times that tree's kernels, so two trees can be compared in one session on
 one card, in turns (old, new, new, old).
 
     python3 tools/torch_attention_timing.py [--root DIR] [--label NAME]
-                                            [--grad-steps] [--profile]
-                                            [--json OUT]
+                                            [--grad-steps] [--serve]
+                                            [--profile] [--json OUT]
 
 Prints one JSON line (appended to OUT with ``--json``): the label, the
 card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
   * ``fwd``: the forward kernel at the serving batch (8 packed rows of 896
     frames, 12 heads, segments), at the training shape with dropout 0.1,
     at T = 5000 (1 x 12 heads) and at 1024 queries against 5000 keys
-    (``flash_attention_kv_full``, the last 200 keys padded);
+    (``flash_attention_kv_full``, the last 200 keys padded), through the
+    wrapper (``fwd``) and its launches alone (``fwd kernel``:
+    ``launch_fwd`` on prebuilt masks);
   * ``dq`` and ``dkv``: ``launch_bwd_dq`` and ``launch_bwd_dkv`` at the
     training shape (4, 12, 768, 64) with key padding (lengths 750, 750,
     700, 512), dropout 0 and 0.1, at T = 5000 and at 1024 x 5000 (the
@@ -27,6 +29,9 @@ card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
     and the bf16 grad step of HuBERT-base with the cuDNN frontend (B = 4 x
     245,760 samples, LayerDrop 0), full width, seeded random weights,
     median of 5 single steps;
+  * with ``--serve``: MelHuBERT-20ms's serve batch through
+    ``forward_packed``, f32 (TF32 off) and bf16, from waveforms and from
+    features (:func:`serve_times`);
   * with ``--profile``: torch.profiler over 3 f32 MelHuBERT grad steps:
     device busy ms per step and the largest device kernels, under
     ``profile`` in the line.
@@ -99,16 +104,25 @@ def kernel_times(dev) -> dict:
                        for _ in range(3))
             times[f"fwd {tag} {case}"] = cuda_ms(
                 lambda: fa.flash_attention(q, k, v, **masks), inner=20)
+            args = fa.forward_args(q, k, v, **masks)
+            times[f"fwd kernel {tag} {case}"] = cuda_ms(
+                lambda: fa.launch_fwd(*args), inner=20)
         q, k, v = (torch.randn((1, 12, 5000, 64), generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
         times[f"fwd {tag} T=5000"] = cuda_ms(
             lambda: fa.flash_attention(q, k, v), inner=20)
+        args = fa.forward_args(q, k, v)
+        times[f"fwd kernel {tag} T=5000"] = cuda_ms(
+            lambda: fa.launch_fwd(*args), inner=20)
         q_rect = q[:, :, :1024].contiguous()
         rect_pad = torch.arange(5000, device=dev)[None, :] >= 4800
         times[f"fwd {tag} 1024x5000"] = cuda_ms(
             lambda: fa.flash_attention_kv_full(q_rect, k, v,
                                                key_padding_mask=rect_pad),
             inner=20)
+        args = fa.forward_args(q_rect, k, v, key_padding_mask=rect_pad)
+        times[f"fwd kernel {tag} 1024x5000"] = cuda_ms(
+            lambda: fa.launch_fwd(*args), inner=20)
         dout = torch.randn((1, 12, 5000, 64), generator=gen,
                            device=dev).to(dtype)
         long_cases = (("T=5000", q, k, v, dout, {}),
@@ -200,6 +214,51 @@ def profile_ms(fn, calls: int = 3) -> dict:
     return {"busy": busy / 1e3 / calls, **{n[:80]: ms for n, ms in top}}
 
 
+def serve_times(root: pathlib.Path, dev) -> dict:
+    """MelHuBERT-20ms's serve batch (bench.py's 16 utterances, seeded noise
+    and tones of SERVE_LENGTHS stacked frames, full width, seeded random
+    weights) through ``MelHuBERTExtractor.forward_packed`` with the kernel,
+    f32 (TF32 off) and bf16: ms from waveforms and from features (the
+    encoder alone)."""
+    import tempfile
+
+    from speech_ssl_compression_tpu_torch.configs import (
+        melhubert_config_from_yaml,
+    )
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import init_params_np
+
+    cfg = melhubert_config_from_yaml(
+        root / "configs" / "melhubert" / "config_model_20ms.yaml")
+    rng = np.random.default_rng(0)
+    wavs = []
+    for n in SERVE_LENGTHS:  # n stacked frames <- 400 + 160 (2n - 2) samples
+        t = np.arange(400 + 160 * (2 * n - 2)) / 16000.0
+        wavs.append((sum(0.1 * np.sin(2 * np.pi * rng.uniform(80, 4000) * t)
+                         for _ in range(3))
+                     + 0.02 * rng.standard_normal(t.size)).astype(np.float32))
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(pathlib.Path(tmp) / "melhubert.npz")
+        save_checkpoint(ckpt, init_params_np(cfg, seed=0),
+                        meta={"Upstream_Config": {"melhubert": cfg.to_dict()},
+                              "Step": 0})
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            ext = MelHuBERTExtractor(
+                ckpt, fp=20, mean_std_npy_path=str(
+                    root / "example" / "libri-960-mean-std.npy"),
+                dtype=dtype, matmul_precision="highest", device=dev)
+            feat, pad_mask, lengths = ext.featurize(wavs)
+            times[f"melhubert serve batch {tag} from waveforms"] = cuda_ms(
+                lambda: ext.forward_packed(wavs))
+            times[f"melhubert serve batch {tag} from features"] = cuda_ms(
+                lambda: ext._pack_and_dispatch(feat, pad_mask, lengths))
+    return times
+
+
 def hubert_step_ms(root: pathlib.Path, dev) -> float:
     from speech_ssl_compression_tpu_torch.configs import hubert_config_from_yaml
     from speech_ssl_compression_tpu_torch.models.conv_frontend import (
@@ -243,6 +302,8 @@ def main() -> None:
                         help="the tree whose port is timed")
     parser.add_argument("--label", default="")
     parser.add_argument("--grad-steps", action="store_true")
+    parser.add_argument("--serve", action="store_true",
+                        help="also time MelHuBERT's serve batch")
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--json", help="append the JSON line to this file")
     args = parser.parse_args()
@@ -256,6 +317,8 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     times = kernel_times(dev)
+    if args.serve:
+        times.update(serve_times(root, dev))
     profiled = None
     if args.grad_steps:
         for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):

@@ -15,10 +15,10 @@ card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
     f32 (TF32 off) and bf16, 5 launches per timing, median of 5 after a
     warm-up, and their sums over the six layers;
   * with ``--hubert``: the bf16 grad step (B = 4 x 245,760 samples, two
-    micro-batches, LayerDrop 0, dropout on) and bf16 ``hubert_forward(
-    features_only=True)`` on 8 x 491,520 samples, with the conv kernels
-    (``conv_frontend_impl="tc_pallas"``) and with cuDNN ("auto"), full
-    width, seeded random weights, median of 5 single calls;
+    micro-batches, LayerDrop 0, dropout on) and f32 (TF32 off) and bf16
+    ``hubert_forward(features_only=True)`` on 8 x 491,520 samples, with
+    the conv kernels (``conv_frontend_impl="tc_pallas"``) and with cuDNN
+    ("auto"), full width, seeded random weights, median of 5 single calls;
   * with ``--host``: the host work per launch of the three wrappers at
     layers 5 and 6, bf16 and f32 (:func:`host_times`).
 Needs a CUDA device; imports neither JAX nor the JAX package.
@@ -181,11 +181,16 @@ def host_times(root: pathlib.Path, dev) -> dict:
             partial = (torch.empty(scratch, dtype=torch.float32, device=dev)
                        if scratch else None)
             tail = (bf16, dev.index, stream)
+            # the f32 forward's w^T scratch, in a tree whose entry point
+            # takes one (it has 13 arguments there, 12 before)
+            wt = ((None if bf16 else torch.empty((2, o, k * c), device=dev)
+                   .data_ptr(),)
+                  if len(lib.sslc_conv1d_fwd.argtypes) == 13 else ())
             entries = {
                 "conv1d_fwd": (lambda: tc.launch_fwd(x, w, s),
                                lib.sslc_conv1d_fwd,
-                               (x.data_ptr(), w.data_ptr(), y.data_ptr(), b,
-                                t_in, c, k, o, s) + tail),
+                               (x.data_ptr(), w.data_ptr(), *wt,
+                                y.data_ptr(), b, t_in, c, k, o, s) + tail),
                 "conv1d_dw": (lambda: tc.launch_dw(x, dy, k, s),
                               lib.sslc_conv1d_dw,
                               (x.data_ptr(), dy.data_ptr(),
@@ -252,21 +257,24 @@ def hubert_times(root: pathlib.Path, dev) -> dict:
                 lambda: step(params, batch, gen))
         del step, batch, params
 
-        model = model.to(torch.bfloat16).eval().requires_grad_(False)
+        model = model.eval().requires_grad_(False)
         b, t_wave = HUBERT_SERVE
         src = torch.from_numpy(np.random.default_rng(1).standard_normal(
-            (b, t_wave)).astype(np.float32)).to(dev, torch.bfloat16)
+            (b, t_wave)).astype(np.float32)).to(dev)
         lengths = np.full(b, t_wave)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            model, src = model.to(dtype), src.to(dtype)
 
-        def serve():
-            with matmul_precision("highest"), torch.inference_mode():
-                return hubert_forward(model, src, lengths, mask=False,
-                                      features_only=True)
+            def serve():
+                with matmul_precision("highest"), torch.inference_mode():
+                    return hubert_forward(model, src, lengths, mask=False,
+                                          features_only=True)
 
-        frames = int((~serve()["padding_mask"]).sum())
-        ms = cuda_ms(serve)
-        times[f"hubert_forward bf16 ({label})"] = ms
-        times[f"hubert_forward bf16 ({label}) frames/s"] = frames / ms * 1e3
+            frames = int((~serve()["padding_mask"]).sum())
+            ms = cuda_ms(serve)
+            times[f"hubert_forward {tag} ({label})"] = ms
+            times[f"hubert_forward {tag} ({label}) frames/s"] = (
+                frames / ms * 1e3)
         del model, src
         torch.cuda.empty_cache()
     return times
