@@ -12,9 +12,9 @@ result line):
             _kernels.py, one nvcc per source in parallel), print the build
             time, ptxas's registers and spills per kernel, and the HGMMA
             (tensor-core) instructions per kernel in cuobjdump -sass; fails
-            if the attention forward, dQ or dK/dV kernel (bf16, and f32 in
-            split TF32), the f32 conv forward (split TF32) or the bf16 conv
-            forward, dW or dX kernel, has none;
+            if the attention forward, dQ or dK/dV kernel or the conv
+            forward, dW or dX kernel (each in bf16, and in f32 in split
+            TF32) has none;
   kernels   the flash-attention forward kernels (both on the tensor cores,
             f32 in split TF32) against their plain PyTorch version on the
             card, TF32 off, f32 (against the plain version run in float64,
@@ -67,12 +67,11 @@ result line):
             version at the shapes of HuBERT's frontend layers 1-6 in the
             training batch, at T = 777 / 515 and at the ragged edges of the
             bf16 kernels' tiles (CONV_EDGE_CASES): f32 (TF32 off) against
-            the plain version in float64, bf16 against it in bf16, the f32
-            forward and the bf16 forward, dW and dX bitwise repeatable; dX
-            zero past the last
-            input row an output reaches; CUDA-event times of each
-            kernel, its plain version and cuDNN's call for the same function
-            (F.conv1d, conv1d_weight, conv1d_input);
+            the plain version in float64, bf16 against it in bf16, the
+            forward, dW and dX of both dtypes bitwise repeatable; dX zero
+            past the last input row an output reaches; CUDA-event times of
+            each kernel, its plain version and cuDNN's call for the same
+            function (F.conv1d, conv1d_weight, conv1d_input);
   hubert serve  HuBERT-base at full width (configs/hubert/config_model.yaml,
             seeded random weights) through hubert_forward(features_only=True)
             on 8 x 491,520 samples: launch counts, the conv kernels
@@ -143,7 +142,7 @@ host work included, as library_ms times SDPA's. The attention kernels'
 other timed shapes are under "cases". The f32 forward's max_abs_err is
 against the plain version in float64. Every entry names the file of its
 f32 kernel (source) and of its bf16 kernel (source_bf16) and the HGMMA
-counts of both (hgmma, hgmma_bf16: 0 for a kernel on the CUDA cores).
+counts of both (hgmma, hgmma_bf16).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -188,10 +187,10 @@ KERNEL_SYMBOLS = ("flash_attn_fwd_f32_kernel", "flash_attn_fwd_bf16_kernel",
                   "flash_attn_bwd_dkv_bf16_kernel",
                   "flash_attn_bwd_dq_f32_kernel",
                   "flash_attn_bwd_dkv_f32_kernel", "conv1d_fwd_f32_kernel",
-                  "conv1d_split_w_kernel", "conv1d_dw_reduce_kernel",
-                  "conv1d_dw_kernel", "conv1d_dx_kernel",
-                  "conv1d_fwd_bf16_kernel", "conv1d_dw_bf16_kernel",
-                  "conv1d_dx_bf16_kernel")
+                  "conv1d_split_w_kernel", "conv1d_split_w_dx_kernel",
+                  "conv1d_dw_reduce_kernel", "conv1d_dw_f32_kernel",
+                  "conv1d_dx_f32_kernel", "conv1d_fwd_bf16_kernel",
+                  "conv1d_dw_bf16_kernel", "conv1d_dx_bf16_kernel")
 # the kernels that must run on the tensor cores: {(name, dtype tag): symbol}
 TENSOR_CORE_KERNELS = {
     ("flash_attn_fwd", "f32"): "flash_attn_fwd_f32_kernel",
@@ -201,6 +200,8 @@ TENSOR_CORE_KERNELS = {
     ("flash_attn_bwd_dq", "f32"): "flash_attn_bwd_dq_f32_kernel",
     ("flash_attn_bwd_dkv", "f32"): "flash_attn_bwd_dkv_f32_kernel",
     ("conv1d_fwd", "f32"): "conv1d_fwd_f32_kernel",
+    ("conv1d_dw", "f32"): "conv1d_dw_f32_kernel",
+    ("conv1d_dx", "f32"): "conv1d_dx_f32_kernel",
     ("conv1d_fwd", "bf16"): "conv1d_fwd_bf16_kernel",
     ("conv1d_dw", "bf16"): "conv1d_dw_bf16_kernel",
     ("conv1d_dx", "bf16"): "conv1d_dx_bf16_kernel"}
@@ -229,12 +230,11 @@ STRADDLE_CASES = ("serving",)
 MAX_STRADDLE_ROWS = 64  # rows past one ulp the flip search takes
 SLICE_BAR, PACKED_BAR, BF16_SLICE_BAR = 1e-4, 2e-4, 5e-2
 CONV_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/conv1d_sm90.cu"
-# the f32 conv kernels: the forward in split TF32, dW and dX on the CUDA cores
-CONV_SOURCES = {
-    "conv1d_fwd": "speech_ssl_compression_tpu_torch/csrc/conv1d_f32_sm90.cu",
-    "conv1d_dw": "speech_ssl_compression_tpu_torch/csrc/conv1d.cu",
-    "conv1d_dx": "speech_ssl_compression_tpu_torch/csrc/conv1d.cu",
-}
+# the f32 conv kernels, all three in split TF32 in one file (csrc/conv1d.cu
+# keeps the C entry points and dW's reduce kernel)
+CONV_SOURCES = dict.fromkeys(
+    ("conv1d_fwd", "conv1d_dw", "conv1d_dx"),
+    "speech_ssl_compression_tpu_torch/csrc/conv1d_f32_sm90.cu")
 # (B, T, C, K, O, stride) at the ragged edges of the bf16 kernels' 128-row
 # tiles and 64-row steps: one output row, one row past a tile, three
 # batches, C != O, the last input row read (T - K divisible by s) or not,
@@ -1343,14 +1343,16 @@ def phase_conv(dev, gpu: str):
                        + tuple(reversed(tc.plain_grads(x64, w64, s, dy64))))
                 errs = [rel_err(got[0], ref[0], ...), rel_l2(got[1], ref[1], ...),
                         rel_err(got[2], ref[2], ...)]
-                # the split-TF32 forward gives the same bits again
-                repeat = torch.equal(tc.launch_fwd(x, w, s), got[0])
+                # the split-TF32 forward, dW and dX give the same bits again
+                repeat = (torch.equal(tc.launch_fwd(x, w, s), got[0])
+                          and torch.equal(tc.launch_dw(x, dy, k, s), got[1])
+                          and torch.equal(tc.launch_dx(dy, w, t, s), got[2]))
                 ok = max(errs) < CONV_F32_BAR and repeat
                 detail = (f"fwd max|d|/mean|ref| {errs[0]:.3e}, dW rel L2 "
                           f"{errs[1]:.3e} (max|d|/mean|ref| "
                           f"{rel_err(got[1], ref[1], ...):.3e}), dX max|d|/"
                           f"mean|ref| {errs[2]:.3e} (bar {CONV_F32_BAR:g}); "
-                          f"fwd bitwise repeatable: {repeat}")
+                          f"fwd, dW and dX bitwise repeatable: {repeat}")
                 for n, g, r in zip(names, got, ref):
                     rec = record[n]
                     rec["max_abs_err"] = max(rec["max_abs_err"], float(
@@ -1969,11 +1971,11 @@ def merge(into: dict, more: dict) -> None:
 def check_tensor_cores(kernels) -> dict:
     """HGMMA instructions (Hopper's warpgroup tensor-core products) per
     kernel of the built library, from cuobjdump -sass; fails unless every
-    instance of each TENSOR_CORE_KERNELS kernel (the bf16 attention
-    forward, dQ and dK/dV; the f32 dQ and dK/dV; the bf16 conv forward, dW
-    and dX) has some. Returns {(kernel, "bf16" or "f32"): count, summed
-    over its instances (the bf16 attention forward has four: with and
-    without dropout, with and without segment ids)}."""
+    instance of each TENSOR_CORE_KERNELS kernel (the attention forward, dQ
+    and dK/dV and the conv forward, dW and dX, bf16 and f32) has some.
+    Returns {(kernel, "bf16" or "f32"): count, summed over its instances
+    (the attention forwards have four: with and without dropout, with and
+    without segment ids)}."""
     counts = kernels.sass_instruction_counts("HGMMA")
     for symbol, n in counts.items():
         short = next((k for k in KERNEL_SYMBOLS if k in symbol), symbol[:80])

@@ -12,9 +12,9 @@
 //       dX[b, i, c] = sum_{j, t : s t + j = i} sum_o dy[b, t, o] w[j, c, o]
 //     (bf16 out; rows no output reaches are 0)
 // with x (B, T_in, C), w (K, C, O), dy (B, T_out, O), T_out = (T_in - K) / s
-// + 1. For f32 inputs the forward runs in split TF32 (conv1d_f32_sm90.cu),
-// dW and dX on the CUDA cores (conv1d.cu, whose header states the same
-// functions); conv1d.cu routes bf16 here. The kernels sum in
+// + 1. For f32 inputs the three run in split TF32 (conv1d_f32_sm90.cu,
+// whose header states the same functions); conv1d.cu routes bf16 here. The
+// kernels sum in
 // f32 and round only their outputs, as the plain version
 // (ops/conv1d.py::conv1d_strided_plain) does; the tensor cores add the
 // products in another order, so an output whose f32 sum lies near a bf16
@@ -63,7 +63,7 @@
 // summed by one block in one fixed order (no split-K: the same bits run to
 // run). The phase with the most taps (r = 0) has the longest reduction, so
 // its blocks come first in the grid.
-// dW keeps the deterministic split-K of the CUDA-core kernel: the batch's
+// dW keeps a deterministic split-K, as the f32 dW does: the batch's
 // 64-row steps are cut into n_split chunks in (b, t) order
 // (ops/conv1d.py::dw_tile_splits), each block sums one chunk for one tap
 // into its own f32 slot, and conv1d.cu's reduce kernel adds the slots in

@@ -1,7 +1,7 @@
 // Split TF32 on Hopper's tensor cores: the pieces shared by the f32 kernels
 // that take an f32-accurate product as three TF32 wgmma products
 // (flash_attn_fwd_f32_sm90.cu, flash_attn_bwd_f32_sm90.cu,
-// conv1d_f32_sm90.cu).
+// conv1d_f32_sm90.cu: the conv forward, dW and dX).
 //
 // One TF32 product keeps 10 of the 23 mantissa bits (~5e-4 relative), which
 // the f32 bars (1e-4 for attention, 1e-5 for the strided conv, against the
@@ -76,7 +76,8 @@ __device__ __forceinline__ uint32_t swz_off(int n, int r, int c4) {
 }
 
 // Byte offset of element (dim d, column col) of a transposed tile: 64 rows
-// of dims, boxes of 32 columns (64 x 128 bytes), swizzled the same way.
+// of dims, boxes of 32 columns (64 x 128 bytes), swizzled the same way
+// (or more rows of dims in one box of 32 columns).
 __device__ __forceinline__ uint32_t swz_off_t(int d, int col) {
   return (col >> 5) * kTBox + d * 128 +
          ((((col & 31) >> 2) ^ (d & 7)) << 4) + ((col & 3) << 2);
@@ -102,15 +103,18 @@ __device__ __forceinline__ int frag_idx(int i, int j) { return i + 2 * j; }
 // transposed copies are written (the raw tile stays as it is). kThr threads
 // take part, thread t taking row t % n: the 32 lanes of a warp take 32
 // rows, so neither the 16-byte reads and writes nor the transposed 4-byte
-// writes conflict in a bank.
-template <int n, int kThr, bool kTrans, bool kPlain = true>
+// writes conflict in a bank. A row holds kDims floats in boxes of 32 (64
+// for attention; the conv dW's 128 channels or outputs, n = 32, whose
+// transposed tile is kDims rows of one 32-column box).
+template <int n, int kThr, bool kTrans, bool kPlain = true, int kDims = kD>
 __device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo,
                                            uint8_t* t_hi, uint8_t* t_lo,
                                            int t) {
+  static_assert(kDims == kD || n <= 32, "one transposed box per tile");
   constexpr int kGroups = kThr / n;
   const int r = t % n;
 #pragma unroll
-  for (int jj = 0; jj < 16 / kGroups; ++jj) {
+  for (int jj = 0; jj < kDims / 4 / kGroups; ++jj) {
     const int c4 = t / n + kGroups * jj;
     const uint32_t off = swz_off(n, r, c4);
     const float4 x = *reinterpret_cast<const float4*>(hi + off);

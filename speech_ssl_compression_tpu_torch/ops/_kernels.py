@@ -146,9 +146,14 @@ def build() -> pathlib.Path:
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C entry
-    points. Every pointer and the stream are ``c_void_p``, so no pointer is
-    cut to 32 bits."""
-    lib = ctypes.CDLL(str(build()))
+    points (:func:`declare`)."""
+    return declare(ctypes.CDLL(str(build())))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded kernel library and return it.
+    Every pointer and the stream are ``c_void_p``, so no pointer is cut to
+    32 bits."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # ..., use_dropout, keep_threshold, keep_scale, seed, device, stream
     dropout = [ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ci, vp]
@@ -161,7 +166,7 @@ def load() -> ctypes.CDLL:
         fn.restype = ci
     # ..., is_bf16, device, stream
     for name, n_ptr, n_int in (("sslc_conv1d_fwd", 4, 6),
-                               ("sslc_conv1d_dx", 3, 6),
+                               ("sslc_conv1d_dx", 4, 6),
                                ("sslc_conv1d_dw", 4, 8)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [ci] * (n_int + 2) + [vp]

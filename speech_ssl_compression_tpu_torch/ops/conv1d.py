@@ -11,14 +11,13 @@ backward is the dW kernel (f32, cast to w's dtype, as JAX casts it) and the
 dX kernel (in x's dtype; input rows that no output reaches get 0).
 
 Routing is by device, and only by device: for CUDA tensors the wrappers
-launch the hand-written kernels or raise: the f32 forward on the tensor
-cores in split TF32 (``csrc/conv1d_f32_sm90.cu``, with w^T split into hi
-and lo in scratch by a kernel of its own), the f32 dW and dX on the CUDA
-cores (``csrc/conv1d.cu``), bf16 on the tensor cores
-(``csrc/conv1d_sm90.cu``). Both forwards and the bf16 dW read x through
-one TMA map per stride phase, so they take stride <= SM90_MAX_STRIDE; the
-bf16 dX reads dy and w and stores its rows directly, and the f32 dW and dX
-gather their operands, so those take any stride. CPU tensors go to
+launch the hand-written kernels or raise, all on the tensor cores: f32 in
+split TF32 (``csrc/conv1d_f32_sm90.cu``; the forward and dX read w split
+into hi and lo in scratch by a kernel of their own, w^T for the forward,
+w as it is for dX), bf16 in bf16 (``csrc/conv1d_sm90.cu``). The forwards
+and dWs read x through one TMA map per stride phase, so they take stride
+<= SM90_MAX_STRIDE; the dXs read dy and w and store their rows directly,
+so they take any stride. CPU tensors go to
 :func:`conv1d_strided_plain`, a per-tap version in plain PyTorch, and its
 dX and dW come from autograd through it. ``chip_smoke.py`` holds each
 kernel against that plain version on the card. Scope and error text are
@@ -37,11 +36,12 @@ from . import _kernels
 _SLACK = 8  # JAX's bound on K / stride, kept for the same scope
 DW_MIN_CHUNK = 256  # fewest rows of B * T_out per partial sum of dW
 DW_WAVES = 4  # blocks of the dW kernel: about this many per SM
-# both forwards and the bf16 dW (csrc/conv1d_f32_sm90.cu, conv1d_sm90.cu):
-# the per-phase TMA maps a launch carries; the rows t of one batch in a
-# bf16 dW reduction step
+# the forwards and dWs (csrc/conv1d_f32_sm90.cu, conv1d_sm90.cu): the
+# per-phase TMA maps a launch carries; the rows t of one batch in a dW
+# reduction step, bf16 and f32
 SM90_MAX_STRIDE = 8
 DW_STEP = 64
+DW_F32_STEP = 32
 
 # launches of the CUDA kernels, counted where each is launched (read and
 # reset by chip_smoke.py to show which path a run took): in all, and per
@@ -144,15 +144,15 @@ def _sm_count(device_index: int) -> int:
 
 
 def phase_rows(t_in: int, stride: int) -> list:
-    """Rows of x per batch in each stride phase r, as the TMA maps of both
-    forward kernels and the bf16 dW kernel take them: phase r holds rows
+    """Rows of x per batch in each stride phase r, as the TMA maps of the
+    forward and dW kernels take them: phase r holds rows
     r, r + s, ..., so n_r = (T_in - 1 - r) // s + 1 (tap j = s q + r of
-    output t reads its row t + q; the bf16 dX kernel writes the same rows
-    of dX, phase by phase). Raises past the SM90_MAX_STRIDE maps a launch
+    output t reads its row t + q; the dX kernels write the same rows of
+    dX, phase by phase). Raises past the SM90_MAX_STRIDE maps a launch
     carries."""
     if stride > SM90_MAX_STRIDE:
         raise ValueError(
-            f"the conv forward and bf16 dW kernels take stride <= "
+            f"the conv forward and dW kernels take stride <= "
             f"{SM90_MAX_STRIDE} (one TMA map per phase); got stride={stride}")
     return [(t_in - 1 - r) // stride + 1 for r in range(stride)]
 
@@ -193,43 +193,32 @@ def _n_splits(units: int, min_units: int, blocks_per_split: int,
     return max(1, min(want, units // min_units))
 
 
-def dw_splits(rows: int, blocks_per_split: int, n_sm: int):
-    """(chunk, n_split): the f32 dW kernel's partial sums over ``rows`` =
-    B * T_out rows, split by :func:`_n_splits`. Chunks are a multiple of 8
-    rows and, where there are that many rows, at least DW_MIN_CHUNK; the
-    sum order is fixed by the shape and the card."""
-    n_split = _n_splits(rows, DW_MIN_CHUNK, blocks_per_split, n_sm)
-    chunk = -(-(-(-rows // n_split)) // 8) * 8
-    return chunk, -(-rows // chunk)
-
-
-def dw_tile_splits(b: int, t_out: int, blocks_per_split: int, n_sm: int):
-    """(chunk, n_split) of the bf16 dW kernel, in reduction steps: step i
-    is batch i // s_b, rows t = DW_STEP * (i % s_b) .. + DW_STEP - 1 (those
-    past T_out read dy as zeros), with s_b = ceil(T_out / DW_STEP) steps a
-    batch. Split k sums steps k * chunk .. min(B s_b, (k + 1) chunk) - 1 in
-    that order. The number of splits is :func:`_n_splits`'s (about
-    DW_WAVES blocks per SM, at least DW_MIN_CHUNK rows a chunk), so the sum
-    order is a function of the shape and the card alone."""
-    total = b * -(-t_out // DW_STEP)
-    n_split = _n_splits(total, DW_MIN_CHUNK // DW_STEP, blocks_per_split,
-                        n_sm)
+def dw_tile_splits(b: int, t_out: int, blocks_per_split: int, n_sm: int,
+                   step: int = DW_STEP):
+    """(chunk, n_split) of a dW kernel, in reduction steps of ``step``
+    rows (DW_STEP for bf16, DW_F32_STEP for f32): step i is batch i // s_b,
+    rows t = step * (i % s_b) .. + step - 1 (those past T_out read dy as
+    zeros), with s_b = ceil(T_out / step) steps a batch. Split k sums steps
+    k * chunk .. min(B s_b, (k + 1) chunk) - 1 in that order. The number of
+    splits is :func:`_n_splits`'s (about DW_WAVES blocks per SM, at least
+    DW_MIN_CHUNK rows a chunk), so the sum order is a function of the
+    shape and the card alone."""
+    total = b * -(-t_out // step)
+    n_split = _n_splits(total, DW_MIN_CHUNK // step, blocks_per_split, n_sm)
     chunk = -(-total // n_split)
     return chunk, -(-total // chunk)
 
 
 def dw_plan(dtype, b: int, t_out: int, k: int, c: int, o: int, n_sm: int):
-    """(chunk, n_split, scratch shape or None) of the dW kernels: f32
-    chunks count rows of B * T_out (:func:`dw_splits`), bf16 ones 64-row
-    steps (:func:`dw_tile_splits`); both use one block per (128 x 128
-    tile of dW, tap, chunk). With more than one chunk, each writes its own
-    f32 (K, C, O) slot of the scratch, and a second kernel adds the slots
-    in chunk order."""
+    """(chunk, n_split, scratch shape or None) of the dW kernels, chunks
+    in steps of DW_STEP rows (bf16) or DW_F32_STEP rows (f32) of one batch
+    (:func:`dw_tile_splits`); both use one block per (128 x 128 tile of dW,
+    tap, chunk). With more than one chunk, each writes its own f32 (K, C, O)
+    slot of the scratch, and a second kernel adds the slots in chunk
+    order."""
     blocks = k * (c // 128) * (o // 128)
-    if dtype == torch.bfloat16:
-        chunk, n_split = dw_tile_splits(b, t_out, blocks, n_sm)
-    else:
-        chunk, n_split = dw_splits(b * t_out, blocks, n_sm)
+    step = DW_STEP if dtype == torch.bfloat16 else DW_F32_STEP
+    chunk, n_split = dw_tile_splits(b, t_out, blocks, n_sm, step)
     return chunk, n_split, (n_split, k, c, o) if n_split > 1 else None
 
 
@@ -244,8 +233,7 @@ def launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
     if dy.shape[:2] != (b, output_length(t_in, k, stride)):
         raise ValueError(f"conv1d_dw: dy {tuple(dy.shape)} is not the output "
                          f"of x {tuple(x.shape)} at K={k}, stride={stride}")
-    if x.dtype == torch.bfloat16:
-        phase_rows(t_in, stride)
+    phase_rows(t_in, stride)
     chunk, n_split, scratch = dw_plan(x.dtype, b, dy.shape[1], k, c, o,
                                       _sm_count(x.device.index))
     dw = torch.empty((k, c, o), dtype=torch.float32, device=x.device)
@@ -265,8 +253,8 @@ def launch_dw(x: torch.Tensor, dy: torch.Tensor, k: int,
 def launch_dx(dy: torch.Tensor, w: torch.Tensor, t_in: int,
               stride: int) -> torch.Tensor:
     """The dX kernel on CUDA tensors dy (B, T_out, O), w (K, C, O): dX
-    (B, t_in, C) in dy's dtype, any stride the scope allows (the bf16
-    kernel has no per-phase maps to cap it)."""
+    (B, t_in, C) in dy's dtype, any stride the scope allows (the kernels
+    have no per-phase maps to cap it)."""
     _check_kernel_inputs("conv1d_dx", dy, w, "dy and w")
     b, t_out, o = dy.shape
     k, c, o_w = w.shape
@@ -277,10 +265,14 @@ def launch_dx(dy: torch.Tensor, w: torch.Tensor, t_in: int,
         raise ValueError(f"conv1d_dx: T_out={t_out} is not the output length "
                          f"of T={t_in} at K={k}, stride={stride}")
     dx = torch.empty((b, t_in, c), dtype=dy.dtype, device=dy.device)
+    # the f32 kernel's w (K C, O), split into hi and lo
+    ws = (None if dy.dtype == torch.bfloat16 else
+          torch.empty((2, k * c, o), dtype=torch.float32, device=dy.device))
     lib = _kernels.load()
-    err = lib.sslc_conv1d_dx(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b,
-                             t_in, c, k, o, stride, _is_bf16(dy),
-                             dy.device.index, _stream(dy))
+    err = lib.sslc_conv1d_dx(dy.data_ptr(), w.data_ptr(),
+                             None if ws is None else ws.data_ptr(),
+                             dx.data_ptr(), b, t_in, c, k, o, stride,
+                             _is_bf16(dy), dy.device.index, _stream(dy))
     _kernels.check(lib, err, "conv1d_dx launch")
     _count("conv1d_dx", dy)
     return dx

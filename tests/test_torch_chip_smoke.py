@@ -98,13 +98,17 @@ FWD_F32 = ("_ZN4sslc12_GLOBAL__N_125flash_attn_fwd_f32_kernelILb{}ELb{}EEEv"
 FWD_FLAGS = ((0, 0), (0, 1), (1, 0), (1, 1))
 SM90 = "_ZN4sslc47_GLOBAL__N__0f33a512_14_conv1d_sm90_cu_9b4ff5a7"
 PHASE_MAPS = "ENS0_9PhaseMapsE14CUtensorMap_st"
+F32_SM90 = "_ZN4sslc51_GLOBAL__N__3c1f27aa_18_conv1d_f32_sm90_cu_5e1d2b1a"
 CONV = {"fwd": SM90 + "22conv1d_fwd_bf16_kernel" + PHASE_MAPS,
         "dw": SM90 + "21conv1d_dw_bf16_kernel" + PHASE_MAPS,
         "dx": SM90 + "21conv1d_dx_bf16_kernelE14CUtensorMapS1_P13__nv_bfloat16"
                      "iiiiiii",
-        "fwd_f32": "_ZN4sslc51_GLOBAL__N__3c1f27aa_18_conv1d_f32_sm90_cu_5e1d"
-                   "2b1a21conv1d_fwd_f32_kernelENS0_12F32PhaseMapsE14CUtensor"
-                   "MapPfiiiiii"}
+        "fwd_f32": F32_SM90 + "21conv1d_fwd_f32_kernelENS0_12F32PhaseMapsE14"
+                              "CUtensorMapPfiiiiii",
+        "dw_f32": F32_SM90 + "20conv1d_dw_f32_kernelENS0_12F32PhaseMapsE14"
+                             "CUtensorMapPfiiiiiii",
+        "dx_f32": F32_SM90 + "20conv1d_dx_f32_kernelE14CUtensorMapS1_Pfiiiiiii"
+                             "i"}
 
 
 def _bwd_counts(missing=None):
@@ -115,11 +119,16 @@ def _bwd_counts(missing=None):
             for k in ("dq", "dkv") for t in ("bf16", "f32")}
 
 
-def _conv_counts(fwd=4, dw=4, dx=4, fwd_f32=12):
+def _conv_counts(fwd=4, dw=4, dx=4, fwd_f32=12, dw_f32=12, dx_f32=12):
+    # the library's conv kernels: the six on the tensor cores, and dW's
+    # reduce kernel and w's two split kernels, which have no products
     return {CONV["fwd"]: fwd, CONV["dw"]: dw, CONV["dx"]: dx,
-            CONV["fwd_f32"]: fwd_f32,
-            "_ZN41_GLOBAL__N__c3d384cc_9_conv1d_cu_d3ed901e16conv1d_dx_kernel"
-            "IfEEvPKT_S2_PS0_iiiiiiii": 0}
+            CONV["fwd_f32"]: fwd_f32, CONV["dw_f32"]: dw_f32,
+            CONV["dx_f32"]: dx_f32,
+            "_ZN41_GLOBAL__N__c3d384cc_9_conv1d_cu_d3ed901e23conv1d_dw_reduce"
+            "_kernelEPKfPfxi": 0,
+            F32_SM90 + "21conv1d_split_w_kernelEPKfPfii": 0,
+            F32_SM90 + "24conv1d_split_w_dx_kernelEPKfPfx": 0}
 
 
 def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
@@ -131,7 +140,8 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
               "_ZN4sslc12_GLOBAL__N_129flash_attn_bwd_dkv_f32_kernelE": 70}
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
     counts.update({FWD_F32.format(*f): 36 for f in FWD_FLAGS})
-    counts.update(_conv_counts(fwd=4, dw=6, dx=8, fwd_f32=12))
+    counts.update(_conv_counts(fwd=4, dw=6, dx=8, fwd_f32=12, dw_f32=24,
+                               dx_f32=36))
     got = chip_smoke.check_tensor_cores(_Kernels(counts))
     assert got == {("flash_attn_fwd", "f32"): 144,
                    ("flash_attn_fwd", "bf16"): 32,
@@ -139,14 +149,16 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
                    ("flash_attn_bwd_dkv", "bf16"): 16,
                    ("flash_attn_bwd_dq", "f32"): 72,
                    ("flash_attn_bwd_dkv", "f32"): 70,
-                   ("conv1d_fwd", "f32"): 12,
+                   ("conv1d_fwd", "f32"): 12, ("conv1d_dw", "f32"): 24,
+                   ("conv1d_dx", "f32"): 36,
                    ("conv1d_fwd", "bf16"): 4, ("conv1d_dw", "bf16"): 6,
                    ("conv1d_dx", "bf16"): 8}
     out = capsys.readouterr().out
     assert "4 HGMMA in conv1d_fwd_bf16_kernel" in out
     assert "6 HGMMA in conv1d_dw_bf16_kernel" in out
     assert "8 HGMMA in conv1d_dx_bf16_kernel" in out
-    assert "0 HGMMA in conv1d_dx_kernel<f32>" in out  # CUDA cores
+    assert "0 HGMMA in conv1d_dw_reduce_kernel" in out  # CUDA cores
+    assert "0 HGMMA in conv1d_split_w_dx_kernel" in out
     assert "16 HGMMA in flash_attn_bwd_dkv_bf16_kernel" in out
     assert "72 HGMMA in flash_attn_bwd_dq_f32_kernel" in out
     assert "8 HGMMA in flash_attn_fwd_bf16_kernel<dropout, segments>" in out
@@ -155,11 +167,14 @@ def test_tensor_core_check_counts_hgmma_per_backward_kernel(capsys):
     assert ("36 HGMMA in flash_attn_fwd_f32_kernel<dropout, no segments>"
             in out)
     assert "12 HGMMA in conv1d_fwd_f32_kernel" in out
+    assert "24 HGMMA in conv1d_dw_f32_kernel" in out
+    assert "36 HGMMA in conv1d_dx_f32_kernel" in out
 
 
 @pytest.mark.parametrize("missing", ["fwd", "dq", "dkv", "dq_f32", "dkv_f32",
                                      "conv_fwd", "conv_dw", "conv_dx",
-                                     "fwd_f32", "conv_fwd_f32"])
+                                     "fwd_f32", "conv_fwd_f32", "conv_dw_f32",
+                                     "conv_dx_f32"])
 def test_tensor_core_check_fails_without_hgmma(missing):
     counts = _bwd_counts(missing)
     counts.update({FWD.format(*f): 0 if missing == "fwd" else 8
@@ -169,7 +184,9 @@ def test_tensor_core_check_fails_without_hgmma(missing):
     counts.update(_conv_counts(fwd=0 if missing == "conv_fwd" else 4,
                                dw=0 if missing == "conv_dw" else 4,
                                dx=0 if missing == "conv_dx" else 4,
-                               fwd_f32=0 if missing == "conv_fwd_f32" else 12))
+                               fwd_f32=0 if missing == "conv_fwd_f32" else 12,
+                               dw_f32=0 if missing == "conv_dw_f32" else 12,
+                               dx_f32=0 if missing == "conv_dx_f32" else 12))
     with pytest.raises(AssertionError, match="tensor cores"):
         chip_smoke.check_tensor_cores(_Kernels(counts))
 
@@ -201,17 +218,19 @@ def test_tensor_core_check_fails_when_one_forward_instance_has_none(fwd, tag):
         chip_smoke.check_tensor_cores(_Kernels(counts))
 
 
-def test_tensor_core_check_fails_without_the_f32_conv_forward():
-    # a library whose f32 conv forward is not the split-TF32 kernel at all
-    # (a CUDA-core instance, no HGMMA) fails
+@pytest.mark.parametrize("absent", ["fwd", "dw", "dx"])
+def test_tensor_core_check_fails_without_the_f32_conv_forward(absent):
+    # a library whose f32 conv forward, dW or dX is not the split-TF32
+    # kernel at all (a CUDA-core instance, no HGMMA) fails
     counts = _bwd_counts()
     counts.update({FWD.format(*f): 8 for f in FWD_FLAGS})
     counts.update({FWD_F32.format(*f): 36 for f in FWD_FLAGS})
     counts.update(_conv_counts())
-    del counts[CONV["fwd_f32"]]
-    counts["_ZN12_GLOBAL__N_117conv1d_fwd_kernelIfEEvPKT_S2_PS0_iiiiiiii"] = 0
+    del counts[CONV[f"{absent}_f32"]]
+    counts[f"_ZN12_GLOBAL__N_117conv1d_{absent}_kernelIfEEvPKT_S2_PS0_"
+           "iiiiiiii"] = 0
     with pytest.raises(AssertionError,
-                       match="conv1d_fwd_f32_kernel has no HGMMA"):
+                       match=f"conv1d_{absent}_f32_kernel has no HGMMA"):
         chip_smoke.check_tensor_cores(_Kernels(counts))
 
 

@@ -158,51 +158,57 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tconv.launch_dx(torch.zeros((1, 31, 128)), w, 64, 2)
 
 
-def test_dw_splits_cover_every_row():
-    # blocks per split: K (C/128) (O/128) of HuBERT's layers 1-6 and of a
-    # narrow layer; 132 SMs (an H100 SXM)
-    for blocks in (48, 32, 1):
-        for rows in (1, 7, 255, 256, 257, 2047, 2049, 3068, 98300, 600000):
-            chunk, n = tconv.dw_splits(rows, blocks, 132)
-            assert chunk % 8 == 0 and (n - 1) * chunk < rows <= n * chunk
-            assert chunk >= min(tconv.DW_MIN_CHUNK, -(-rows // 8) * 8)
-            # the scratch stays at what fills the SMs, whatever the rows
-            assert n * blocks <= max(blocks, tconv.DW_WAVES * 132)
-
-
 # (B, T_out) of HuBERT's layers 1-6 in the training batch and of the card's
 # ragged test shapes (one output row, one past a 64-row step, three batches)
 TILE_CASES = [(4, 49151), (4, 24575), (4, 12287), (4, 6143), (4, 3071),
               (4, 1535), (2, 1), (2, 65), (3, 388), (1, 64), (1, 63)]
 
 
-@pytest.mark.parametrize("b,t_out", TILE_CASES)
-@pytest.mark.parametrize("blocks", [48, 16, 3])
-def test_dw_tile_splits_cover_every_step_once_in_order(b, t_out, blocks):
-    # the bf16 dW kernel's plan: step i is batch i // s_b, rows 64 (i % s_b)
-    # .. + 63, so a step never straddles two batches, and split k sums steps
-    # k chunk .. (k + 1) chunk - 1; together they cover every (b, t) row once
-    chunk, n = tconv.dw_tile_splits(b, t_out, blocks, 132)
-    s_b = -(-t_out // tconv.DW_STEP)
+def _check_step_plan(b, t_out, blocks, step):
+    """A dW kernel's plan in steps of ``step`` rows: step i is batch i //
+    s_b, rows step (i % s_b) .. + step - 1, so a step never straddles two
+    batches, and split k sums steps k chunk .. (k + 1) chunk - 1; together
+    they cover every (b, t) row once."""
+    chunk, n = tconv.dw_tile_splits(b, t_out, blocks, 132, step)
+    s_b = -(-t_out // step)
     total = b * s_b
     order = [i for k in range(n)
              for i in range(k * chunk, min(total, (k + 1) * chunk))]
     assert order == list(range(total))  # every step once, in (b, t) order
     assert all(k * chunk < total for k in range(n))  # no empty split
     rows = [(i // s_b, t) for i in order
-            for t in range(tconv.DW_STEP * (i % s_b),
-                           min(t_out, tconv.DW_STEP * (i % s_b + 1)))]
+            for t in range(step * (i % s_b), min(t_out, step * (i % s_b + 1)))]
     assert rows == [(bb, t) for bb in range(b) for t in range(t_out)]
     # at least DW_MIN_CHUNK rows a split where there are that many, at most
     # DW_WAVES blocks per SM, and at least one block per SM where the steps
     # allow it (132 SMs, an H100 SXM)
-    assert chunk * tconv.DW_STEP >= min(tconv.DW_MIN_CHUNK,
-                                        total * tconv.DW_STEP)
+    assert chunk * step >= min(tconv.DW_MIN_CHUNK, total * step)
     assert n * blocks <= max(blocks, tconv.DW_WAVES * 132)
-    if total >= 132 * tconv.DW_MIN_CHUNK // tconv.DW_STEP:
+    if total >= 132 * tconv.DW_MIN_CHUNK // step:
         assert n * blocks >= 132
     # the sum order is a function of the shape and the card alone
-    assert tconv.dw_tile_splits(b, t_out, blocks, 132) == (chunk, n)
+    assert tconv.dw_tile_splits(b, t_out, blocks, 132, step) == (chunk, n)
+
+
+@pytest.mark.parametrize("b,t_out", TILE_CASES)
+@pytest.mark.parametrize("blocks", [48, 16, 3])
+def test_dw_tile_splits_cover_every_step_once_in_order(b, t_out, blocks):
+    # the bf16 dW kernel's plan, in 64-row steps
+    assert tconv.dw_tile_splits(b, t_out, blocks, 132) == \
+        tconv.dw_tile_splits(b, t_out, blocks, 132, tconv.DW_STEP)
+    _check_step_plan(b, t_out, blocks, tconv.DW_STEP)
+
+
+@pytest.mark.parametrize("b,t_out", TILE_CASES)
+@pytest.mark.parametrize("blocks", [48, 16, 3])
+def test_dw_f32_plan_covers_every_32_row_step_once_in_order(b, t_out, blocks):
+    # the f32 dW kernel's plan (csrc/conv1d_f32_sm90.cu), in 32-row steps,
+    # as dw_plan gives it for f32 (K = blocks taps at C = O = 128)
+    chunk, n, _ = tconv.dw_plan(torch.float32, b, t_out, blocks, 128, 128,
+                                132)
+    assert (chunk, n) == tconv.dw_tile_splits(b, t_out, blocks, 132,
+                                              tconv.DW_F32_STEP)
+    _check_step_plan(b, t_out, blocks, tconv.DW_F32_STEP)
 
 
 @pytest.mark.parametrize("t_in,s", [(3, 2), (131, 2), (300, 2), (302, 2),
@@ -236,10 +242,8 @@ def test_phase_rows_refuse_strides_past_the_maps_a_launch_carries():
 def test_dw_plan_scratch_holds_one_slot_per_split(dtype, b, t_out, k, c, o):
     chunk, n, scratch = tconv.dw_plan(dtype, b, t_out, k, c, o, 132)
     blocks = k * (c // 128) * (o // 128)
-    if dtype == torch.bfloat16:
-        assert (chunk, n) == tconv.dw_tile_splits(b, t_out, blocks, 132)
-    else:
-        assert (chunk, n) == tconv.dw_splits(b * t_out, blocks, 132)
+    step = tconv.DW_STEP if dtype == torch.bfloat16 else tconv.DW_F32_STEP
+    assert (chunk, n) == tconv.dw_tile_splits(b, t_out, blocks, 132, step)
     # one f32 (K, C, O) slot per split; none where one split writes dW
     assert scratch == ((n, k, c, o) if n > 1 else None)
     if scratch:

@@ -502,8 +502,9 @@ def test_conv_bf16_kernels_run_on_the_tensor_cores_bitwise_repeatably():
 
 
 def test_conv_bf16_kernels_refuse_strides_past_their_maps():
-    # and so does the f32 forward, which reads x through per-phase maps too;
-    # the f32 dW gathers its operands and takes any stride
+    # and so do the f32 forward and dW, which read x through per-phase maps
+    # too (the f32 forward refuses stride 9, so autograd never reaches an
+    # f32 dW there)
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
 
     s = tc.SM90_MAX_STRIDE + 1
@@ -516,7 +517,8 @@ def test_conv_bf16_kernels_refuse_strides_past_their_maps():
         tc.launch_dw(x, dy.bfloat16(), s, s)
     with pytest.raises(ValueError, match="stride <= 8"):
         tc.launch_fwd(x.float(), w.float(), s)
-    tc.launch_dw(x.float(), dy, s, s)
+    with pytest.raises(ValueError, match="stride <= 8"):
+        tc.launch_dw(x.float(), dy, s, s)
 
 
 def test_conv_f32_forward_runs_on_the_tensor_cores_bitwise_repeatably():
@@ -538,24 +540,62 @@ def test_conv_f32_forward_runs_on_the_tensor_cores_bitwise_repeatably():
     assert not [sym for sym in hgmma if "conv1d_fwd_kernel" in sym]
 
 
-def test_conv_bf16_dx_takes_strides_past_the_forwards_maps():
-    # the bf16 dX kernel reads dy and w and stores its rows directly, so it
-    # has no per-phase maps and no stride cap: K = s = 9 against the plain
-    # version, with the bf16 bar of test_conv_kernels_match_plain_version
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_bf16_dx_takes_strides_past_the_forwards_maps(dtype):
+    # the dX kernels (bf16 and f32) read dy and w and store their rows
+    # directly, so they have no per-phase maps and no stride cap: K = s = 9
+    # against the plain version, with the bars of
+    # test_conv_kernels_match_plain_version (bf16; f32 against float64)
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
 
     s = tc.SM90_MAX_STRIDE + 1
     b, t, c, k, o = 2, 400, 128, s, 128
-    _, w, dy = _conv_inputs((b, t, c, k, o, s), torch.bfloat16, seed=3)
+    _, w, dy = _conv_inputs((b, t, c, k, o, s), dtype, seed=3)
     tc.reset_launch_counts()
     got = tc.launch_dx(dy, w, t, s)
     torch.cuda.synchronize()
     assert tc.launch_counts["conv1d_dx"] == 1
-    x = torch.zeros((b, t, c), device="cuda", dtype=torch.bfloat16)
-    ref = tc.plain_grads(x, w, s, dy)[0]
-    share, ulps = _bf16_diff(got, ref, slice(None))
-    assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
+    x = torch.zeros((b, t, c), device="cuda", dtype=dtype)
+    if dtype == torch.float32:
+        ref = tc.plain_grads(x.double(), w.double(), s, dy.double())[0]
+        assert ((got.double() - ref).abs().max() / ref.abs().mean()
+                < CONV_F32_BAR)
+    else:
+        ref = tc.plain_grads(x, w, s, dy)[0]
+        share, ulps = _bf16_diff(got, ref, slice(None))
+        assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
     assert not got[:, (dy.shape[1] - 1) * s + k:].any()
+
+
+def test_conv_f32_dw_dx_run_on_the_tensor_cores_bitwise_repeatably():
+    # an f32 CUDA tensor launches the split-TF32 wgmma dW and dX
+    # (csrc/conv1d_f32_sm90.cu), which have HGMMA, and no CUDA-core dW or dX
+    # is left in the library; the same inputs give the same bits twice (the
+    # split-K dW adds its slots in a fixed order; one block sums each dX
+    # element), launched directly and through autograd
+    from speech_ssl_compression_tpu_torch.ops import _kernels
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    x, w, dy = _conv_inputs(CONV_SHAPES["b3"], torch.float32, seed=6)
+    t = x.shape[1]
+
+    def run():
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+        tc.conv1d_strided(*leaves, 2).backward(dy)
+        return [leaf.grad for leaf in leaves]
+
+    tc.reset_launch_counts()
+    direct = [tc.launch_dx(dy, w, t, 2), tc.launch_dw(x, dy, 3, 2)]
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(direct, first))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for name in ("conv1d_dw", "conv1d_dx"):
+        assert tc.dtype_launch_counts[name] == {"f32": 3, "bf16": 0}
+    hgmma = _kernels.sass_instruction_counts("HGMMA")
+    for name in ("conv1d_dw", "conv1d_dx"):
+        found = [n for sym, n in hgmma.items() if f"{name}_f32_kernel" in sym]
+        assert found and all(found)
+        assert not [sym for sym in hgmma if f"{name}_kernel" in sym]
 
 
 def test_conv_kernels_refuse_what_they_do_not_take():

@@ -14,11 +14,12 @@ card's name and power limit (nvidia-smi), and CUDA-event medians in ms of
     frontend layers 1-6 in the training batch (B = 4 x 245,760 samples),
     f32 (TF32 off) and bf16, 5 launches per timing, median of 5 after a
     warm-up, and their sums over the six layers;
-  * with ``--hubert``: the bf16 grad step (B = 4 x 245,760 samples, two
-    micro-batches, LayerDrop 0, dropout on) and f32 (TF32 off) and bf16
-    ``hubert_forward(features_only=True)`` on 8 x 491,520 samples, with
-    the conv kernels (``conv_frontend_impl="tc_pallas"``) and with cuDNN
-    ("auto"), full width, seeded random weights, median of 5 single calls;
+  * with ``--hubert``: the f32 (TF32 off) and bf16 grad step (B = 4 x
+    245,760 samples, two micro-batches, LayerDrop 0, dropout on) and f32
+    and bf16 ``hubert_forward(features_only=True)`` on 8 x 491,520
+    samples, with the conv kernels (``conv_frontend_impl="tc_pallas"``) and
+    with cuDNN ("auto"), full width, seeded random weights, median of 5
+    single calls;
   * with ``--host``: the host work per launch of the three wrappers at
     layers 5 and 6, bf16 and f32 (:func:`host_times`).
 Needs a CUDA device; imports neither JAX nor the JAX package.
@@ -181,11 +182,15 @@ def host_times(root: pathlib.Path, dev) -> dict:
             partial = (torch.empty(scratch, dtype=torch.float32, device=dev)
                        if scratch else None)
             tail = (bf16, dev.index, stream)
-            # the f32 forward's w^T scratch, in a tree whose entry point
-            # takes one (it has 13 arguments there, 12 before)
+            # the f32 forward's w^T scratch and the f32 dX's w scratch, in
+            # a tree whose entry points take them (13 arguments there, 12
+            # before)
             wt = ((None if bf16 else torch.empty((2, o, k * c), device=dev)
                    .data_ptr(),)
                   if len(lib.sslc_conv1d_fwd.argtypes) == 13 else ())
+            ws = ((None if bf16 else torch.empty((2, k * c, o), device=dev)
+                   .data_ptr(),)
+                  if len(lib.sslc_conv1d_dx.argtypes) == 13 else ())
             entries = {
                 "conv1d_fwd": (lambda: tc.launch_fwd(x, w, s),
                                lib.sslc_conv1d_fwd,
@@ -199,8 +204,8 @@ def host_times(root: pathlib.Path, dev) -> dict:
                                n_split) + tail),
                 "conv1d_dx": (lambda: tc.launch_dx(dy, w, t_in, s),
                               lib.sslc_conv1d_dx,
-                              (dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b,
-                               t_in, c, k, o, s) + tail),
+                              (dy.data_ptr(), w.data_ptr(), *ws,
+                               dx.data_ptr(), b, t_in, c, k, o, s) + tail),
             }
             for name, (wrapper, entry, args) in entries.items():
                 _kernels.check(lib, entry(*args), name)
@@ -249,13 +254,15 @@ def hubert_times(root: pathlib.Path, dev) -> dict:
             "target_valid": torch.ones((b, t_frames), dtype=torch.bool,
                                        device=dev),
         }
-        step = make_hubert_grad_step(model, accum_steps=2,
-                                     compute_dtype=torch.bfloat16)
-        gen = torch.Generator().manual_seed(0)
-        with matmul_precision("highest"):
-            times[f"hubert grad step bf16 ({label})"] = cuda_ms(
-                lambda: step(params, batch, gen))
-        del step, batch, params
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            step = make_hubert_grad_step(model, accum_steps=2,
+                                         compute_dtype=dtype)
+            gen = torch.Generator().manual_seed(0)
+            with matmul_precision("highest"):
+                times[f"hubert grad step {tag} ({label})"] = cuda_ms(
+                    lambda: step(params, batch, gen))
+            del step
+        del batch, params
 
         model = model.eval().requires_grad_(False)
         b, t_wave = HUBERT_SERVE

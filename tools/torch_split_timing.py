@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's f32 split-TF32 forward kernels (the flash-attention
-forward, csrc/flash_attn_fwd_f32_sm90.cu, and the strided-conv forward,
+"""Time the port's f32 split-TF32 kernels (the flash-attention forward,
+csrc/flash_attn_fwd_f32_sm90.cu, and the strided-conv forward, dW and dX,
 csrc/conv1d_f32_sm90.cu) in variants of this checkout's sources, each with
 one design choice changed or one part of the work cut out, to show what
 paces them.
@@ -20,19 +20,24 @@ computes wrong numbers: only its time means anything. Variants:
     a kernel that read K and V split by a pre-pass could take, before that
     pre-pass and the extra bytes it makes every block read;
   * ``hi_hi_only``: every split-TF32 product as one TF32 product (hi hi)
-    in both kernels: what the other two products cost;
+    in the attention forward and the three conv kernels: what the other
+    two products cost;
   * ``fwd_two_blocks``: the attention forward with 40 KB more shared
     memory a block, so that two blocks share an SM instead of three;
-  * ``conv_no_a_split``: the conv forward without the split of x in shared
-    memory.
+  * ``conv_no_a_split``: the conv forward and dX without the split of
+    their A operand (x, dy) in shared memory;
+  * ``conv_dw_no_split``: the conv dW without its split pass (x^T and dy^T
+    hi and lo): the least time a dW that read its operands transposed and
+    split by a pre-pass could take, before that pre-pass.
 Prints one JSON line (appended to OUT with ``--json``): the card's name and
 power limit (nvidia-smi) and, per variant, CUDA-event medians in ms of the
 attention forward's launches (``launch_fwd``) at the serving batch (8 packed
 rows of 896 frames, 12 heads, segments), the training shape (4, 12, 768,
 64) with dropout 0.1, T = 5000 and 1024 x 5000 (the last 200 keys padded),
-and of the conv forward's launches summed over HuBERT-base's frontend
-layers 1-6 in the training batch (B = 4 x 245,760 samples), 20 (attention)
-or 5 (conv) launches per timing, median of 5 after a warm-up; the variants
+and of the conv forward's, dW's and dX's launches summed over
+HuBERT-base's frontend layers 1-6 in the training batch (B = 4 x 245,760
+samples), 20 (attention) or 5 (conv) launches per timing, median of 5 after
+a warm-up; the variants
 run in turns (base first and last). Needs nvcc and a CUDA device; imports
 neither JAX nor the JAX package.
 """
@@ -76,15 +81,23 @@ VARIANTS = {
   for (int kk = 0; kk < kSteps; ++kk)
     wgmma_tf32_rs(c, a_hi[kk], kstep(bt_hi, kk, kTBox), 1);""",
          """    wgmma_tf32_rs(c, a_hi[kk], kstep(bt_hi, kk, kTBox), kk > 0);"""),
-        (CONV, "    for (int p = 0; p < 3; ++p) {",
-         "    for (int p = 2; p < 3; ++p) {"),
+        (CONV, "  for (int p = 0; p < 3; ++p) {  // A_hi B_lo, A_lo B_hi",
+         "  for (int p = 2; p < 3; ++p) {  // A_hi B_lo, A_lo B_hi"),
     ],
     "fwd_two_blocks": [
         (FWD, "    2 * kN * 4 + kTile * 2 * 2 + 2 * 8 + 1024;",
          "    2 * kN * 4 + kTile * 2 * 2 + 2 * 8 + 1024 + 40 * 1024;"),
     ],
     "conv_no_a_split": [
-        (CONV, "    split_box(a_hi(st), a_hi(st) + 2 * kABox, wtid);\n", ""),
+        (CONV, "    split_box(a_hi(kt), a_hi(kt) + 2 * kABox, wtid);\n", ""),
+    ],
+    "conv_dw_no_split": [
+        (CONV, """    split_tile<kF32Step, 2 * kWgThreads, true, false, kF32Tile>(
+        raw, nullptr, tb, tb + kBBox, threadIdx.x);
+    split_tile<kF32Step, 2 * kWgThreads, true, false, kF32Tile>(
+        raw + 4 * kDwBox, nullptr, tb + 2 * kBBox, tb + 3 * kBBox,
+        threadIdx.x);
+""", ""),
     ],
 }
 
@@ -188,8 +201,8 @@ def attention_cases(dev):
 
 
 def conv_cases(dev):
-    """(x, w, stride) of HuBERT-base's frontend layers 1-6 in the training
-    batch, f32."""
+    """(x, w, dy, stride) of HuBERT-base's frontend layers 1-6 in the
+    training batch, f32."""
     from speech_ssl_compression_tpu_torch.configs import (
         hubert_config_from_yaml,
     )
@@ -202,7 +215,9 @@ def conv_cases(dev):
         if c % 128 == 0 and dim % 128 == 0:
             cases.append((torch.randn((4, t, c), generator=gen, device=dev),
                           torch.randn((k, c, dim), generator=gen, device=dev)
-                          / (k * c) ** 0.5, s))
+                          / (k * c) ** 0.5,
+                          torch.randn((4, (t - k) // s + 1, dim),
+                                      generator=gen, device=dev), s))
         t, c = (t - k) // s + 1, dim
     return cases
 
@@ -213,24 +228,20 @@ def time_variant(lib_path: pathlib.Path, attention, convs) -> dict:
     from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
 
     load = _kernels.load
-    lib = ctypes.CDLL(str(lib_path))
-    # declare the entry points as the port's own load() does
+    lib = _kernels.declare(ctypes.CDLL(str(lib_path)))
     _kernels.load = lambda: lib
     try:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sslc_flash_attn_fwd.argtypes = [vp] * 8 + [ci] * 7 + [
-            ctypes.c_uint, ctypes.c_float, ctypes.c_ulonglong, ci, vp]
-        lib.sslc_conv1d_fwd.argtypes = [vp] * 4 + [ci] * 8 + [vp]
-        for fn in (lib.sslc_flash_attn_fwd, lib.sslc_conv1d_fwd):
-            fn.restype = ci
-        lib.sslc_cuda_error_string.argtypes = [ci]
-        lib.sslc_cuda_error_string.restype = ctypes.c_char_p
         times = {f"fwd f32 {name}": cuda_ms(lambda: fa.launch_fwd(*args),
                                             inner=20)
                  for name, args in attention}
-        times["conv1d_fwd f32 layers 1-6"] = sum(
-            cuda_ms(lambda: tc.launch_fwd(x, w, s), inner=5)
-            for x, w, s in convs)
+        for name, run in (
+                ("conv1d_fwd", lambda x, w, dy, s: tc.launch_fwd(x, w, s)),
+                ("conv1d_dw", lambda x, w, dy, s: tc.launch_dw(
+                    x, dy, w.shape[0], s)),
+                ("conv1d_dx", lambda x, w, dy, s: tc.launch_dx(
+                    dy, w, x.shape[1], s))):
+            times[f"{name} f32 layers 1-6"] = sum(
+                cuda_ms(lambda: run(*args), inner=5) for args in convs)
     finally:
         _kernels.load = load
     return times
