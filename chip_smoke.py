@@ -63,10 +63,40 @@ result line):
   train timing  the grad step with the kernels and with impl="dense", f32
             and bf16, one full update in bf16, and the backward kernels
             against the plain backward at the training shape;
+  resume    the train phase's last-step.npz read back by a trainer built
+            from -m melhubert -i last-step.npz
+            --init_optimizer_from_initial_weight at full width: params, Adam
+            moments and count on the card equal to the file's bitwise, then
+            one update (dropout off, a fixed batch and span mask) from the
+            train phase's runner, its state as it was when it wrote the
+            file, and from the resumed one gives bitwise-equal params and
+            Adam state (cuDNN deterministic);
+  weight prune  -m weight-pruning through the trainer's entry point from
+            that checkpoint, full width, bf16, B = 4, T = 768, 8
+            micro-batches: configs/weight_pruning/config_runner_20ms.yaml's
+            prune: section with warnup, period and n_iters cut to 1, 1, 3
+            (its sparsity ladder to its first 3 entries, which n_iters
+            must match), pruning_condition always, total_steps 4; launch
+            counts per micro-batch; the events at steps 1, 2, 3, each after
+            exactly that many updates (Adam count in its artifact); after
+            each exactly round(amount * n) of the n ~ 85 M prunable entries
+            masked, the masks equal to a host recompute by
+            global_magnitude_prune on the artifact's folded weights; the
+            artifacts and last-step.npz (masks, Pruning, TotalStep); every
+            masked entry's gradient exactly 0 in a bf16 grad step; the
+            masked grad step's loss and every gradient with the kernels
+            against impl="dense" (f32, TF32 off, dropout off, a fixed span
+            mask); MelHuBERTExtractor serving last-step.npz (masks folded)
+            against serving the in-memory weights masked by hand; times of
+            one update with masks against one without, and of each prune
+            event on the host;
   conv      the strided-conv forward, dW and dX kernels against their plain
             version at the shapes of HuBERT's frontend layers 1-6 in the
-            training batch, at T = 777 / 515 and at the ragged edges of the
-            bf16 kernels' tiles (CONV_EDGE_CASES): f32 (TF32 off) against
+            training batch, at T = 777 / 515, at the ragged edges of the
+            bf16 kernels' tiles (CONV_EDGE_CASES) and at stride 9 (k = s = 9
+            and k = 20 at T = 777, CONV_FOLD_CASES: conv1d_strided folds the
+            stride into the channels for the stride-1 kernels, and
+            autograd through it gives dW and dX): f32 (TF32 off) against
             the plain version in float64, bf16 against it in bf16, the
             forward, dW and dX of both dtypes bitwise repeatable; dX zero
             past the last input row an output reaches; CUDA-event times of
@@ -246,6 +276,11 @@ CONV_EDGE_CASES = (("t_out1", (2, 3, 512, 3, 512, 2)),
                    ("k2s2_last_row", (2, 300, 512, 2, 512, 2)),
                    ("k3s2_short", (2, 302, 512, 3, 512, 2)),
                    ("k7s3", (2, 400, 128, 7, 128, 3)))
+# strides past the forwards' per-phase maps (SM90_MAX_STRIDE):
+# conv1d_strided folds the stride into the channels and runs the stride-1
+# kernels; no output tap wasted at K = s, a third of them zero at K = 20
+CONV_FOLD_CASES = (("k9s9", (2, 777, 512, 9, 512, 9)),
+                   ("k20s9", (2, 777, 512, 20, 512, 9)))
 CONV_REPLACES = {
     "conv1d_fwd": "speech_ssl_compression_tpu/ops/conv1d.py:63",
     "conv1d_dw": "speech_ssl_compression_tpu/ops/conv1d.py:106",
@@ -254,6 +289,13 @@ CONV_REPLACES = {
 # f32 conv kernels against the plain version run in float64: forward and dX
 # max |d| / mean |ref|, dW rel. L2 (its sums run over up to ~10^5 rows)
 CONV_F32_BAR = 1e-5
+WP_MODEL_YAML = ROOT / "configs" / "weight_pruning" / "config_model_20ms.yaml"
+WP_RUNNER_YAML = ROOT / "configs" / "weight_pruning" / "config_runner_20ms.yaml"
+# the prune: keys the weight prune phase shortens (events at steps 1, 2, 3,
+# the first 3 of the ladder), and its updates: the event at step 3 fires at
+# the top of the 4th window
+WP_SHORT = dict(warnup=1, period=1, n_iters=3, pruning_condition="always")
+WP_STEPS = 4
 HUBERT_YAML = ROOT / "configs" / "hubert" / "config_model.yaml"
 HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
 HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
@@ -847,18 +889,19 @@ datarc:
 def grad_errors(names, got, ref):
     """|got - ref|_2 / |ref|_2 per gradient. The k_proj biases' gradients
     are zero up to rounding (softmax is invariant to a shift of a row's
-    scores), so theirs is taken against the norm of all gradients."""
+    scores), and a leaf weight pruning masked whole has a gradient of
+    exact zeros, so theirs is taken against the norm of all gradients."""
     norm = lambda t: float(torch.linalg.vector_norm(t.float().ravel()))
     total = float(np.sqrt(sum(norm(r) ** 2 for r in ref)))
     return [norm(g.float() - r.float())
-            / (total if n.endswith("k_proj.bias") else norm(r))
+            / (total if n.endswith("k_proj.bias") or not norm(r) else norm(r))
             for n, g, r in zip(names, got, ref)]
 
 
 def phase_train(dev, gpu: str, tmp: str):
     """Pre-training through the trainer's entry point, then the checks on
     its model. Returns (runner, fixed batch, launch counts of the training
-    run per dtype)."""
+    run per dtype, (params, Adam state) as the trainer wrote them)."""
     from speech_ssl_compression_tpu_torch.extract import (
         load_any_checkpoint, matmul_precision,
     )
@@ -918,6 +961,10 @@ def phase_train(dev, gpu: str, tmp: str):
     if not (same and meta["Step"] == 3
             and ckpt_cfg.encoder_layers == cfg.encoder_layers):
         raise AssertionError("checkpoint does not read back")
+    # the state the trainer wrote, for the resume phase (the checks below
+    # update the runner's params)
+    snapshot = ([p.detach().clone() for p in runner.params.values()],
+                [s.clone() for s in runner.opt_state])
 
     # one fixed micro-batch and span mask for the parity and fixed-batch runs
     batch = runner._device_batch(runner._get_dataloader().get_batch(0))
@@ -972,7 +1019,7 @@ def phase_train(dev, gpu: str, tmp: str):
         f"{time.perf_counter() - t0:.2f} s")
     if not (np.isfinite(losses).all() and last < first):
         raise AssertionError("the loss does not fall on a fixed batch")
-    return runner, batch, by_dtype
+    return runner, batch, by_dtype, snapshot
 
 
 def phase_train_timing(runner, batch, gpu: str):
@@ -1029,6 +1076,362 @@ def phase_train_timing(runner, batch, gpu: str):
         tag = "f32" if dtype == torch.float32 else "bf16"
         backward_timing(args, "training_dropout", tag, record, gpu)
     return record
+
+
+def fixed_span_mask(runner, batch, seed: int = 0):
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+
+    t = batch["feat"].shape[1]
+    return torch.from_numpy(span_mask(runner.cfg, batch["length"], t,
+                                      np.random.default_rng(seed))).to(
+                                          batch["feat"].device)
+
+
+def one_update(runner, batch, mask):
+    """One update from the runner's state: a bf16 grad step with dropout
+    off on a fixed batch and span mask, then the fused apply."""
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+
+    step = make_melhubert_grad_step(runner.model,
+                                    compute_dtype=runner.compute_dtype,
+                                    deterministic=True)
+    loss, grads, _ = step(runner.params, batch, torch.Generator(),
+                          mask_indices=mask, masks=runner.masks)
+    runner.apply(grads, 1.0)
+    torch.cuda.synchronize()
+    return float(loss)
+
+
+def same_state(a, b) -> bool:
+    """Params and Adam state of two runners equal bitwise."""
+    return (all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+            and all(map(torch.equal, a.opt_state, b.opt_state)))
+
+
+def phase_resume(dev, gpu: str, tmp: str, runner, snapshot, batch):
+    """A trainer resumed from the train phase's last-step.npz against the
+    train phase's runner, its state put back as it was when it wrote the
+    file: the state read back bitwise, then one update on each."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+    from speech_ssl_compression_tpu_torch.train.__main__ import get_args
+    from speech_ssl_compression_tpu_torch.train.runner import Runner
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        load_checkpoint, tree_leaves,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        jax_tree_from_named,
+    )
+
+    t0 = time.perf_counter()
+    root = pathlib.Path(tmp) / "train"
+    ckpt = str(root / "exp" / "last-step.npz")
+    args = get_args(["-m", "melhubert", "-g", str(CONFIG_YAML), "-c",
+                     str(root / "config_runner.yaml"), "-n",
+                     str(pathlib.Path(tmp) / "resume"), "-i", ckpt,
+                     "--init_optimizer_from_initial_weight", "--device",
+                     "cuda", "--seed", "0"])
+    resumed = Runner(args, read_yaml(args.runner_config),
+                     read_yaml(args.upstream_config))
+    state = load_checkpoint(ckpt)
+    params_equal = all(
+        np.array_equal(a, b) for a, b in zip(
+            tree_leaves(jax_tree_from_named(resumed.params)),
+            tree_leaves(state["params"])))
+    opt_equal = all(np.array_equal(a, b) for a, b in zip(
+        resumed._opt_leaves(), state["opt_leaves"]))
+    count = int(resumed.opt_state[0])
+    log("resume", f"-i last-step.npz --init_optimizer_from_initial_weight: "
+        f"{len(resumed.params)} params on the card equal to the file's "
+        f"bitwise: {params_equal}; Adam count {count} and "
+        f"{len(state['opt_leaves']) - 1} moments equal: {opt_equal}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (params_equal and opt_equal and count == 3
+            and len(state["opt_leaves"]) == len(resumed.opt_state)):
+        raise AssertionError("the resumed state differs from the file")
+
+    t0 = time.perf_counter()
+    for p, saved in zip(runner.params.values(), snapshot[0]):
+        p.data.copy_(saved)
+    for s, saved in zip(runner.opt_state, snapshot[1]):
+        s.copy_(saved)
+    mask = fixed_span_mask(runner, batch)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = same_state(runner, resumed)
+        losses = [one_update(r, batch, mask) for r in (runner, resumed)]
+        after = same_state(runner, resumed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("resume", f"in memory and resumed equal before the update: {before}; "
+        f"one update (bf16, dropout off, fixed batch and span mask) from "
+        f"each: loss {losses[0]!r} and {losses[1]!r}, params and Adam state "
+        f"bitwise equal after: {after}, {time.perf_counter() - t0:.2f} s "
+        f"[{gpu}]")
+    if not (before and after and losses[0] == losses[1]):
+        raise AssertionError("one update from the resumed state differs")
+
+
+def yaml_scalar(value) -> str:
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, float):  # a float YAML reads back as one: 1.0e-05
+        mantissa, e, exp = repr(value).partition("e")
+        return (mantissa if "." in mantissa else mantissa + ".0") + e + exp
+    return str(value)
+
+
+def to_yaml(tree: dict, indent: int = 0) -> str:
+    """Nested mappings of scalars and lists of scalars as the block YAML
+    configs.read_yaml reads."""
+    pad, lines = " " * indent, []
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            lines += [f"{pad}{key}:", to_yaml(value, indent + 2)]
+        elif isinstance(value, list):
+            lines += [f"{pad}{key}:"] + [f"{pad}- {yaml_scalar(v)}"
+                                         for v in value]
+        else:
+            lines.append(f"{pad}{key}: {yaml_scalar(value)}")
+    return "\n".join(lines)
+
+
+def weight_prune_config(csv: str) -> dict:
+    """configs/weight_pruning/config_runner_20ms.yaml for the weight prune
+    phase: its prune: section with WP_SHORT, its sparsity ladder cut to
+    n_iters entries, WP_STEPS updates of 8 micro-batches, a log line per
+    update, the synthetic set."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+
+    cfg = read_yaml(WP_RUNNER_YAML)
+    cfg["prune"].update(WP_SHORT)
+    cfg["prune"]["sparsity"] = cfg["prune"]["sparsity"][:WP_SHORT["n_iters"]]
+    cfg["runner"].update(total_steps=WP_STEPS, gradient_accumulate_steps=8,
+                         log_step=1)
+    cfg["datarc"]["sets"] = [csv]
+    return cfg
+
+
+def prune_event_files(expdir: pathlib.Path, sparsity) -> list:
+    """The before-pruning artifacts of the WP_SHORT events, by step, and
+    last-step.npz: the masks each event gave are in the next file."""
+    names = []
+    for i in range(WP_SHORT["n_iters"]):
+        step = WP_SHORT["warnup"] + i * WP_SHORT["period"]
+        cur = 0 if i == 0 else sparsity[i - 1]
+        names.append(f"{'mask-' if i else ''}before-pruning-states-{step}-"
+                     f"sparsity-{cur}.npz")
+    return [expdir / n for n in names] + [expdir / "last-step.npz"]
+
+
+def read_prune_state(path: pathlib.Path):
+    """(prunable params, masks, Step, Adam count) of a weight-pruning
+    checkpoint, the prunable leaves read alone (a fifth of the file)."""
+    from speech_ssl_compression_tpu_torch.compress.weight_pruning import (
+        PRUNABLE,
+    )
+
+    layers, masks = collections.defaultdict(dict), {}
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(data["meta_json"].tobytes().decode())
+        count = int(data["opt/0"])
+        for key in data.files:
+            parts = key.split("/")
+            if key.startswith("params/encoder/layers/") and (
+                    parts[4] in PRUNABLE):
+                layers[int(parts[3][1:-1])].setdefault(
+                    parts[4], {})[parts[5]] = data[key]
+            elif key.startswith("masks/"):
+                masks.setdefault(parts[1], {}).setdefault(
+                    parts[2], {})[parts[3]] = data[key]
+    params = {"encoder": {"layers": [layers[i] for i in sorted(layers)]}}
+    return params, masks, meta, count
+
+
+def phase_weight_prune(dev, gpu: str, tmp: str):
+    """-m weight-pruning from the train phase's checkpoint through the
+    trainer's entry point, then the checks on its events, masks, gradients
+    and artifacts. Returns the launch counts of the run per dtype."""
+    from speech_ssl_compression_tpu_torch.compress import weight_pruning as wp
+    from speech_ssl_compression_tpu_torch.extract import (
+        MelHuBERTExtractor, matmul_precision,
+    )
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        accumulate_grads, make_melhubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        save_checkpoint, tree_leaves,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        jax_tree_from_named,
+    )
+
+    t0 = time.perf_counter()
+    train_root = pathlib.Path(tmp) / "train"
+    root = pathlib.Path(tmp) / "weight_prune"
+    root.mkdir()
+    cfg = weight_prune_config(str(train_root / "data" / "train.csv"))
+    sparsity = cfg["prune"]["sparsity"]
+    runner_yaml = root / "config_runner.yaml"
+    runner_yaml.write_text(to_yaml(cfg) + "\n")
+    expdir = root / "exp"
+    reset_launch_counts()
+    runner = train(["-m", "weight-pruning", "-g", str(WP_MODEL_YAML), "-c",
+                    str(runner_yaml), "-n", str(expdir), "-i",
+                    str(train_root / "exp" / "last-step.npz"), "--device",
+                    "cuda", "--seed", "0"])
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)
+    by_dtype = dtype_launch_counts()
+    n_layers = runner.cfg.encoder_layers
+    micro = WP_STEPS * runner.accum_steps
+    log("weight prune", f"-m weight-pruning -i last-step.npz, "
+        f"{runner.compute_dtype}, {WP_STEPS} updates x {runner.accum_steps} "
+        f"micro-batches, prune steps {list(map(int, runner.prune_steps))} at "
+        f"sparsity {sparsity}: launches per micro-batch "
+        f"{ {k: v / micro for k, v in counts.items()} } (expected {n_layers} "
+        f"each), {time.perf_counter() - t0:.2f} s")
+    for i, sec in enumerate(runner.prune_event_seconds):
+        log("timing", f"prune event {i + 1} on the host (fold, the masks of "
+            f"~85 M entries by global_magnitude_prune, to the card): {sec:.3f}"
+            f" s [{gpu}]")
+    if any(v != n_layers * micro for v in counts.values()):
+        raise AssertionError(f"launch counts {counts}, want "
+                             f"{n_layers * micro} each")
+    if not (runner.compute_dtype == torch.bfloat16
+            and runner.wp_state.pruning_times == WP_SHORT["n_iters"]
+            and len(runner.log_history) == WP_STEPS):
+        raise AssertionError(f"weight-pruning run: {runner.wp_state}, log "
+                             f"{runner.log_history}")
+
+    # each event from its artifacts: fired after exactly `step` updates, its
+    # masks (in the next file) a host recompute on the folded weights
+    t0 = time.perf_counter()
+    files = prune_event_files(expdir, sparsity)
+    states = [read_prune_state(f) for f in files]
+    for i, (before, after) in enumerate(zip(states, states[1:])):
+        step = WP_SHORT["warnup"] + i * WP_SHORT["period"]
+        params, old, meta, updates = before
+        want = wp.global_magnitude_prune(wp.fold_masks(params, old),
+                                         sparsity[i])
+        got = tree_leaves(after[1])
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(got, tree_leaves(want)))
+        n = sum(m.size for m in got)
+        masked = n - sum(int(np.count_nonzero(m)) for m in got)
+        log("weight prune", f"event {i + 1} ({files[i].name}): Step "
+            f"{meta['Step']}, after {updates} updates; {masked} of {n} "
+            f"prunable entries masked (round(amount n) = "
+            f"{round(sparsity[i] * n)}); masks equal to the host recompute "
+            f"on the folded weights: {same}")
+        if not (same and masked == round(sparsity[i] * n) and updates == step
+                and meta["Step"] == step):
+            raise AssertionError(f"prune event {i + 1} is wrong")
+    last = states[-1][2]
+    log("weight prune", f"artifacts {[f.name for f in files]}; "
+        f"last-step.npz: TotalStep {last.get('TotalStep')}, Pruning "
+        f"{last.get('Pruning')}, {time.perf_counter() - t0:.2f} s")
+    if not (last.get("TotalStep") == WP_STEPS and states[-1][1]
+            and last["Pruning"]["pruning_times"] == WP_SHORT["n_iters"]):
+        raise AssertionError("last-step.npz lacks the pruning state")
+    del states
+
+    # the masked grad step: masked gradients exactly 0 (bf16), then the
+    # kernels against impl="dense" in f32
+    t0 = time.perf_counter()
+    batch = runner._device_batch(runner._get_dataloader().get_batch(0))
+    mask = fixed_span_mask(runner, batch)
+    _, grads, _ = runner.grad_step(runner.params, batch, runner.rng,
+                                   mask_indices=mask, masks=runner.masks)
+    named = dict(zip(runner.params, grads))
+    zero = all(bool((named[k][m == 0] == 0).all())
+               for k, m in runner.masks.items())
+    del grads, named
+    results = {}
+    for impl in ("auto", "dense"):
+        step = make_melhubert_grad_step(runner.model, attn_impl=impl,
+                                        deterministic=True)
+        fa.reset_launch_counts()
+        with matmul_precision("highest"):
+            loss, grads, _ = step(runner.params, batch, torch.Generator(),
+                                  mask_indices=mask, masks=runner.masks)
+        torch.cuda.synchronize()
+        results[impl] = (loss, grads, dict(fa.launch_counts))
+    (loss_k, grads_k, counts_k), (loss_d, grads_d, counts_d) = (
+        results["auto"], results["dense"])
+    del results
+    loss_rel = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
+    names = list(runner.params)
+    errs = grad_errors(names, grads_k, grads_d)
+    worst = int(np.argmax(errs))
+    log("weight prune", f"masked grad step: every masked entry's gradient "
+        f"exactly 0 (bf16): {zero}; kernels vs impl='dense' (f32, TF32 off, "
+        f"dropout off, fixed span mask): loss rel {loss_rel:.3e}, worst of "
+        f"{len(errs)} gradients rel L2 {errs[worst]:.3e} ({names[worst]}), "
+        f"bar {GRAD_BAR:g}; launches {counts_k} and {counts_d}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    del grads_k, grads_d
+    if not (zero and loss_rel < GRAD_BAR and max(errs) < GRAD_BAR):
+        raise AssertionError("the masked grad step is wrong")
+    if set(counts_k.values()) != {n_layers} or any(counts_d.values()):
+        raise AssertionError("the masked parity run took the wrong path")
+
+    # serving the pruned checkpoint against the weights masked by hand
+    t0 = time.perf_counter()
+    hand = {k: p * runner.masks[k] if k in runner.masks else p
+            for k, p in runner.params.items()}
+    hand_ckpt = str(root / "masked_by_hand.npz")
+    save_checkpoint(hand_ckpt, jax_tree_from_named(hand), meta={
+        "Upstream_Config": {"melhubert": runner.cfg.to_dict()}})
+    del hand
+    wavs = synthetic_wavs(seed=0)
+    outs = []
+    for path in (str(expdir / "last-step.npz"), hand_ckpt):
+        ext = MelHuBERTExtractor(path, fp=20, mean_std_npy_path=str(MEAN_STD),
+                                 matmul_precision="highest", device=dev)
+        out = ext.forward_packed(wavs)
+        outs.append(out["hidden_states"] + [out["last_hidden_state"]])
+        del ext
+    lengths = torch.tensor(out["lengths"], device=dev)
+    valid = (torch.arange(outs[0][0].shape[1], device=dev)[None, :]
+             < lengths[:, None])
+    finite = all(torch.isfinite(h.float()[valid]).all() for h in outs[0])
+    err = max(rel_err(a, b, valid) for a, b in zip(*outs))
+    log("weight prune", f"MelHuBERTExtractor on last-step.npz (masks "
+        f"folded) vs the weights masked by hand, f32, all hidden states: "
+        f"max|d|/mean|ref| {err:.3e} (bar {SLICE_BAR:g}), finite {finite}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (finite and err < SLICE_BAR):
+        raise AssertionError("the pruned checkpoint serves wrong")
+
+    # one update with the masks against one without (8 micro-batches + the
+    # apply, bf16), in the order without, with, with, without
+    accum = runner.accum_steps
+
+    def update(masks):
+        def run():
+            acc = None
+            for _ in range(accum):
+                _, grads, _ = runner.grad_step(runner.params, batch,
+                                               runner.rng, masks=masks)
+                acc = accumulate_grads(acc, grads)
+            runner.apply(acc, float(accum))
+        return run
+
+    plain = [cuda_ms(update(None), reps=1)]
+    masked = [cuda_ms(update(runner.masks), reps=1) for _ in range(2)]
+    plain.append(cuda_ms(update(None), reps=1))
+    b, t = batch["feat"].shape[:2]
+    log("timing", f"one weight-pruning update ({accum} micro-batches + "
+        f"apply, {runner.compute_dtype}, B={b} T={t}): with masks {np.mean(masked):.2f} ms "
+        f"({masked[0]:.2f}, {masked[1]:.2f}), without "
+        f"{np.mean(plain):.2f} ms ({plain[0]:.2f}, {plain[1]:.2f}), "
+        f"{(np.mean(masked) / np.mean(plain) - 1) * 100:+.2f}% [{gpu}]")
+    return by_dtype
 
 
 def synthetic_wavs(seed: int):
@@ -1301,10 +1704,28 @@ def halves_rounded(x, w, dy, stride):
     return fwd.to(dt), dw.to(dt), dx.to(dt)
 
 
+def conv_kernels(x, w, dy, stride):
+    """(forward, dW, dX) of the conv kernels: their launchers, or past
+    SM90_MAX_STRIDE conv1d_strided (the stride folded into the channels)
+    and autograd through it, as the frontend takes such a layer (dW then
+    comes in w's dtype)."""
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    k, t = w.shape[0], x.shape[1]
+    if stride <= tc.SM90_MAX_STRIDE:
+        return (tc.launch_fwd(x, w, stride), tc.launch_dw(x, dy, k, stride),
+                tc.launch_dx(dy, w, t, stride))
+    xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+    with torch.enable_grad():
+        y = tc.conv1d_strided(xx, ww, stride)
+        dx, dw = torch.autograd.grad(y, (xx, ww), dy)
+    return y.detach(), dw, dx
+
+
 def phase_conv(dev, gpu: str):
     """The three conv kernels against their plain version (and cuDNN's
-    time) at the training batch's layer shapes, at T = 777 / 515 and at
-    CONV_EDGE_CASES.
+    time) at the training batch's layer shapes, at T = 777 / 515, at
+    CONV_EDGE_CASES and, through the stride fold, at CONV_FOLD_CASES.
     Returns the record for the kernels line: per kernel the worst f32
     max |d| and, summed over the six training layers, kernel, plain,
     library and bound ms in f32 and (keys ending in _bf16) in bf16."""
@@ -1316,7 +1737,8 @@ def phase_conv(dev, gpu: str):
                               .conv_feature_layers)
     cases = [(f"layer{i + 1}", s) for i, s in enumerate(train)]
     cases += [("t777", (2, 777, 512, 2, 512, 2)),
-              ("t515", (2, 515, 512, 3, 512, 2)), *CONV_EDGE_CASES]
+              ("t515", (2, 515, 512, 3, 512, 2)), *CONV_EDGE_CASES,
+              *CONV_FOLD_CASES]
     names = ("conv1d_fwd", "conv1d_dw", "conv1d_dx")
     sums = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms")
     record = {n: dict(max_abs_err=0.0, **{k + sfx: 0.0 for k in sums
@@ -1330,9 +1752,10 @@ def phase_conv(dev, gpu: str):
             x = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
             w = (torch.randn((k, c, o), generator=gen, device=dev)
                  / (k * c) ** 0.5).to(dtype)
-            got_y = tc.launch_fwd(x, w, s)
-            dy = torch.randn(got_y.shape, generator=gen, device=dev).to(dtype)
-            got = (got_y, tc.launch_dw(x, dy, k, s), tc.launch_dx(dy, w, t, s))
+            dy = torch.randn((b, tc.output_length(t, k, s), o), generator=gen,
+                             device=dev).to(dtype)
+            got = conv_kernels(x, w, dy, s)
+            got_y = got[0]
             torch.cuda.synchronize()
             last = (got_y.shape[1] - 1) * s + k
             tail_zero = bool((got[2][:, last:] == 0).all())
@@ -1344,9 +1767,7 @@ def phase_conv(dev, gpu: str):
                 errs = [rel_err(got[0], ref[0], ...), rel_l2(got[1], ref[1], ...),
                         rel_err(got[2], ref[2], ...)]
                 # the split-TF32 forward, dW and dX give the same bits again
-                repeat = (torch.equal(tc.launch_fwd(x, w, s), got[0])
-                          and torch.equal(tc.launch_dw(x, dy, k, s), got[1])
-                          and torch.equal(tc.launch_dx(dy, w, t, s), got[2]))
+                repeat = all(map(torch.equal, conv_kernels(x, w, dy, s), got))
                 ok = max(errs) < CONV_F32_BAR and repeat
                 detail = (f"fwd max|d|/mean|ref| {errs[0]:.3e}, dW rel L2 "
                           f"{errs[1]:.3e} (max|d|/mean|ref| "
@@ -1362,9 +1783,7 @@ def phase_conv(dev, gpu: str):
                 ref_dx, ref_dw = tc.plain_grads(x, w, s, dy)
                 ref = (ref_y, ref_dw, ref_dx)
                 # the tensor-core forward, dW and dX give the same bits again
-                repeat = (torch.equal(tc.launch_fwd(x, w, s), got[0])
-                          and torch.equal(tc.launch_dw(x, dy, k, s), got[1])
-                          and torch.equal(tc.launch_dx(dy, w, t, s), got[2]))
+                repeat = all(map(torch.equal, conv_kernels(x, w, dy, s), got))
                 got = (got[0], got[1].to(dtype), got[2])
                 diffs = [bf16_diff(g, r, ...) for g, r in zip(got, ref)]
                 ctl = [bf16_diff(cc, r, ...)[0]
@@ -2064,11 +2483,13 @@ def main() -> None:
         if args.profile:
             phase_profile(extractors, wavs, gpu)
         del extractors
-        runner, batch, train = phase_train(dev, gpu, tmp)
+        runner, batch, train, snapshot = phase_train(dev, gpu, tmp)
         merge(record, phase_train_timing(runner, batch, gpu))
         if args.profile:
             phase_train_profile(runner, batch, gpu)
-        del runner, batch
+        phase_resume(dev, gpu, tmp, runner, snapshot, batch)
+        del runner, batch, snapshot
+        weight_prune = phase_weight_prune(dev, gpu, tmp)
         hubert_serve = phase_hubert_serve(dev, gpu)
         runner, hubert_train, cudnn_model, batch = phase_hubert_train(
             dev, gpu, tmp)
@@ -2079,6 +2500,7 @@ def main() -> None:
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after
     paths = {"melhubert serve": serve, "melhubert train": train,
+             "melhubert weight-pruning": weight_prune,
              "hubert serve": hubert_serve, "hubert train": hubert_train}
     bounds = {dtype: attention_bounds(dtype)
               for dtype in (torch.float32, torch.bfloat16)}

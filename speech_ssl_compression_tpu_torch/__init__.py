@@ -5,9 +5,10 @@ The JAX package beside it is the reference each module here is held
 against; module paths and names mirror it (``ops/``, ``models/``,
 ``utils/``, ``extract.py``). This package never imports ``jax``.
 
-What is ported so far: MelHuBERT packed feature extraction
-(``extract.MelHuBERTExtractor.forward_packed``), with the flash-attention
-forward as a hand-written CUDA kernel (``csrc/flash_attn_fwd.cu``).
+What is ported so far: MelHuBERT and HuBERT feature extraction and
+pre-training, init from a checkpoint and resume, and MelHuBERT weight
+pruning (``compress/``), on hand-written CUDA kernels (``csrc/``) for the
+flash attention and the strided conv; ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

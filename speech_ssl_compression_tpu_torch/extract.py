@@ -60,7 +60,7 @@ def load_any_checkpoint(path: str):
     if path.endswith(".npz"):
         from .utils.checkpoint import load_checkpoint
 
-        state = load_checkpoint(path)
+        state = load_checkpoint(path, load_opt=False)
         meta = state["meta"]
         up = meta.get("Upstream_Config", {})
         # "student" first: a distillation checkpoint stores the student's

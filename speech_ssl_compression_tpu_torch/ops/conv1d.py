@@ -17,7 +17,10 @@ into hi and lo in scratch by a kernel of their own, w^T for the forward,
 w as it is for dX), bf16 in bf16 (``csrc/conv1d_sm90.cu``). The forwards
 and dWs read x through one TMA map per stride phase, so they take stride
 <= SM90_MAX_STRIDE; the dXs read dy and w and store their rows directly,
-so they take any stride. CPU tensors go to
+so they take any stride. :func:`conv1d_strided` takes every stride JAX
+takes: past SM90_MAX_STRIDE it folds the stride into the channels
+(:func:`fold_stride`) and runs the stride-1 kernels on the fold, on
+either device. CPU tensors go to
 :func:`conv1d_strided_plain`, a per-tap version in plain PyTorch, and its
 dX and dW come from autograd through it. ``chip_smoke.py`` holds each
 kernel against that plain version on the card. Scope and error text are
@@ -30,6 +33,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _kernels
 
@@ -37,8 +41,9 @@ _SLACK = 8  # JAX's bound on K / stride, kept for the same scope
 DW_MIN_CHUNK = 256  # fewest rows of B * T_out per partial sum of dW
 DW_WAVES = 4  # blocks of the dW kernel: about this many per SM
 # the forwards and dWs (csrc/conv1d_f32_sm90.cu, conv1d_sm90.cu): the
-# per-phase TMA maps a launch carries; the rows t of one batch in a dW
-# reduction step, bf16 and f32
+# per-phase TMA maps a launch carries (conv1d_strided folds larger strides
+# into the channels); the rows t of one batch in a dW reduction step, bf16
+# and f32
 SM90_MAX_STRIDE = 8
 DW_STEP = 64
 DW_F32_STEP = 32
@@ -311,11 +316,39 @@ class _Conv1dStrided(torch.autograd.Function):
         return dx, dw, None
 
 
+def fold_stride(x: torch.Tensor, w: torch.Tensor, stride: int):
+    """The stride folded into the channels: (x', w') such that the stride-1
+    conv of x' (B, T', s C) with w' (K', s C, O) is the stride-s conv of x
+    with w, where K' = ceil(K / s) and T' = T_out + K' - 1 = the rows the
+    T_out outputs read. x' is x's first s T' rows (zero rows past T), row
+    u holding x's rows s u .. s u + s - 1 side by side; w'[q] stacks w's
+    taps s q .. s q + s - 1, zero past K. Tap j = s q + r of output t reads
+    x row s (t + q) + r = x' row t + q, channels r C .. r C + C - 1, so
+    each product of the stride-s conv appears once, and the zero taps of
+    w' add only zeros (none at K = s). Plain PyTorch (pad and view), so
+    autograd through it carries dX and dW back: dW' sliced to K taps, dX'
+    viewed as rows and cut or zero-padded to T (rows no output reaches get
+    0, as in the kernels)."""
+    b, t, c = x.shape
+    k, _, o = w.shape
+    kq = -(-k // stride)
+    rows = output_length(t, k, stride) + kq - 1
+    xf = F.pad(x, (0, 0, 0, rows * stride - t)).reshape(b, rows, stride * c)
+    wf = F.pad(w, (0, 0, 0, 0, 0, kq * stride - k))
+    return xf.contiguous(), wf.reshape(kq, stride * c, o)
+
+
 def conv1d_strided(x: torch.Tensor, w: torch.Tensor,
                    stride: int) -> torch.Tensor:
     """VALID strided conv, x (B, T, C) @ w (K, C, O) -> (B, T_out, O), port
     of JAX ``conv1d_strided`` (its ``block_t`` is a VMEM tile size and has
     no counterpart). Needs C and O multiples of 128 and stride <= K <=
-    8 * stride. Differentiable in x and w."""
+    8 * stride. Past SM90_MAX_STRIDE the stride is folded into the channels
+    (:func:`fold_stride`: K' <= 8 and s C a multiple of 128, so the
+    stride-1 kernels take it). Differentiable in x and w."""
     _validate(w.shape[0], x.shape[2], w.shape[2], stride)
-    return _Conv1dStrided.apply(x, w, int(stride))
+    stride = int(stride)
+    if stride > SM90_MAX_STRIDE:
+        x, w = fold_stride(x, w, stride)
+        stride = 1
+    return _Conv1dStrided.apply(x, w, stride)

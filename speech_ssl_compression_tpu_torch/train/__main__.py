@@ -1,20 +1,30 @@
-"""Training CLI of the port, for MelHuBERT and HuBERT pre-training:
+"""Training CLI of the port, for MelHuBERT and HuBERT pre-training and
+MelHuBERT weight pruning:
 
     python -m speech_ssl_compression_tpu_torch.train -m melhubert \\
         -g configs/melhubert/config_model_20ms.yaml -c <runner.yaml> \\
-        -n <expdir> [-u melhubert] [-f {10,20}] [--seed N] [--device cuda]
+        -n <expdir> [-u melhubert] [-f {10,20}] [--seed N] [--device cuda] \\
+        [-i <ckpt> [--init_optimizer_from_initial_weight]]
+    python -m speech_ssl_compression_tpu_torch.train -m weight-pruning \\
+        -g configs/weight_pruning/config_model_20ms.yaml \\
+        -c configs/weight_pruning/config_runner_20ms.yaml -n <expdir> \\
+        -i <pretrained .npz or reference .ckpt> \\
+        [--init_optimizer_from_initial_weight] [--device cuda]
     python -m speech_ssl_compression_tpu_torch.train -m melhubert -u hubert \\
         -g configs/hubert/config_model.yaml -c <runner.yaml with task:> \\
-        -n <expdir> [--seed N] [--device cuda]
+        -n <expdir> [--seed N] [--device cuda] [-i <ckpt> ...]
 
 Port of the repository's ``train.py`` (the reference's flags), with
 ``--device`` in place of ``--backend``: ``-u melhubert`` goes to
-``train/runner.py``, ``-u hubert`` to ``train/wave_runner.py``. The YAMLs
-are read without PyYAML (``configs.py::read_yaml``), and the two config
-files are copied into the experiment directory for provenance. Only
-pre-training (``-m melhubert``) is ported; the compression modes,
-``-u wav2vec2``, ``-i`` and the parallel flags raise
-``NotImplementedError``.
+``train/runner.py``, ``-u hubert`` to ``train/wave_runner.py``. ``-i``
+starts from a checkpoint (the JAX package's npz, or a reference
+``.ckpt``), and ``--init_optimizer_from_initial_weight`` also restores
+its Adam state (a resume). The YAMLs are read without PyYAML
+(``configs.py::read_yaml``), and the two config files are copied into the
+experiment directory for provenance. Ported: pre-training (``-m
+melhubert``) of both models and ``-m weight-pruning`` of MelHuBERT; head
+and row pruning, distillation, ``-u wav2vec2`` and the parallel flags
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +50,9 @@ def get_args(argv=None):
                         help="runner YAML")
     parser.add_argument("-n", "--expdir", required=True)
     parser.add_argument("-i", "--initial_weight", default=None)
+    parser.add_argument("--init_optimizer_from_initial_weight",
+                        action="store_true",
+                        help="also restore the optimizer state of -i")
     parser.add_argument("-f", "--frame_period", type=int, default=20,
                         choices=[10, 20])
     parser.add_argument("--seed", type=int, default=1337)

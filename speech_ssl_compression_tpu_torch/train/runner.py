@@ -1,17 +1,22 @@
-"""The pre-training runner (``melhubert`` mode).
+"""The MelHuBERT trainer: pre-training (``melhubert``) and weight pruning.
 
-Port of the ``melhubert`` mode of
+Port of the ``melhubert`` and ``weight-pruning`` modes of
 ``speech_ssl_compression_tpu/train/runner.py::Runner``: a seeded
-full-width model, the bucketed CSV batches, the gradient-accumulation
-window, the fused apply step with its non-finite skip, log lines with
-loss, grad norm and steps/s, and ``states-epoch-*.npz`` /
-``last-step.npz`` checkpoints in the JAX package's format (its
-``load_checkpoint`` and ``restore_opt_state`` read them).
+full-width model, or one initialised from ``-i`` (the JAX package's npz
+with its masks, ``Pruning`` meta and Adam state, head- and row-pruned
+widths inferred from the shapes, or a reference ``.ckpt``); the bucketed
+CSV batches, the gradient-accumulation window (dropped whole on a CUDA
+out-of-memory error), the fused apply step with its non-finite skip, log
+lines and TensorBoard scalars with loss, grad norm and lr, and checkpoints
+in the JAX package's format (its ``load_checkpoint`` and
+``restore_opt_state`` read them; ``--init_optimizer_from_initial_weight``
+restores theirs). Weight pruning adds the EMA convergence gate, the prune
+events at ``warnup + i * period`` with their ``before-pruning-states-*``
+artifacts, and masks applied inside every grad step.
 
-Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1 item
-5): the pruning and distillation modes, resuming from ``initial_weight``,
-dropping an accumulation window on out-of-memory, TensorBoard logging,
-meshes, pipeline parallelism and remat.
+Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1):
+head and row pruning, distillation, meshes, pipeline parallelism and
+remat.
 """
 
 from __future__ import annotations
@@ -22,36 +27,44 @@ from typing import Optional
 
 import torch
 
+from ..compress import weight_pruning as wp
+from ..compress.schedule import sparsity_ladder, weight_prune_steps
 from ..configs import MelHuBERTConfig
 from ..data.bucket_dataset import MelFeatBuckets, PrefetchIterator
 from ..extract import resolve_device
-from ..utils.checkpoint import save_checkpoint, tree_leaves
-from ..utils.weights import init_params_np, jax_tree_from_named, load_model
-from .steps import (
-    accumulate_grads,
-    applied_lr,
-    fused_apply,
-    init_opt_state,
-    make_melhubert_grad_step,
-    make_optimizer_from_config,
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.tb import TBLogger
+from ..utils.torch_convert import (
+    load_reference_checkpoint,
+    params_to_state_dict,
 )
+from ..utils.weights import (
+    infer_pruned_dims,
+    init_params_np,
+    jax_tree_from_named,
+    load_model,
+    masks_tree,
+    named_masks,
+    prunable_names,
+)
+from .optim_mixin import OptimizerScheduleMixin
+from .steps import accumulate_grads, make_melhubert_grad_step
 
+_PORTED_MODES = ("melhubert", "weight-pruning")
 _UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
 
 
-class Runner:
+class Runner(OptimizerScheduleMixin):
     """``Runner(args, runner_config, upstream_config).train()``, as the JAX
-    runner, for ``args.mode == "melhubert"``. ``args.device`` names the
-    torch device (``cuda`` when absent: the CPU only when asked for)."""
+    runner, for ``args.mode`` ``melhubert`` or ``weight-pruning``.
+    ``args.device`` names the torch device (``cuda`` when absent: the CPU
+    only when asked for)."""
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
-        if args.mode != "melhubert":
+        if args.mode not in _PORTED_MODES:
             raise NotImplementedError(
-                f"mode {args.mode!r} is not ported yet (melhubert only)")
-        if getattr(args, "initial_weight", None):
-            raise NotImplementedError(
-                "initial_weight (resume, init from a checkpoint) is not "
-                "ported yet")
+                f"mode {args.mode!r} is not ported yet "
+                f"({' and '.join(_PORTED_MODES)} only)")
         for name in _UNPORTED_ARGS:
             if getattr(args, name, None) not in (None, False, 1):
                 raise NotImplementedError(f"--{name} is not ported")
@@ -62,9 +75,10 @@ class Runner:
         self.device = resolve_device(getattr(args, "device", "cuda"))
         self.expdir = args.expdir
         os.makedirs(self.expdir, exist_ok=True)
+        self.logger = TBLogger(self.expdir)
 
-        seed = int(getattr(args, "seed", 1337))
-        self.rng = torch.Generator().manual_seed(seed)
+        self.seed = int(getattr(args, "seed", 1337))
+        self.rng = torch.Generator().manual_seed(self.seed)
         runner = runner_config.get("runner", {})
         self.compute_dtype = (
             torch.bfloat16
@@ -72,13 +86,13 @@ class Runner:
             else torch.float32
         )
 
-        self.cfg = MelHuBERTConfig.from_dict(
-            dict(upstream_config["melhubert"]))
-        self.model = load_model(init_params_np(self.cfg, seed), self.cfg)
-        self.model.to(self.device)
-        self.params = dict(self.model.named_parameters())
-        n = sum(p.numel() for p in self.params.values())
-        print(f"[Runner] - Number of parameters: {n}")
+        # the weight bridge the checkpoints and the Adam state go through
+        self._tree_from_named = jax_tree_from_named
+        self._named_from_tree = params_to_state_dict
+        self.masks = None  # weight-pruning masks, named device tensors
+        self.pruned_heads: list = []
+        self.wp_state: Optional[wp.WeightPruningState] = None
+        self._init_melhubert()
 
         # frame-period sanity (reference runner.py:48-52)
         fp = getattr(args, "frame_period", 20)
@@ -86,33 +100,87 @@ class Runner:
         assert self.cfg.feat_emb_dim == expect, (
             f"feat_emb_dim should be {expect} at frame period {fp}")
 
-        self.optimizer = make_optimizer_from_config(runner_config)
-        self.opt_state = init_opt_state(list(self.params.values()))
+        self._init_mode_schedules()
+        self._init_optimizer_state()
+        if (getattr(args, "init_optimizer_from_initial_weight", False)
+                and self._resumed_opt_leaves):
+            self._restore_opt_state(self._resumed_opt_leaves)
+            print("[Runner] Loaded optimizer state from "
+                  f"{args.initial_weight}")
+            self._resync_schedule_offset()
+
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
         self.grad_step = make_melhubert_grad_step(
             self.model, accum_steps=self.accum_steps,
             compute_dtype=self.compute_dtype)
-        # {"step", "loss", "grad_norm"} of every log line
+        # {"step", "loss", "grad_norm"} of every log line; the host seconds
+        # of every prune event
         self.log_history: list = []
+        self.prune_event_seconds: list = []
 
-    def _finalize_schedule_total(self, total_steps: int):
-        """Epoch-driven runs learn their length only in train(): a schedule
-        built without a total is rebuilt with it (JAX
-        ``OptimizerScheduleMixin._finalize_schedule_total``)."""
-        sched = self.optimizer.get("schedule")
-        if sched is None or not getattr(sched, "needs_total", False):
+    def _init_melhubert(self):
+        """The model: fresh from the seed, or from ``-i`` (JAX
+        ``_init_melhubert``). The masters hold the checkpoint's params as
+        they are; its masks, if any, go to ``self.masks``."""
+        self.cfg = MelHuBERTConfig.from_dict(
+            dict(self.upstream_config["melhubert"]))
+        self._resumed_meta = None
+        self._resumed_opt_leaves = None
+        self._resumed_opt_treedef = None
+        masks = None
+        init_w = getattr(self.args, "initial_weight", None)
+        if init_w and init_w.endswith(".npz"):
+            state = load_checkpoint(init_w)
+            params, masks = state["params"], state["masks"]
+            self._resumed_meta = state["meta"]
+            self._resumed_opt_leaves = state["opt_leaves"] or None
+            self._resumed_opt_treedef = state["opt_treedef"]
+            meta_cfg = (state["meta"].get("Upstream_Config", {})
+                        .get("melhubert"))
+            if meta_cfg:
+                self.cfg = MelHuBERTConfig.from_dict(meta_cfg)
+            self.pruned_heads = state["meta"].get("Pruned_heads", [])
+            heads, ffns = infer_pruned_dims(params, self.cfg.head_dim)
+            self.cfg = self.cfg.with_heads(heads).with_ffn_dims(ffns)
+        elif init_w:
+            params, masks, self.cfg, extras = load_reference_checkpoint(init_w)
+            self._resumed_meta = extras
+            self.pruned_heads = extras.get("Pruned_heads", [])
+        else:
+            params = init_params_np(self.cfg, self.seed)
+        if init_w:
+            print(f"[Runner] Initialized model from {init_w}")
+        self.model = load_model(params, self.cfg).to(self.device)
+        self.params = dict(self.model.named_parameters())
+        if masks:
+            self.masks = named_masks(masks, self.device)
+        n = sum(p.numel() for p in self.params.values())
+        print(f"[Runner] - Number of parameters: {n}")
+
+    def _init_mode_schedules(self):
+        """The weight-pruning controller and its prune steps (JAX
+        ``_init_mode_schedules``); no prune steps in pre-training."""
+        self.prune_steps = []
+        if self.mode != "weight-pruning":
             return
-        self.optimizer = make_optimizer_from_config(
-            self.runner_config, total_steps=int(total_steps))
-
-    def apply(self, grads, sample_size: float):
-        """The fused apply on the parameters and Adam state, in place;
-        returns the grad norm (a device tensor)."""
-        return fused_apply(self.optimizer, list(self.params.values()),
-                           self.opt_state, grads, sample_size)
-
-    def _applied_lr(self) -> Optional[float]:
-        return applied_lr(self.optimizer, self.opt_state)
+        pc = self.runner_config["prune"]
+        n_iters = pc.get("n_iters", 38)
+        self.wp_state = wp.WeightPruningState(
+            sparsity=sparsity_ladder(pc["sparsity"], n_iters),
+            prune_condition=pc.get("pruning_condition", "converge"),
+            smooth_factor=pc.get("smooth_factor", 0.999),
+            avg_len=pc.get("average_length", 15000),
+            con_tol=pc.get("converge_loss_tolerance", 0.001),
+            warnup=pc.get("warnup", 25000),
+            period=pc.get("period", 25000),
+        )
+        self.prune_steps = weight_prune_steps(
+            self.wp_state.warnup, self.wp_state.period, n_iters)
+        if self.masks is None:
+            self.masks = {k: torch.ones_like(self.params[k])
+                          for k in prunable_names(self.params)}
+        if self._resumed_meta and "Pruning" in self._resumed_meta:
+            self.wp_state.load_meta(self._resumed_meta["Pruning"])
 
     def _get_dataloader(self) -> MelFeatBuckets:
         datarc = self.runner_config["datarc"]
@@ -123,7 +191,7 @@ class Runner:
             bucket_size=int(datarc["train_batch_size"]),
             sets=datarc["sets"],
             max_timestep=int(datarc.get("max_timestep", 0)),
-            seed=getattr(self.args, "seed", 1337),
+            seed=self.seed,
         )
 
     def _device_batch(self, batch: dict) -> dict:
@@ -135,9 +203,12 @@ class Runner:
         out["length"] = batch["length"]
         return out
 
-    def save(self, global_step: int, name: str):
-        """A checkpoint in the JAX package's format: params and the Adam
-        state's leaves [count, *mu, *nu] in JAX's leaf order and layout."""
+    def save(self, global_step: int, name: str,
+             total_step: Optional[int] = None):
+        """A checkpoint in the JAX package's format: params, masks, the
+        Adam state's leaves [count, *mu, *nu] in JAX's leaf order and
+        layout, and the meta (``TotalStep``, ``Pruned_heads`` and
+        ``Pruning`` where they apply)."""
         meta = {
             "Step": global_step,
             "Args": dict(vars(self.args)),
@@ -145,18 +216,48 @@ class Runner:
             "Upstream_Config": self.upstream_config,
             "Config": self.cfg.to_dict(),
         }
-        names = list(self.params)
-        n = len(names)
-        count, mu, nu = (self.opt_state[0], self.opt_state[1:1 + n],
-                         self.opt_state[1 + n:])
-        opt_leaves = [count.cpu().numpy()]
-        for moments in (mu, nu):
-            opt_leaves += tree_leaves(jax_tree_from_named(dict(zip(names,
-                                                                   moments))))
+        if total_step is not None:
+            meta["TotalStep"] = total_step
+        if self.pruned_heads:
+            meta["Pruned_heads"] = self.pruned_heads
+        if self.wp_state is not None:
+            meta["Pruning"] = self.wp_state.to_meta()
         path = os.path.join(self.expdir, name)
-        save_checkpoint(path, jax_tree_from_named(self.params),
-                        opt_state=opt_leaves, meta=meta)
+        save_checkpoint(
+            path, jax_tree_from_named(self.params),
+            opt_state=self._opt_leaves(),
+            masks=None if self.masks is None else masks_tree(self.masks),
+            meta=meta, opt_treedef=self._opt_treedef)
         print(f"[Runner] - Saved checkpoint to {path}")
+
+    def _prune_hook(self, global_step: int, pbar_state: dict):
+        """A weight-pruning event where ``global_step`` is a prune step
+        (reference runner.py:329-340, JAX ``_prune_hook``): not converged,
+        the schedule grows by one period; else the before-pruning artifact,
+        then fold and re-threshold."""
+        if (self.mode != "weight-pruning"
+                or global_step not in self.prune_steps):
+            return
+        state = self.wp_state
+        if not state.converged():
+            print("[Weight Pruning] - Not converge, keep training")
+            pbar_state["total"] += state.period
+            self.prune_steps.append(max(self.prune_steps) + state.period)
+            return
+        prefix = "mask-" if state.pruning_times > 0 else ""
+        cur = (0 if state.pruning_times == 0
+               else state.sparsity[state.pruning_times - 1])
+        self.save(global_step,
+                  f"{prefix}before-pruning-states-{global_step}-sparsity-"
+                  f"{cur}.npz", total_step=pbar_state["total"])
+        t0 = time.perf_counter()
+        self.params, self.masks, _ = wp.prune_event(self.params, self.masks,
+                                                    state)
+        seconds = time.perf_counter() - t0
+        self.prune_event_seconds.append(seconds)
+        print(f"[Weight Pruning] - iter {state.pruning_times} at step "
+              f"{global_step}, sparsity {wp.sparsity_of(self.masks):.4f} "
+              f"({seconds:.2f} s on the host)")
 
     def train(self):
         runner = self.runner_config["runner"]
@@ -178,6 +279,9 @@ class Runner:
         step_per_epoch = max(1, len(dataset) // accum)
         save_every_x_epochs = runner.get("save_every_x_epochs", 10)
         self._finalize_schedule_total(total_steps)
+        if self.prune_steps:
+            assert max(self.prune_steps) <= total_steps, (
+                f"prune steps {max(self.prune_steps)} > total {total_steps}")
         log_step = runner.get("log_step", 1000)
 
         pbar = {"n": 0, "total": total_steps}
@@ -190,7 +294,11 @@ class Runner:
         batch_loss = 0.0
         global_step = 0
         backward_steps = 0
+        # an OOM rewinds the window: the prune hook must not fire twice for
+        # one global_step on the retry
+        last_prune_fired = -1
         grads_acc = None
+        prefix = f"{self.mode}/train-"
         t_start = time.time()
 
         while pbar["n"] < pbar["total"]:
@@ -198,18 +306,37 @@ class Runner:
             for batch in batches:
                 if pbar["n"] >= pbar["total"]:
                     break
-                if backward_steps % accum == 0:
+                first_accu = backward_steps % accum == 0
+                if self.mode == "melhubert" and first_accu:
                     cadence = max(1, int(save_every_x_epochs * step_per_epoch))
                     if global_step % cadence == 0:
                         self.save(global_step, f"states-epoch-"
                                   f"{global_step // step_per_epoch}.npz")
+                elif first_accu and global_step != last_prune_fired:
+                    self._prune_hook(global_step, pbar)
+                    last_prune_fired = global_step
 
                 global_step = pbar["n"] + 1
-                loss, grads, _ = self.grad_step(
-                    self.params, self._device_batch(batch), self.rng)
+                try:
+                    loss, grads, _ = self.grad_step(
+                        self.params, self._device_batch(batch), self.rng,
+                        masks=self.masks)
+                except torch.cuda.OutOfMemoryError:
+                    # reference runner.py:379-386: drop the WHOLE window and
+                    # rewind its counters, so the surviving windows divide
+                    # by the right sample count
+                    print(f"[Runner] - OOM at step {global_step}; "
+                          "dropping accumulation window")
+                    dropped = backward_steps % accum
+                    grads_acc = None
+                    backward_steps -= dropped
+                    all_sample_size -= dropped  # sample_size == 1 each
+                    batch_loss = 0.0
+                    continue
                 grads_acc = accumulate_grads(grads_acc, grads)
                 all_sample_size += 1  # the melhubert expert returns (loss, 1)
-                # the loss stays on the device until a log line reads it
+                # the loss stays on the device until a log line reads it (and,
+                # in weight pruning, once per window for the EMA)
                 batch_loss = batch_loss + loss
                 backward_steps += 1
                 if backward_steps % accum > 0:
@@ -217,14 +344,25 @@ class Runner:
 
                 window_loss = window_loss + batch_loss
                 window_count += all_sample_size
+                if self.mode == "weight-pruning":
+                    self.wp_state.update_smooth_loss(
+                        float(batch_loss) / all_sample_size)
+                    self.wp_state.update_target_smooth_loss(
+                        global_step, self.prune_steps)
                 batch_loss = 0.0
                 grad_norm = self.apply(grads_acc, float(all_sample_size))
                 grads_acc = None
 
-                if global_step % log_step == 0 or pbar["n"] == pbar["total"] - 1:
+                last = pbar["n"] == pbar["total"] - 1
+                if global_step % log_step == 0 or last:
                     norm_loss = float(window_loss) / max(window_count, 1)
-                    steps_per_sec = global_step / (time.time() - t_start)
+                    self.logger.scalar(f"{prefix}loss", norm_loss, global_step)
+                    self.logger.scalar(f"{prefix}gradient norm",
+                                       float(grad_norm), global_step)
                     lr_now = self._applied_lr()
+                    if lr_now is not None:
+                        self.logger.scalar(f"{prefix}lr", lr_now, global_step)
+                    steps_per_sec = global_step / (time.time() - t_start)
                     lr_text = "" if lr_now is None else f" lr={lr_now:.3e}"
                     print(f"[Runner] step {global_step}/{pbar['total']} "
                           f"loss={norm_loss:.4f} "
@@ -237,8 +375,12 @@ class Runner:
                     window_count = 0
                 all_sample_size = 0
 
-                if pbar["n"] == pbar["total"] - 1:
-                    self.save(global_step, "last-step.npz")
+                if last:
+                    self.save(global_step, "last-step.npz",
+                              total_step=(pbar["total"]
+                                          if self.mode == "weight-pruning"
+                                          else None))
                 pbar["n"] += 1
             batches.close()
+        self.logger.close()  # flush buffered scalars before returning
         print(f"[Runner] - Done: {pbar['total']} steps")

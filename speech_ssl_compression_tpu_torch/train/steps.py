@@ -18,6 +18,10 @@ grad step runs the model on bf16 copies through
 gradients arrive at the f32 masters, as JAX's ``cast_for_compute`` inside
 ``value_and_grad`` does.
 
+Weight pruning: the grad steps take the masks of the trainer's pruned
+parameters and differentiate through ``p * m`` (:func:`mask_params`), as
+JAX's do; the masters keep their masked entries between prune events.
+
 The apply step is plain PyTorch (JAX left it to XLA) and updates the
 parameters and the Adam state IN PLACE. The Adam state is the list
 [count, *mu, *nu], mu and nu in the order of the parameter list; the
@@ -119,13 +123,25 @@ def make_optimizer(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
     )
 
 
-def make_optimizer_from_config(runner_config: dict, *, total_steps=None):
+def make_optimizer_from_config(runner_config: dict, *, sched_offset: int = 0,
+                               total_steps=None):
     """The optimizer from the runner YAML (``optimizer:``,
     ``runner.gradient_clipping``, ``lr_scheduler:``), as JAX's
-    ``make_optimizer_from_config`` builds it (no schedule offset: the
-    prune-event resets that need one are not ported)."""
+    ``make_optimizer_from_config`` builds it. ``sched_offset`` keeps an
+    active lr schedule on the global update count where the Adam count it
+    is evaluated on was reset (a structured prune event) or restored from
+    a checkpoint whose count lags its ``Step``; ``total_steps`` gives
+    polynomial decay its length when the YAML runs by epochs."""
     opt_cfg = runner_config.get("optimizer", {})
     base_lr = float(opt_cfg.get("lr", 1e-4))
+    sched = build_lr_schedule(runner_config, base_lr, total_steps=total_steps)
+    if sched is not None and sched_offset:
+        inner = sched
+
+        def sched(n, _f=inner, _o=int(sched_offset)):
+            return _f(n + _o)
+
+        sched.needs_total = inner.needs_total
     return make_optimizer(
         lr=base_lr,
         betas=parse_betas(opt_cfg.get("betas", (0.9, 0.999))),
@@ -133,8 +149,7 @@ def make_optimizer_from_config(runner_config: dict, *, total_steps=None):
         weight_decay=float(opt_cfg.get("weight_decay", 0.0)),
         gradient_clipping=float(
             runner_config.get("runner", {}).get("gradient_clipping", 10.0)),
-        lr_schedule=build_lr_schedule(runner_config, base_lr,
-                                      total_steps=total_steps),
+        lr_schedule=sched,
     )
 
 
@@ -210,6 +225,23 @@ def cast_for_compute(params: Dict[str, torch.Tensor], dtype: torch.dtype):
             for k, v in params.items()}
 
 
+def mask_params(params: Dict[str, torch.Tensor],
+                masks: Optional[Dict[str, torch.Tensor]]):
+    """``p * m`` on the parameters ``masks`` names (weight pruning; a new
+    dict, differentiable), the rest as they are."""
+    if not masks:
+        return params
+    return {k: v * masks[k] if k in masks else v for k, v in params.items()}
+
+
+def _grads(loss, params: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d params in ``params``' order, zeros for unused ones."""
+    leaves = list(params.values())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
 def accumulate_grads(acc: Optional[List[torch.Tensor]],
                      grads: List[torch.Tensor]) -> List[torch.Tensor]:
     """Micro-batch gradient accumulation: ``acc += grads`` in place (one
@@ -225,10 +257,16 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
                              compute_dtype=torch.float32,
                              attn_impl: str = "auto",
                              deterministic: bool = False):
-    """Returns ``grad_step(params, batch, rng, mask_indices=None) ->
-    (loss, grads, logs)``, port of JAX ``make_melhubert_grad_step``.
+    """Returns ``grad_step(params, batch, rng, mask_indices=None,
+    masks=None) -> (loss, grads, logs)``, port of JAX
+    ``make_melhubert_grad_step``.
 
     ``params`` maps ``model``'s parameter names to the f32 masters;
+    ``masks`` (weight pruning) maps some of those names to 0/1 tensors of
+    the same shapes: the step differentiates through ``p * m`` before the
+    cast to ``compute_dtype``, as JAX applies its masks inside
+    ``value_and_grad``, so the forward sees masked weights and the masters'
+    gradients are ``m * g`` (exactly 0 where masked);
     ``batch`` holds device tensors ``feat`` (B, T, F), ``label`` (B, T)
     and ``pad_mask`` (B, T), and host ``length`` (B,) numpy; ``rng`` is a
     host ``torch.Generator``. The span mask is drawn on the host from the
@@ -236,19 +274,19 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
     Returns the loss / accum_steps (a detached 0-dim tensor), the list of
     gradients in ``params``' order (zeros for unused parameters) and the
     loss's logs. ``deterministic=True`` turns the dropouts off (for parity
-    checks; training keeps them on). Weight-pruning masks are not
-    ported."""
+    checks; training keeps them on)."""
     cfg = model.cfg
 
     def grad_step(params: Dict[str, torch.Tensor], batch: dict,
-                  rng: torch.Generator, mask_indices=None):
+                  rng: torch.Generator, mask_indices=None, masks=None):
         feat = batch["feat"]
         if mask_indices is None and cfg.mask_prob > 0:
             mask_np = span_mask(cfg, batch["length"], feat.shape[1],
                                 np.random.default_rng(draw_seed(rng)))
             mask_indices = torch.from_numpy(mask_np).to(feat.device)
         out = functional_call(
-            model, cast_for_compute(params, compute_dtype),
+            model,
+            cast_for_compute(mask_params(params, masks), compute_dtype),
             (feat.to(compute_dtype), batch["pad_mask"]),
             dict(mask=True, teacher_mask_indices=mask_indices, rng=rng,
                  deterministic=deterministic, attn_impl=attn_impl),
@@ -256,11 +294,7 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
         loss, logs = melhubert_pretrain_loss(out, batch["label"],
                                              batch["pad_mask"], cfg)
         loss = loss / accum_steps
-        leaves = list(params.values())
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        return loss.detach(), grads, logs
+        return loss.detach(), _grads(loss, params), logs
 
     return grad_step
 
@@ -269,9 +303,11 @@ def make_hubert_grad_step(model, *, accum_steps: int = 1,
                           compute_dtype=torch.float32,
                           attn_impl: str = "auto",
                           deterministic: bool = False):
-    """Returns ``grad_step(params, batch, rng, mask_indices=None) ->
-    (loss, sample_size, grads, logs)``, port of the HuBERT branch of JAX
-    ``WaveRunner._build_grad_step``.
+    """Returns ``grad_step(params, batch, rng, mask_indices=None,
+    masks=None) -> (loss, sample_size, grads, logs)``, port of the HuBERT
+    branch of JAX ``WaveRunner._build_grad_step`` (``masks`` as in
+    :func:`make_melhubert_grad_step`: a weight-pruned checkpoint trains on
+    at its sparsity).
 
     ``params`` maps ``model``'s (a ``HuBERTModel``) parameter names to the
     f32 masters; ``batch`` holds the device tensors ``source`` (B, T_wave),
@@ -283,9 +319,10 @@ def make_hubert_grad_step(model, *, accum_steps: int = 1,
     and the loss's logs. ``deterministic=True`` turns the dropouts off."""
 
     def grad_step(params: Dict[str, torch.Tensor], batch: dict,
-                  rng: torch.Generator, mask_indices=None):
+                  rng: torch.Generator, mask_indices=None, masks=None):
         out = functional_call(
-            model, cast_for_compute(params, compute_dtype),
+            model,
+            cast_for_compute(mask_params(params, masks), compute_dtype),
             (batch["source"].to(compute_dtype), batch["length"]),
             dict(mask=True, mask_indices=mask_indices, rng=rng,
                  deterministic=deterministic, attn_impl=attn_impl,
@@ -293,10 +330,7 @@ def make_hubert_grad_step(model, *, accum_steps: int = 1,
                  target_valid=batch["target_valid"]),
         )
         loss = out["loss"] / accum_steps
-        leaves = list(params.values())
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        return loss.detach(), out["sample_size"], grads, out["logs"]
+        return (loss.detach(), out["sample_size"], _grads(loss, params),
+                out["logs"])
 
     return grad_step

@@ -8,14 +8,16 @@ grad step (on bf16 copies of the f32 masters on a GPU when the runner YAML
 says ``bf16``, as the port's MelHuBERT runner decides; JAX's WaveRunner
 takes bf16 only on a TPU), the accumulation window divided by the masked
 frame count, the fused clip + Adam apply with its non-finite skip, log
-lines, and ``states-epoch-*.npz`` / ``last-step.npz`` checkpoints in the
-JAX package's format.
+lines and TensorBoard scalars, a window dropped whole on a CUDA
+out-of-memory error, and ``states-epoch-*.npz`` / ``last-step.npz``
+checkpoints in the JAX package's format. ``-i`` starts from the JAX
+package's npz or a reference ``.ckpt`` (pruned widths from the shapes;
+weight-pruning masks kept and applied in every grad step), and
+``--init_optimizer_from_initial_weight`` restores its Adam state.
 
 Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1 item
 12): wav2vec 2.0, the weight-, head- and row-pruning modes on HuBERT,
-``-i`` (init from a checkpoint, resume), multi-process data parallelism,
-meshes, dropping an accumulation window on out-of-memory and TensorBoard
-logging.
+multi-process data parallelism and meshes.
 """
 
 from __future__ import annotations
@@ -33,25 +35,26 @@ from ..data.task_config import HubertTaskConfig
 from ..extract import resolve_device
 from ..models.conv_frontend import conv_output_length
 from ..models.hubert import encode_aligned_targets_np, feat2tar_ratio
-from ..utils.checkpoint import save_checkpoint, tree_leaves
+from ..utils.checkpoint import save_checkpoint
+from ..utils.tb import TBLogger
+from ..utils.torch_convert import (
+    load_wave_initial_weight,
+    wave_params_to_state_dict,
+)
 from ..utils.weights import (
     hubert_tree_from_named,
     init_hubert_params_np,
     load_hubert_model,
+    masks_tree,
+    named_masks,
 )
-from .steps import (
-    accumulate_grads,
-    applied_lr,
-    fused_apply,
-    init_opt_state,
-    make_hubert_grad_step,
-    make_optimizer_from_config,
-)
+from .optim_mixin import OptimizerScheduleMixin
+from .steps import accumulate_grads, make_hubert_grad_step
 
 _UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
 
 
-class WaveRunner:
+class WaveRunner(OptimizerScheduleMixin):
     """``WaveRunner(args, runner_config, upstream_config).train()``, as the
     JAX runner, for ``args.upstream == "hubert"`` pre-training
     (``args.mode == "melhubert"``, the mode ``train.py`` passes for
@@ -66,10 +69,6 @@ class WaveRunner:
             raise NotImplementedError(
                 f"mode {args.mode!r} on hubert is not ported yet "
                 "(pre-training only)")
-        if getattr(args, "initial_weight", None):
-            raise NotImplementedError(
-                "initial_weight (resume, init from a checkpoint) is not "
-                "ported yet")
         for name in _UNPORTED_ARGS:
             if getattr(args, name, None) not in (None, False, 1):
                 raise NotImplementedError(f"--{name} is not ported")
@@ -81,6 +80,7 @@ class WaveRunner:
         self.device = resolve_device(getattr(args, "device", "cuda"))
         self.expdir = args.expdir
         os.makedirs(self.expdir, exist_ok=True)
+        self.logger = TBLogger(self.expdir)
 
         seed = int(getattr(args, "seed", 1337))
         self.rng = torch.Generator().manual_seed(seed)
@@ -107,21 +107,62 @@ class WaveRunner:
         self.dictionaries = self._load_dictionaries()
         self.num_classes = tuple(len(d) for d in self.dictionaries)
 
-        self.model = load_hubert_model(
-            init_hubert_params_np(self.cfg, self.num_classes, seed), self.cfg)
-        self.model.to(self.device)
-        self.params = dict(self.model.named_parameters())
+        self._tree_from_named = hubert_tree_from_named
+        self._named_from_tree = lambda tree: wave_params_to_state_dict(
+            tree, "hubert")
+        self._init_params(seed)
         n = sum(p.numel() for p in self.params.values())
         print(f"[WaveRunner] - {self.upstream}: {n} parameters")
 
-        self.optimizer = make_optimizer_from_config(runner_config)
-        self.opt_state = init_opt_state(list(self.params.values()))
+        self._init_optimizer_state()
+        if getattr(args, "init_optimizer_from_initial_weight", False):
+            if self._resumed_opt_leaves:
+                self._restore_opt_state(self._resumed_opt_leaves)
+                print("[WaveRunner] Loaded optimizer state from "
+                      f"{args.initial_weight}")
+                self._resync_schedule_offset()
+            else:
+                # a reference .ckpt or an npz without optimizer state: be
+                # loud, not silent
+                print("[WaveRunner] WARNING: --init_optimizer_from_initial_"
+                      "weight requested but the checkpoint carries no "
+                      "compatible optimizer state - starting with fresh "
+                      "Adam moments")
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
         self.grad_step = make_hubert_grad_step(
             self.model, accum_steps=self.accum_steps,
             compute_dtype=self.compute_dtype)
         # {"step", "loss", "grad_norm"} of every log line
         self.log_history: list = []
+
+    def _init_params(self, seed: int):
+        """The model: fresh from the seed, or from ``-i`` (JAX
+        ``WaveRunner._init_params``: the architecture of a pruned start
+        rebuilt from the checkpoint, its masks kept in ``self.masks``)."""
+        self.masks = None
+        self.pruned_heads: list = []
+        self._resumed_meta = None
+        self._resumed_opt_leaves = None
+        self._resumed_opt_treedef = None
+        init_w = getattr(self.args, "initial_weight", None)
+        if init_w:
+            (params, masks, self.cfg, self._resumed_meta,
+             self._resumed_opt_leaves, self._resumed_opt_treedef) = (
+                load_wave_initial_weight(init_w, self.upstream, self.cfg))
+            self.pruned_heads = list(
+                (self._resumed_meta or {}).get("Pruned_heads", []))
+            n_embs = int(params["label_embs_concat"].shape[0])
+            assert n_embs == int(sum(self.num_classes)), (
+                f"checkpoint was trained with {n_embs} label embeddings but "
+                f"the dictionaries define {sum(self.num_classes)}")
+            print(f"[WaveRunner] Initialized model from {init_w}")
+        else:
+            params, masks = init_hubert_params_np(
+                self.cfg, self.num_classes, seed), None
+        self.model = load_hubert_model(params, self.cfg).to(self.device)
+        self.params = dict(self.model.named_parameters())
+        if masks:
+            self.masks = named_masks(masks, self.device)
 
     def _label_sets(self):
         """Fine-tuning tasks use only the first label set (reference
@@ -136,21 +177,6 @@ class WaveRunner:
                  for label in self._label_sets()]
         self._label_lookups = [build_label_lookup(d) for d in dicts]
         return dicts
-
-    def _finalize_schedule_total(self, total_steps: int):
-        """Epoch-driven runs learn their length only in train(): a schedule
-        built without a total is rebuilt with it."""
-        sched = self.optimizer.get("schedule")
-        if sched is None or not getattr(sched, "needs_total", False):
-            return
-        self.optimizer = make_optimizer_from_config(
-            self.runner_config, total_steps=int(total_steps))
-
-    def apply(self, grads, sample_size):
-        """The fused apply on the parameters and Adam state, in place;
-        returns the grad norm (a device tensor)."""
-        return fused_apply(self.optimizer, list(self.params.values()),
-                           self.opt_state, grads, sample_size)
 
     def _get_dataset(self) -> HubertWaveDataset:
         task = self.task_cfg
@@ -196,8 +222,9 @@ class WaveRunner:
         }
 
     def save(self, global_step: int, name: str):
-        """A checkpoint in the JAX package's format: params and the Adam
-        state's leaves [count, *mu, *nu] in JAX's leaf order and layout."""
+        """A checkpoint in the JAX package's format: params, masks and the
+        Adam state's leaves [count, *mu, *nu] in JAX's leaf order and
+        layout."""
         meta = {
             "Step": global_step,
             "Args": dict(vars(self.args)),
@@ -205,17 +232,14 @@ class WaveRunner:
             "Upstream_Config": self.upstream_config,
             "Config": self.cfg.to_dict(),
         }
-        names = list(self.params)
-        n = len(names)
-        count, mu, nu = (self.opt_state[0], self.opt_state[1:1 + n],
-                         self.opt_state[1 + n:])
-        opt_leaves = [count.cpu().numpy()]
-        for moments in (mu, nu):
-            opt_leaves += tree_leaves(hubert_tree_from_named(
-                dict(zip(names, moments))))
+        if self.pruned_heads:
+            meta["Pruned_heads"] = self.pruned_heads
         path = os.path.join(self.expdir, name)
-        save_checkpoint(path, hubert_tree_from_named(self.params),
-                        opt_state=opt_leaves, meta=meta)
+        save_checkpoint(
+            path, hubert_tree_from_named(self.params),
+            opt_state=self._opt_leaves(),
+            masks=None if self.masks is None else masks_tree(self.masks),
+            meta=meta, opt_treedef=self._opt_treedef)
         print(f"[WaveRunner] - Saved checkpoint to {name}")
 
     def train(self):
@@ -243,10 +267,25 @@ class WaveRunner:
             for batch in batches:
                 if step >= total_steps:
                     break
-                if backward % accum == 0 and step > 0 and step % save_cadence == 0:
-                    self.save(step, f"states-epoch-{step // step_per_epoch}.npz")
-                loss, sample_size, grads, _ = self.grad_step(
-                    self.params, self._collate(batch), self.rng)
+                if (backward % accum == 0 and step > 0
+                        and step % save_cadence == 0):
+                    self.save(step,
+                              f"states-epoch-{step // step_per_epoch}.npz")
+                try:
+                    loss, sample_size, grads, _ = self.grad_step(
+                        self.params, self._collate(batch), self.rng,
+                        masks=self.masks)
+                except torch.cuda.OutOfMemoryError:
+                    # reference runner.py:379-386: drop the whole window and
+                    # rewind its counters, so the surviving windows divide
+                    # by the right sample count
+                    print(f"[WaveRunner] - OOM at step {step}; "
+                          "dropping accumulation window")
+                    grads_acc = None
+                    backward -= backward % accum
+                    sample_total = 0
+                    accum_loss = 0.0
+                    continue
                 grads_acc = accumulate_grads(grads_acc, grads)
                 # device-side sums: no host sync per micro-batch
                 sample_total = sample_total + sample_size
@@ -267,15 +306,22 @@ class WaveRunner:
 
                 if step % log_step == 0 or step == total_steps:
                     norm_loss = float(window_loss) / max(window_n, 1)
-                    lr_now = applied_lr(self.optimizer, self.opt_state)
+                    lr_now = self._applied_lr()
+                    prefix = f"{self.mode}/train-"
+                    self.logger.scalar(f"{prefix}loss", norm_loss, step)
+                    self.logger.scalar(f"{prefix}gradient norm",
+                                       float(grad_norm), step)
+                    if lr_now is not None:
+                        self.logger.scalar(f"{prefix}lr", lr_now, step)
                     lr_text = "" if lr_now is None else f" lr={lr_now:.3e}"
+                    rate = step / (time.time() - t0)
                     print(f"[WaveRunner] step {step}/{total_steps} "
                           f"loss={norm_loss:.4f} gnorm={float(grad_norm):.3f}"
-                          f"{lr_text} ({step / (time.time() - t0):.2f} steps/s)",
-                          flush=True)
+                          f"{lr_text} ({rate:.2f} steps/s)", flush=True)
                     self.log_history.append({"step": step, "loss": norm_loss,
                                              "grad_norm": float(grad_norm)})
                     window_loss, window_n = 0.0, 0
             batches.close()
         self.save(step, "last-step.npz")
+        self.logger.close()  # flush buffered scalars before returning
         print(f"[WaveRunner] - Done: {step} steps")

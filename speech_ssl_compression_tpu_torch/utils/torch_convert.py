@@ -7,7 +7,9 @@ direction both ways (``params_to_state_dict``,
 ``melhubert_state_dict_to_params``), the reference ``.ckpt`` loader
 (``load_reference_checkpoint``), the HuBERT direction both ways
 (``wave_state_dict_to_params``, ``wave_params_to_state_dict``; the
-wav2vec 2.0 branches are not copied) and ``infer_pruned_dims``. Linear
+wav2vec 2.0 branches are not copied), HuBERT's ``-i`` loaders
+(``load_wave_initial_weight``, ``load_wave_reference_checkpoint``) and
+``infer_pruned_dims``. Linear
 kernels are (in, out) in the trees and (out, in) in the state dicts;
 weight-pruned state dicts hold ``weight_orig``/``weight_mask`` pairs.
 Everything goes out as numpy.
@@ -20,7 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..configs import MelHuBERTConfig
+from ..configs import HuBERTConfig, MelHuBERTConfig
 
 
 def _to_np(t) -> np.ndarray:
@@ -218,6 +220,82 @@ def wave_state_dict_to_params(
     arch_info = {"n_layers": len(enc["layers"]), "qkv_out_dims": qkv_out_dims,
                  "ffn_per_layer": ffn_dims}
     return params, (masks if any_mask and keep_masks else None), arch_info
+
+
+def load_wave_initial_weight(path: str, upstream: str, cfg):
+    """Copy of the JAX ``load_wave_initial_weight``, HuBERT only: the full
+    ``-i initial_weight`` load of the waveform trainer, from the JAX
+    package's npz or a reference ``.ckpt``; the per-layer heads and FFN
+    widths of a structurally pruned start come from the array shapes, and
+    the weight-pruning masks are kept (training goes on at the
+    checkpoint's sparsity).
+
+    Returns (params, masks, cfg, meta, opt_leaves, opt_treedef) with numpy
+    leaves; opt_leaves is None without optimizer state."""
+    if upstream != "hubert":
+        raise NotImplementedError(
+            f"upstream {upstream!r}: only hubert's weights are ported")
+    opt_leaves = opt_treedef = None
+    if path.endswith(".npz"):
+        from .checkpoint import load_checkpoint
+
+        state = load_checkpoint(path)
+        params, masks = state["params"], state["masks"]
+        meta = state["meta"] or {}
+        opt_leaves = state["opt_leaves"] or None
+        opt_treedef = state["opt_treedef"]
+        # "Config" is the exact (possibly pruned, per-layer) dataclass
+        # dump; "Upstream_Config" the original YAML: the former first
+        meta_cfg = meta.get("Config") or (
+            meta.get("Upstream_Config", {}).get(upstream))
+        if meta_cfg:
+            cfg = type(cfg).from_dict(meta_cfg)
+    else:
+        params, masks, ckpt_cfg, meta = load_wave_reference_checkpoint(
+            path, upstream)
+        if ckpt_cfg is not None:
+            cfg = ckpt_cfg
+    heads, ffns = infer_pruned_dims(params, cfg.head_dim)
+    cfg = cfg.with_heads(heads).with_ffn_dims(ffns)
+    return params, masks, cfg, meta, opt_leaves, opt_treedef
+
+
+def load_wave_reference_checkpoint(path: str, upstream: str, *,
+                                   trust_pickle: bool = False):
+    """Copy of the JAX ``load_wave_reference_checkpoint``, HuBERT only: a
+    reference ``.ckpt`` (a ``torch.save`` dict) -> (params, masks,
+    HuBERTConfig or None, extras), the architecture rebuilt from the
+    checkpoint's metadata (reference upstream/hubert/pretrain_expert.py:
+    41-90). Loads with ``weights_only=True`` unless ``trust_pickle``."""
+    import torch
+
+    if upstream != "hubert":
+        raise NotImplementedError(
+            f"upstream {upstream!r}: only hubert's weights are ported")
+    try:
+        all_states = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as safe_err:
+        if not trust_pickle:
+            raise ValueError(
+                f"{path} needs full (unsafe) unpickling "
+                f"({type(safe_err).__name__}: {safe_err}). Unpickling "
+                "executes code embedded in the file; pass trust_pickle=True "
+                "only for checkpoints from a source you trust."
+            ) from safe_err
+        all_states = torch.load(path, map_location="cpu", weights_only=False)
+    cfg = None
+    up_cfg = all_states.get("Upstream_Config") or {}
+    if up_cfg.get(upstream):
+        cfg = HuBERTConfig.from_dict(dict(up_cfg[upstream]))
+    params, mask_tree, arch_info = wave_state_dict_to_params(
+        all_states["model"], upstream)
+    if cfg is not None:
+        heads = tuple(d // cfg.head_dim for d in arch_info["qkv_out_dims"])
+        cfg = cfg.with_heads(heads).with_ffn_dims(arch_info["ffn_per_layer"])
+    extras = {k: all_states[k]
+              for k in ("Pruned_heads", "Pruning", "Step", "TotalStep")
+              if k in all_states}
+    return params, mask_tree, cfg, extras
 
 
 def wave_params_to_state_dict(params: dict, upstream: str,

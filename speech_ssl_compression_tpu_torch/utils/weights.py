@@ -6,6 +6,12 @@ The port's modules use the reference state-dict names
 JAX param tree into a ``load_state_dict`` input. Per-layer head counts and
 FFN widths of head- and row-pruned trees come from
 ``torch_convert.infer_pruned_dims``.
+
+The mask bridge: weight-pruning masks are a JAX-layout tree
+``masks["layer_{i}"][module]["kernel" | "bias"]`` in checkpoints and in
+``compress/weight_pruning.py``'s host pass, and device tensors under the
+state-dict names (kernels transposed to (out, in)) in the trainer
+(:func:`named_masks`, :func:`masks_tree`, :func:`prunable_tree`).
 """
 
 from __future__ import annotations
@@ -25,7 +31,12 @@ from .torch_convert import (
     wave_state_dict_to_params,
 )
 
+# the prunable encoder modules, in JAX's leaf order within a layer
+PRUNABLE = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+_LEAF_NAMES = {"kernel": "weight", "bias": "bias"}
+
 __all__ = [
+    "PRUNABLE",
     "apply_masks",
     "hubert_tree_from_named",
     "infer_pruned_dims",
@@ -34,6 +45,11 @@ __all__ = [
     "jax_tree_from_named",
     "load_hubert_model",
     "load_model",
+    "masks_tree",
+    "named_masks",
+    "prunable_name",
+    "prunable_names",
+    "prunable_tree",
     "state_dict_from_jax_params",
 ]
 
@@ -51,6 +67,73 @@ def apply_masks(params: dict, masks: Optional[dict]) -> dict:
             for leaf, m in leaves.items():
                 layer[mod][leaf] = np.asarray(layer[mod][leaf]) * np.asarray(m)
     return out
+
+
+def prunable_name(layer: int, module: str, leaf: str) -> str:
+    """The state-dict name of a prunable leaf (``leaf``: "kernel" or
+    "bias"), e.g. ``encoder.layers.3.self_attn.q_proj.weight``."""
+    attn = "" if module in ("fc1", "fc2") else "self_attn."
+    return f"encoder.layers.{layer}.{attn}{module}.{_LEAF_NAMES[leaf]}"
+
+
+def named_masks(masks: dict, device) -> Dict[str, torch.Tensor]:
+    """A JAX-layout mask tree -> f32 tensors on ``device`` under the
+    state-dict names, kernels transposed to (out, in)."""
+    out = {}
+    for lname, mods in masks.items():
+        i = int(lname.split("_")[1])
+        for mod, leaves in mods.items():
+            for leaf, m in leaves.items():
+                m = np.asarray(m, np.float32)
+                out[prunable_name(i, mod, leaf)] = torch.from_numpy(
+                    np.array(m.T if leaf == "kernel" else m, order="C")
+                ).to(device)
+    return out
+
+
+def _split_name(name: str):
+    """(layer, module, leaf) of a prunable state-dict name."""
+    parts = name.split(".")
+    leaf = "kernel" if parts[-1] == "weight" else "bias"
+    return int(parts[2]), parts[-2], leaf
+
+
+def masks_tree(named: Dict[str, torch.Tensor]) -> dict:
+    """The trainer's named masks -> a JAX-layout numpy mask tree, the
+    inverse of :func:`named_masks`."""
+    tree: dict = {}
+    for name, m in named.items():
+        i, mod, leaf = _split_name(name)
+        m = m.detach().float().cpu().numpy()
+        tree.setdefault(f"layer_{i}", {}).setdefault(mod, {})[leaf] = (
+            np.ascontiguousarray(m.T) if leaf == "kernel" else m)
+    return tree
+
+
+def _n_layers(named: Dict[str, torch.Tensor]) -> int:
+    return 1 + max((int(k.split(".")[2]) for k in named
+                    if k.startswith("encoder.layers.")), default=-1)
+
+
+def prunable_names(named: Dict[str, torch.Tensor]) -> list:
+    """The state-dict names of the prunable leaves among ``named``, in
+    JAX's leaf order (layer, PRUNABLE order, kernel before bias)."""
+    return [prunable_name(i, mod, leaf) for i in range(_n_layers(named))
+            for mod in PRUNABLE for leaf in ("kernel", "bias")]
+
+
+def prunable_tree(named: Dict[str, torch.Tensor]) -> dict:
+    """The prunable leaves of named params (weights or anything laid out
+    like them) as a JAX-layout numpy tree ``{"encoder": {"layers": [{module:
+    {"kernel": (in, out), "bias"}}]}}``, the view the weight-pruning host
+    pass ranks ties in."""
+    layers = [{} for _ in range(_n_layers(named))]
+    for name in prunable_names(named):
+        i, mod, leaf = _split_name(name)
+        a = named[name].detach().float().cpu().numpy()
+        layers[i].setdefault(mod, {})[leaf] = (
+            np.ascontiguousarray(a.T) if leaf == "kernel" else a)
+    return {"encoder": {"layers": layers}}
 
 
 def state_dict_from_jax_params(

@@ -52,6 +52,58 @@ def test_plain_forward_and_grads_match_jax_interpret(k, s, t):
     assert not any(tconv.launch_counts.values())
 
 
+FOLD_BAR = 1e-5  # max |d| / mean |ref|, f32
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).mean())
+
+
+@pytest.mark.parametrize("k,s,t", [(9, 9, 777), (20, 9, 300)])
+def test_stride_fold_matches_jax_interpret(k, s, t, monkeypatch):
+    # past SM90_MAX_STRIDE conv1d_strided folds the stride into the
+    # channels and runs the stride-1 route; forward, dX and dW against
+    # JAX's Pallas conv and its VJP
+    assert s > tconv.SM90_MAX_STRIDE
+    x, w, rng = _inputs(k, t, seed=4)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_conv(jnp.asarray(x), jnp.asarray(w), s, 64))
+    dy = rng.standard_normal(want.shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        gx, gw = jax.grad(
+            lambda x, w: jnp.sum(jax_conv(x, w, s, 64) * dy), argnums=(0, 1),
+        )(jnp.asarray(x), jnp.asarray(w))
+
+    folds = []
+
+    def counting_fold(x, w, stride):
+        xf, wf = fold(x, w, stride)
+        folds.append((tuple(xf.shape), tuple(wf.shape)))
+        return xf, wf
+
+    fold = tconv.fold_stride
+    monkeypatch.setattr(tconv, "fold_stride", counting_fold)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    got = tconv.conv1d_strided(xt, wt, s)
+    kq = -(-k // s)
+    t_out = tconv.output_length(t, k, s)
+    assert folds == [((2, t_out + kq - 1, s * 128), (kq, s * 128, 128))]
+    assert got.shape == want.shape
+    got.backward(torch.from_numpy(dy))
+    assert _rel(got.detach().numpy(), want) < FOLD_BAR
+    assert _rel(xt.grad.numpy(), np.asarray(gx)) < FOLD_BAR
+    assert _rel(wt.grad.numpy(), np.asarray(gw)) < FOLD_BAR
+    last = (t_out - 1) * s + k
+    assert not xt.grad[:, last:].any()
+    # the fold computes the same function as the unfolded plain version
+    ref = tconv.conv1d_strided_plain(xt.detach().double(),
+                                     wt.detach().double(), s)
+    xf, wf = fold(xt.detach().double(), wt.detach().double(), s)
+    assert torch.allclose(tconv.conv1d_strided_plain(xf, wf, 1), ref,
+                          rtol=0, atol=1e-12)
+
+
 @pytest.mark.parametrize("k,s,t", CASES)
 def test_plain_grads_equal_autograd_through_the_function(k, s, t):
     x, w, rng = _inputs(k, t, seed=1)

@@ -502,9 +502,11 @@ def test_conv_bf16_kernels_run_on_the_tensor_cores_bitwise_repeatably():
 
 
 def test_conv_bf16_kernels_refuse_strides_past_their_maps():
-    # and so do the f32 forward and dW, which read x through per-phase maps
-    # too (the f32 forward refuses stride 9, so autograd never reaches an
-    # f32 dW there)
+    # the forward and dW launchers (bf16 and f32) read x through per-phase
+    # maps and refuse stride 9; conv1d_strided folds the stride into the
+    # channels and takes it on the stride-1 kernels: k = s = 9 and k = 20,
+    # s = 9, forward, dW and dX against the plain version at the bars of
+    # test_conv_kernels_match_plain_version, bitwise repeatable
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
 
     s = tc.SM90_MAX_STRIDE + 1
@@ -519,6 +521,89 @@ def test_conv_bf16_kernels_refuse_strides_past_their_maps():
         tc.launch_fwd(x.float(), w.float(), s)
     with pytest.raises(ValueError, match="stride <= 8"):
         tc.launch_dw(x.float(), dy, s, s)
+
+    for shape in ((2, 777, 512, 9, 512, 9), (2, 400, 128, 20, 128, 9)):
+        b, t, c, k, o, s = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy = _conv_inputs(shape, dtype, seed=7)
+
+            def run():
+                leaves = [x.clone().requires_grad_(),
+                          w.clone().requires_grad_()]
+                y = tc.conv1d_strided(*leaves, s)
+                y.backward(dy)
+                return [y.detach()] + [leaf.grad for leaf in leaves]
+
+            tc.reset_launch_counts()
+            got = run()
+            assert tc.launch_counts == {"conv1d_fwd": 1, "conv1d_dw": 1,
+                                        "conv1d_dx": 1}
+            assert all(torch.equal(a, b) for a, b in zip(got, run()))
+            y, dx, dw = got
+            assert not dx[:, (y.shape[1] - 1) * s + k:].any()
+            if dtype == torch.float32:
+                x64, w64, dy64 = x.double(), w.double(), dy.double()
+                dx64, dw64 = tc.plain_grads(x64, w64, s, dy64)
+                ref = (tc.conv1d_strided_plain(x64, w64, s), dx64, dw64)
+                for a, r in zip(got, ref):
+                    assert ((a.double() - r).abs().max() / r.abs().mean()
+                            < CONV_F32_BAR)
+            else:
+                rdx, rdw = tc.plain_grads(x, w, s, dy)
+                ref = (tc.conv1d_strided_plain(x, w, s), rdx, rdw)
+                for a, r in zip(got, ref):
+                    share, ulps = _bf16_diff(a, r, slice(None))
+                    assert ulps <= BF16_ULP_BAR and share < BF16_SHARE_BAR
+
+
+def test_masked_bf16_grad_step_gives_masked_entries_zero_gradients():
+    # weight pruning's grad step on the card, bf16 through the attention
+    # kernels: every masked entry's gradient is exactly zero, the kept
+    # ones are not all zero, and the masters are untouched (the zero-init
+    # biases, smallest in magnitude, are masked whole)
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.compress import weight_pruning as wp
+    from speech_ssl_compression_tpu_torch.configs import MelHuBERTConfig
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_params_np, load_model, named_masks, prunable_tree,
+    )
+
+    cfg = MelHuBERTConfig.from_dict(dict(
+        feat_emb_dim=80, encoder_layers=2, encoder_embed_dim=256,
+        encoder_ffn_embed_dim=512, encoder_attention_heads=4, head_dim=64,
+        conv_pos=16, conv_pos_groups=4, num_cluster=32, mask_prob=0.5,
+        mask_length=4))
+    model = load_model(init_params_np(cfg, seed=0), cfg).cuda()
+    params = dict(model.named_parameters())
+    masks = named_masks(wp.global_magnitude_prune(prunable_tree(params), 0.6),
+                        torch.device("cuda"))
+    rng = np.random.default_rng(0)
+    b, t = 4, 256
+    lengths = np.array([256, 200, 130, 256])
+    pad = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    batch = {"feat": torch.from_numpy(rng.standard_normal(
+        (b, t, 80)).astype(np.float32)).cuda(),
+        "label": torch.from_numpy(rng.integers(0, 32, (b, t))).cuda(),
+        "pad_mask": torch.from_numpy(pad).cuda(), "length": lengths}
+    mask = torch.from_numpy(span_mask(cfg, lengths, t, rng)).cuda()
+    before = {k: v.detach().clone() for k, v in params.items()}
+    step = make_melhubert_grad_step(model, compute_dtype=torch.bfloat16)
+    fa.reset_launch_counts()
+    loss, grads, _ = step(params, batch, torch.Generator(),
+                          mask_indices=mask, masks=masks)
+    torch.cuda.synchronize()
+    assert set(fa.launch_counts.values()) == {cfg.encoder_layers}
+    assert torch.isfinite(loss)
+    named = dict(zip(params, grads))
+    for name, m in masks.items():
+        assert bool((named[name][m == 0] == 0).all()), name
+        if name.endswith("weight"):
+            assert bool(named[name][m != 0].abs().sum() > 0), name
+    assert all(torch.equal(before[k], params[k]) for k in params)
 
 
 def test_conv_f32_forward_runs_on_the_tensor_cores_bitwise_repeatably():

@@ -1,7 +1,8 @@
 """The port imports and runs its CPU slices with ``jax`` and the JAX package
-``speech_ssl_compression_tpu`` unimportable (and, for training, ``pandas``
-and ``yaml`` too), as on a GPU machine that has none of them; no module of
-the port, and not ``chip_smoke.py``, imports either."""
+``speech_ssl_compression_tpu`` unimportable (and, for training and weight
+pruning from a checkpoint, ``pandas`` and ``yaml`` too), as on a GPU
+machine that has none of them; no module of the port, and not
+``chip_smoke.py``, imports either."""
 
 import pathlib
 import subprocess
@@ -88,9 +89,22 @@ for i in range(4):
 runner = main(["-m", "melhubert", "-g", str(d / "model.yaml"), "-c",
                str(d / "runner.yaml"), "-n", str(d / "exp"), "--device", "cpu"])
 assert (d / "exp" / "last-step.npz").exists()
+# weight pruning from that checkpoint, its Adam state restored: one event
+# at step 1, before the second of two updates
+(d / "wp.yaml").write_text(
+    (d / "runner.yaml").read_text()
+    + "prune:\n  sparsity:\n  - 0.5\n  warnup: 1\n  period: 1\n"
+    "  n_iters: 1\n  pruning_condition: always\n")
+pruned = main(["-m", "weight-pruning", "-g", str(d / "model.yaml"), "-c",
+               str(d / "wp.yaml"), "-n", str(d / "wp"), "--device", "cpu",
+               "-i", str(d / "exp" / "last-step.npz"),
+               "--init_optimizer_from_initial_weight"])
+assert pruned.wp_state.pruning_times == 1 and int(pruned.opt_state[0]) == 4
+assert (d / "wp" / "before-pruning-states-1-sparsity-0.npz").exists()
+assert (d / "wp" / "last-step.npz").exists()
 assert all(sys.modules[n] is None
            for n in ("jax", "speech_ssl_compression_tpu", "pandas", "yaml"))
-print("updates", len(runner.log_history))
+print("updates", len(runner.log_history) + len(pruned.log_history))
 """
 
 
@@ -100,7 +114,7 @@ def test_port_trains_without_jax_pandas_or_yaml():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("updates 2")
+    assert proc.stdout.strip().endswith("updates 4")
 
 
 HUBERT_SCRIPT = r"""

@@ -536,9 +536,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
             str(tmp_path / "runner.yaml"), "-n", str(tmp_path / "e"),
             "--device", "cpu"]
     for extra, exc in ((["-m", "head-pruning"], NotImplementedError),
+                       (["-m", "row-pruning"], NotImplementedError),
+                       (["-m", "distillation"], NotImplementedError),
                        (["-m", "melhubert", "-u", "wav2vec2"],
-                        NotImplementedError),
-                       (["-m", "melhubert", "-i", "x.npz"],
                         NotImplementedError),
                        (["-m", "melhubert", "--model_parallel", "2"],
                         NotImplementedError)):
