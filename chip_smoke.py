@@ -90,6 +90,40 @@ result line):
             against serving the in-memory weights masked by hand; times of
             one update with masks against one without, and of each prune
             event on the host;
+  head prune  -m head-pruning through the trainer's entry point from the
+            train phase's checkpoint, full width:
+            configs/head_pruning/data_driven/config_runner_20ms.yaml with
+            its prune: section cut to warm_up 0, interval 1 (its 11
+            events, by_whole, 12 heads each, one before each of 11 bf16
+            updates) and data_ratio 1.0 of a 64-utterance set (two stacked
+            scoring groups of B = 32 a event, f32, dropout on); launch
+            counts per dtype (the f32 dQ and dK/dV kernels in scoring);
+            one head a layer at the end; each event's heads equal to a
+            host recompute of select_heads_to_prune on its
+            heads_and_score_*.npy; the host seconds of each scoring pass
+            and each slicing and rebuild, and memory_allocated around each
+            event (it must fall by the params and Adam moments pruned
+            away); the scoring pass with the kernels against impl="dense"
+            (f32, TF32 off, dropout off, a fixed span mask) at 12 heads a
+            layer and at the ragged heads of the 7th event, each layer's
+            scores within GRAD_BAR (rel. L2), and its peak memory; the
+            sliced model against the unsliced one with the pruned heads'
+            out_proj input columns zeroed (events 1 and 11); the last
+            states_prune_*.npz served by MelHuBERTExtractor against the
+            in-memory model; then an l1, by_layer run of 2 events (10
+            heads a layer), each event's scores and heads recomputed on
+            the host from its artifact;
+  row prune  -m row-pruning likewise: configs/row_pruning/
+            config_runner_20ms.yaml cut to warm_up 0, interval 1 (its 20
+            events of 128 rows, one before each of 20 bf16 updates); FFN
+            512 at the end; each event's rows equal to a host recompute of
+            ffn_row_scores on the artifact before it; memory around each
+            event; the sliced model against the unsliced one with the
+            pruned rows' fc1 rows and fc2 columns zeroed (events 1 and
+            20); the last states_prune_*.npz served against the
+            in-memory model; the serve batch's frames/s from features,
+            f32 and bf16, of the full, the one-head and the FFN-512 model,
+            in turns;
   conv      the strided-conv forward, dW and dX kernels against their plain
             version at the shapes of HuBERT's frontend layers 1-6 in the
             training batch, at T = 777 / 515, at the ragged edges of the
@@ -140,7 +174,11 @@ another order than the plain version's f32 product, so a p that lies
 within the scores' error bound of a bf16 rounding point may round the
 other way. Where short segments give single keys large weights
 (STRADDLE_CASES: the packed serving batch), one such p moves an entry by
-about an ulp. There, and only there, an entry may lie past one ulp if
+about an ulp. With random inputs at T = 768 a few such p can do it
+too: of the head prune phase's 24 ragged-heads bf16 forward cases, 3
+hold entries past one ulp (up to 2.08), each row back within 0.5 ulp
+once 1 to 7 of its straddling p round the other way. There, and only
+there, an entry may lie past one ulp if
   * it lies within one ulp plus its straddle bound
     (flash_attention.bf16_forward_straddle_bounds: the most that rounding
     those p the other way can move it), and
@@ -296,6 +334,15 @@ WP_RUNNER_YAML = ROOT / "configs" / "weight_pruning" / "config_runner_20ms.yaml"
 # the top of the 4th window
 WP_SHORT = dict(warnup=1, period=1, n_iters=3, pruning_condition="always")
 WP_STEPS = 4
+HP_DIR = ROOT / "configs" / "head_pruning"
+RP_DIR = ROOT / "configs" / "row_pruning"
+# the recipes' prune events, all of them (11 to one head a layer, 20 to
+# FFN 512), one before each update from the first on
+STRUCTURED_SHORT = dict(warm_up=0, interval=1)
+HP_EVENTS, HP_L1_EVENTS, RP_EVENTS = 11, 2, 20
+# the head prune phase's set: 16 buckets of B = 4, two stacked scoring
+# groups of B = 32 at data_ratio 1.0
+HP_UTTS, HP_DATA_RATIO, HP_GROUPS = 64, 1.0, 2
 HUBERT_YAML = ROOT / "configs" / "hubert" / "config_model.yaml"
 HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
 HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
@@ -448,6 +495,95 @@ def training_cases(dev):
              dict(pad, dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED), valid)]
 
 
+def check_forward(fa, name, qs, ks, masks, valid, dtype, gen,
+                  straddles=False):
+    """One forward case of phase_kernels: the kernel on random q, k, v
+    of ``dtype`` drawn from ``gen`` against the plain version at the
+    bars above (``straddles``: a bf16 entry may lie past one ulp where
+    straddling p explain it). Logs the comparison, raises where the two
+    disagree, and returns (q, k, v, max |d| of the output)."""
+    t0 = time.perf_counter()
+    q = torch.randn(qs, generator=gen, device=gen.device).to(dtype)
+    k = torch.randn(ks, generator=gen, device=gen.device).to(dtype)
+    v = torch.randn(ks, generator=gen, device=gen.device).to(dtype)
+    # the bound is built from the inputs, before the kernel runs
+    bound = (fa.bf16_forward_straddle_bounds(q, k, v, **masks)
+             if dtype == torch.bfloat16 else None)
+    if ks != qs:
+        got, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
+                                              **masks)
+    else:
+        got, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
+    torch.cuda.synchronize()
+    rows = valid[:, None, :].expand(lse.shape)
+    err = rel_err(got, ref, rows)
+    max_abs = float((got.float() - ref.float())[rows].abs().max())
+    lse_err = float((lse - ref_lse)[rows].abs().max())
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    if dtype == torch.float32:
+        # the kernel's products are f32-accurate (split TF32) but
+        # not rounded where the f32 plain version's are: out and lse
+        # are held to the plain version run in float64, and their
+        # distance from the f32 one is printed
+        exact, exact_lse = fa.flash_attention_reference(
+            q.double(), k.double(), v.double(), **masks)
+        plain_err, plain_lse = err, lse_err
+        err = rel_err(got, exact, rows)
+        max_abs = float((got.double() - exact)[rows].abs().max())
+        lse_err = float((lse.double() - exact_lse)[rows].abs().max())
+        own = rel_err(ref, exact, rows)
+        del exact, exact_lse
+        ok = err < F32_BAR and lse_err < LSE_BAR
+        detail = (f"against the plain version in float64: "
+                  f"max|d|/mean|ref| {err:.3e} (bar {F32_BAR:g}), "
+                  f"lse max|d| {lse_err:.3e} (bar {LSE_BAR:g}); "
+                  f"against it in f32: {plain_err:.3e}, lse "
+                  f"{plain_lse:.3e} (that f32 version's own "
+                  f"distance from float64 {own:.3e})")
+    else:
+        tiled, _ = fa.flash_attention_reference(
+            q, k, v, block_k=fa.KERNEL_BLOCK_K, **masks)
+        share, ulps, n_beyond, need, bound_med = bf16_bound_diff(
+            got, tiled, bound, rows)
+        del bound
+        control, _ = fa.flash_attention_reference(
+            q.float(), k.float(), v.float(), block_k=fa.KERNEL_BLOCK_K,
+            **masks)
+        ctl_share, ctl_ulps = bf16_diff(control.to(dtype), tiled, rows)
+        ok = share < BF16_SHARE_BAR and lse_err < LSE_BAR
+        detail = (f"differ {share:.3%} (bar {BF16_SHARE_BAR:.0%}), "
+                  f"max {ulps:g} ulp (bar {BF16_ULP_BAR:g}"
+                  f"{' + straddles' if straddles else ''}"
+                  f"), {n_beyond} beyond 1 ulp "
+                  f"(excess/straddle bound <= {need:.3g}, bar 1; "
+                  f"median bound {bound_med:.3g} ulp), lse "
+                  f"max|d| {lse_err:.3e} (bar {LSE_BAR:g}); control "
+                  f"with P in f32: differ {ctl_share:.3%}, max "
+                  f"{ctl_ulps:g} ulp; max|d|/mean|ref| {err:.3e}")
+        if ulps > BF16_ULP_BAR:
+            explained, flips = explain_straddles(fa, q, k, v, got,
+                                                 tiled, rows, masks)
+            ok = (ok and straddles and need <= 1.0
+                  and explained)
+            detail += f"; flip search: {flips}"
+        if ks[2] == 1:
+            # one key: P = exp(0) = 1 is exact in bf16, so there is
+            # no rounding of P for the control to show; the output
+            # is that key's V row, and must be its bits
+            ok = ok and share == 0.0
+            detail += " (one key: bar 0% differing)"
+        elif not ctl_share >= BF16_SHARE_BAR:
+            raise AssertionError(
+                f"bf16 check at {name} cannot tell a kernel that "
+                f"leaves P in f32 apart ({ctl_share:.3%} differ)")
+    log("kernels", f"{name} {tag} q{tuple(qs)} k{tuple(ks)}: kernel vs "
+        f"plain, {detail}, {time.perf_counter() - t0:.2f} s")
+    if not (ok and torch.isfinite(got.float()[rows]).all()):
+        raise AssertionError(f"kernel disagrees at {name} {tag}")
+    return q, k, v, max_abs
+
+
 def phase_kernels(dev, gpu: str):
     from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
 
@@ -459,85 +595,10 @@ def phase_kernels(dev, gpu: str):
                                        + edge_cases(dev)):
         ks = ks or qs
         for dtype in (torch.float32, torch.bfloat16):
-            t0 = time.perf_counter()
-            q = torch.randn(qs, generator=gen, device=dev).to(dtype)
-            k = torch.randn(ks, generator=gen, device=dev).to(dtype)
-            v = torch.randn(ks, generator=gen, device=dev).to(dtype)
-            # the bound is built from the inputs, before the kernel runs
-            bound = (fa.bf16_forward_straddle_bounds(q, k, v, **masks)
-                     if dtype == torch.bfloat16 else None)
-            if ks != qs:
-                got, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
-                                                      **masks)
-            else:
-                got, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
-            ref, ref_lse = fa.flash_attention_reference(q, k, v, **masks)
-            torch.cuda.synchronize()
-            rows = valid[:, None, :].expand(lse.shape)
-            err = rel_err(got, ref, rows)
-            max_abs = float((got.float() - ref.float())[rows].abs().max())
-            lse_err = float((lse - ref_lse)[rows].abs().max())
+            q, k, v, max_abs = check_forward(
+                fa, name, qs, ks, masks, valid, dtype, gen,
+                straddles=name in STRADDLE_CASES)
             tag = "f32" if dtype == torch.float32 else "bf16"
-            if dtype == torch.float32:
-                # the kernel's products are f32-accurate (split TF32) but
-                # not rounded where the f32 plain version's are: out and lse
-                # are held to the plain version run in float64, and their
-                # distance from the f32 one is printed
-                exact, exact_lse = fa.flash_attention_reference(
-                    q.double(), k.double(), v.double(), **masks)
-                plain_err, plain_lse = err, lse_err
-                err = rel_err(got, exact, rows)
-                max_abs = float((got.double() - exact)[rows].abs().max())
-                lse_err = float((lse.double() - exact_lse)[rows].abs().max())
-                own = rel_err(ref, exact, rows)
-                del exact, exact_lse
-                ok = err < F32_BAR and lse_err < LSE_BAR
-                detail = (f"against the plain version in float64: "
-                          f"max|d|/mean|ref| {err:.3e} (bar {F32_BAR:g}), "
-                          f"lse max|d| {lse_err:.3e} (bar {LSE_BAR:g}); "
-                          f"against it in f32: {plain_err:.3e}, lse "
-                          f"{plain_lse:.3e} (that f32 version's own "
-                          f"distance from float64 {own:.3e})")
-            else:
-                tiled, _ = fa.flash_attention_reference(
-                    q, k, v, block_k=fa.KERNEL_BLOCK_K, **masks)
-                share, ulps, n_beyond, need, bound_med = bf16_bound_diff(
-                    got, tiled, bound, rows)
-                del bound
-                control, _ = fa.flash_attention_reference(
-                    q.float(), k.float(), v.float(), block_k=fa.KERNEL_BLOCK_K,
-                    **masks)
-                ctl_share, ctl_ulps = bf16_diff(control.to(dtype), tiled, rows)
-                ok = share < BF16_SHARE_BAR and lse_err < LSE_BAR
-                detail = (f"differ {share:.3%} (bar {BF16_SHARE_BAR:.0%}), "
-                          f"max {ulps:g} ulp (bar {BF16_ULP_BAR:g}"
-                          f"{' + straddles' if name in STRADDLE_CASES else ''}"
-                          f"), {n_beyond} beyond 1 ulp "
-                          f"(excess/straddle bound <= {need:.3g}, bar 1; "
-                          f"median bound {bound_med:.3g} ulp), lse "
-                          f"max|d| {lse_err:.3e} (bar {LSE_BAR:g}); control "
-                          f"with P in f32: differ {ctl_share:.3%}, max "
-                          f"{ctl_ulps:g} ulp; max|d|/mean|ref| {err:.3e}")
-                if ulps > BF16_ULP_BAR:
-                    explained, flips = explain_straddles(fa, q, k, v, got,
-                                                         tiled, rows, masks)
-                    ok = (ok and name in STRADDLE_CASES and need <= 1.0
-                          and explained)
-                    detail += f"; flip search: {flips}"
-                if ks[2] == 1:
-                    # one key: P = exp(0) = 1 is exact in bf16, so there is
-                    # no rounding of P for the control to show; the output
-                    # is that key's V row, and must be its bits
-                    ok = ok and share == 0.0
-                    detail += " (one key: bar 0% differing)"
-                elif not ctl_share >= BF16_SHARE_BAR:
-                    raise AssertionError(
-                        f"bf16 check at {name} cannot tell a kernel that "
-                        f"leaves P in f32 apart ({ctl_share:.3%} differ)")
-            log("kernels", f"{name} {tag} q{tuple(qs)} k{tuple(ks)}: kernel vs "
-                f"plain, {detail}, {time.perf_counter() - t0:.2f} s")
-            if not (ok and torch.isfinite(got.float()[rows]).all()):
-                raise AssertionError(f"kernel disagrees at {name} {tag}")
             if name in TIMED_CASES:
                 # the kernel's launches alone, as backward_timing times the
                 # backward's: the wrapper's host work per call (the bias,
@@ -637,6 +698,103 @@ def rows_of(valid, shape):
     return valid[:, None, :].expand(shape[:3])
 
 
+def check_backward(fa, name, qs, ks, masks, valid_q, valid_k, dtype,
+                   gen):
+    """One backward case of phase_backward: the dQ and dK/dV kernels on
+    the forward kernel's (out, lse) of random q, k, v and dO of
+    ``dtype`` drawn from ``gen`` against the plain backward at the bars
+    above. Logs the comparison, raises where they disagree, and
+    returns (the backward_args tuple, max |d| of dq, dk and dv)."""
+    t0 = time.perf_counter()
+    q, dout = (torch.randn(qs, generator=gen, device=gen.device).to(dtype)
+               for _ in range(2))
+    # padded query rows carry dO = 0, as they do in the model
+    dout = dout.masked_fill(~valid_q[:, None, :, None], 0.0)
+    k, v = (torch.randn(ks, generator=gen, device=gen.device).to(dtype)
+            for _ in range(2))
+    if ks != qs:
+        out, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
+                                              **masks)
+    else:
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
+    args = fa.backward_args(q, k, v, lse, dout, **masks)
+    # the bound is built from the inputs, before the kernels run
+    bounds = (fa.bf16_straddle_bounds(*args) if dtype == torch.bfloat16
+              else None)
+    *got, dd = fa.launch_bwd(*args)
+    *ref, ref_dd = fa.reference_bwd(*args)
+    torch.cuda.synchronize()
+    sel = (rows_of(valid_q, qs), rows_of(valid_k, ks),
+           rows_of(valid_k, ks))
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    names = ("dq", "dk", "dv")
+    abs_errs = [float((g.float() - r.float())[s].abs().max())
+                for g, r, s in zip(got, ref, sel)]
+    # D, f32 whatever the inputs, against its plain version; in f32
+    # also against JAX's D = rowsum(dO o O) from the forward's
+    # output (a bf16 O is rounded, and that D with it)
+    d_errs = [rel_err(dd, ref_dd, sel[0])]
+    detail = f"D max|d|/mean|ref| {d_errs[0]:.3e}"
+    if dtype == torch.float32:
+        d_errs.append(rel_err(dd, fa.output_dd(out, dout), sel[0]))
+        detail += f", against rowsum(dO o O) {d_errs[1]:.3e}"
+    ok = max(d_errs) < F32_BAR
+    detail += f" (bar {F32_BAR:g}); "
+    if dtype == torch.float32:
+        # the kernels' products are f32-accurate (split TF32) but
+        # not rounded where the f32 plain version's are, which lies
+        # up to ~2e-4 from the exact function itself (the causal
+        # case): dq, dk and dv are held to the plain version run in
+        # float64
+        exact = fa.reference_bwd(*fa.float64_args(args))[:3]
+        errs = [rel_err(g, r, s) for g, r, s in zip(got, exact, sel)]
+        plain = [rel_err(g, r, s) for g, r, s in zip(got, ref, sel)]
+        own = [rel_err(r, e, s) for r, e, s in zip(ref, exact, sel)]
+        del exact
+        ok = ok and max(errs) < F32_BAR
+        detail += "max|d|/mean|ref| against the plain version in " + \
+            "float64 " + ", ".join(
+                f"{n} {e:.3e}" for n, e in zip(names, errs))
+        detail += f" (bar {F32_BAR:g}); against it in f32 " + ", ".join(
+            f"{n} {e:.3e}" for n, e in zip(names, plain))
+        detail += " (that f32 version's own distance from float64 " + \
+            ", ".join(f"{n} {e:.3e}" for n, e in zip(names, own)) + ")"
+    else:
+        f32_args = tuple(a.float() if torch.is_tensor(a)
+                         and a.dtype == dtype else a for a in args)
+        control = fa.reference_bwd(*f32_args)[:3]
+        diffs = [bf16_bound_diff(g, r, b, s)
+                 for g, r, b, s in zip(got, ref, bounds, sel)]
+        del bounds
+        ctl = [bf16_diff(c.to(dtype), r, s)
+               for c, r, s in zip(control, ref, sel)]
+        n_valid = [int(sl.sum()) * g.shape[-1]
+                   for g, sl in zip(got, sel)]
+        ok = ok and all(sh < BF16_SHARE_BAR and need <= 1.0
+                        and nb < BF16_BEYOND_BAR * n
+                        for (sh, _, nb, need, _), n
+                        in zip(diffs, n_valid))
+        detail += ", ".join(
+            f"{n} differ {sh:.3%} max {u:g} ulp, {nb} beyond 1 ulp "
+            f"({nb / nv:.4%}; excess/straddle bound <= {need:.3g}; "
+            f"median bound {bm:.3g} ulp) (control {csh:.2%}, {cu:g} "
+            f"ulp)" for n, (sh, u, nb, need, bm), (csh, cu), nv
+            in zip(names, diffs, ctl, n_valid))
+        detail += (f"; bars {BF16_SHARE_BAR:.0%}, 1 ulp + straddle "
+                   f"bound, {BF16_BEYOND_BAR:.1%} beyond 1 ulp")
+        if not all(csh >= BF16_SHARE_BAR for csh, _ in ctl):
+            raise AssertionError(
+                f"bf16 backward check at {name} cannot tell kernels "
+                "that leave dS and Pd in f32 apart")
+    finite = all(torch.isfinite(g.float()[s]).all()
+                 for g, s in zip(got, sel))
+    log("backward", f"{name} {tag} q{tuple(qs)} k{tuple(ks)}: kernels "
+        f"vs plain, {detail}, {time.perf_counter() - t0:.2f} s")
+    if not (ok and finite):
+        raise AssertionError(f"backward kernels disagree at {name} {tag}")
+    return args, abs_errs
+
+
 def phase_backward(dev, gpu: str):
     """The dQ and dK/dV kernels against the plain backward (TF32 off), on
     the forward kernel's (out, lse) and a random dO."""
@@ -648,100 +806,16 @@ def phase_backward(dev, gpu: str):
     for name, qs, ks, masks, valid_q, valid_k in backward_cases(dev):
         ks = ks or qs
         for dtype in (torch.float32, torch.bfloat16):
-            t0 = time.perf_counter()
-            q, dout = (torch.randn(qs, generator=gen, device=dev).to(dtype)
-                       for _ in range(2))
-            # padded query rows carry dO = 0, as they do in the model
-            dout = dout.masked_fill(~valid_q[:, None, :, None], 0.0)
-            k, v = (torch.randn(ks, generator=gen, device=dev).to(dtype)
-                    for _ in range(2))
-            if ks != qs:
-                out, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
-                                                      **masks)
-            else:
-                out, lse = fa.flash_attention(q, k, v, return_lse=True, **masks)
-            args = fa.backward_args(q, k, v, lse, dout, **masks)
-            # the bound is built from the inputs, before the kernels run
-            bounds = (fa.bf16_straddle_bounds(*args) if dtype == torch.bfloat16
-                      else None)
-            *got, dd = fa.launch_bwd(*args)
-            *ref, ref_dd = fa.reference_bwd(*args)
-            torch.cuda.synchronize()
-            sel = (rows_of(valid_q, qs), rows_of(valid_k, ks),
-                   rows_of(valid_k, ks))
+            args, abs_errs = check_backward(
+                fa, name, qs, ks, masks, valid_q, valid_k, dtype, gen)
             tag = "f32" if dtype == torch.float32 else "bf16"
-            names = ("dq", "dk", "dv")
-            abs_errs = [float((g.float() - r.float())[s].abs().max())
-                        for g, r, s in zip(got, ref, sel)]
             record.setdefault(("flash_attn_bwd_dq", name, tag), {})[
                 "max_abs_err"] = abs_errs[0]
             record.setdefault(("flash_attn_bwd_dkv", name, tag), {})[
                 "max_abs_err"] = max(abs_errs[1:])
-            # D, f32 whatever the inputs, against its plain version; in f32
-            # also against JAX's D = rowsum(dO o O) from the forward's
-            # output (a bf16 O is rounded, and that D with it)
-            d_errs = [rel_err(dd, ref_dd, sel[0])]
-            detail = f"D max|d|/mean|ref| {d_errs[0]:.3e}"
-            if dtype == torch.float32:
-                d_errs.append(rel_err(dd, fa.output_dd(out, dout), sel[0]))
-                detail += f", against rowsum(dO o O) {d_errs[1]:.3e}"
-            ok = max(d_errs) < F32_BAR
-            detail += f" (bar {F32_BAR:g}); "
-            if dtype == torch.float32:
-                # the kernels' products are f32-accurate (split TF32) but
-                # not rounded where the f32 plain version's are, which lies
-                # up to ~2e-4 from the exact function itself (the causal
-                # case): dq, dk and dv are held to the plain version run in
-                # float64
-                exact = fa.reference_bwd(*fa.float64_args(args))[:3]
-                errs = [rel_err(g, r, s) for g, r, s in zip(got, exact, sel)]
-                plain = [rel_err(g, r, s) for g, r, s in zip(got, ref, sel)]
-                own = [rel_err(r, e, s) for r, e, s in zip(ref, exact, sel)]
-                del exact
-                ok = ok and max(errs) < F32_BAR
-                detail += "max|d|/mean|ref| against the plain version in " + \
-                    "float64 " + ", ".join(
-                        f"{n} {e:.3e}" for n, e in zip(names, errs))
-                detail += f" (bar {F32_BAR:g}); against it in f32 " + ", ".join(
-                    f"{n} {e:.3e}" for n, e in zip(names, plain))
-                detail += " (that f32 version's own distance from float64 " + \
-                    ", ".join(f"{n} {e:.3e}" for n, e in zip(names, own)) + ")"
-            else:
-                f32_args = tuple(a.float() if torch.is_tensor(a)
-                                 and a.dtype == dtype else a for a in args)
-                control = fa.reference_bwd(*f32_args)[:3]
-                diffs = [bf16_bound_diff(g, r, b, s)
-                         for g, r, b, s in zip(got, ref, bounds, sel)]
-                del bounds
-                ctl = [bf16_diff(c.to(dtype), r, s)
-                       for c, r, s in zip(control, ref, sel)]
-                n_valid = [int(sl.sum()) * g.shape[-1]
-                           for g, sl in zip(got, sel)]
-                ok = ok and all(sh < BF16_SHARE_BAR and need <= 1.0
-                                and nb < BF16_BEYOND_BAR * n
-                                for (sh, _, nb, need, _), n
-                                in zip(diffs, n_valid))
-                detail += ", ".join(
-                    f"{n} differ {sh:.3%} max {u:g} ulp, {nb} beyond 1 ulp "
-                    f"({nb / nv:.4%}; excess/straddle bound <= {need:.3g}; "
-                    f"median bound {bm:.3g} ulp) (control {csh:.2%}, {cu:g} "
-                    f"ulp)" for n, (sh, u, nb, need, bm), (csh, cu), nv
-                    in zip(names, diffs, ctl, n_valid))
-                detail += (f"; bars {BF16_SHARE_BAR:.0%}, 1 ulp + straddle "
-                           f"bound, {BF16_BEYOND_BAR:.1%} beyond 1 ulp")
-                if not all(csh >= BF16_SHARE_BAR for csh, _ in ctl):
-                    raise AssertionError(
-                        f"bf16 backward check at {name} cannot tell kernels "
-                        "that leave dS and Pd in f32 apart")
-            finite = all(torch.isfinite(g.float()[s]).all()
-                         for g, s in zip(got, sel))
-            log("backward", f"{name} {tag} q{tuple(qs)} k{tuple(ks)}: kernels "
-                f"vs plain, {detail}, {time.perf_counter() - t0:.2f} s")
-            if not (ok and finite):
-                raise AssertionError(f"backward kernels disagree at {name} {tag}")
             if name in ("long", "rectangular"):
                 backward_timing(args, name, tag, record, gpu)
-            del args, got, ref
+            del args
     check_keep_bits(dev)
     check_determinism(dev)
     return record
@@ -1295,10 +1369,10 @@ def phase_weight_prune(dev, gpu: str, tmp: str):
         f"sparsity {sparsity}: launches per micro-batch "
         f"{ {k: v / micro for k, v in counts.items()} } (expected {n_layers} "
         f"each), {time.perf_counter() - t0:.2f} s")
-    for i, sec in enumerate(runner.prune_event_seconds):
-        log("timing", f"prune event {i + 1} on the host (fold, the masks of "
-            f"~85 M entries by global_magnitude_prune, to the card): {sec:.3f}"
-            f" s [{gpu}]")
+    for i, e in enumerate(runner.prune_event_log):
+        log("timing", f"prune event {i + 1} at step {e['step']} on the host "
+            f"(fold, the masks of ~85 M entries by global_magnitude_prune, to "
+            f"the card): {e['seconds']:.3f} s [{gpu}]")
     if any(v != n_layers * micro for v in counts.values()):
         raise AssertionError(f"launch counts {counts}, want "
                              f"{n_layers * micro} each")
@@ -1432,6 +1506,490 @@ def phase_weight_prune(dev, gpu: str, tmp: str):
         f"{np.mean(plain):.2f} ms ({plain[0]:.2f}, {plain[1]:.2f}), "
         f"{(np.mean(masked) / np.mean(plain) - 1) * 100:+.2f}% [{gpu}]")
     return by_dtype
+
+
+def structured_prune_config(runner_yaml: pathlib.Path, csv: str,
+                            **prune) -> dict:
+    """A head or row runner YAML with its prune: section cut to
+    STRUCTURED_SHORT and ``prune``, as many updates as events (the last
+    event fires before the last update), a log line per update, ``csv``
+    as the set."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+
+    cfg = read_yaml(runner_yaml)
+    cfg["prune"].update(STRUCTURED_SHORT, **prune)
+    cfg["runner"].update(total_steps=cfg["prune"]["total_steps"], log_step=1)
+    cfg["datarc"]["sets"] = [csv]
+    return cfg
+
+
+def run_trainer(mode: str, model_yaml, cfg: dict, root: pathlib.Path,
+                start: str, name: str = "exp"):
+    """``python -m speech_ssl_compression_tpu_torch.train -m <mode>`` from
+    the checkpoint ``start`` with the runner config ``cfg``."""
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+
+    runner_yaml = root / f"config_runner_{name}.yaml"
+    runner_yaml.write_text(to_yaml(cfg) + "\n")
+    return train(["-m", mode, "-g", str(model_yaml), "-c", str(runner_yaml),
+                  "-n", str(root / name), "-i", start, "--device", "cuda",
+                  "--seed", "0"])
+
+
+def read_layers(path: pathlib.Path, modules) -> dict:
+    """The encoder layers' ``modules`` of a checkpoint (JAX layout, numpy),
+    read alone."""
+    layers = collections.defaultdict(dict)
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            parts = key.split("/")
+            if key.startswith("params/encoder/layers/") and (
+                    parts[4] in modules):
+                layers[int(parts[3][1:-1])].setdefault(
+                    parts[4], {})[parts[5]] = data[key]
+    return {"encoder": {"layers": [layers[i] for i in sorted(layers)]}}
+
+
+def ragged_head_cases(dev, scored, updated):
+    """The attention shapes of a head-pruning run at every head count H a
+    layer held, as (name, q shape, mask kwargs, valid query rows, valid
+    keys, dtype): the f32 scoring pass (a stacked group of B = 32, the
+    training lengths tiled, dropout 0.1) at each H in ``scored`` and the
+    bf16 updates (TRAIN_SHAPE with H heads, its key padding, dropout 0
+    and 0.1) at each H in ``updated``."""
+    b, _, t, d = TRAIN_SHAPE
+    cases = []
+    for dtype, heads, reps, dropouts in (
+            (torch.float32, scored, 32 // b, (DROPOUT_P,)),
+            (torch.bfloat16, updated, 1, (0.0, DROPOUT_P))):
+        lens = torch.tensor(TRAIN_LENGTHS * reps, device=dev)
+        pad = torch.arange(t, device=dev)[None, :] >= lens[:, None]
+        valid = torch.ones_like(pad)
+        for h in heads:
+            for p in dropouts:
+                masks = dict(key_padding_mask=pad)
+                if p:
+                    masks.update(dropout_p=p, dropout_seed=DROPOUT_SEED)
+                cases.append((f"heads_{h}_p{p:g}", (b * reps, h, t, d), masks,
+                              valid, ~pad, dtype))
+    return cases
+
+
+def check_event_memory(phase: str, runner) -> None:
+    """Device memory around each structured prune event: the bytes the
+    live tensors requested must fall by exactly the params and Adam
+    moments pruned away (12 bytes a parameter), give or take 1 MiB; a
+    handle on the old model, its Adam state or its gradients would hold
+    hundreds of MB more. memory_allocated is printed beside it: it counts
+    whole allocator blocks, and a sliced tensor may take the freed block
+    of its larger predecessor."""
+    for i, e in enumerate(runner.prune_event_log):
+        (n_old, n_new) = e["params"]
+        (alloc_before, before), (alloc_after, after) = e["memory"]
+        want = 12 * (n_old - n_new)
+        log(phase, f"event {i + 1} at step {e['step']}: scoring "
+            f"{e['score_seconds']:.3f} s, slicing and rebuild "
+            f"{e['slice_seconds']:.3f} s on the host; params {n_old} -> "
+            f"{n_new}; live tensors' requested bytes {before} -> {after} "
+            f"(fell {before - after}, params and Adam moments pruned away "
+            f"{want}); memory_allocated {alloc_before} -> {alloc_after}")
+        if not abs(before - after - want) < 2**20:
+            raise AssertionError(f"event {i + 1} left {before - after - want}"
+                                 " bytes astray: a stale handle on the old "
+                                 "model?")
+
+
+def additivity_error(dev, path: pathlib.Path, zero, prune) -> float:
+    """The model of checkpoint ``path`` sliced by ``prune(named, cfg) ->
+    (named, cfg)`` against the unsliced one with the pruned units zeroed
+    by ``zero(model)``: max |d| / mean |ref| over every hidden state and
+    the logits of a fixed batch (f32, TF32 off, dropout off)."""
+    from speech_ssl_compression_tpu_torch.extract import (
+        load_any_checkpoint, matmul_precision,
+    )
+    from speech_ssl_compression_tpu_torch.models.melhubert import (
+        melhubert_forward,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        load_model, model_from_named,
+    )
+
+    params, cfg, _ = load_any_checkpoint(str(path))
+    full = load_model(params, cfg).to(dev).requires_grad_(False)
+    sliced = model_from_named(*prune(dict(full.named_parameters()), cfg))
+    with torch.no_grad():
+        zero(full)
+    rng = np.random.default_rng(0)
+    lengths = np.array([768, 700, 512, 301])
+    feat = torch.from_numpy(rng.standard_normal((4, 768, 80)).astype(
+        np.float32)).to(dev)
+    pad = torch.from_numpy((np.arange(768)[None, :] < lengths[:, None])
+                           .astype(np.float32)).to(dev)
+    valid = pad.bool()
+    with matmul_precision("highest"), torch.no_grad():
+        outs = [melhubert_forward(m, feat, pad, get_hidden=True)
+                for m in (sliced, full)]
+    got, ref = ([o["pre_feat"], *o["layer_hiddens"], o["hidden"],
+                 o["logits"]] for o in outs)
+    return max(rel_err(a, b, valid) for a, b in zip(got, ref))
+
+
+def serve_against_memory(dev, path: pathlib.Path, model, wavs) -> float:
+    """MelHuBERTExtractor.forward_packed (f32) on checkpoint ``path``
+    against the same extractor running the trainer's in-memory ``model``:
+    max |d| / mean |ref| over every hidden state."""
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+
+    ext = MelHuBERTExtractor(str(path), fp=20,
+                             mean_std_npy_path=str(MEAN_STD),
+                             matmul_precision="highest", device=dev)
+    outs = [ext.forward_packed(wavs)]
+    ext.model = model
+    outs.append(ext.forward_packed(wavs))
+    lengths = torch.tensor(outs[0]["lengths"], device=dev)
+    valid = (torch.arange(outs[0]["last_hidden_state"].shape[1],
+                          device=dev)[None, :] < lengths[:, None])
+    got, ref = (o["hidden_states"] + [o["last_hidden_state"]] for o in outs)
+    if not all(torch.isfinite(h.float()[valid]).all() for h in got):
+        raise AssertionError(f"{path.name} serves non-finite features")
+    return max(rel_err(a, b, valid) for a, b in zip(got, ref))
+
+
+def phase_head_prune(dev, gpu: str, tmp: str):
+    """-m head-pruning, data-driven and by_whole, from the train phase's
+    checkpoint through the trainer's entry point, full width, to one head
+    a layer; then the checks on its events, its scoring pass, its slicing
+    and its artifacts, and a short l1 by_layer run. Returns the launch
+    counts of the data-driven run per dtype and its last checkpoint."""
+    from speech_ssl_compression_tpu_torch.compress import head_pruning as hp
+    from speech_ssl_compression_tpu_torch.extract import (
+        load_any_checkpoint, matmul_precision,
+    )
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.runner import _stack_buckets
+    from speech_ssl_compression_tpu_torch.utils.weights import load_model
+
+    t_phase = t0 = time.perf_counter()
+    start = str(pathlib.Path(tmp) / "train" / "exp" / "last-step.npz")
+    root = pathlib.Path(tmp) / "head_prune"
+    csv = write_dataset(root / "data", n_utts=HP_UTTS, seed=1)
+    cfg = structured_prune_config(HP_DIR / "data_driven" /
+                                  "config_runner_20ms.yaml", csv,
+                                  total_steps=HP_EVENTS,
+                                  data_ratio=HP_DATA_RATIO)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runner = run_trainer("head-pruning", HP_DIR / "data_driven" /
+                         "config_model_20ms.yaml", cfg, root, start)
+    torch.cuda.synchronize()
+    counts = dtype_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_layers = runner.cfg.encoder_layers
+    heads = runner.cfg.encoder_attention_heads
+    expdir = root / "exp"
+    log("head prune", f"-m head-pruning (data-driven, by_whole) -i "
+        f"last-step.npz, {runner.compute_dtype} updates, f32 scoring over "
+        f"{HP_UTTS // 4} buckets in {HP_GROUPS} stacked groups of B = 32, "
+        f"{HP_EVENTS} events at steps {runner.prune_steps}: heads per layer "
+        f"{heads}; launches {counts}; peak memory_allocated {peak} B; "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    heads_each = cfg["prune"]["num_heads_each_step"]
+    left = [sum(heads) + heads_each * (HP_EVENTS - i)
+            for i in range(HP_EVENTS + 1)]  # heads before each event
+    scoring = HP_EVENTS * HP_GROUPS
+    want = {"flash_attn_fwd": {"f32": scoring * n_layers,
+                               "bf16": HP_EVENTS * n_layers}}
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        # the first layer's context lies past its attention
+        want[name] = {"f32": scoring * (n_layers - 1),
+                      "bf16": HP_EVENTS * n_layers}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"launch counts {counts}, want {want}")
+    if not (heads == (1,) * n_layers
+            and len(runner.pruned_heads) == HP_EVENTS
+            and len(runner.log_history) == HP_EVENTS
+            and np.isfinite([e["loss"] for e in runner.log_history]).all()):
+        raise AssertionError(f"head-pruning run: heads {heads}, "
+                             f"{runner.pruned_heads}, {runner.log_history}")
+    check_event_memory("head prune", runner)
+
+    # the attention kernels at every head count the run's layers held, at
+    # the shapes the run gave them, against their plain versions (the
+    # run's layers hold 1 to 12 heads, and each count has its own TMA
+    # maps): f32 where it scored, bf16 where it updated
+    t0 = time.perf_counter()
+    held = [[left[0] // n_layers] * n_layers]
+    for group in runner.pruned_heads:
+        held.append([h - len(group.get(l, ()))
+                     for l, h in enumerate(held[-1])])
+    scored = sorted({h for hs in held[:-1] for h in hs})
+    updated = sorted({h for hs in held[1:] for h in hs})
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for name, qs, masks, valid_q, valid_k, dtype in ragged_head_cases(
+            dev, scored, updated):
+        check_forward(fa, name, qs, qs, masks, valid_q, dtype, gen,
+                      straddles=True)
+        check_backward(fa, name, qs, qs, masks, valid_q, valid_k, dtype, gen)
+    log("head prune", f"attention fwd, dQ and dK/dV kernels vs plain at the "
+        f"run's head counts: f32 (B = 32, dropout {DROPOUT_P:g}) at H = "
+        f"{scored}, bf16 (B = {TRAIN_SHAPE[0]}, dropout 0 and {DROPOUT_P:g}) "
+        f"at H = {updated}, each within the bars of the kernels and backward"
+        f" phases (bf16 forward: straddles explained as in the serving case)"
+        f"; {time.perf_counter() - t0:.2f} s")
+
+    # each event's heads: a host recompute of the selection on the scores
+    # it wrote
+    t0 = time.perf_counter()
+    for i, group in enumerate(runner.pruned_heads):
+        rows = np.load(expdir / f"heads_and_score_{left[i]}.npy")
+        scores = [((int(l), int(h)), float(s)) for l, h, s in rows]
+        again = hp.select_heads_to_prune(scores, heads_each, "by_whole",
+                                         n_layers)
+        if again != group:
+            raise AssertionError(f"event {i + 1}: {group}, recomputed "
+                                 f"{again}")
+    log("head prune", f"the {HP_EVENTS} events' heads equal to a host "
+        f"recompute of select_heads_to_prune on heads_and_score_*.npy; "
+        f"artifacts states_prune_{left[0]} ... states_prune_{left[-1]}.npz, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the scoring pass, kernels against impl="dense": a stacked group of
+    # B = 32 at 12 heads a layer (the first event) and at the ragged heads
+    # of the 7th
+    t0 = time.perf_counter()
+    dataset = runner._get_dataloader()
+    stacked = _stack_buckets([dataset.get_batch(i) for i in range(8)])
+    batch = runner._device_batch(stacked)
+    b, t = batch["feat"].shape[:2]
+    for path in (expdir / f"states_prune_{left[0]}.npz",
+                 expdir / f"states_prune_{left[6]}.npz"):
+        params, ckpt_cfg, _ = load_any_checkpoint(str(path))
+        model = load_model(params, ckpt_cfg).to(dev)
+        named = dict(model.named_parameters())
+        mask = torch.from_numpy(span_mask(ckpt_cfg, stacked["length"], t,
+                                          np.random.default_rng(0))).to(dev)
+        scores, launched, grown = {}, {}, {}
+        for impl in ("auto", "dense"):
+            reset_launch_counts()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ts = time.perf_counter()
+            with matmul_precision("highest"):
+                _, scores[impl] = hp.context_scores(
+                    model, named, batch, mask, torch.Generator(),
+                    deterministic=True, attn_impl=impl)
+            torch.cuda.synchronize()
+            grown[impl] = (torch.cuda.max_memory_allocated(dev) - base,
+                           time.perf_counter() - ts)
+            launched[impl] = dict(fa.launch_counts)
+        errs = [float(torch.linalg.vector_norm(a.double() - r.double())
+                      / torch.linalg.vector_norm(r.double()))
+                for a, r in zip(scores["auto"], scores["dense"])]
+        log("head prune", f"scoring pass on {path.name} (heads "
+            f"{ckpt_cfg.encoder_attention_heads}), B = {b}, T = {t}, f32, "
+            f"TF32 off, dropout off, fixed span mask: kernels vs "
+            f"impl='dense' per layer rel. L2 max {max(errs):.3e} (bar "
+            f"{GRAD_BAR:g}); launches {launched['auto']}; peak memory above "
+            f"the model {grown['auto'][0]} B with the kernels, "
+            f"{grown['dense'][0]} B dense; {grown['auto'][1]:.3f} s and "
+            f"{grown['dense'][1]:.3f} s [{gpu}]")
+        if not max(errs) < GRAD_BAR:
+            raise AssertionError("kernel head scores disagree with dense")
+        if (launched["auto"]["flash_attn_bwd_dq"] != n_layers - 1
+                or any(launched["dense"].values())):
+            raise AssertionError("the scoring parity run took the wrong path")
+        del model, named, scores
+    del batch
+
+    # the slicing: the additivity identity at the first and last events
+    t0 = time.perf_counter()
+    hd = runner.cfg.head_dim
+
+    def zero_heads(group):
+        def zero(model):
+            for layer, gone in group.items():
+                w = model.encoder.layers[int(layer)].self_attn.out_proj.weight
+                for h in gone:
+                    w[:, h * hd:(h + 1) * hd] = 0.0
+        return zero
+
+    errs = [additivity_error(
+        dev, expdir / f"states_prune_{left[i]}.npz",
+        zero_heads(runner.pruned_heads[i]),
+        lambda named, c, g=runner.pruned_heads[i]: hp.prune_heads(named, c,
+                                                                  g))
+        for i in (0, HP_EVENTS - 1)]
+    log("head prune", f"sliced forward vs unsliced with the pruned heads' "
+        f"out_proj input columns zeroed (f32, TF32 off), events 1 and "
+        f"{HP_EVENTS}: max|d|/mean|ref| {errs[0]:.3e}, {errs[1]:.3e} (bar "
+        f"{SLICE_BAR:g}), {time.perf_counter() - t0:.2f} s")
+    if not max(errs) < SLICE_BAR:
+        raise AssertionError("the sliced heads break the additivity identity")
+
+    t0 = time.perf_counter()
+    final = expdir / f"states_prune_{left[-1]}.npz"
+    err = serve_against_memory(dev, final, runner.model, synthetic_wavs(0))
+    log("head prune", f"MelHuBERTExtractor.forward_packed on {final.name} "
+        f"vs the in-memory model (f32): max|d|/mean|ref| {err:.3e} (bar "
+        f"{SLICE_BAR:g}), {time.perf_counter() - t0:.2f} s")
+    if not err < SLICE_BAR:
+        raise AssertionError("the head-pruned checkpoint serves wrong")
+    del runner
+
+    # l1, by_layer: two events of one head a layer, each recomputed on the
+    # host from the weights its artifact holds
+    t0 = time.perf_counter()
+    cfg = structured_prune_config(HP_DIR / "l1" / "config_runner_20ms.yaml",
+                                  csv, total_steps=HP_L1_EVENTS)
+    l1 = run_trainer("head-pruning", HP_DIR / "l1" / "config_model_20ms.yaml",
+                     cfg, root, start, name="l1")
+    per_layer = left[0] // n_layers  # the checkpoint's heads a layer
+    for i, group in enumerate(l1.pruned_heads):
+        n = n_layers * (per_layer - i)
+        params = read_layers(root / "l1" / f"states_prune_{n}.npz",
+                             ("q_proj", "k_proj", "v_proj"))
+        scores = hp.l1_head_scores(
+            params, l1.cfg.with_heads((per_layer - i,) * n_layers))
+        written = np.load(root / "l1" / f"heads_and_score_{n}.npy")
+        same = np.array_equal(written, np.array(
+            [(l, h, s) for (l, h), s in scores], np.float64))
+        again = hp.select_heads_to_prune(scores, n_layers, "by_layer",
+                                         n_layers)
+        if not (same and again == group):
+            raise AssertionError(f"l1 event {i + 1}: {group}, recomputed "
+                                 f"{again}, scores equal {same}")
+    log("head prune", f"-m head-pruning (l1, by_layer), {HP_L1_EVENTS} "
+        f"events: heads per layer {l1.cfg.encoder_attention_heads}; each "
+        f"event's scores and heads equal to a host recompute on its "
+        f"artifact; {time.perf_counter() - t0:.2f} s")
+    if l1.cfg.encoder_attention_heads != (
+            per_layer - HP_L1_EVENTS,) * n_layers:
+        raise AssertionError("the l1 run pruned the wrong heads")
+    del l1
+    for path in list(expdir.glob("states_prune_*.npz")) + list(
+            (root / "l1").glob("states_prune_*.npz")):
+        if path != final:
+            path.unlink()
+    log("head prune", f"phase {time.perf_counter() - t_phase:.2f} s")
+    return counts, final
+
+
+def phase_row_prune(dev, gpu: str, tmp: str, one_head: pathlib.Path):
+    """-m row-pruning from the train phase's checkpoint through the
+    trainer's entry point, full width, to FFN 512; then the checks on its
+    events, its slicing and its artifacts, and the serve batch's frames/s
+    of the full, the one-head and the FFN-512 model. Returns the launch
+    counts of the run per dtype."""
+    from speech_ssl_compression_tpu_torch.compress import row_pruning as rp
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+
+    t_phase = t0 = time.perf_counter()
+    train_root = pathlib.Path(tmp) / "train"
+    start = str(train_root / "exp" / "last-step.npz")
+    root = pathlib.Path(tmp) / "row_prune"
+    root.mkdir()
+    cfg = structured_prune_config(RP_DIR / "config_runner_20ms.yaml",
+                                  str(train_root / "data" / "train.csv"),
+                                  total_steps=RP_EVENTS)
+    step = cfg["prune"]["num_rows_each_step"]
+    reset_launch_counts()
+    runner = run_trainer("row-pruning", RP_DIR / "config_model_20ms.yaml",
+                         cfg, root, start)
+    torch.cuda.synchronize()
+    counts = dtype_launch_counts()
+    n_layers = runner.cfg.encoder_layers
+    ffn = runner.cfg.encoder_ffn_embed_dim
+    log("row prune", f"-m row-pruning -i last-step.npz, "
+        f"{runner.compute_dtype}, {RP_EVENTS} events of {step} rows at steps "
+        f"{runner.prune_steps}: FFN widths {ffn}; launches {counts}; "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    want = {name: {"f32": 0, "bf16": RP_EVENTS * n_layers} for name in
+            ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"launch counts {counts}, want {want}")
+    if not (ffn == (512,) * n_layers
+            and len(runner.prune_event_log) == RP_EVENTS
+            and np.isfinite([e["loss"] for e in runner.log_history]).all()):
+        raise AssertionError(f"row-pruning run: {ffn}, "
+                             f"{runner.log_history}")
+    check_event_memory("row prune", runner)
+
+    t0 = time.perf_counter()
+    expdir = root / "exp"
+    left = [ffn[0] + step * (RP_EVENTS - i) for i in range(RP_EVENTS + 1)]
+    for i, e in enumerate(runner.prune_event_log):
+        layers = read_layers(expdir / f"states_prune_{left[i]}.npz",
+                             ("fc1", "fc2"))["encoder"]["layers"]
+        again = [rp.rows_to_keep(rp.ffn_row_scores(l), step) for l in layers]
+        if not all(np.array_equal(a, k) for a, k in zip(again, e["kept"])):
+            raise AssertionError(f"row event {i + 1} kept other rows than "
+                                 "the host recompute")
+    log("row prune", f"the {RP_EVENTS} events' rows equal to a host "
+        f"recompute of ffn_row_scores on the artifact before each, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+
+    def zero_rows(kept):
+        def zero(model):
+            for layer, keep in zip(model.encoder.layers, kept):
+                gone = torch.from_numpy(np.setdiff1d(
+                    np.arange(layer.fc1.out_features), keep)).to(dev)
+                layer.fc1.weight[gone] = 0.0
+                layer.fc1.bias[gone] = 0.0
+                layer.fc2.weight[:, gone] = 0.0
+        return zero
+
+    errs = []
+    for i in (0, RP_EVENTS - 1):
+        kept = runner.prune_event_log[i]["kept"]
+        errs.append(additivity_error(
+            dev, expdir / f"states_prune_{left[i]}.npz",
+            zero_rows(kept),
+            lambda named, c, k=kept: rp.prune_rows(named, c, k)))
+    log("row prune", f"sliced forward vs unsliced with the pruned rows' fc1 "
+        f"rows and fc2 columns zeroed (f32, TF32 off), events 1 and "
+        f"{RP_EVENTS}: max|d|/mean|ref| {errs[0]:.3e}, {errs[1]:.3e} (bar "
+        f"{SLICE_BAR:g}), {time.perf_counter() - t0:.2f} s")
+    if not max(errs) < SLICE_BAR:
+        raise AssertionError("the sliced rows break the additivity identity")
+
+    t0 = time.perf_counter()
+    final = expdir / f"states_prune_{ffn[0]}.npz"
+    wavs = synthetic_wavs(0)
+    err = serve_against_memory(dev, final, runner.model, wavs)
+    log("row prune", f"MelHuBERTExtractor.forward_packed on {final.name} "
+        f"vs the in-memory model (f32): max|d|/mean|ref| {err:.3e} (bar "
+        f"{SLICE_BAR:g}), {time.perf_counter() - t0:.2f} s")
+    if not err < SLICE_BAR:
+        raise AssertionError("the row-pruned checkpoint serves wrong")
+    del runner
+
+    # what the compression is for: the serve batch's frames/s (from
+    # features, the GPU path) of the three models, in turns
+    frames = sum(SERVE_LENGTHS)
+    models = {"full": pathlib.Path(start), "1 head a layer": one_head,
+              "FFN 512": final}
+    for dtype in (torch.float32, torch.bfloat16):
+        exts = {k: MelHuBERTExtractor(str(p), fp=20, dtype=dtype,
+                                      mean_std_npy_path=str(MEAN_STD),
+                                      device=dev)
+                for k, p in models.items()}
+        feat = next(iter(exts.values())).featurize(wavs)
+        ms = {k: [] for k in exts}
+        for order in (list(exts), list(exts)[::-1]):
+            for k in order:
+                ms[k].append(cuda_ms(lambda: exts[k]._pack_and_dispatch(
+                    *feat)))
+        log("timing", f"serve batch from features, {dtype}, "
+            + ", ".join(f"{k} ({exts[k].num_params()} params) "
+                        f"{np.mean(v):.2f} ms ({v[0]:.2f}, {v[1]:.2f}), "
+                        f"{frames / np.mean(v) * 1e3:.0f} frames/s"
+                        for k, v in ms.items()) + f" [{gpu}]")
+        del exts
+    log("row prune", f"phase {time.perf_counter() - t_phase:.2f} s")
+    return counts
 
 
 def synthetic_wavs(seed: int):
@@ -2451,6 +3009,7 @@ def main() -> None:
                         help="also profile forward_packed per path and the "
                         "grad step")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
@@ -2490,6 +3049,8 @@ def main() -> None:
         phase_resume(dev, gpu, tmp, runner, snapshot, batch)
         del runner, batch, snapshot
         weight_prune = phase_weight_prune(dev, gpu, tmp)
+        head_prune, one_head = phase_head_prune(dev, gpu, tmp)
+        row_prune = phase_row_prune(dev, gpu, tmp, one_head)
         hubert_serve = phase_hubert_serve(dev, gpu)
         runner, hubert_train, cudnn_model, batch = phase_hubert_train(
             dev, gpu, tmp)
@@ -2501,7 +3062,12 @@ def main() -> None:
     # just before the path ran and read just after
     paths = {"melhubert serve": serve, "melhubert train": train,
              "melhubert weight-pruning": weight_prune,
+             "melhubert head-pruning": head_prune,
+             "melhubert row-pruning": row_prune,
              "hubert serve": hubert_serve, "hubert train": hubert_train}
+    for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if not head_prune[name]["f32"]:
+            raise AssertionError(f"no f32 {name} launch on head pruning")
     bounds = {dtype: attention_bounds(dtype)
               for dtype in (torch.float32, torch.bfloat16)}
     entries = [attention_entry(name, record, bounds, library)
@@ -2522,6 +3088,8 @@ def main() -> None:
     missing = [e["name"] for e in entries if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")
+    log("total", f"{time.perf_counter() - t_start:.1f} s of wall time, "
+        f"the build included [{gpu}]")
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {

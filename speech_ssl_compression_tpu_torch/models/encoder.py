@@ -209,15 +209,19 @@ def encoder_layers_forward(
     rng: Optional[torch.Generator] = None,  # host generator
     generator: Optional[torch.Generator] = None,  # on x's device
     deterministic: bool = True,
+    contexts: Optional[list] = None,
 ):
     """The layer stack + final (pre-LN) norm. Returns (x, layer_hiddens).
-    The per-layer contexts, which only head scoring reads, are dropped.
+    A ``contexts`` list receives each layer's attention context (B, H_i,
+    T, d), the tensor head scoring differentiates the loss to.
 
     In training each layer draws its attention seed from the host ``rng``
     and, with ``encoder_layerdrop > 0``, a coin that skips the whole layer
     (reference module.py:242-250; JAX computes the layer and selects, a
     dropped layer here is not run). A dropped layer's input stands in its
-    ``layer_hiddens`` slot, as in JAX."""
+    ``layer_hiddens`` slot, as in JAX, and None in its ``contexts`` slot
+    (its heads score 0: JAX computes the layer and selects its input, so
+    the context's gradient is 0 there)."""
     layer_hiddens = []
     for i, layer in enumerate(enc.layers):
         seed = None
@@ -227,8 +231,10 @@ def encoder_layers_forward(
                     torch.rand((), generator=rng)) < cfg.encoder_layerdrop:
                 if get_hidden:
                     layer_hiddens.append(x)
+                if contexts is not None:
+                    contexts.append(None)
                 continue
-        x, _ = encoder_layer_forward(
+        x, context = encoder_layer_forward(
             x, layer,
             layer_norm_first=cfg.layer_norm_first,
             key_padding_mask=padding_mask,
@@ -245,6 +251,8 @@ def encoder_layers_forward(
         )
         if get_hidden:
             layer_hiddens.append(x)
+        if contexts is not None:
+            contexts.append(context)
     if cfg.layer_norm_first:
         x = layer_norm(x, enc.layer_norm)
     return x, layer_hiddens
@@ -261,14 +269,17 @@ def encoder_forward(
     attn_impl: str = "auto",
     rng: Optional[torch.Generator] = None,  # host generator
     deterministic: bool = True,
+    contexts: Optional[list] = None,
 ):
     """Prologue + layer stack. Returns (x, layer_hiddens). Training
     (``deterministic=False``) needs ``rng``, a host ``torch.Generator``.
+    ``contexts`` is passed to :func:`encoder_layers_forward`.
 
     ``cfg.required_seq_len_multiple`` (the HuBERT/wav2vec 2.0 encoders) is
     kept as in JAX (reference module.py:492-541): after the prologue T is
     padded up to the next multiple, the padded tail is key-padding-masked
-    through the layers, and the outputs are cut back to T."""
+    through the layers, and the outputs are cut back to T (the contexts
+    are not: the padded rows' context gradient is 0)."""
     generator = None
     if not deterministic:
         if rng is None:
@@ -287,7 +298,7 @@ def encoder_forward(
     x, layer_hiddens = encoder_layers_forward(
         x, enc, cfg, padding_mask=padding_mask, causal=causal,
         get_hidden=get_hidden, attn_impl=attn_impl, rng=rng,
-        generator=generator, deterministic=deterministic,
+        generator=generator, deterministic=deterministic, contexts=contexts,
     )
     if pad:
         x = x[:, :t]

@@ -90,6 +90,7 @@ def melhubert_forward(
     rng: Optional[torch.Generator] = None,  # host generator
     deterministic: bool = True,
     attn_impl: str = "auto",
+    return_contexts: bool = False,
 ) -> Dict[str, Optional[object]]:
     """Returns a dict with keys
       hidden         (B, T, D) final encoder output
@@ -97,6 +98,9 @@ def melhubert_forward(
       mask_indices   (B, T) bool span mask (all False without ``mask``)
       layer_hiddens  list of (B, T, D) with get_hidden
       pre_feat       (B, T, D) post-projection features (pre-encoder)
+      contexts       list of (B, H_i, T, d) attention contexts, one per
+                     layer (None where LayerDrop skipped it), with
+                     ``return_contexts`` (head scoring); else empty
 
     ``mask=True`` masks the spans of ``teacher_mask_indices`` (drawn with
     :func:`span_mask`). ``deterministic=False`` turns the dropouts on,
@@ -119,7 +123,7 @@ def melhubert_forward(
     if mask and not cfg.mask_before_proj:
         x = _apply_mask(x, mask_indices, model)
 
-    layer_hiddens = []
+    layer_hiddens, contexts = [], []
     if cfg.encoder_layers > 0:
         hidden, layer_hiddens = encoder_forward(
             x, model.encoder, cfg,
@@ -129,6 +133,7 @@ def melhubert_forward(
             attn_impl=attn_impl,
             rng=rng,
             deterministic=deterministic,
+            contexts=contexts if return_contexts else None,
         )
     else:
         hidden = gelu(x)
@@ -138,6 +143,7 @@ def melhubert_forward(
         "mask_indices": mask_indices,
         "layer_hiddens": layer_hiddens,
         "pre_feat": pre_feat,
+        "contexts": contexts,
     }
     if not no_pred:
         out["logits"] = model.final_proj(hidden)

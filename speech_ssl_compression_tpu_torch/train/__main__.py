@@ -1,5 +1,5 @@
 """Training CLI of the port, for MelHuBERT and HuBERT pre-training and
-MelHuBERT weight pruning:
+MelHuBERT weight, head and row pruning:
 
     python -m speech_ssl_compression_tpu_torch.train -m melhubert \\
         -g configs/melhubert/config_model_20ms.yaml -c <runner.yaml> \\
@@ -10,6 +10,14 @@ MelHuBERT weight pruning:
         -c configs/weight_pruning/config_runner_20ms.yaml -n <expdir> \\
         -i <pretrained .npz or reference .ckpt> \\
         [--init_optimizer_from_initial_weight] [--device cuda]
+    python -m speech_ssl_compression_tpu_torch.train -m head-pruning \\
+        -g configs/head_pruning/{l1,data_driven}/config_model_20ms.yaml \\
+        -c configs/head_pruning/{l1,data_driven}/config_runner_20ms.yaml \\
+        -n <expdir> -i <pretrained .npz or reference .ckpt> [--device cuda]
+    python -m speech_ssl_compression_tpu_torch.train -m row-pruning \\
+        -g configs/row_pruning/config_model_20ms.yaml \\
+        -c configs/row_pruning/config_runner_20ms.yaml -n <expdir> \\
+        -i <pretrained .npz or reference .ckpt> [--device cuda]
     python -m speech_ssl_compression_tpu_torch.train -m melhubert -u hubert \\
         -g configs/hubert/config_model.yaml -c <runner.yaml with task:> \\
         -n <expdir> [--seed N] [--device cuda] [-i <ckpt> ...]
@@ -22,9 +30,11 @@ starts from a checkpoint (the JAX package's npz, or a reference
 its Adam state (a resume). The YAMLs are read without PyYAML
 (``configs.py::read_yaml``), and the two config files are copied into the
 experiment directory for provenance. Ported: pre-training (``-m
-melhubert``) of both models and ``-m weight-pruning`` of MelHuBERT; head
-and row pruning, distillation, ``-u wav2vec2`` and the parallel flags
-raise ``NotImplementedError``.
+melhubert``) of both models and ``-m weight-pruning``, ``-m
+head-pruning`` (metrics l1 and data-driven, targets by_layer and
+by_whole) and ``-m row-pruning`` of MelHuBERT; distillation, the pruning
+modes of HuBERT, ``-u wav2vec2`` and the parallel flags raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations

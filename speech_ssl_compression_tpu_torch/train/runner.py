@@ -1,22 +1,32 @@
-"""The MelHuBERT trainer: pre-training (``melhubert``) and weight pruning.
+"""The MelHuBERT trainer: pre-training (``melhubert``) and the weight-,
+head- and row-pruning modes.
 
-Port of the ``melhubert`` and ``weight-pruning`` modes of
-``speech_ssl_compression_tpu/train/runner.py::Runner``: a seeded
-full-width model, or one initialised from ``-i`` (the JAX package's npz
-with its masks, ``Pruning`` meta and Adam state, head- and row-pruned
-widths inferred from the shapes, or a reference ``.ckpt``); the bucketed
-CSV batches, the gradient-accumulation window (dropped whole on a CUDA
-out-of-memory error), the fused apply step with its non-finite skip, log
-lines and TensorBoard scalars with loss, grad norm and lr, and checkpoints
-in the JAX package's format (its ``load_checkpoint`` and
-``restore_opt_state`` read them; ``--init_optimizer_from_initial_weight``
-restores theirs). Weight pruning adds the EMA convergence gate, the prune
-events at ``warnup + i * period`` with their ``before-pruning-states-*``
-artifacts, and masks applied inside every grad step.
+Port of the ``melhubert``, ``weight-pruning``, ``head-pruning`` and
+``row-pruning`` modes of ``speech_ssl_compression_tpu/train/runner.py::
+Runner``: a seeded full-width model, or one initialised from ``-i`` (the
+JAX package's npz with its masks, ``Pruning`` meta, ``Pruned_heads`` and
+Adam state, head- and row-pruned widths inferred from the shapes, or a
+reference ``.ckpt``); the bucketed CSV batches, the gradient-accumulation
+window (dropped whole on a CUDA out-of-memory error), the fused apply step
+with its non-finite skip, log lines and TensorBoard scalars with loss,
+grad norm and lr, and checkpoints in the JAX package's format (its
+``load_checkpoint`` and ``restore_opt_state`` read them;
+``--init_optimizer_from_initial_weight`` restores theirs).
+
+Weight pruning adds the EMA convergence gate, the prune events at
+``warnup + i * period`` with their ``before-pruning-states-*`` artifacts,
+and masks applied inside every grad step. Head and row pruning (the
+weight-pruning masks of an ``-i`` folded into the weights first) prune at
+``warm_up + interval`` steps: each event writes ``states_prune_{n}.npz``
+(n: the heads left, or the narrowest FFN), scores (heads: l1 on the host,
+or data-driven, a pass in f32 with dropout on over ``data_ratio`` of an
+epoch, buckets stacked into batches of >= 32; rows: l1 on the host),
+slices the weights, and rebuilds the model, a fresh Adam state and the
+grad step for the new widths; head events also write
+``heads_and_score_{n}.npy`` and add to ``Pruned_heads``.
 
 Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1):
-head and row pruning, distillation, meshes, pipeline parallelism and
-remat.
+distillation, meshes, pipeline parallelism and remat.
 """
 
 from __future__ import annotations
@@ -25,10 +35,17 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..compress import head_pruning as hp
+from ..compress import row_pruning as rp
 from ..compress import weight_pruning as wp
-from ..compress.schedule import sparsity_ladder, weight_prune_steps
+from ..compress.schedule import (
+    set_prune_interval,
+    sparsity_ladder,
+    weight_prune_steps,
+)
 from ..configs import MelHuBERTConfig
 from ..data.bucket_dataset import MelFeatBuckets, PrefetchIterator
 from ..extract import resolve_device
@@ -44,21 +61,46 @@ from ..utils.weights import (
     jax_tree_from_named,
     load_model,
     masks_tree,
+    model_from_named,
     named_masks,
     prunable_names,
+    prunable_tree,
 )
 from .optim_mixin import OptimizerScheduleMixin
-from .steps import accumulate_grads, make_melhubert_grad_step
+from .steps import accumulate_grads, host_span_mask, make_melhubert_grad_step
 
-_PORTED_MODES = ("melhubert", "weight-pruning")
+_PORTED_MODES = ("melhubert", "weight-pruning", "head-pruning",
+                 "row-pruning")
 _UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
+
+
+def _stack_buckets(batches: list) -> dict:
+    """Copy of JAX ``_stack_buckets``: host bucket batches stacked into one
+    head-scoring batch, each padded to the group's longest T rounded up to
+    a multiple of 128 (labels with -100, pad_mask with 0, features with
+    0) and concatenated on the batch axis."""
+    t = -(-max(b["feat"].shape[1] for b in batches) // 128) * 128
+    feat, label, pad, lens = [], [], [], []
+    for b in batches:
+        bt = b["feat"].shape[1]
+        w = ((0, 0), (0, t - bt), (0, 0))
+        feat.append(np.pad(b["feat"], w))
+        label.append(np.pad(b["label"], w[:2], constant_values=-100))
+        pad.append(np.pad(b["pad_mask"], w[:2]))
+        lens.append(b["length"])
+    return {
+        "feat": np.concatenate(feat),
+        "label": np.concatenate(label),
+        "pad_mask": np.concatenate(pad),
+        "length": np.concatenate(lens),
+    }
 
 
 class Runner(OptimizerScheduleMixin):
     """``Runner(args, runner_config, upstream_config).train()``, as the JAX
-    runner, for ``args.mode`` ``melhubert`` or ``weight-pruning``.
-    ``args.device`` names the torch device (``cuda`` when absent: the CPU
-    only when asked for)."""
+    runner, for ``args.mode`` ``melhubert``, ``weight-pruning``,
+    ``head-pruning`` or ``row-pruning``. ``args.device`` names the torch
+    device (``cuda`` when absent: the CPU only when asked for)."""
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
         if args.mode not in _PORTED_MODES:
@@ -113,10 +155,11 @@ class Runner(OptimizerScheduleMixin):
         self.grad_step = make_melhubert_grad_step(
             self.model, accum_steps=self.accum_steps,
             compute_dtype=self.compute_dtype)
-        # {"step", "loss", "grad_norm"} of every log line; the host seconds
-        # of every prune event
+        # {"step", "loss", "grad_norm"} of every log line; each prune
+        # event's step and host seconds, and for a head or row event what
+        # it chose and the device memory around it
         self.log_history: list = []
-        self.prune_event_seconds: list = []
+        self.prune_event_log: list = []
 
     def _init_melhubert(self):
         """The model: fresh from the seed, or from ``-i`` (JAX
@@ -158,9 +201,11 @@ class Runner(OptimizerScheduleMixin):
         print(f"[Runner] - Number of parameters: {n}")
 
     def _init_mode_schedules(self):
-        """The weight-pruning controller and its prune steps (JAX
+        """The prune steps and each pruning mode's state (JAX
         ``_init_mode_schedules``); no prune steps in pre-training."""
         self.prune_steps = []
+        if self.mode in ("head-pruning", "row-pruning"):
+            self._init_structured_schedule()
         if self.mode != "weight-pruning":
             return
         pc = self.runner_config["prune"]
@@ -181,6 +226,42 @@ class Runner(OptimizerScheduleMixin):
                           for k in prunable_names(self.params)}
         if self._resumed_meta and "Pruning" in self._resumed_meta:
             self.wp_state.load_meta(self._resumed_meta["Pruning"])
+
+    def _init_structured_schedule(self):
+        """Head and row pruning: masks of a weight-pruned ``-i`` folded
+        into the weights for good (the scores must see the zeros, and the
+        events change shapes the masks would no longer match), the prune
+        steps, and JAX's three construction-time checks."""
+        if self.masks is not None:
+            print("[Runner] - Folding weight-pruning masks into params")
+            with torch.no_grad():
+                for name, m in self.masks.items():
+                    self.params[name].mul_(m)
+            self.masks = None
+        pc = self.runner_config["prune"]
+        self.total_prune_step = pc["total_steps"]
+        self.prune_steps = set_prune_interval(pc["interval"], pc["warm_up"],
+                                              pc["total_steps"])
+        assert len(self.prune_steps) == self.total_prune_step
+        cfg = self.cfg
+        if self.mode == "row-pruning":
+            self.num_rows_each_step = pc["num_rows_each_step"]
+            # strict <: an FFN pruned to zero rows is degenerate
+            assert (self.num_rows_each_step * self.total_prune_step
+                    < min(cfg.encoder_ffn_embed_dim)), (
+                "row-prune schedule would empty the FFN")
+            return
+        # l1 prunes one head per layer per event
+        self.num_heads_each_step = (cfg.encoder_layers if pc["metric"] == "l1"
+                                    else pc["num_heads_each_step"])
+        if pc.get("target", "by_layer") == "by_layer":
+            assert self.total_prune_step < min(cfg.encoder_attention_heads), (
+                f"{self.total_prune_step} by_layer head-prune events would "
+                "empty a layer")
+        else:  # by_whole protects each layer's top head
+            prunable = sum(cfg.encoder_attention_heads) - cfg.encoder_layers
+            assert self.num_heads_each_step * self.total_prune_step <= (
+                prunable), "by_whole schedule exceeds the prunable head pool"
 
     def _get_dataloader(self) -> MelFeatBuckets:
         datarc = self.runner_config["datarc"]
@@ -231,13 +312,18 @@ class Runner(OptimizerScheduleMixin):
         print(f"[Runner] - Saved checkpoint to {path}")
 
     def _prune_hook(self, global_step: int, pbar_state: dict):
-        """A weight-pruning event where ``global_step`` is a prune step
-        (reference runner.py:329-340, JAX ``_prune_hook``): not converged,
-        the schedule grows by one period; else the before-pruning artifact,
-        then fold and re-threshold."""
-        if (self.mode != "weight-pruning"
-                or global_step not in self.prune_steps):
+        """A prune event where ``global_step`` is a prune step (reference
+        runner.py:329-356, JAX ``_prune_hook``)."""
+        if global_step not in self.prune_steps:
             return
+        if self.mode == "weight-pruning":
+            self._weight_prune_event(global_step, pbar_state)
+        else:
+            self._structured_prune_event(global_step)
+
+    def _weight_prune_event(self, global_step: int, pbar_state: dict):
+        """Not converged, the schedule grows by one period; else the
+        before-pruning artifact, then fold and re-threshold."""
         state = self.wp_state
         if not state.converged():
             print("[Weight Pruning] - Not converge, keep training")
@@ -254,14 +340,159 @@ class Runner(OptimizerScheduleMixin):
         self.params, self.masks, _ = wp.prune_event(self.params, self.masks,
                                                     state)
         seconds = time.perf_counter() - t0
-        self.prune_event_seconds.append(seconds)
+        self.prune_event_log.append({"step": global_step, "seconds": seconds})
         print(f"[Weight Pruning] - iter {state.pruning_times} at step "
               f"{global_step}, sparsity {wp.sparsity_of(self.masks):.4f} "
               f"({seconds:.2f} s on the host)")
 
+    def _structured_prune_event(self, global_step: int):
+        """A head- or row-prune event: ``states_prune_{n}.npz`` of the
+        state before it, the scores and what they choose, the slicing, and
+        a new model for the new widths (on the sliced tensors, no copy of
+        the rest), with a fresh Adam state and grad step, so nothing holds
+        the old model or its Adam state."""
+        cfg = self.cfg
+        before = self._allocated()
+        self.save(global_step, self._states_prune_name())
+        t0 = time.perf_counter()
+        if self.mode == "head-pruning":
+            group = self._select_heads()
+            record = {"group": group}
+            t1 = time.perf_counter()
+            named, new_cfg = hp.prune_heads(self.params, cfg, group)
+        else:
+            keeps = rp.select_rows(self.params, self.num_rows_each_step)
+            record = {"kept": keeps}
+            t1 = time.perf_counter()
+            named, new_cfg = rp.prune_rows(self.params, cfg, keeps)
+        n_old = sum(p.numel() for p in self.params.values())
+        self.cfg = new_cfg
+        self.model = model_from_named(named, new_cfg)
+        del named
+        self.params = dict(self.model.named_parameters())
+        self._reset_optimizer(global_step)
+        self.grad_step = make_melhubert_grad_step(
+            self.model, accum_steps=self.accum_steps,
+            compute_dtype=self.compute_dtype)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        record.update(step=global_step, score_seconds=t1 - t0,
+                      slice_seconds=t2 - t1, params=(n_old, sum(
+                          p.numel() for p in self.params.values())),
+                      memory=(before, self._allocated()))
+        self.prune_event_log.append(record)
+        if self.mode == "head-pruning":
+            print(f"[Head Pruning] {sum(new_cfg.encoder_attention_heads)} "
+                  f"heads remain ({t1 - t0:.2f} s scoring, {t2 - t1:.2f} s "
+                  "slicing)")
+        else:
+            print(f"[Row Pruning] {min(new_cfg.encoder_ffn_embed_dim)} hidden "
+                  f"dims remain in FFN ({t2 - t0:.2f} s on the host)")
+
+    def _states_prune_name(self) -> str:
+        """``states_prune_{n}.npz``, n the heads left (head pruning) or the
+        narrowest FFN (row pruning), as JAX names its artifacts."""
+        left = (sum(self.cfg.encoder_attention_heads)
+                if self.mode == "head-pruning"
+                else min(self.cfg.encoder_ffn_embed_dim))
+        return f"states_prune_{left}.npz"
+
+    def _allocated(self):
+        """(memory_allocated, the bytes the live tensors requested) on the
+        card, None off it. The allocator may place a tensor in a cached
+        block up to 1 MB larger than it asked for, so memory_allocated can
+        rise where the live tensors shrink; the requested bytes count them
+        exactly."""
+        if self.device.type != "cuda":
+            return None
+        stats = torch.cuda.memory_stats(self.device)
+        return (stats["allocated_bytes.all.current"],
+                stats["requested_bytes.all.current"])
+
+    def _select_heads(self) -> dict:
+        """The heads of this event (JAX ``_head_prune_event``): l1 scores
+        on the JAX-layout host view, or the data-driven pass, written to
+        ``heads_and_score_{n}.npy``; the selection is appended to
+        ``Pruned_heads`` in JAX's form. Returns {layer: [head, ...]}."""
+        pc = self.runner_config["prune"]
+        metric = pc["metric"]
+        if metric == "l1":
+            scores = hp.l1_head_scores(
+                prunable_tree(self.params, modules=("q_proj", "k_proj",
+                                                    "v_proj")), self.cfg)
+        elif metric == "data-driven":
+            scores = self._data_driven_head_scores()
+        else:
+            raise NotImplementedError(metric)
+        np.save(os.path.join(
+            self.expdir,
+            f"heads_and_score_{sum(self.cfg.encoder_attention_heads)}.npy"),
+            np.array([(l, h, s) for (l, h), s in scores], np.float64))
+        group = hp.select_heads_to_prune(scores, self.num_heads_each_step,
+                                         pc["target"], self.cfg.encoder_layers)
+        print(f"[Head Pruning] - These heads are pruned: {group}")
+        self.pruned_heads.append({int(k): list(v) for k, v in group.items()})
+        return group
+
+    def _data_driven_head_scores(self):
+        """The data-driven scores (JAX ``_data_driven_head_scores``,
+        reference hp_utils.py:242-353) over ``data_ratio`` of an epoch:
+        consecutive buckets stacked into batches of >= 32 rows
+        (``prune.scoring_batch_buckets`` overrides the group; 1 is the
+        reference's per-bucket loop), each a forward in f32 with dropout
+        on and a span mask drawn on the host, then the per-head products
+        (``compress/head_pruning.py::context_scores``), summed in float64
+        over the groups / their count, then ``normalize_by_layer``.
+        Returns [((layer, head), score), ...]."""
+        cfg = self.cfg
+        pc = self.runner_config["prune"]
+        data_ratio = pc["data_ratio"]
+        assert 0 < data_ratio <= 1
+        dataset = self._get_dataloader()
+        total_steps = max(1, int(len(dataset) * data_ratio))
+        bucket_b = int(self.runner_config["datarc"]["train_batch_size"])
+        group = int(pc.get("scoring_batch_buckets", 0) or 0)
+        if group <= 0:
+            group = max(1, -(-32 // max(1, bucket_b)))
+        group = min(group, total_steps)
+        print(f"[Head Pruning] - data-driven scoring over {data_ratio} of an "
+              f"epoch = {total_steps} buckets (stacked {group}/scoring batch "
+              f"= B{bucket_b * group})")
+        scores = [np.zeros((h,), np.float64)
+                  for h in cfg.encoder_attention_heads]
+        n_groups = -(-total_steps // group)
+        pending = []
+        consumed = 0
+        for step, batch in enumerate(dataset.epoch(shuffle=True)):
+            if step >= total_steps:
+                break
+            pending.append(batch)
+            if len(pending) < group and step != total_steps - 1:
+                continue
+            batch = _stack_buckets(pending) if len(pending) > 1 else pending[0]
+            pending = []
+            dev_batch = self._device_batch(batch)
+            _, per_layer = hp.context_scores(
+                self.model, self.params, dev_batch,
+                host_span_mask(cfg, dev_batch, self.rng), self.rng)
+            consumed += 1
+            for i, s in enumerate(per_layer):
+                scores[i] += s.cpu().numpy().astype(np.float64) / n_groups
+        assert consumed == n_groups, (consumed, n_groups)
+        norm_exp = pc.get("normalize_by_layer")
+        if norm_exp is not None:
+            scores = hp.normalize_scores_by_layer(scores, float(norm_exp))
+        return [((layer, head), float(s[head]))
+                for layer, s in enumerate(scores) for head in range(len(s))]
+
     def train(self):
         runner = self.runner_config["runner"]
         dataset = self._get_dataloader()
+        if not len(dataset):
+            # an epoch of no batches would loop forever (JAX's does)
+            raise ValueError("the training set gives no batch (datarc.sets "
+                             "and max_timestep leave no utterance pair)")
         accum = self.accum_steps
         print("[Runner] - Accumulated batch size:",
               int(self.runner_config["datarc"]["train_batch_size"]) * accum)
@@ -334,6 +565,7 @@ class Runner(OptimizerScheduleMixin):
                     batch_loss = 0.0
                     continue
                 grads_acc = accumulate_grads(grads_acc, grads)
+                del grads  # no handle on a pruned-away shape past an event
                 all_sample_size += 1  # the melhubert expert returns (loss, 1)
                 # the loss stays on the device until a log line reads it (and,
                 # in weight pruning, once per window for the EMA)
@@ -375,7 +607,9 @@ class Runner(OptimizerScheduleMixin):
                     window_count = 0
                 all_sample_size = 0
 
-                if last:
+                if last and self.mode in ("head-pruning", "row-pruning"):
+                    self.save(global_step, self._states_prune_name())
+                elif last:
                     self.save(global_step, "last-step.npz",
                               total_step=(pbar["total"]
                                           if self.mode == "weight-pruning"

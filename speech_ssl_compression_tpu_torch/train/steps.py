@@ -253,6 +253,18 @@ def accumulate_grads(acc: Optional[List[torch.Tensor]],
     return acc
 
 
+def host_span_mask(cfg, batch: dict, rng: torch.Generator):
+    """The (B, T) span mask of a batch, drawn on the host from the batch's
+    ``length`` (numpy) and a seed drawn from ``rng``, on the device of
+    ``batch["feat"]``; None where the config masks nothing."""
+    if cfg.mask_prob <= 0:
+        return None
+    feat = batch["feat"]
+    mask = span_mask(cfg, batch["length"], feat.shape[1],
+                     np.random.default_rng(draw_seed(rng)))
+    return torch.from_numpy(mask).to(feat.device)
+
+
 def make_melhubert_grad_step(model, *, accum_steps: int = 1,
                              compute_dtype=torch.float32,
                              attn_impl: str = "auto",
@@ -273,17 +285,15 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
     lengths and that generator unless ``mask_indices`` (B, T) is given.
     Returns the loss / accum_steps (a detached 0-dim tensor), the list of
     gradients in ``params``' order (zeros for unused parameters) and the
-    loss's logs. ``deterministic=True`` turns the dropouts off (for parity
-    checks; training keeps them on)."""
+    loss's logs (detached). ``deterministic=True`` turns the dropouts off
+    (for parity checks; training keeps them on)."""
     cfg = model.cfg
 
     def grad_step(params: Dict[str, torch.Tensor], batch: dict,
                   rng: torch.Generator, mask_indices=None, masks=None):
         feat = batch["feat"]
-        if mask_indices is None and cfg.mask_prob > 0:
-            mask_np = span_mask(cfg, batch["length"], feat.shape[1],
-                                np.random.default_rng(draw_seed(rng)))
-            mask_indices = torch.from_numpy(mask_np).to(feat.device)
+        if mask_indices is None:
+            mask_indices = host_span_mask(cfg, batch, rng)
         out = functional_call(
             model,
             cast_for_compute(mask_params(params, masks), compute_dtype),
@@ -294,7 +304,10 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
         loss, logs = melhubert_pretrain_loss(out, batch["label"],
                                              batch["pad_mask"], cfg)
         loss = loss / accum_steps
-        return loss.detach(), _grads(loss, params), logs
+        # detached: a log entry on the graph would keep its leaves, the
+        # masters, alive until the next step (past a prune event's rebuild)
+        return (loss.detach(), _grads(loss, params),
+                {k: v.detach() for k, v in logs.items()})
 
     return grad_step
 

@@ -36,7 +36,9 @@ def _to_np(t) -> np.ndarray:
 
 def _linear(sd: dict, prefix: str) -> dict:
     """torch Linear (out, in) -> {"kernel": (in, out), "bias": (out,)},
-    folding a ``weight_orig``/``weight_mask`` pair."""
+    folding a ``weight_orig``/``weight_mask`` pair. Kernels are
+    C-contiguous, as JAX's host arrays are: a float32 sum over a slice
+    rounds by the memory order it adds in."""
     out = {}
     for name, key in (("kernel", "weight"), ("bias", "bias")):
         if f"{prefix}.{key}" in sd:
@@ -46,14 +48,16 @@ def _linear(sd: dict, prefix: str) -> dict:
                 sd[f"{prefix}.{key}_mask"])
         else:
             raise KeyError(f"{prefix}.{key}")
-        out[name] = (val.T if name == "kernel" else val).astype(np.float32)
+        out[name] = np.ascontiguousarray(val.T if name == "kernel" else val,
+                                         np.float32)
     return out
 
 
 def _linear_mask(sd: dict, prefix: str) -> Optional[dict]:
     if f"{prefix}.weight_mask" not in sd:
         return None
-    m = {"kernel": _to_np(sd[f"{prefix}.weight_mask"]).T.astype(np.float32)}
+    m = {"kernel": np.ascontiguousarray(_to_np(sd[f"{prefix}.weight_mask"]).T,
+                                        np.float32)}
     if f"{prefix}.bias_mask" in sd:
         m["bias"] = _to_np(sd[f"{prefix}.bias_mask"]).astype(np.float32)
     return m

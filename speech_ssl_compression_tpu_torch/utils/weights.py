@@ -46,6 +46,7 @@ __all__ = [
     "load_hubert_model",
     "load_model",
     "masks_tree",
+    "model_from_named",
     "named_masks",
     "prunable_name",
     "prunable_names",
@@ -115,20 +116,24 @@ def _n_layers(named: Dict[str, torch.Tensor]) -> int:
                     if k.startswith("encoder.layers.")), default=-1)
 
 
-def prunable_names(named: Dict[str, torch.Tensor]) -> list:
-    """The state-dict names of the prunable leaves among ``named``, in
-    JAX's leaf order (layer, PRUNABLE order, kernel before bias)."""
+def prunable_names(named: Dict[str, torch.Tensor],
+                   modules: Sequence[str] = PRUNABLE) -> list:
+    """The state-dict names of the prunable leaves among ``named`` (of
+    ``modules``, default all six), in JAX's leaf order (layer, PRUNABLE
+    order, kernel before bias)."""
     return [prunable_name(i, mod, leaf) for i in range(_n_layers(named))
-            for mod in PRUNABLE for leaf in ("kernel", "bias")]
+            for mod in PRUNABLE if mod in modules
+            for leaf in ("kernel", "bias")]
 
 
-def prunable_tree(named: Dict[str, torch.Tensor]) -> dict:
+def prunable_tree(named: Dict[str, torch.Tensor],
+                  modules: Sequence[str] = PRUNABLE) -> dict:
     """The prunable leaves of named params (weights or anything laid out
-    like them) as a JAX-layout numpy tree ``{"encoder": {"layers": [{module:
-    {"kernel": (in, out), "bias"}}]}}``, the view the weight-pruning host
-    pass ranks ties in."""
+    like them; of ``modules``, default all six) as a JAX-layout numpy tree
+    ``{"encoder": {"layers": [{module: {"kernel": (in, out), "bias"}}]}}``,
+    the view the pruning host passes rank ties in."""
     layers = [{} for _ in range(_n_layers(named))]
-    for name in prunable_names(named):
+    for name in prunable_names(named, modules):
         i, mod, leaf = _split_name(name)
         a = named[name].detach().float().cpu().numpy()
         layers[i].setdefault(mod, {})[leaf] = (
@@ -156,6 +161,21 @@ def jax_tree_from_named(named: Dict[str, torch.Tensor]) -> dict:
     inverse of :func:`state_dict_from_jax_params`."""
     sd = {k: v.detach().float().cpu().numpy() for k, v in named.items()}
     return melhubert_state_dict_to_params(sd, keep_masks=False)[0]
+
+
+def model_from_named(named: Dict[str, torch.Tensor], cfg: MelHuBERTConfig):
+    """A ``MelHuBERTModel`` for ``cfg`` whose parameters are the tensors of
+    ``named`` themselves (detached, on their device, no copy): the rebuild
+    after a head- or row-prune event, where ``cfg`` carries the new
+    per-layer heads and FFN widths. The model is built on the meta device,
+    so nothing is initialised only to be overwritten. The load is strict."""
+    from ..models.melhubert import MelHuBERTModel
+
+    with torch.device("meta"):
+        model = MelHuBERTModel(cfg)
+    model.load_state_dict({k: v.detach() for k, v in named.items()},
+                          assign=True)
+    return model
 
 
 def load_model(params: dict, cfg: MelHuBERTConfig,

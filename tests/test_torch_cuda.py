@@ -28,6 +28,7 @@ pytestmark = [
 ]
 
 F32_BAR, LSE_BAR = 1e-4, 1e-4  # max |d| / mean |ref|; lse max |d|
+GRAD_BAR = 1e-4  # rel. L2: loss, each gradient, each layer's head scores
 # bf16: both sides round their output, so they may differ by one ulp where
 # the f32 results straddle a rounding point; against the plain version run
 # with the kernel's key tiles, few entries may differ at all
@@ -753,3 +754,123 @@ def test_f32_backward_runs_on_the_tensor_cores_bitwise_repeatably():
         assert found and all(found)
         assert not [sym for sym in hgmma
                     if f"flash_attn_bwd_{name}_kernel" in sym]
+
+
+RAGGED_HEADS = (1, 3, 12, 7)  # per layer, as by_whole head pruning leaves
+
+
+def _ragged_model_and_batch(seed=0):
+    """A 4-layer model with RAGGED_HEADS on the card (q/k/v of 64, 192,
+    768 and 448 outputs), a batch of B = 4, T = 256 with key padding and a
+    fixed span mask."""
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.configs import MelHuBERTConfig
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_params_np, load_model,
+    )
+
+    cfg = MelHuBERTConfig.from_dict(dict(
+        feat_emb_dim=80, encoder_layers=4, encoder_embed_dim=256,
+        encoder_ffn_embed_dim=512, encoder_attention_heads=list(RAGGED_HEADS),
+        head_dim=64, conv_pos=16, conv_pos_groups=4, num_cluster=32,
+        mask_prob=0.5, mask_length=4))
+    model = load_model(init_params_np(cfg, seed=seed), cfg).cuda()
+    rng = np.random.default_rng(seed)
+    b, t = 4, 256
+    lengths = np.array([256, 200, 130, 256])
+    pad = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    label = rng.integers(0, 32, (b, t))
+    label[pad == 0] = -100
+    batch = {"feat": torch.from_numpy(rng.standard_normal(
+        (b, t, 80)).astype(np.float32)).cuda(),
+        "label": torch.from_numpy(label).cuda(),
+        "pad_mask": torch.from_numpy(pad).cuda(), "length": lengths}
+    mask = torch.from_numpy(span_mask(cfg, lengths, t, rng)).cuda()
+    return cfg, model, batch, mask
+
+
+def _rel_l2(got, ref):
+    return float(torch.linalg.vector_norm((got.double() - ref.double()))
+                 / torch.linalg.vector_norm(ref.double()))
+
+
+def test_data_driven_scores_f32_kernels_match_dense():
+    # head scoring's f32 pass: the forward with dropout off and a fixed
+    # span mask, autograd to the contexts through the f32 dQ and dK/dV
+    # kernels of every layer but the first (the first layer's context lies
+    # past its attention), against impl="dense"; TF32 off
+    from speech_ssl_compression_tpu_torch.compress import head_pruning as hp
+
+    cfg, model, batch, mask = _ragged_model_and_batch()
+    params = dict(model.named_parameters())
+    scores = {}
+    for impl in ("auto", "dense"):
+        fa.reset_launch_counts()
+        _, scores[impl] = hp.context_scores(
+            model, params, batch, mask, torch.Generator(),
+            deterministic=True, attn_impl=impl)
+        torch.cuda.synchronize()
+        counts = dict(fa.dtype_launch_counts)
+        if impl == "auto":
+            assert counts["flash_attn_fwd"]["f32"] == cfg.encoder_layers
+            for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+                assert counts[name]["f32"] == cfg.encoder_layers - 1
+        else:
+            assert not any(sum(c.values()) for c in counts.values())
+    for layer, (got, ref) in enumerate(zip(scores["auto"], scores["dense"])):
+        assert got.shape == (RAGGED_HEADS[layer],)
+        assert _rel_l2(got, ref) < GRAD_BAR, layer
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_heads_grad_step_kernels_match_dense(dtype):
+    # one grad step of a model whose layers keep 1, 3, 12 and 7 heads (the
+    # q/k/v head views of 1 head are (B, 1, T, 64)), dropout off, a fixed
+    # span mask. f32 (TF32 off): loss and each gradient within GRAD_BAR of
+    # impl="dense". bf16: kernel and dense path round in other places, so
+    # each is held to the f32 dense gradients, and the kernels' distance
+    # from them may not pass the dense bf16 path's by more than 10%, over
+    # all gradients and for each gradient on its own (k_proj.bias, zero in
+    # exact arithmetic, against the norm of all gradients)
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+
+    cfg, model, batch, mask = _ragged_model_and_batch(seed=1)
+    params = dict(model.named_parameters())
+
+    def run(impl, compute_dtype):
+        step = make_melhubert_grad_step(model, compute_dtype=compute_dtype,
+                                        attn_impl=impl, deterministic=True)
+        fa.reset_launch_counts()
+        loss, grads, _ = step(params, batch, torch.Generator(),
+                              mask_indices=mask)
+        torch.cuda.synchronize()
+        launches = dict(fa.launch_counts)
+        return loss, torch.cat([g.flatten() for g in grads]), grads, launches
+
+    loss_k, flat_k, grads_k, launches = run("auto", dtype)
+    assert set(launches.values()) == {cfg.encoder_layers}
+    loss_d, flat_d, grads_d, _ = run("dense", torch.float32)
+    if dtype == torch.float32:
+        assert abs(float(loss_k) - float(loss_d)) / float(loss_d) < GRAD_BAR
+        total = float(torch.linalg.vector_norm(flat_d.double()))
+        for name, g, r in zip(params, grads_k, grads_d):
+            den = (total if name.endswith("k_proj.bias")
+                   else float(torch.linalg.vector_norm(r.double())))
+            err = float(torch.linalg.vector_norm(g.double() - r.double()))
+            assert err / den < GRAD_BAR, name
+    else:
+        _, flat_b, grads_b, _ = run("dense", torch.bfloat16)
+        assert torch.isfinite(flat_k).all()
+        bar = 1.1 * _rel_l2(flat_b, flat_d)
+        assert _rel_l2(flat_k, flat_d) <= bar
+        total = float(torch.linalg.vector_norm(flat_d.double()))
+        for name, g, b, r in zip(params, grads_k, grads_b, grads_d):
+            err = float(torch.linalg.vector_norm(g.double() - r.double()))
+            if name.endswith("k_proj.bias"):
+                assert err / total <= bar, name
+            else:
+                own = float(torch.linalg.vector_norm(b.double() - r.double()))
+                assert err <= 1.1 * own, name

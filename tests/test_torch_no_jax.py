@@ -117,6 +117,44 @@ def test_port_trains_without_jax_pandas_or_yaml():
     assert proc.stdout.strip().endswith("updates 4")
 
 
+# pre-training as in TRAIN_SCRIPT, then head pruning (data-driven,
+# by_whole: one event of 3 heads, scored on the stacked buckets) and row
+# pruning (one event of 32 rows) from its checkpoint
+PRUNE_SCRIPT = TRAIN_SCRIPT[:TRAIN_SCRIPT.index("# weight pruning")] + r"""
+for name, prune in (
+        ("hp", "  metric: data-driven\n  target: by_whole\n"
+               "  num_heads_each_step: 3\n  data_ratio: 1.0\n"
+               "  normalize_by_layer: 2\n"),
+        ("rp", "  num_rows_each_step: 32\n")):
+    (d / f"{name}.yaml").write_text(
+        (d / "runner.yaml").read_text() + "prune:\n" + prune
+        + "  total_steps: 1\n  interval: 1\n  warm_up: 1\n")
+heads = main(["-m", "head-pruning", "-g", str(d / "model.yaml"), "-c",
+              str(d / "hp.yaml"), "-n", str(d / "hp"), "--device", "cpu",
+              "-i", str(d / "exp" / "last-step.npz")])
+rows = main(["-m", "row-pruning", "-g", str(d / "model.yaml"), "-c",
+             str(d / "rp.yaml"), "-n", str(d / "rp"), "--device", "cpu",
+             "-i", str(d / "exp" / "last-step.npz")])
+assert heads.cfg.encoder_attention_heads == (1,)
+assert (d / "hp" / "heads_and_score_4.npy").exists()
+assert (d / "hp" / "states_prune_1.npz").exists()
+assert rows.cfg.encoder_ffn_embed_dim == (96,)
+assert (d / "rp" / "states_prune_96.npz").exists()
+assert all(sys.modules[n] is None
+           for n in ("jax", "speech_ssl_compression_tpu", "pandas", "yaml"))
+print("updates", len(heads.log_history) + len(rows.log_history))
+"""
+
+
+def test_port_prunes_heads_and_rows_without_jax_pandas_or_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", PRUNE_SCRIPT, str(REPO)],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("updates 4")
+
+
 HUBERT_SCRIPT = r"""
 import pathlib, sys, tempfile
 import numpy as np

@@ -213,6 +213,30 @@ def test_grad_step_draws_its_mask_from_the_host_lengths():
     assert int(a[2]["n_masked"]) > 0
 
 
+def test_grad_step_returns_nothing_that_holds_the_masters():
+    # a prune event replaces the masters between two steps: no output of
+    # the step may keep the old ones alive through the autograd graph
+    import gc
+    import weakref
+
+    cfg = _cfg("post_ln")
+    model = load_model(jax.tree.map(np.asarray, init_melhubert_params(
+        jax.random.PRNGKey(4), cfg)), _port(cfg))
+    feat, pad, label, lengths, _ = _batch(cfg, seed=2)
+    batch = {"feat": torch.from_numpy(feat), "pad_mask": torch.from_numpy(pad),
+             "label": torch.from_numpy(label).long(), "length": lengths}
+    step = tsteps.make_melhubert_grad_step(model)
+    named = {k: v.detach().clone().requires_grad_() for k, v in
+             model.named_parameters()}
+    loss, grads, logs = step(named, batch, torch.Generator().manual_seed(1))
+    assert not loss.requires_grad and logs
+    assert not any(v.requires_grad for v in logs.values())
+    ref = weakref.ref(named["encoder.layers.0.self_attn.q_proj.weight"])
+    del named, grads
+    gc.collect()
+    assert ref() is None
+
+
 def test_fixed_batch_loss_falls():
     cfg = _cfg("post_ln")
     model = load_model(jax.tree.map(np.asarray, init_melhubert_params(
@@ -535,8 +559,10 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     base = ["-g", str(tmp_path / "model.yaml"), "-c",
             str(tmp_path / "runner.yaml"), "-n", str(tmp_path / "e"),
             "--device", "cpu"]
-    for extra, exc in ((["-m", "head-pruning"], NotImplementedError),
-                       (["-m", "row-pruning"], NotImplementedError),
+    for extra, exc in ((["-m", "head-pruning", "-u", "hubert"],
+                        NotImplementedError),
+                       (["-m", "row-pruning", "-u", "hubert"],
+                        NotImplementedError),
                        (["-m", "distillation"], NotImplementedError),
                        (["-m", "melhubert", "-u", "wav2vec2"],
                         NotImplementedError),
@@ -547,3 +573,17 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train_main(base[:-1] + ["cuda", "-m", "melhubert"])
+
+
+def test_trainer_refuses_a_set_with_no_batch(tmp_path):
+    # max_timestep -1000 drops every utterance shorter than 1000 frames:
+    # an epoch of no batches, which would otherwise loop forever
+    csv = make_dataset(tmp_path)
+    (tmp_path / "model.yaml").write_text(MODEL_YAML)
+    (tmp_path / "runner.yaml").write_text(
+        RUNNER_YAML.format(csv=csv).replace("max_timestep: 0",
+                                            "max_timestep: -1000"))
+    with pytest.raises(ValueError, match="no batch"):
+        train_main(["-m", "melhubert", "-g", str(tmp_path / "model.yaml"),
+                    "-c", str(tmp_path / "runner.yaml"), "-n",
+                    str(tmp_path / "e"), "--device", "cpu"])
