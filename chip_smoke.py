@@ -124,6 +124,30 @@ result line):
             in-memory model; the serve batch's frames/s from features,
             f32 and bf16, of the full, the one-head and the FFN-512 model,
             in turns;
+  distill   -m distillation through the trainer's entry point, full width
+            (a 12-layer teacher into a 6-layer student, bf16, B = 4, T =
+            768, 8 micro-batches): A, configs/distillation/
+            config_{model,runner}_20ms.yaml as shipped (nomasked, T = 1,
+            alpha = 1) cut to 3 updates, from the train phase's
+            checkpoint; B, masked, T = 2, alpha = 0.5,
+            initial_from_teacher, 1 update; C, from the head prune phase's
+            one-head checkpoint, 1 update; launches per micro-batch (each
+            teacher layer one bf16 forward, each student layer a forward,
+            a dQ and a dK/dV); after A the teacher bitwise as loaded, no
+            grad on it; B's student before its update: pos-conv and
+            layers 0-5 bitwise the teacher's (not shared), the rest a
+            seeded fresh init; the attention kernels against their plain
+            versions at (4, H, 768, 64) bf16, H = 1 and 12; one distill
+            grad step with the kernels against impl="dense" (f32, TF32
+            off, dropout off) at 12 teacher heads and at 1, nomasked and
+            masked with one fixed host mask: the loss, its three logs and
+            every student gradient within GRAD_BAR; A's last-step.npz read
+            back as 6 layers and served against the in-memory student;
+            times of the distill micro-step against the pretrain grad step
+            in turns, the teacher's forward alone, the student's own
+            pretrain grad step and one update; the grad step's peak memory
+            and what the teacher's forward leaves allocated (its logits
+            and nothing more);
   conv      the strided-conv forward, dW and dX kernels against their plain
             version at the shapes of HuBERT's frontend layers 1-6 in the
             training batch, at T = 777 / 515, at the ragged edges of the
@@ -151,7 +175,8 @@ result line):
             kernels, f32 and bf16;
   profile   (--profile only) device busy time, idle share and the largest
             device kernels of forward_packed from features, per path, and
-            of the MelHuBERT and HuBERT bf16 grad steps.
+            of the MelHuBERT and HuBERT bf16 grad steps, the distill
+            micro-step and its teacher forward.
 
 The conv kernels' bf16 check: kernel and plain version round only their
 outputs, so every entry must lie within one ulp and fewer than
@@ -343,6 +368,8 @@ HP_EVENTS, HP_L1_EVENTS, RP_EVENTS = 11, 2, 20
 # the head prune phase's set: 16 buckets of B = 4, two stacked scoring
 # groups of B = 32 at data_ratio 1.0
 HP_UTTS, HP_DATA_RATIO, HP_GROUPS = 64, 1.0, 2
+DISTILL_DIR = ROOT / "configs" / "distillation"
+DISTILL_STEPS = 3  # run A's updates of the shipped distillation recipe
 HUBERT_YAML = ROOT / "configs" / "hubert" / "config_model.yaml"
 HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
 HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
@@ -1992,6 +2019,336 @@ def phase_row_prune(dev, gpu: str, tmp: str, one_head: pathlib.Path):
     return counts
 
 
+def distill_configs(root: pathlib.Path, name: str, csv: str, steps: int,
+                    **model) -> tuple:
+    """configs/distillation/config_model_20ms.yaml with ``model``'s
+    sections updated key by key (loss_param, student) and
+    config_runner_20ms.yaml cut to ``steps`` updates on ``csv`` with a log
+    line per update, written under ``root``. Returns (model YAML path,
+    runner config)."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+
+    cfg = read_yaml(DISTILL_DIR / "config_model_20ms.yaml")
+    for section, changes in model.items():
+        cfg[section].update(changes)
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / f"config_model_{name}.yaml"
+    path.write_text(to_yaml(cfg) + "\n")
+    rc = read_yaml(DISTILL_DIR / "config_runner_20ms.yaml")
+    rc["runner"].update(n_epochs=0, total_steps=steps, log_step=1)
+    rc["datarc"]["sets"] = [csv]
+    return path, rc
+
+
+def check_distill_run(phase: str, runner, counts, updates: int,
+                      t0: float, gpu: str) -> None:
+    """A distillation run's launches (per micro-batch, each teacher layer
+    one bf16 forward, each student layer a forward, a dQ and a dK/dV) and
+    its log lines."""
+    cfg, tcfg = runner.cfg, runner.teacher_cfg
+    micro = updates * runner.accum_steps
+    log(phase, f"teacher {tcfg.encoder_layers}L/{tcfg.encoder_embed_dim}, "
+        f"heads {set(tcfg.encoder_attention_heads)} a layer -> student "
+        f"{cfg.encoder_layers}L/{cfg.encoder_embed_dim}, "
+        f"{runner.compute_dtype}, loss {runner.loss_type} T = "
+        f"{runner.loss_temp:g} alpha = {runner.loss_alpha:g}, {updates} "
+        f"updates x {runner.accum_steps} micro-batches: launches {counts} "
+        f"({ {k: v['bf16'] / micro for k, v in counts.items()} } per "
+        f"micro-batch); losses "
+        f"{[round(e['loss'], 6) for e in runner.log_history]}; "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    per = {"flash_attn_fwd": tcfg.encoder_layers + cfg.encoder_layers,
+           "flash_attn_bwd_dq": cfg.encoder_layers,
+           "flash_attn_bwd_dkv": cfg.encoder_layers}
+    want = {k: {"f32": 0, "bf16": n * micro} for k, n in per.items()}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"launch counts {counts}, want {want}")
+    hist = runner.log_history
+    if [e["step"] for e in hist] != list(range(1, updates + 1)) or not all(
+            np.isfinite([e["loss"], e["grad_norm"]]).all() for e in hist):
+        raise AssertionError(f"trainer log {hist}")
+
+
+def phase_distill(dev, gpu: str, tmp: str, one_head: pathlib.Path,
+                  profile: bool = False):
+    """-m distillation through the trainer's entry point, full width: A, the
+    shipped recipe, from the train phase's checkpoint; B, masked with the
+    student copied from the teacher; C, from the head prune phase's
+    one-head checkpoint; then the checks on the teacher, the copy, the
+    kernels, the checkpoint, and the times and memory (with ``profile``,
+    the device busy time of the micro-step and of its teacher forward).
+    Returns the launch counts of A per dtype."""
+    from speech_ssl_compression_tpu_torch.compress.distillation import (
+        teacher_forward,
+    )
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+    from speech_ssl_compression_tpu_torch.extract import (
+        load_any_checkpoint, matmul_precision,
+    )
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.__main__ import get_args
+    from speech_ssl_compression_tpu_torch.train.runner import Runner
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        accumulate_grads, fused_apply, init_opt_state, make_distill_grad_step,
+        make_melhubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_params_np, load_model,
+    )
+
+    t_phase = t0 = time.perf_counter()
+    train_root = pathlib.Path(tmp) / "train"
+    start = str(train_root / "exp" / "last-step.npz")
+    csv = str(train_root / "data" / "train.csv")
+    root = pathlib.Path(tmp) / "distill"
+
+    # A: the shipped recipe (nomasked, T = 1, alpha = 1, a seeded student)
+    model_yaml, rc = distill_configs(root, "a", csv, DISTILL_STEPS)
+    reset_launch_counts()
+    runner = run_trainer("distillation", model_yaml, rc, root, start, "a")
+    torch.cuda.synchronize()
+    counts = dtype_launch_counts()
+    check_distill_run("distill", runner, counts, DISTILL_STEPS, t0, gpu)
+
+    t0 = time.perf_counter()
+    tparams, tcfg, _ = load_any_checkpoint(start)
+    loaded = load_model(tparams, tcfg)
+    del tparams
+    untouched = all(torch.equal(p.cpu(), q) for p, q in zip(
+        runner.teacher.parameters(), loaded.parameters()))
+    no_grad = not any(p.requires_grad or p.grad is not None
+                      for p in runner.teacher.parameters())
+    del loaded
+    final = root / "a" / "last-step.npz"
+    _, ckpt_cfg, meta = load_any_checkpoint(str(final))
+    err = serve_against_memory(dev, final, runner.model, synthetic_wavs(0))
+    n_teacher = len(list(runner.teacher.parameters()))
+    log("distill", f"after A the teacher's {n_teacher} "
+        f"parameters bitwise as loaded: {untouched}, none requires or holds a "
+        f"grad: {no_grad}; last-step.npz read back by load_any_checkpoint as "
+        f"{ckpt_cfg.encoder_layers} layers (Step {meta['Step']}), served by "
+        f"MelHuBERTExtractor.forward_packed against the in-memory student "
+        f"(f32): max|d|/mean|ref| {err:.3e} (bar {SLICE_BAR:g}), "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (untouched and no_grad and ckpt_cfg.encoder_layers
+            == runner.cfg.encoder_layers and meta["Step"] == DISTILL_STEPS
+            and err < SLICE_BAR):
+        raise AssertionError("run A's teacher or checkpoint is wrong")
+
+    # B: masked, T = 2, alpha = 0.5, the student's pos-conv and first
+    # layers copied from the teacher; checked before its first update
+    t0 = time.perf_counter()
+    model_yaml, rc = distill_configs(
+        root, "b", csv, 1, loss_param=dict(type="masked", T=2, alpha=0.5),
+        student=dict(initial_from_teacher=True))
+    runner_yaml = root / "config_runner_b.yaml"
+    runner_yaml.write_text(to_yaml(rc) + "\n")
+    args = get_args(["-m", "distillation", "-g", str(model_yaml), "-c",
+                     str(runner_yaml), "-n", str(root / "b"), "-i", start,
+                     "--device", "cuda", "--seed", "0"])
+    copy = Runner(args, read_yaml(args.runner_config),
+                  read_yaml(args.upstream_config))
+    fresh = dict(load_model(init_params_np(copy.cfg, 0), copy.cfg)
+                 .named_parameters())
+    teacher = dict(copy.teacher.named_parameters())
+    copied = tuple(["encoder.pos_conv."] + [
+        f"encoder.layers.{i}." for i in range(copy.cfg.encoder_layers)])
+    n_copied = n_fresh = 0
+    for name, p in copy.params.items():
+        if name.startswith(copied):
+            ok = (torch.equal(p, teacher[name])
+                  and p.data_ptr() != teacher[name].data_ptr())
+            n_copied += 1
+        else:
+            ok = torch.equal(p.detach().cpu(), fresh[name].detach())
+            n_fresh += 1
+        if not ok:
+            raise AssertionError(f"B's student {name} is not as it should be")
+    del fresh, teacher
+    reset_launch_counts()
+    copy.train()
+    torch.cuda.synchronize()
+    check_distill_run("distill", copy, dtype_launch_counts(), 1, t0, gpu)
+    log("distill", f"B before its update: {n_copied} student tensors "
+        f"(encoder.pos_conv.*, encoder.layers.0-"
+        f"{copy.cfg.encoder_layers - 1}.*) bitwise the teacher's, not "
+        f"shared; the other {n_fresh} bitwise a seeded fresh init")
+    del copy
+
+    # C: the one-head teacher, the shipped recipe, one update
+    t0 = time.perf_counter()
+    model_yaml, rc = distill_configs(root, "c", csv, 1)
+    reset_launch_counts()
+    one = run_trainer("distillation", model_yaml, rc, root, str(one_head), "c")
+    torch.cuda.synchronize()
+    check_distill_run("distill", one, dtype_launch_counts(), 1, t0, gpu)
+    if one.teacher_cfg.encoder_attention_heads != (1,) * 12:
+        raise AssertionError(f"C's teacher {one.teacher_cfg}")
+
+    # the kernels at the shapes of this path: the teacher's forwards (12 and
+    # 1 heads, no dropout), the student's (dropout), the student's backward
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, qs, masks, valid_q, valid_k, dtype in ragged_head_cases(
+            dev, (), (1, TRAIN_SHAPE[1])):
+        check_forward(fa, name, qs, qs, masks, valid_q, dtype, gen,
+                      straddles=True)
+        check_backward(fa, name, qs, qs, masks, valid_q, valid_k, dtype, gen)
+    log("distill", f"attention fwd, dQ and dK/dV kernels vs plain at "
+        f"(4, H, 768, 64) bf16, H = 1 and 12, dropout 0 and {DROPOUT_P:g}, "
+        f"within the bars of the kernels and backward phases, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # one distill grad step with the kernels against impl="dense": f32,
+    # TF32 off, dropout off, at 12 teacher heads and at 1, nomasked and
+    # masked with one fixed host mask
+    t0 = time.perf_counter()
+    batch = runner._device_batch(runner._get_dataloader().get_batch(0))
+    t = batch["feat"].shape[1]
+    names = list(runner.params)
+    worst = 0.0
+    for label, teacher_model in (("12 heads", runner.teacher),
+                                 ("1 head", one.teacher)):
+        for loss_type in ("nomasked", "masked"):
+            mask = None
+            if loss_type == "masked":  # drawn from the teacher's config
+                mask = torch.from_numpy(span_mask(
+                    teacher_model.cfg, batch["length"], t,
+                    np.random.default_rng(0))).to(dev)
+            out = {}
+            for impl in ("auto", "dense"):
+                step = make_distill_grad_step(
+                    teacher_model, runner.model, temperature=2.0, alpha=0.5,
+                    loss_type=loss_type, attn_impl=impl, deterministic=True)
+                fa.reset_launch_counts()
+                with matmul_precision("highest"):
+                    out[impl] = step(runner.params, batch, torch.Generator(),
+                                     mask_indices=mask)
+                torch.cuda.synchronize()
+                out[impl] += (dict(fa.launch_counts),)
+                del step
+            (loss_k, grads_k, logs_k, n_k), (loss_d, grads_d, logs_d, n_d) = (
+                out["auto"], out["dense"])
+            rels = {k: abs(float(a) - float(r)) / abs(float(r)) for k, a, r in
+                    [("loss", loss_k, loss_d)] + [
+                        (k, logs_k[k], logs_d[k]) for k in (
+                            "hard_loss", "soft_loss", "teacher_loss")]}
+            errs = grad_errors(names, grads_k, grads_d)
+            i = int(np.argmax(errs))
+            log("distill", f"grad step, teacher {label}, {loss_type}, "
+                f"kernels vs impl='dense' (f32, TF32 off, dropout off): "
+                f"{ {k: f'{v:.3e}' for k, v in rels.items()} } rel; worst of "
+                f"{len(errs)} student gradients rel L2 {errs[i]:.3e} "
+                f"({names[i]}), bar {GRAD_BAR:g}; launches {n_k}")
+            worst = max(worst, errs[i], *rels.values())
+            layers = (teacher_model.cfg.encoder_layers
+                      + runner.cfg.encoder_layers)
+            if not (max(errs) < GRAD_BAR and max(rels.values()) < GRAD_BAR):
+                raise AssertionError("distill gradients disagree with dense")
+            if n_k != {"flash_attn_fwd": layers,
+                       "flash_attn_bwd_dq": runner.cfg.encoder_layers,
+                       "flash_attn_bwd_dkv": runner.cfg.encoder_layers} or any(
+                           n_d.values()):
+                raise AssertionError("the parity run took the wrong path")
+            del out, grads_k, grads_d
+    log("distill", f"the four parity steps' worst rel. error {worst:.3e}, "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    del one
+
+    # times and memory: the distill micro-step (bf16, dropout on) and one
+    # update against the train phase's bf16 pretrain grad step and update,
+    # in turns; the teacher's forward alone; the student's own pretrain
+    # grad step; the grad step's peak and the teacher forward's footprint
+    t0 = time.perf_counter()
+    frames = int(batch["length"].sum())
+    dtype = runner.compute_dtype
+    params, cfg, _ = load_any_checkpoint(start)
+    pretrain = load_model(params, cfg).to(dev)
+    del params
+    pretrain_step = make_melhubert_grad_step(
+        pretrain, accum_steps=runner.accum_steps, compute_dtype=dtype)
+    pretrain_params = dict(pretrain.named_parameters())
+    pretrain_state = init_opt_state(list(pretrain_params.values()))
+
+    def distill_micro():
+        return runner.grad_step(runner.params, batch, runner.rng)
+
+    def pretrain_micro():
+        return pretrain_step(pretrain_params, batch, runner.rng)
+
+    def update(micro, apply):
+        acc = None
+        for _ in range(runner.accum_steps):
+            acc = accumulate_grads(acc, micro()[1])
+        apply(acc)
+
+    distill_ms, pretrain_ms = alternate(distill_micro, pretrain_micro)
+    update_ms, pretrain_update_ms = alternate(
+        lambda: update(distill_micro, lambda acc: runner.apply(
+            acc, float(runner.accum_steps))),
+        lambda: update(pretrain_micro, lambda acc: fused_apply(
+            runner.optimizer, list(pretrain_params.values()),
+            pretrain_state, acc, float(runner.accum_steps))))
+    del pretrain, pretrain_step, pretrain_params, pretrain_state
+    t_params = {k: v.detach().to(dtype)
+                for k, v in runner.teacher.named_parameters()}
+    feat = batch["feat"].to(dtype)
+    teacher_ms = cuda_ms(lambda: teacher_forward(
+        runner.teacher, feat, batch["pad_mask"], mask=False,
+        params=t_params))
+    student_step = make_melhubert_grad_step(
+        runner.model, accum_steps=runner.accum_steps, compute_dtype=dtype)
+    student_ms = cuda_ms(lambda: student_step(runner.params, batch,
+                                              runner.rng))
+    del student_step
+    log("timing", f"distill micro-step B=4 T={t} {dtype} (the teacher's "
+        f"forward + the student's grad step): {distill_ms:.2f} ms against the "
+        f"train phase's pretrain grad step {pretrain_ms:.2f} ms in turns "
+        f"({distill_ms / pretrain_ms:.3f}x); one update "
+        f"({runner.accum_steps} micro-batches + apply) {update_ms:.2f} ms "
+        f"against the pretrain update's {pretrain_update_ms:.2f} ms in turns "
+        f"({update_ms / pretrain_update_ms:.3f}x), "
+        f"{runner.accum_steps * frames / update_ms * 1e3:.0f} frames/s; the "
+        f"teacher's forward alone {teacher_ms:.2f} ms; the 6-layer "
+        f"student's own pretrain grad step {student_ms:.2f} ms; "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    if profile:
+        profile_calls("distill micro-step (bf16)", distill_micro, gpu)
+        profile_calls("its teacher forward (bf16)", lambda: teacher_forward(
+            runner.teacher, feat, batch["pad_mask"], mask=False,
+            params=t_params), gpu)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runner.grad_step(runner.params, batch, runner.rng)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    before = runner._allocated()
+    out = teacher_forward(runner.teacher, feat, batch["pad_mask"], mask=False,
+                          params=t_params)
+    torch.cuda.synchronize()
+    after = runner._allocated()
+    kept = after[1] - before[1]  # the bytes the live tensors requested
+    logits = out["logits"].numel() * out["logits"].element_size()
+    mask_bytes = out["mask_indices"].numel()
+    log("distill", f"one distill grad step's peak above what was allocated "
+        f"before it: {peak} B; across the teacher's forward memory_allocated "
+        f"{before[0]} -> {after[0]} B, the live tensors' requested bytes "
+        f"+{kept} B: its logits {tuple(out['logits'].shape)} "
+        f"{out['logits'].dtype} {logits} B and mask_indices {mask_bytes} B")
+    if not 0 <= kept - logits - mask_bytes < 2**16:
+        raise AssertionError(f"the teacher's forward left {kept} B of live "
+                             f"tensors, not its logits' {logits} B and its "
+                             f"mask's {mask_bytes} B")
+    del out, t_params, feat, batch, runner
+    for path in root.glob("*/*.npz"):
+        path.unlink()
+    log("distill", f"phase {time.perf_counter() - t_phase:.2f} s")
+    return counts
+
+
 def synthetic_wavs(seed: int):
     """16 kHz noise + tones whose stacked 20 ms frame counts are
     SERVE_LENGTHS (n frames <- 400 + 160 * (2n - 2) samples)."""
@@ -3051,6 +3408,7 @@ def main() -> None:
         weight_prune = phase_weight_prune(dev, gpu, tmp)
         head_prune, one_head = phase_head_prune(dev, gpu, tmp)
         row_prune = phase_row_prune(dev, gpu, tmp, one_head)
+        distill = phase_distill(dev, gpu, tmp, one_head, args.profile)
         hubert_serve = phase_hubert_serve(dev, gpu)
         runner, hubert_train, cudnn_model, batch = phase_hubert_train(
             dev, gpu, tmp)
@@ -3064,6 +3422,7 @@ def main() -> None:
              "melhubert weight-pruning": weight_prune,
              "melhubert head-pruning": head_prune,
              "melhubert row-pruning": row_prune,
+             "melhubert distillation": distill,
              "hubert serve": hubert_serve, "hubert train": hubert_train}
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         if not head_prune[name]["f32"]:

@@ -6,8 +6,9 @@ against; module paths and names mirror it (``ops/``, ``models/``,
 ``utils/``, ``extract.py``). This package never imports ``jax``.
 
 What is ported so far: MelHuBERT and HuBERT feature extraction and
-pre-training, init from a checkpoint and resume, and MelHuBERT weight
-pruning (``compress/``), on hand-written CUDA kernels (``csrc/``) for the
+pre-training, init from a checkpoint and resume, MelHuBERT weight, head
+and row pruning and distillation (``compress/``), and the pretrain
+experts (``upstream/``), on hand-written CUDA kernels (``csrc/``) for the
 flash attention and the strided conv; ROADMAP.md lists the rest.
 """
 

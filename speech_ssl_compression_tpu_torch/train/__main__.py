@@ -1,5 +1,5 @@
 """Training CLI of the port, for MelHuBERT and HuBERT pre-training and
-MelHuBERT weight, head and row pruning:
+MelHuBERT weight, head and row pruning and distillation:
 
     python -m speech_ssl_compression_tpu_torch.train -m melhubert \\
         -g configs/melhubert/config_model_20ms.yaml -c <runner.yaml> \\
@@ -18,6 +18,10 @@ MelHuBERT weight, head and row pruning:
         -g configs/row_pruning/config_model_20ms.yaml \\
         -c configs/row_pruning/config_runner_20ms.yaml -n <expdir> \\
         -i <pretrained .npz or reference .ckpt> [--device cuda]
+    python -m speech_ssl_compression_tpu_torch.train -m distillation \\
+        -g configs/distillation/config_model_20ms.yaml \\
+        -c configs/distillation/config_runner_20ms.yaml -n <expdir> \\
+        -i <teacher .npz or reference .ckpt> [--device cuda]
     python -m speech_ssl_compression_tpu_torch.train -m melhubert -u hubert \\
         -g configs/hubert/config_model.yaml -c <runner.yaml with task:> \\
         -n <expdir> [--seed N] [--device cuda] [-i <ckpt> ...]
@@ -27,14 +31,15 @@ Port of the repository's ``train.py`` (the reference's flags), with
 ``train/runner.py``, ``-u hubert`` to ``train/wave_runner.py``. ``-i``
 starts from a checkpoint (the JAX package's npz, or a reference
 ``.ckpt``), and ``--init_optimizer_from_initial_weight`` also restores
-its Adam state (a resume). The YAMLs are read without PyYAML
+its Adam state (a resume); in ``-m distillation`` ``-i`` is the
+teacher, and that flag is ignored. The YAMLs are read without PyYAML
 (``configs.py::read_yaml``), and the two config files are copied into the
 experiment directory for provenance. Ported: pre-training (``-m
 melhubert``) of both models and ``-m weight-pruning``, ``-m
 head-pruning`` (metrics l1 and data-driven, targets by_layer and
-by_whole) and ``-m row-pruning`` of MelHuBERT; distillation, the pruning
-modes of HuBERT, ``-u wav2vec2`` and the parallel flags raise
-``NotImplementedError``.
+by_whole), ``-m row-pruning`` and ``-m distillation`` of MelHuBERT; the
+pruning and distillation modes of HuBERT, ``-u wav2vec2`` and the
+parallel flags raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

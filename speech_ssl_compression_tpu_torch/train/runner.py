@@ -1,12 +1,13 @@
-"""The MelHuBERT trainer: pre-training (``melhubert``) and the weight-,
-head- and row-pruning modes.
+"""The MelHuBERT trainer: pre-training (``melhubert``), the weight-,
+head- and row-pruning modes and distillation.
 
-Port of the ``melhubert``, ``weight-pruning``, ``head-pruning`` and
-``row-pruning`` modes of ``speech_ssl_compression_tpu/train/runner.py::
-Runner``: a seeded full-width model, or one initialised from ``-i`` (the
-JAX package's npz with its masks, ``Pruning`` meta, ``Pruned_heads`` and
-Adam state, head- and row-pruned widths inferred from the shapes, or a
-reference ``.ckpt``); the bucketed CSV batches, the gradient-accumulation
+Port of the ``melhubert``, ``weight-pruning``, ``head-pruning``,
+``row-pruning`` and ``distillation`` modes of
+``speech_ssl_compression_tpu/train/runner.py::Runner``: a seeded
+full-width model, or one initialised from ``-i`` (the JAX package's npz
+with its masks, ``Pruning`` meta, ``Pruned_heads`` and Adam state, head-
+and row-pruned widths inferred from the shapes, or a reference
+``.ckpt``); the bucketed CSV batches, the gradient-accumulation
 window (dropped whole on a CUDA out-of-memory error), the fused apply step
 with its non-finite skip, log lines and TensorBoard scalars with loss,
 grad norm and lr, and checkpoints in the JAX package's format (its
@@ -25,8 +26,20 @@ slices the weights, and rebuilds the model, a fresh Adam state and the
 grad step for the new widths; head events also write
 ``heads_and_score_{n}.npy`` and add to ``Pruned_heads``.
 
+Distillation takes its teacher from ``-i`` (an npz through
+``load_any_checkpoint``, weight-pruning masks folded and pruned widths
+inferred, or a reference ``.ckpt``; the teacher's config is the
+checkpoint's, not the YAML's ``teacher:`` section), frozen on the device.
+The student is the YAML's ``student:`` (or legacy ``melhubert:``) section,
+seeded, its pos-conv and first layers copied from the teacher with
+``initial_from_teacher``; each micro-step runs the teacher without grad
+and the student forward and backward (``steps.make_distill_grad_step``).
+``--init_optimizer_from_initial_weight`` is ignored there, as in JAX; the
+checkpoints hold the student, ``Config`` the student's and
+``Upstream_Config`` the whole YAML.
+
 Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1):
-distillation, meshes, pipeline parallelism and remat.
+meshes, pipeline parallelism and remat.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ import torch
 from ..compress import head_pruning as hp
 from ..compress import row_pruning as rp
 from ..compress import weight_pruning as wp
+from ..compress.distillation import init_student_from_teacher
 from ..compress.schedule import (
     set_prune_interval,
     sparsity_ladder,
@@ -48,7 +62,7 @@ from ..compress.schedule import (
 )
 from ..configs import MelHuBERTConfig
 from ..data.bucket_dataset import MelFeatBuckets, PrefetchIterator
-from ..extract import resolve_device
+from ..extract import load_any_checkpoint, resolve_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.tb import TBLogger
 from ..utils.torch_convert import (
@@ -67,10 +81,15 @@ from ..utils.weights import (
     prunable_tree,
 )
 from .optim_mixin import OptimizerScheduleMixin
-from .steps import accumulate_grads, host_span_mask, make_melhubert_grad_step
+from .steps import (
+    accumulate_grads,
+    host_span_mask,
+    make_distill_grad_step,
+    make_melhubert_grad_step,
+)
 
 _PORTED_MODES = ("melhubert", "weight-pruning", "head-pruning",
-                 "row-pruning")
+                 "row-pruning", "distillation")
 _UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
 
 
@@ -99,8 +118,9 @@ def _stack_buckets(batches: list) -> dict:
 class Runner(OptimizerScheduleMixin):
     """``Runner(args, runner_config, upstream_config).train()``, as the JAX
     runner, for ``args.mode`` ``melhubert``, ``weight-pruning``,
-    ``head-pruning`` or ``row-pruning``. ``args.device`` names the torch
-    device (``cuda`` when absent: the CPU only when asked for)."""
+    ``head-pruning``, ``row-pruning`` or ``distillation``.
+    ``args.device`` names the torch device (``cuda`` when absent: the CPU
+    only when asked for)."""
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
         if args.mode not in _PORTED_MODES:
@@ -134,7 +154,10 @@ class Runner(OptimizerScheduleMixin):
         self.masks = None  # weight-pruning masks, named device tensors
         self.pruned_heads: list = []
         self.wp_state: Optional[wp.WeightPruningState] = None
-        self._init_melhubert()
+        if self.mode == "distillation":
+            self._init_distillation()
+        else:
+            self._init_melhubert()
 
         # frame-period sanity (reference runner.py:48-52)
         fp = getattr(args, "frame_period", 20)
@@ -152,9 +175,16 @@ class Runner(OptimizerScheduleMixin):
             self._resync_schedule_offset()
 
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
-        self.grad_step = make_melhubert_grad_step(
-            self.model, accum_steps=self.accum_steps,
-            compute_dtype=self.compute_dtype)
+        if self.mode == "distillation":
+            self.grad_step = make_distill_grad_step(
+                self.teacher, self.model, temperature=self.loss_temp,
+                alpha=self.loss_alpha, loss_type=self.loss_type,
+                accum_steps=self.accum_steps,
+                compute_dtype=self.compute_dtype)
+        else:
+            self.grad_step = make_melhubert_grad_step(
+                self.model, accum_steps=self.accum_steps,
+                compute_dtype=self.compute_dtype)
         # {"step", "loss", "grad_norm"} of every log line; each prune
         # event's step and host seconds, and for a head or row event what
         # it chose and the device memory around it
@@ -199,6 +229,46 @@ class Runner(OptimizerScheduleMixin):
             self.masks = named_masks(masks, self.device)
         n = sum(p.numel() for p in self.params.values())
         print(f"[Runner] - Number of parameters: {n}")
+
+    def _init_distillation(self):
+        """The teacher from ``-i`` and a seeded student (JAX
+        ``_init_distillation``). The teacher's config is the checkpoint's;
+        it is frozen (``eval()``, no grad) on the device. The student's
+        pos-conv and first layers are copies of the teacher's with
+        ``initial_from_teacher``. Nothing is resumed: there is no Adam
+        state to restore."""
+        init_w = getattr(self.args, "initial_weight", None)
+        if not init_w:
+            raise ValueError("distillation needs the teacher's weights: "
+                             "-i <ckpt.npz or reference .ckpt>")
+        self._resumed_meta = None
+        self._resumed_opt_leaves = None
+        self._resumed_opt_treedef = None
+        # the student under "student" (the current expert) or "melhubert"
+        # (the legacy distillation/pretrain_expert.py:46)
+        student = dict(self.upstream_config.get("student")
+                       or self.upstream_config["melhubert"])
+        self.cfg = MelHuBERTConfig.from_dict(student)
+        tparams, self.teacher_cfg, _ = load_any_checkpoint(init_w)
+        self.teacher = load_model(tparams, self.teacher_cfg).to(
+            self.device).eval().requires_grad_(False)
+        print(f"[Runner/Distill] - Loaded teacher weight from {init_w}")
+        params = init_params_np(self.cfg, self.seed)
+        if student.get("initial_from_teacher", False):
+            print("[Runner/Distill] - Initializing student from teacher")
+            params = init_student_from_teacher(params, tparams,
+                                               self.cfg.encoder_layers)
+        self.model = load_model(params, self.cfg).to(self.device)
+        self.params = dict(self.model.named_parameters())
+        lp = self.upstream_config["loss_param"]
+        self.loss_temp = float(lp["T"])
+        self.loss_alpha = float(lp["alpha"])
+        self.loss_type = str(lp["type"])
+        if self.loss_type not in ("masked", "nomasked"):
+            raise NotImplementedError(
+                f"[Runner/Distill] - no such loss type {self.loss_type}")
+        n = sum(p.numel() for p in self.params.values())
+        print(f"[Runner] - Number of parameters: {n} (student)")
 
     def _init_mode_schedules(self):
         """The prune steps and each pruning mode's state (JAX
@@ -538,7 +608,7 @@ class Runner(OptimizerScheduleMixin):
                 if pbar["n"] >= pbar["total"]:
                     break
                 first_accu = backward_steps % accum == 0
-                if self.mode == "melhubert" and first_accu:
+                if self.mode in ("melhubert", "distillation") and first_accu:
                     cadence = max(1, int(save_every_x_epochs * step_per_epoch))
                     if global_step % cadence == 0:
                         self.save(global_step, f"states-epoch-"

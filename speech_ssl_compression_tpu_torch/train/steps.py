@@ -1,7 +1,7 @@
 """The pre-training grad step and the optimizer's apply step.
 
 Port of ``speech_ssl_compression_tpu/train/steps.py`` for MelHuBERT
-pre-training, and of the HuBERT grad step of
+pre-training and distillation, and of the HuBERT grad step of
 ``speech_ssl_compression_tpu/train/wave_runner.py``. Grad semantics match
 JAX's, which match the reference:
 
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..compress.distillation import distill_forward
 from ..models.melhubert import melhubert_pretrain_loss, span_mask
 from ..ops.dropout import draw_seed
 
@@ -306,6 +307,56 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
         loss = loss / accum_steps
         # detached: a log entry on the graph would keep its leaves, the
         # masters, alive until the next step (past a prune event's rebuild)
+        return (loss.detach(), _grads(loss, params),
+                {k: v.detach() for k, v in logs.items()})
+
+    return grad_step
+
+
+def make_distill_grad_step(teacher, student, *, temperature: float,
+                           alpha: float, loss_type: str = "masked",
+                           accum_steps: int = 1,
+                           compute_dtype=torch.float32,
+                           attn_impl: str = "auto",
+                           deterministic: bool = False):
+    """Returns ``grad_step(params, batch, rng, mask_indices=None,
+    masks=None) -> (loss, grads, logs)``, port of JAX
+    ``make_distill_grad_step``: the teacher's forward and the student's
+    forward and backward in one micro-step, with the call shape and
+    returns of :func:`make_melhubert_grad_step`.
+
+    ``teacher`` is a ``MelHuBERTModel`` set to ``eval()`` and
+    ``requires_grad_(False)`` here; it runs without grad and without
+    dropout on one copy of its parameters in ``compute_dtype``, made once
+    (a bf16 cast is deterministic, so the copy holds the values a cast per
+    micro-batch would give). ``params`` maps ``student``'s parameter names
+    to the f32 masters, differentiated through the cast to
+    ``compute_dtype`` (and through ``p * m`` for ``masks``, as in
+    pre-training). With ``loss_type="masked"`` the span mask is drawn on
+    the host from the TEACHER's config, the batch's lengths and ``rng``,
+    unless ``mask_indices`` is given; nomasked draws none. Returns the
+    loss / accum_steps (detached), the student's gradients in ``params``'
+    order and the detached logs ``hard_loss``, ``soft_loss`` and
+    ``teacher_loss``. ``deterministic=True`` turns the student's dropouts
+    off (for parity checks; training keeps them on)."""
+    teacher.eval().requires_grad_(False)
+    teacher_params = {k: v.detach().to(compute_dtype)
+                      for k, v in teacher.named_parameters()}
+    masked = loss_type == "masked"
+
+    def grad_step(params: Dict[str, torch.Tensor], batch: dict,
+                  rng: torch.Generator, mask_indices=None, masks=None):
+        if masked and mask_indices is None:
+            mask_indices = host_span_mask(teacher.cfg, batch, rng)
+        loss, logs = distill_forward(
+            teacher, student, batch["feat"].to(compute_dtype),
+            batch["pad_mask"], batch["label"], temperature=temperature,
+            alpha=alpha, loss_type=loss_type, mask_indices=mask_indices,
+            rng=rng, deterministic_student=deterministic,
+            attn_impl=attn_impl, teacher_params=teacher_params,
+            student_params=cast_for_compute(mask_params(params, masks),
+                                            compute_dtype))
+        loss = loss / accum_steps
         return (loss.detach(), _grads(loss, params),
                 {k: v.detach() for k, v in logs.items()})
 

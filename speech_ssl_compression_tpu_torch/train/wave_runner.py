@@ -245,6 +245,11 @@ class WaveRunner(OptimizerScheduleMixin):
     def train(self):
         runner = self.runner_config["runner"]
         dataset = self._get_dataset()
+        if not len(dataset):
+            # an epoch of no batches would loop forever (JAX's does)
+            raise ValueError("the training set gives no batch (the task's "
+                             "manifest and min/max sample sizes leave no "
+                             "utterance)")
         total_steps = runner.get("total_steps", -1)
         if total_steps is None or total_steps <= 0:
             total_steps = int(runner.get("n_epochs", 1) * len(dataset)

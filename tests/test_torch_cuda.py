@@ -874,3 +874,75 @@ def test_ragged_heads_grad_step_kernels_match_dense(dtype):
             else:
                 own = float(torch.linalg.vector_norm(b.double() - r.double()))
                 assert err <= 1.1 * own, name
+
+
+@pytest.mark.parametrize("loss_type", ["nomasked", "masked"])
+@pytest.mark.parametrize("teacher_heads", [12, 1])
+def test_distill_grad_step_kernels_match_dense(teacher_heads, loss_type):
+    # one distill grad step, f32 (TF32 off), dropout off: a 3-layer
+    # teacher of 12 heads a layer or of one (its q/k/v head views
+    # (B, 1, T, 64)), a 2-layer student of 12, 768 wide, B = 4, T = 256 with
+    # key padding (masked: one fixed span mask); the loss, its three logs
+    # and every student gradient with the kernels within GRAD_BAR of
+    # impl="dense", the kernels launched 3 + 2 times forward and 2 times
+    # backward
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.configs import MelHuBERTConfig
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_distill_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_params_np, load_model,
+    )
+
+    wide = dict(feat_emb_dim=80, encoder_embed_dim=768,
+                encoder_ffn_embed_dim=3072, head_dim=64, conv_pos=128,
+                conv_pos_groups=16, num_cluster=512, mask_prob=0.7,
+                mask_length=5)
+    tcfg = MelHuBERTConfig.from_dict(dict(
+        wide, encoder_layers=3, encoder_attention_heads=teacher_heads))
+    scfg = MelHuBERTConfig.from_dict(dict(wide, encoder_layers=2,
+                                          encoder_attention_heads=12))
+    teacher = load_model(init_params_np(tcfg, seed=0), tcfg).cuda()
+    student = load_model(init_params_np(scfg, seed=1), scfg).cuda()
+    rng = np.random.default_rng(2)
+    b, t = 4, 256
+    lengths = np.array([256, 200, 130, 256])
+    pad = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    label = rng.integers(0, 512, (b, t))
+    label[pad == 0] = -100
+    batch = {"feat": torch.from_numpy(rng.standard_normal(
+        (b, t, 80)).astype(np.float32)).cuda(),
+        "label": torch.from_numpy(label).cuda(),
+        "pad_mask": torch.from_numpy(pad).cuda(), "length": lengths}
+    mask = (torch.from_numpy(span_mask(tcfg, lengths, t, rng)).cuda()
+            if loss_type == "masked" else None)
+    params = dict(student.named_parameters())
+    out = {}
+    for impl in ("auto", "dense"):
+        step = make_distill_grad_step(
+            teacher, student, temperature=2.0, alpha=0.5, loss_type=loss_type,
+            attn_impl=impl, deterministic=True)
+        fa.reset_launch_counts()
+        out[impl] = step(params, batch, torch.Generator(), mask_indices=mask)
+        torch.cuda.synchronize()
+        counts = dict(fa.launch_counts)
+        if impl == "auto":
+            assert counts == {"flash_attn_fwd": 5, "flash_attn_bwd_dq": 2,
+                              "flash_attn_bwd_dkv": 2}
+        else:
+            assert not any(counts.values())
+    (loss_k, grads_k, logs_k), (loss_d, grads_d, logs_d) = (out["auto"],
+                                                            out["dense"])
+    for a, r in [(loss_k, loss_d)] + [(logs_k[k], logs_d[k]) for k in (
+            "hard_loss", "soft_loss", "teacher_loss")]:
+        assert abs(float(a) - float(r)) / abs(float(r)) < GRAD_BAR
+    total = float(torch.linalg.vector_norm(torch.cat(
+        [g.flatten() for g in grads_d]).double()))
+    for name, g, r in zip(params, grads_k, grads_d):
+        den = (total if name.endswith("k_proj.bias")
+               else float(torch.linalg.vector_norm(r.double())))
+        err = float(torch.linalg.vector_norm(g.double() - r.double()))
+        assert err / den < GRAD_BAR, name
+    assert not any(p.grad is not None for p in teacher.parameters())

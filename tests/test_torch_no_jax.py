@@ -155,6 +155,44 @@ def test_port_prunes_heads_and_rows_without_jax_pandas_or_yaml():
     assert proc.stdout.strip().endswith("updates 4")
 
 
+# pre-training as in TRAIN_SCRIPT, then -m distillation with its
+# checkpoint as the teacher (masked, T = 2, alpha 0.5, the student's layer
+# copied from the teacher), and the distiller expert on the same teacher
+DISTILL_SCRIPT = TRAIN_SCRIPT[:TRAIN_SCRIPT.index("# weight pruning")] + r"""
+model = (d / "model.yaml").read_text().split("task:")[0]
+student = model.replace("melhubert:", "student:") + (
+    "  initial_from_teacher: true\n")
+(d / "distill.yaml").write_text(
+    model.replace("melhubert:", "teacher:") + student
+    + "loss_param:\n  T: 2\n  alpha: 0.5\n  type: masked\n"
+    "task:\n  sequence_length: 0\n")
+teacher = str(d / "exp" / "last-step.npz")
+distilled = main(["-m", "distillation", "-g", str(d / "distill.yaml"), "-c",
+                  str(d / "runner.yaml"), "-n", str(d / "kd"), "--device",
+                  "cpu", "-i", teacher])
+assert (d / "kd" / "last-step.npz").exists()
+from speech_ssl_compression_tpu_torch.configs import read_yaml
+from speech_ssl_compression_tpu_torch.upstream import get_pretrain_expert
+expert = get_pretrain_expert("melhubert_distiller")(
+    read_yaml(d / "distill.yaml"), teacher, device="cpu")
+loss, n = expert.forward([rng.standard_normal((2, 30, 80)).astype(np.float32),
+                          rng.integers(0, 8, (2, 30)), np.ones((2, 30))])
+assert bool(loss.isfinite()) and n == 1
+assert all(sys.modules[n] is None
+           for n in ("jax", "speech_ssl_compression_tpu", "pandas", "yaml"))
+print("updates", len(runner.log_history) + len(distilled.log_history))
+"""
+
+
+def test_port_distills_without_jax_pandas_or_yaml():
+    proc = subprocess.run(
+        [sys.executable, "-c", DISTILL_SCRIPT, str(REPO)],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("updates 4")
+
+
 HUBERT_SCRIPT = r"""
 import pathlib, sys, tempfile
 import numpy as np

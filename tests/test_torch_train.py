@@ -563,7 +563,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
                         NotImplementedError),
                        (["-m", "row-pruning", "-u", "hubert"],
                         NotImplementedError),
-                       (["-m", "distillation"], NotImplementedError),
+                       (["-m", "distillation", "-u", "hubert"],
+                        NotImplementedError),
                        (["-m", "melhubert", "-u", "wav2vec2"],
                         NotImplementedError),
                        (["-m", "melhubert", "--model_parallel", "2"],
@@ -587,3 +588,24 @@ def test_trainer_refuses_a_set_with_no_batch(tmp_path):
         train_main(["-m", "melhubert", "-g", str(tmp_path / "model.yaml"),
                     "-c", str(tmp_path / "runner.yaml"), "-n",
                     str(tmp_path / "e"), "--device", "cpu"])
+
+
+def test_hubert_trainer_refuses_a_set_with_no_batch(tmp_path):
+    # min_sample_size past every utterance of the manifest: an epoch of no
+    # batches, which would otherwise loop forever
+    from test_torch_hubert import (
+        MODEL_YAML as HUBERT_MODEL_YAML,
+        RUNNER_YAML as HUBERT_RUNNER_YAML,
+        make_wav_dataset,
+    )
+
+    data = make_wav_dataset(tmp_path / "data")
+    (tmp_path / "model.yaml").write_text(HUBERT_MODEL_YAML)
+    (tmp_path / "runner.yaml").write_text(
+        HUBERT_RUNNER_YAML.format(data=data).replace(
+            "min_sample_size: 1000", "min_sample_size: 100000"))
+    with pytest.raises(ValueError, match="no batch"):
+        train_main(["-m", "melhubert", "-u", "hubert", "-g",
+                    str(tmp_path / "model.yaml"), "-c",
+                    str(tmp_path / "runner.yaml"), "-n", str(tmp_path / "e"),
+                    "--device", "cpu"])
