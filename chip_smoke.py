@@ -114,13 +114,14 @@ result line):
             heads a layer), each event's scores and heads recomputed on
             the host from its artifact;
   row prune  -m row-pruning likewise: configs/row_pruning/
-            config_runner_20ms.yaml cut to warm_up 0, interval 1 (its 20
-            events of 128 rows, one before each of 20 bf16 updates); FFN
-            512 at the end; each event's rows equal to a host recompute of
+            config_runner_20ms.yaml cut to warm_up 0, interval 1 and
+            256 rows an event where the recipe takes 128 (a cut in depth
+            for the script's time: 10 events, one before each of 10 bf16
+            updates); FFN 512 at the end; each event's rows equal to a host recompute of
             ffn_row_scores on the artifact before it; memory around each
             event; the sliced model against the unsliced one with the
-            pruned rows' fc1 rows and fc2 columns zeroed (events 1 and
-            20); the last states_prune_*.npz served against the
+            pruned rows' fc1 rows and fc2 columns zeroed (the first and
+            last events); the last states_prune_*.npz served against the
             in-memory model; the serve batch's frames/s from features,
             f32 and bf16, of the full, the one-head and the FFN-512 model,
             in turns;
@@ -173,10 +174,31 @@ result line):
             cuDNN + impl="dense" run in float64 and in f32; the grad step
             and one update at the bench recipe with and without the conv
             kernels, f32 and bf16;
+  w2v2 train  wav2vec 2.0 base pre-training through the trainer's entry
+            point (-u wav2vec2) on a synthetic manifest of WAVs of at least
+            250,000 samples, configs/wav2vec2/config_{model,runner}.yaml as
+            shipped but for total_steps 3, conv_frontend_impl tc_pallas and
+            the data path: 3 updates of B = 12 x 250,000 samples, bf16,
+            dropouts and LayerDrop 0.05 on; launch counts per grad step
+            against the encoder layers LayerDrop kept; the Gumbel
+            temperature of each grad step against the host's anneal; the
+            checkpoint read back bitwise, with its Config; loss, logs and
+            every gradient of the kernel route (f32, TF32 off, dropouts
+            off, a fixed span mask, negative counts and Gumbel noise, B = 2
+            at full width, one row cut short) against cuDNN +
+            impl="dense" run in float64 and in f32 (a gradient past
+            GRAD_BAR of float64, as the last layers' q/k projections are
+            in any f32 route, within W2V2_CANCEL_FACTOR times the f32
+            route's own distance); the attention pair at
+            (12, 12, 782, 64) bf16 with dropout 0.1 and the pad key, and
+            the conv kernels at frontend layers 1-6 of this batch, against
+            their plain versions; 10 updates on one fixed batch, whose
+            loss falls; the grad step and one update with the kernels and
+            with cuDNN + dense, f32 and bf16, frames/s and peak memory;
   profile   (--profile only) device busy time, idle share and the largest
             device kernels of forward_packed from features, per path, and
-            of the MelHuBERT and HuBERT bf16 grad steps, the distill
-            micro-step and its teacher forward.
+            of the MelHuBERT, HuBERT and wav2vec 2.0 bf16 grad steps, the
+            distill micro-step and its teacher forward.
 
 The conv kernels' bf16 check: kernel and plain version round only their
 outputs, so every entry must lie within one ulp and fewer than
@@ -361,10 +383,12 @@ WP_SHORT = dict(warnup=1, period=1, n_iters=3, pruning_condition="always")
 WP_STEPS = 4
 HP_DIR = ROOT / "configs" / "head_pruning"
 RP_DIR = ROOT / "configs" / "row_pruning"
-# the recipes' prune events, all of them (11 to one head a layer, 20 to
-# FFN 512), one before each update from the first on
+# the recipes' prune events down to their endpoints (11 to one head a
+# layer; to FFN 512 in 10 events of RP_ROWS, where the recipe takes 20 of
+# 128: a cut in depth for the script's time), one before each update from
+# the first on
 STRUCTURED_SHORT = dict(warm_up=0, interval=1)
-HP_EVENTS, HP_L1_EVENTS, RP_EVENTS = 11, 2, 20
+HP_EVENTS, HP_L1_EVENTS, RP_EVENTS, RP_ROWS = 11, 2, 10, 256
 # the head prune phase's set: 16 buckets of B = 4, two stacked scoring
 # groups of B = 32 at data_ratio 1.0
 HP_UTTS, HP_DATA_RATIO, HP_GROUPS = 64, 1.0, 2
@@ -375,6 +399,12 @@ HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
 HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
 HUBERT_CLASSES = 504        # 500 clusters + 4 specials, the bench recipe's
 HUBERT_ACCUM = 2            # micro-batches per update in the trainer run
+W2V2_DIR = ROOT / "configs" / "wav2vec2"
+W2V2_TRAIN = (12, 250000)   # B x samples: the shipped recipe's batch
+W2V2_PARITY = (2, 250000, 200000)  # B x samples, row 1's valid samples
+# past GRAD_BAR of float64, a wav2vec 2.0 gradient may lie this many times
+# as far from it as the plain f32 route does (phase_w2v2_train says why)
+W2V2_CANCEL_FACTOR = 4.0
 # peaks of one H100 SXM (NVIDIA data sheet): f32-accurate products on the
 # tensor cores in split TF32, three TF32 products each (495 / 3 TFLOP/s;
 # the CUDA cores' 67 would read below the f32 backward kernels' times),
@@ -1918,7 +1948,8 @@ def phase_row_prune(dev, gpu: str, tmp: str, one_head: pathlib.Path):
     root.mkdir()
     cfg = structured_prune_config(RP_DIR / "config_runner_20ms.yaml",
                                   str(train_root / "data" / "train.csv"),
-                                  total_steps=RP_EVENTS)
+                                  total_steps=RP_EVENTS,
+                                  num_rows_each_step=RP_ROWS)
     step = cfg["prune"]["num_rows_each_step"]
     reset_launch_counts()
     runner = run_trainer("row-pruning", RP_DIR / "config_model_20ms.yaml",
@@ -2637,6 +2668,78 @@ def conv_kernels(x, w, dy, stride):
     return y.detach(), dw, dx
 
 
+def check_conv(name, shape, dtype, gen, record=None):
+    """One case of the conv kernels against their plain version: f32
+    against the plain version in float64 (each kernel bitwise repeatable;
+    the worst max |d| of each kernel into ``record``), bf16 within one ulp
+    and BF16_SHARE_BAR differing, with a control that must fail the share;
+    dX zero past the last row an output reaches. Logs the comparison,
+    raises where they disagree, and returns (x, w, dy)."""
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+
+    names = ("conv1d_fwd", "conv1d_dw", "conv1d_dx")
+    b, t, c, k, o, s = shape
+    t0 = time.perf_counter()
+    x = torch.randn((b, t, c), generator=gen, device=gen.device).to(dtype)
+    w = (torch.randn((k, c, o), generator=gen, device=gen.device)
+         / (k * c) ** 0.5).to(dtype)
+    dy = torch.randn((b, tc.output_length(t, k, s), o), generator=gen,
+                     device=gen.device).to(dtype)
+    got = conv_kernels(x, w, dy, s)
+    got_y = got[0]
+    torch.cuda.synchronize()
+    last = (got_y.shape[1] - 1) * s + k
+    tail_zero = bool((got[2][:, last:] == 0).all())
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    if dtype == torch.float32:
+        x64, w64, dy64 = x.double(), w.double(), dy.double()
+        ref = ((tc.conv1d_strided_plain(x64, w64, s),)
+               + tuple(reversed(tc.plain_grads(x64, w64, s, dy64))))
+        errs = [rel_err(got[0], ref[0], ...), rel_l2(got[1], ref[1], ...),
+                rel_err(got[2], ref[2], ...)]
+        # the split-TF32 forward, dW and dX give the same bits again
+        repeat = all(map(torch.equal, conv_kernels(x, w, dy, s), got))
+        ok = max(errs) < CONV_F32_BAR and repeat
+        detail = (f"fwd max|d|/mean|ref| {errs[0]:.3e}, dW rel L2 "
+                  f"{errs[1]:.3e} (max|d|/mean|ref| "
+                  f"{rel_err(got[1], ref[1], ...):.3e}), dX max|d|/"
+                  f"mean|ref| {errs[2]:.3e} (bar {CONV_F32_BAR:g}); "
+                  f"fwd, dW and dX bitwise repeatable: {repeat}")
+        for n, g, r in zip(names, got, ref if record is not None else ()):
+            rec = record[n]
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(
+                (g.double() - r).abs().max()))
+    else:
+        ref_y = tc.conv1d_strided_plain(x, w, s)
+        ref_dx, ref_dw = tc.plain_grads(x, w, s, dy)
+        ref = (ref_y, ref_dw, ref_dx)
+        # the tensor-core forward, dW and dX give the same bits again
+        repeat = all(map(torch.equal, conv_kernels(x, w, dy, s), got))
+        got = (got[0], got[1].to(dtype), got[2])
+        diffs = [bf16_diff(g, r, ...) for g, r in zip(got, ref)]
+        ctl = [bf16_diff(cc, r, ...)[0]
+               for cc, r in zip(halves_rounded(x, w, dy, s), ref)]
+        ok = repeat and all(u <= BF16_ULP_BAR and sh < BF16_SHARE_BAR
+                            for sh, u in diffs)
+        detail = ", ".join(
+            f"{n[7:]} differ {sh:.3%} max {u:g} ulp (control "
+            f"{cs:.2%})" for n, (sh, u), cs in zip(names, diffs, ctl))
+        detail += (f"; bars {BF16_SHARE_BAR:.0%}, {BF16_ULP_BAR:g} "
+                   f"ulp; fwd, dW and dX bitwise repeatable: "
+                   f"{repeat}")
+        if not all(cs >= BF16_SHARE_BAR for cs in ctl):
+            raise AssertionError(
+                f"bf16 conv check at {name} cannot tell kernels that "
+                "round inside their sums apart")
+    finite = all(torch.isfinite(g.float()).all() for g in got)
+    log("conv", f"{name} {tag} x{(b, t, c)} K={k} s={s} O={o}: "
+        f"kernels vs plain, {detail}; dX zero past row {last}: "
+        f"{tail_zero}, {time.perf_counter() - t0:.2f} s")
+    if not (ok and finite and tail_zero):
+        raise AssertionError(f"conv kernels disagree at {name} {tag}")
+    return x, w, dy
+
+
 def phase_conv(dev, gpu: str):
     """The three conv kernels against their plain version (and cuDNN's
     time) at the training batch's layer shapes, at T = 777 / 515, at
@@ -2644,8 +2747,6 @@ def phase_conv(dev, gpu: str):
     Returns the record for the kernels line: per kernel the worst f32
     max |d| and, summed over the six training layers, kernel, plain,
     library and bound ms in f32 and (keys ending in _bf16) in bf16."""
-    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     train = conv_layer_shapes(*HUBERT_TRAIN, hubert_cfg("tc_pallas")
@@ -2661,66 +2762,9 @@ def phase_conv(dev, gpu: str):
               for n in names}
     gen = torch.Generator(device=dev).manual_seed(4)
     for name, shape in cases:
-        b, t, c, k, o, s = shape
         for dtype in (torch.float32, torch.bfloat16):
-            t0 = time.perf_counter()
-            x = torch.randn((b, t, c), generator=gen, device=dev).to(dtype)
-            w = (torch.randn((k, c, o), generator=gen, device=dev)
-                 / (k * c) ** 0.5).to(dtype)
-            dy = torch.randn((b, tc.output_length(t, k, s), o), generator=gen,
-                             device=dev).to(dtype)
-            got = conv_kernels(x, w, dy, s)
-            got_y = got[0]
-            torch.cuda.synchronize()
-            last = (got_y.shape[1] - 1) * s + k
-            tail_zero = bool((got[2][:, last:] == 0).all())
+            x, w, dy = check_conv(name, shape, dtype, gen, record)
             tag = "f32" if dtype == torch.float32 else "bf16"
-            if dtype == torch.float32:
-                x64, w64, dy64 = x.double(), w.double(), dy.double()
-                ref = ((tc.conv1d_strided_plain(x64, w64, s),)
-                       + tuple(reversed(tc.plain_grads(x64, w64, s, dy64))))
-                errs = [rel_err(got[0], ref[0], ...), rel_l2(got[1], ref[1], ...),
-                        rel_err(got[2], ref[2], ...)]
-                # the split-TF32 forward, dW and dX give the same bits again
-                repeat = all(map(torch.equal, conv_kernels(x, w, dy, s), got))
-                ok = max(errs) < CONV_F32_BAR and repeat
-                detail = (f"fwd max|d|/mean|ref| {errs[0]:.3e}, dW rel L2 "
-                          f"{errs[1]:.3e} (max|d|/mean|ref| "
-                          f"{rel_err(got[1], ref[1], ...):.3e}), dX max|d|/"
-                          f"mean|ref| {errs[2]:.3e} (bar {CONV_F32_BAR:g}); "
-                          f"fwd, dW and dX bitwise repeatable: {repeat}")
-                for n, g, r in zip(names, got, ref):
-                    rec = record[n]
-                    rec["max_abs_err"] = max(rec["max_abs_err"], float(
-                        (g.double() - r).abs().max()))
-            else:
-                ref_y = tc.conv1d_strided_plain(x, w, s)
-                ref_dx, ref_dw = tc.plain_grads(x, w, s, dy)
-                ref = (ref_y, ref_dw, ref_dx)
-                # the tensor-core forward, dW and dX give the same bits again
-                repeat = all(map(torch.equal, conv_kernels(x, w, dy, s), got))
-                got = (got[0], got[1].to(dtype), got[2])
-                diffs = [bf16_diff(g, r, ...) for g, r in zip(got, ref)]
-                ctl = [bf16_diff(cc, r, ...)[0]
-                       for cc, r in zip(halves_rounded(x, w, dy, s), ref)]
-                ok = repeat and all(u <= BF16_ULP_BAR and sh < BF16_SHARE_BAR
-                                    for sh, u in diffs)
-                detail = ", ".join(
-                    f"{n[7:]} differ {sh:.3%} max {u:g} ulp (control "
-                    f"{cs:.2%})" for n, (sh, u), cs in zip(names, diffs, ctl))
-                detail += (f"; bars {BF16_SHARE_BAR:.0%}, {BF16_ULP_BAR:g} "
-                           f"ulp; fwd, dW and dX bitwise repeatable: "
-                           f"{repeat}")
-                if not all(cs >= BF16_SHARE_BAR for cs in ctl):
-                    raise AssertionError(
-                        f"bf16 conv check at {name} cannot tell kernels that "
-                        "round inside their sums apart")
-            finite = all(torch.isfinite(g.float()).all() for g in got)
-            log("conv", f"{name} {tag} x{(b, t, c)} K={k} s={s} O={o}: "
-                f"kernels vs plain, {detail}; dX zero past row {last}: "
-                f"{tail_zero}, {time.perf_counter() - t0:.2f} s")
-            if not (ok and finite and tail_zero):
-                raise AssertionError(f"conv kernels disagree at {name} {tag}")
             if name.startswith("layer"):
                 conv_timing(shape, x, w, dy, tag, record, gpu)
     for n in names:
@@ -2836,15 +2880,16 @@ def phase_hubert_serve(dev, gpu: str):
     from speech_ssl_compression_tpu_torch.extract import matmul_precision
     from speech_ssl_compression_tpu_torch.models.hubert import hubert_forward
     from speech_ssl_compression_tpu_torch.utils.weights import (
-        init_hubert_params_np, load_hubert_model,
+        init_hubert_params_np, load_wave_model,
     )
 
     t0 = time.perf_counter()
     cfg = hubert_cfg("tc_pallas")
     params = init_hubert_params_np(cfg, (HUBERT_CLASSES,), seed=0)
-    models = {"kernels": load_hubert_model(params, cfg),
-              "cudnn": load_hubert_model(
-                  params, dataclasses.replace(cfg, conv_frontend_impl="auto"))}
+    models = {"kernels": load_wave_model(params, cfg, "hubert"),
+              "cudnn": load_wave_model(
+                  params, dataclasses.replace(cfg, conv_frontend_impl="auto"),
+                  "hubert")}
     for m in models.values():
         m.to(dev).eval().requires_grad_(False)
     b, t_wave = HUBERT_SERVE
@@ -2998,7 +3043,7 @@ def phase_hubert_train(dev, gpu: str, tmp: str):
     from speech_ssl_compression_tpu_torch.utils.checkpoint import (
         load_checkpoint,
     )
-    from speech_ssl_compression_tpu_torch.utils.weights import load_hubert_model
+    from speech_ssl_compression_tpu_torch.utils.weights import load_wave_model
 
     t0 = time.perf_counter()
     b, t_wave = HUBERT_TRAIN
@@ -3052,8 +3097,9 @@ def phase_hubert_train(dev, gpu: str, tmp: str):
         raise AssertionError(f"trainer log {hist}")
 
     state = load_checkpoint(str(expdir / "last-step.npz"))
-    back = load_hubert_model(state["params"],
-                             HuBERTConfig.from_dict(state["meta"]["Config"]))
+    back = load_wave_model(state["params"],
+                           HuBERTConfig.from_dict(state["meta"]["Config"]),
+                           "hubert")
     same = all(torch.equal(v, runner.params[k].detach().cpu())
                for k, v in back.named_parameters())
     log("hubert train", f"last-step.npz read back: Step "
@@ -3171,6 +3217,484 @@ def phase_hubert_profile(runner, cudnn_model, batch, gpu: str):
                                      compute_dtype=torch.bfloat16)
         profile_calls(f"HuBERT grad step bf16 {name}",
                       lambda: step(runner.params, batch, runner.rng), gpu)
+
+
+def w2v2_batch(dev, b: int, t_wave: int, seed: int, short=None):
+    """B x t_wave samples of uniform noise in [-0.3, 0.3) (the synthetic
+    set's), row 1 cut to ``short`` valid samples when given."""
+    rng = np.random.default_rng(seed)
+    source = rng.uniform(-0.3, 0.3, (b, t_wave)).astype(np.float32)
+    lengths = np.full(b, t_wave)
+    if short is not None:
+        source[1, short:] = 0.0
+        lengths[1] = short
+    return {"source": torch.from_numpy(source).to(dev), "length": lengths}
+
+
+def w2v2_draws(cfg, batch, seed: int):
+    """A fixed span mask, negative counts and Gumbel uniforms for a batch:
+    (mask, counts, uniform, valid frames), all on its device."""
+    from speech_ssl_compression_tpu_torch.models import wav2vec2 as w2v
+    from speech_ssl_compression_tpu_torch.models.conv_frontend import (
+        conv_output_length, frame_lengths,
+    )
+
+    dev = batch["source"].device
+    b, t_wave = batch["source"].shape
+    t = conv_output_length(t_wave, cfg.conv_feature_layers)
+    n = frame_lengths(batch["length"], cfg.conv_feature_layers, t)
+    valid = torch.from_numpy(np.arange(t)[None, :] < n[:, None]).to(dev)
+    mask = torch.from_numpy(w2v.span_mask(
+        cfg, n, t, np.random.default_rng(seed))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    counts = w2v.sample_negative_counts(gen, mask & valid, cfg.num_negatives)
+    uniform = torch.rand((b * t * cfg.latent_groups, cfg.latent_vars),
+                         generator=gen, device=dev)
+    return mask, counts, uniform, valid
+
+
+def capture_dense_attention():
+    """Patches ``ops.attention.dense_attention`` to keep, per call, [q, k,
+    v, key padding, O] and, once the backward has run, the gradient dO of
+    O. Returns (the list it fills, a function that undoes the patch)."""
+    from speech_ssl_compression_tpu_torch.ops import attention
+
+    dense, captured = attention.dense_attention, []
+
+    def capturing(q, k, v, *, key_padding_mask=None, **kwargs):
+        o = dense(q, k, v, key_padding_mask=key_padding_mask, **kwargs)
+        pad = (key_padding_mask if key_padding_mask is not None else
+               torch.zeros(q.shape[0], q.shape[2], dtype=torch.bool,
+                           device=q.device))
+        entry = [q.detach(), k.detach(), v.detach(), pad, o.detach()]
+        captured.append(entry)
+        if o.requires_grad:
+            o.register_hook(lambda g: entry.append(g.detach()))
+        return o
+
+    attention.dense_attention = capturing
+
+    def undo():
+        attention.dense_attention = dense
+
+    return captured, undo
+
+
+def ds_cancellation(captured):
+    """Per encoder layer, from the float64 route's q, k, v, O and dO
+    (dropout off): the softmax backward dS = P o (dP - D), dP = dO V^T,
+    D = rowsum(dO o O), that the q and k gradients are made of. Returns
+    [(|P o dP| / |dS|, the rel. L2 change of dS when P, dP and D are each
+    rounded once to f32)] by layer: the first is how far dP and D cancel,
+    the second what one f32 rounding of them does to dS."""
+    norm = lambda t: float(torch.linalg.vector_norm(t))
+    r = lambda t: t.float().double()
+    out = []
+    for q, k, v, pad, o, do in captured:
+        s = (q * q.shape[-1] ** -0.5) @ k.transpose(-1, -2)
+        p = torch.softmax(s.masked_fill(pad[:, None, None, :],
+                                        float("-inf")), -1)
+        dp = do @ v.transpose(-1, -2)
+        d = (do * o).sum(-1, keepdim=True)
+        ds = p * (dp - d)
+        out.append((norm(p * dp) / norm(ds),
+                    norm(r(p) * (r(dp) - r(d)) - ds) / norm(ds)))
+        del s, p, dp, ds
+    return out
+
+
+def phase_w2v2_train(dev, gpu: str, tmp: str):
+    """wav2vec 2.0 base pre-training through the trainer's entry point at
+    the shipped recipe, then the checks on its model. Returns (runner,
+    launch counts of the run per dtype, the cuDNN-route model, a batch of
+    the recipe's shape)."""
+    import speech_ssl_compression_tpu_torch.models.encoder as encoder
+    from speech_ssl_compression_tpu_torch.configs import Wav2Vec2Config
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.models.wav2vec2 import Wav2Vec2Model
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_wav2vec2_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.models.conv_frontend import (
+        conv_output_length,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        load_wave_model,
+    )
+
+    t0 = time.perf_counter()
+    b, t_wave = W2V2_TRAIN
+    root = pathlib.Path(tmp) / "w2v2"
+    write_wav_dataset(root / "data", 3 * b, t_wave)
+    # the configs as shipped, with the conv kernels and 3 updates
+    model_text = (W2V2_DIR / "config_model.yaml").read_text()
+    runner_text = (W2V2_DIR / "config_runner.yaml").read_text()
+    for text, old in ((runner_text, "total_steps: -1"),
+                      (runner_text, "data: data/w2v_manifest"),
+                      (runner_text, f"train_batch_size: {b}"),
+                      (runner_text, f"max_sample_size: {t_wave}")):
+        if old not in text:
+            raise AssertionError(f"{W2V2_DIR} changed ({old!r}): update this "
+                                 "phase")
+    model_yaml, runner_yaml = root / "config_model.yaml", root / "runner.yaml"
+    model_yaml.write_text(model_text + "  conv_frontend_impl: tc_pallas\n")
+    runner_yaml.write_text(runner_text.replace(
+        "total_steps: -1", "total_steps: 3").replace(
+        "data: data/w2v_manifest", f"data: {root / 'data'}"))
+    expdir = root / "exp"
+    log("w2v2 train", f"synthetic set written ({3 * b} WAVs of >= {t_wave} "
+        f"samples), {time.perf_counter() - t0:.2f} s")
+
+    # the main path: counts from exactly one run of the trainer; the
+    # encoder layers it ran (LayerDrop 0.05 skips some) are counted by a
+    # wrapper around the layer forward
+    t0 = time.perf_counter()
+    layer_forward = encoder.encoder_layer_forward
+    kept = []
+
+    def counting(*args, **kwargs):
+        kept.append(1)
+        return layer_forward(*args, **kwargs)
+
+    encoder.encoder_layer_forward = counting
+    reset_launch_counts()
+    try:
+        runner = train(["-m", "melhubert", "-u", "wav2vec2", "-g",
+                        str(model_yaml), "-c", str(runner_yaml), "-n",
+                        str(expdir), "--device", str(dev), "--seed", "0"])
+        torch.cuda.synchronize()
+    finally:
+        encoder.encoder_layer_forward = layer_forward
+    counts, by_dtype = launch_counts(), dtype_launch_counts()
+    cfg = runner.cfg
+    steps = 3 * runner.accum_steps
+    n_conv = len(conv_layer_shapes(b, t_wave, cfg.conv_feature_layers))
+    want = {**dict.fromkeys(("conv1d_fwd", "conv1d_dw", "conv1d_dx"),
+                            steps * n_conv),
+            **dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
+                             "flash_attn_bwd_dkv"), len(kept))}
+    log("w2v2 train", f"wav2vec 2.0 base {cfg.encoder_layers}L/"
+        f"{cfg.encoder_embed_dim}, {cfg.latent_groups}x{cfg.latent_vars} "
+        f"codebook, {cfg.num_negatives} negatives, {runner.compute_dtype}, "
+        f"3 updates of B={b} x {t_wave} samples: {len(kept)} encoder layers "
+        f"run in {steps} grad steps (LayerDrop {cfg.encoder_layerdrop}); "
+        f"launches per grad step "
+        f"{ {k: v / steps for k, v in counts.items()} } (expected "
+        f"{ {k: v / steps for k, v in want.items()} }), per dtype {by_dtype}"
+        f", {time.perf_counter() - t0:.2f} s")
+    if counts != want or any(c["f32"] for c in by_dtype.values()):
+        raise AssertionError(f"w2v2 train launches {counts}")
+    hist = runner.log_history
+    for entry in hist:
+        log("w2v2 train", f"update {entry['step']}: loss {entry['loss']:.6f}"
+            f", grad norm {entry['grad_norm']:.6f}")
+    if [e["step"] for e in hist] != [3] or not all(
+            np.isfinite([e["loss"], e["grad_norm"]]).all() for e in hist):
+        raise AssertionError(f"trainer log {hist}")
+    # the temperature the quantizer ran at in each grad step, against the
+    # host's anneal of the update count (reference set_num_updates)
+    t_max, t_min, decay = cfg.latent_temp
+    want_temps = [(s, max(t_max * decay ** s, t_min)) for s in range(3)]
+    log("w2v2 train", f"Gumbel temperature per grad step "
+        f"{list(runner.temp_history)} (host anneal {want_temps})")
+    if list(runner.temp_history) != want_temps:
+        raise AssertionError("the Gumbel temperature is not annealed per step")
+
+    # read back through the strict load of the weight bridge: every
+    # parameter of the trainer's, none left over
+    state = load_checkpoint(str(expdir / "last-step.npz"))
+    saved_cfg = Wav2Vec2Config.from_dict(state["meta"]["Config"])
+    back = dict(load_wave_model(state["params"],
+                                    saved_cfg, "wav2vec2").named_parameters())
+    same = back.keys() == runner.params.keys() and all(
+        torch.equal(v, runner.params[k].detach().cpu())
+        for k, v in back.items())
+    log("w2v2 train", f"last-step.npz read back: Step {state['meta']['Step']}"
+        f", {len(back)} tensors bitwise the trainer's: {same}, its Config "
+        f"the trainer's: {saved_cfg == cfg}")
+    if not (same and saved_cfg == cfg and state["meta"]["Step"] == 3):
+        raise AssertionError("wav2vec 2.0 checkpoint does not read back")
+    del state, back
+
+    # kernels vs cuDNN + dense attention: f32, TF32 off, dropouts off, one
+    # fixed span mask, negative counts and Gumbel noise, B = 2 at full
+    # width; both against that plain route run in float64
+    t0 = time.perf_counter()
+    pb, pt, short = W2V2_PARITY
+    batch = w2v2_batch(dev, pb, pt, seed=1, short=short)
+    nodrop = dataclasses.replace(
+        cfg, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+        dropout_input=0.0, dropout_features=0.0, encoder_layerdrop=0.0)
+    mask, counts_fixed, uniform, valid = w2v2_draws(nodrop, batch, seed=2)
+    kernel_model = Wav2Vec2Model(nodrop).to(dev)
+    cudnn_model = Wav2Vec2Model(dataclasses.replace(
+        nodrop, conv_frontend_impl="auto")).to(dev)
+    # the witness of cancellation: every f32 master moved one ulp up or
+    # down at random, run in float64 (no rounding of its own to speak of)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    nudged = {}
+    for k, v in runner.params.items():
+        up = torch.rand(v.shape, generator=gen, device=dev) < 0.5
+        nudged[k] = torch.where(
+            up, torch.nextafter(v.detach(), torch.full_like(v, np.inf)),
+            torch.nextafter(v.detach(), torch.full_like(v, -np.inf))
+        ).requires_grad_(True)
+    results = {}
+    for name, model, impl, dtype, precision, params in (
+            ("kernels", kernel_model, "auto", torch.float32, "highest",
+             runner.params),
+            ("cudnn+dense", cudnn_model, "dense", torch.float32, "highest",
+             runner.params),
+            ("cudnn+dense f64", cudnn_model, "dense", torch.float64,
+             "highest", runner.params),
+            # the control: the plain route with TF32 on must fail the bar
+            ("cudnn+dense tf32", cudnn_model, "dense", torch.float32, "high",
+             runner.params),
+            ("cudnn+dense f64 nudged", cudnn_model, "dense", torch.float64,
+             "highest", nudged)):
+        step = make_wav2vec2_grad_step(model, attn_impl=impl,
+                                       compute_dtype=dtype)
+        if name == "cudnn+dense f64":
+            captured, undo = capture_dense_attention()
+        reset_launch_counts()
+        try:
+            with matmul_precision(precision):
+                loss, n, grads, logs = step(
+                    params, batch, torch.Generator(), runner.temp_history[
+                        -1][1], mask_indices=mask, gumbel_uniform=uniform,
+                    negative_counts=counts_fixed)
+            torch.cuda.synchronize()
+        finally:
+            if name == "cudnn+dense f64":
+                undo()
+        results[name] = (float(loss), int(n), grads, launch_counts(),
+                         {k: float(v) for k, v in logs.items()})
+    del nudged
+    cancel = ds_cancellation(captured)
+    del captured
+    (loss_k, n_k, grads_k, counts_k, logs_k), (
+        loss_d, n_d, grads_d, counts_d, logs_d), (
+        loss_64, n_64, grads_64, counts_64, logs_64), (
+        loss_t, _, grads_t, counts_t, logs_t), (
+        _, _, grads_u, counts_u, _) = results.values()
+    names = list(runner.params)
+
+    def compare(loss, grads, logs, ref_loss, ref_grads, ref_logs):
+        errs = grad_errors(names, grads, ref_grads)
+        worst = int(np.argmax(errs))
+        log_err = max(abs(logs[k] - ref_logs[k]) / max(abs(ref_logs[k]),
+                                                       1e-30)
+                      for k in ("loss_infonce", "loss_prob_perplexity",
+                                "loss_features_pen"))
+        return (abs(loss - ref_loss) / abs(ref_loss), errs[worst],
+                names[worst], log_err, errs)
+
+    k64 = compare(loss_k, grads_k, logs_k, loss_64, grads_64, logs_64)
+    d64 = compare(loss_d, grads_d, logs_d, loss_64, grads_64, logs_64)
+    kd = compare(loss_k, grads_k, logs_k, loss_d, grads_d, logs_d)
+    t64 = compare(loss_t, grads_t, logs_t, loss_64, grads_64, logs_64)
+    # how far one ulp of the weights moves each gradient, in float64
+    nudge = grad_errors(names, grads_u, grads_64)
+    # a gradient whose exact value is a small difference of large terms
+    # (the last layers' q/k projections: a softmax row's dS sums to 0) is
+    # missed by f32 arithmetic itself: the plain f32 route's own distance
+    # from float64 there is the measure, and the one-ulp nudge shows
+    # which gradients are so conditioned
+    def beyond(errs):  # (name, distance, the f32 route's, the nudge's)
+        return [(n, e, d, u) for n, e, d, u in zip(names, errs, d64[4],
+                                                   nudge) if e >= GRAD_BAR]
+
+    past, ctl_past = beyond(k64[4]), beyond(t64[4])
+    grads_ok = all(e < W2V2_CANCEL_FACTOR * d for _, e, d, _ in past)
+    ctl_ratio = max((e / max(d, 1e-30) for _, e, d, _ in ctl_past),
+                    default=0.0)
+    ctl_on_past = [t64[4][names.index(n)] / max(d, 1e-30)
+                   for n, _, d, _ in past]
+    order = np.argsort(nudge)[::-1]
+    rank = {names[i]: r + 1 for r, i in enumerate(order)}
+    want_parity = {**dict.fromkeys(("conv1d_fwd", "conv1d_dw", "conv1d_dx"),
+                                   n_conv),
+                   **dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
+                                    "flash_attn_bwd_dkv"), cfg.encoder_layers)}
+    log("w2v2 train", f"grad step (B={pb} x {pt} samples, row 1 {short} "
+        f"valid; TF32 off, dropouts off, fixed span mask, counts and Gumbel "
+        f"noise, {n_k} masked frames), loss rel, worst of {len(names)} "
+        f"gradients rel L2 and worst log rel: kernels vs cuDNN + "
+        f"impl='dense' in float64 {k64[0]:.3e}, {k64[1]:.3e} ({k64[2]}), "
+        f"{k64[3]:.3e}, bar {GRAD_BAR:g}; the f32 cuDNN + dense route vs "
+        f"float64 {d64[0]:.3e}, {d64[1]:.3e} ({d64[2]}), {d64[3]:.3e}; "
+        f"kernels vs the f32 cuDNN + dense route {kd[0]:.3e}, {kd[1]:.3e} "
+        f"({kd[2]}), {kd[3]:.3e}; losses {loss_k:.6f}, {loss_d:.6f}, "
+        f"{loss_64:.6f}; accuracy {logs_k['accuracy']:.4f}, "
+        f"{logs_d['accuracy']:.4f}, {logs_64['accuracy']:.4f}; launches "
+        f"{counts_k} (expected {want_parity}), {counts_d}, {counts_64}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    log("w2v2 train", f"{len(past)} of {len(names)} gradients past "
+        f"{GRAD_BAR:g} of float64 with the kernels, each against the f32 "
+        f"cuDNN + dense route's own distance (bar: less than "
+        f"{W2V2_CANCEL_FACTOR:g} times it), the ratio, and the float64 "
+        f"gradient's move under a one-ulp nudge of the weights with its "
+        f"rank of {len(names)}: "
+        + (", ".join(f"{n} {e:.3e} / {d:.3e} = {e / max(d, 1e-30):.3f}x, "
+                     f"nudge "
+                     f"{u:.3e} #{rank[n]}" for n, e, d, u in past)
+           or "none"))
+    log("w2v2 train", f"one-ulp nudge of the weights, float64: median "
+        f"gradient move {np.median(nudge):.3e}, the largest "
+        + ", ".join(f"{names[i]} {nudge[i]:.3e}" for i in order[:12]))
+    log("w2v2 train", f"control, the f32 cuDNN + dense route with TF32 on: "
+        f"loss rel {t64[0]:.3e}, worst gradient {t64[1]:.3e} ({t64[2]}), "
+        f"{len(ctl_past)} gradients past {GRAD_BAR:g} of float64, the "
+        f"largest ratio to the TF32-off route's distance {ctl_ratio:.3f}x "
+        f"(must reach {W2V2_CANCEL_FACTOR:g}), on the gradients the "
+        f"kernels put past {GRAD_BAR:g} "
+        f"{min(ctl_on_past, default=0.0):.3f}x to "
+        f"{max(ctl_on_past, default=0.0):.3f}x; launches {counts_t}")
+    log("w2v2 train", "the softmax backward in float64 per encoder layer, "
+        "|P o dP| / |dS| (how far dP and D cancel) and the rel. L2 change "
+        "of dS when P, dP and D are each rounded once to f32: "
+        + ", ".join(f"layer {i} {a:.1f}, {e:.3e}"
+                    for i, (a, e) in enumerate(cancel)))
+    if not (max(k64[0], k64[3]) < GRAD_BAR and grads_ok
+            and max(kd[0], kd[3]) < GRAD_BAR and n_k == n_d == n_64):
+        raise AssertionError("wav2vec 2.0 kernel gradients disagree with the "
+                             "plain route (float64 or f32)")
+    if ctl_ratio < W2V2_CANCEL_FACTOR:
+        raise AssertionError("the TF32 control passes the cancellation bar: "
+                             "the bar cannot tell")
+    if (counts_k != want_parity or any(counts_d.values())
+            or any(counts_64.values()) or any(counts_t.values())
+            or any(counts_u.values())):
+        raise AssertionError("the wav2vec 2.0 parity run took the wrong path")
+    del results, grads_k, grads_d, grads_64, grads_t, grads_u, kernel_model
+
+    # the path's kernels against their plain versions at its shapes: the
+    # attention pair at (B, 12, 782, 64) bf16 with dropout and the
+    # encoder's pad key, the conv kernels at frontend layers 1-6
+    t_frames = conv_output_length(t_wave, cfg.conv_feature_layers)
+    t_enc = t_frames + (-t_frames % cfg.required_seq_len_multiple)
+    shape = (b, cfg.encoder_attention_heads[0], t_enc, cfg.head_dim)
+    pad = torch.zeros((b, t_enc), dtype=torch.bool, device=dev)
+    pad[:, t_frames:] = True
+    rows = torch.ones((b, t_enc), dtype=torch.bool, device=dev)
+    masks = dict(key_padding_mask=pad, dropout_p=cfg.attention_dropout,
+                 dropout_seed=DROPOUT_SEED)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    check_forward(fa, "w2v2_train", shape, shape, masks, rows,
+                  torch.bfloat16, gen)
+    check_backward(fa, "w2v2_train", shape, shape, masks, rows, ~pad,
+                   torch.bfloat16, gen)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for i, conv_shape in enumerate(conv_layer_shapes(
+            b, t_wave, cfg.conv_feature_layers)):
+        check_conv(f"w2v2 layer{i + 1}", conv_shape, torch.bfloat16, gen)
+
+    # 10 updates on one fixed batch (the trainer's dtype, dropouts on, a
+    # fixed span mask, counts and Gumbel noise): the loss falls
+    t0 = time.perf_counter()
+    batch = w2v2_batch(dev, b, t_wave, seed=3)
+    mask, counts_fixed, uniform, _ = w2v2_draws(cfg, batch, seed=4)
+    step = make_wav2vec2_grad_step(runner.model,
+                                   compute_dtype=runner.compute_dtype)
+    losses = []
+    for _ in range(10):
+        loss, n, grads, _ = step(runner.params, batch, runner.rng,
+                                 runner.temp_history[-1][1],
+                                 mask_indices=mask, gumbel_uniform=uniform,
+                                 negative_counts=counts_fixed)
+        runner.apply(grads, torch.clamp_min(n.float(), 1.0))
+        losses.append(float(loss) / float(n))
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    log("w2v2 train", f"10 updates on one fixed batch ({runner.compute_dtype}"
+        f", dropouts on), loss per masked frame "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; mean of the first 3 "
+        f"{first:.4f}, of the last 3 {last:.4f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError("the wav2vec 2.0 loss does not fall on a fixed "
+                             "batch")
+    cudnn_model = Wav2Vec2Model(dataclasses.replace(
+        cfg, conv_frontend_impl="auto")).to(dev)
+    return runner, by_dtype, cudnn_model, batch
+
+
+def phase_w2v2_train_timing(runner, cudnn_model, batch, gpu: str):
+    """CUDA-event medians at the shipped recipe's batch: the grad step and
+    one update (a grad step + apply) with the kernels and with cuDNN +
+    impl="dense", f32 (TF32 off) and bf16, dropouts on; frames/s and each
+    grad step's peak memory above what was allocated before it."""
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.models.conv_frontend import (
+        conv_output_length,
+    )
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_wav2vec2_grad_step,
+    )
+
+    b, t_wave = W2V2_TRAIN
+    frames = b * conv_output_length(t_wave, runner.cfg.conv_feature_layers)
+    temp = runner.temp_history[-1][1]
+    routes = {"kernels": (runner.model, "auto"),
+              "cuDNN + dense": (cudnn_model, "dense")}
+    for dtype in (torch.float32, torch.bfloat16):
+        steps = {name: make_wav2vec2_grad_step(
+            m, compute_dtype=dtype, attn_impl=impl,
+            mask_shared_rounding=True) for name, (m, impl) in routes.items()}
+
+        def grad(name):
+            return lambda: steps[name](runner.params, batch, runner.rng, temp)
+
+        def update(name):
+            def run():
+                _, n, grads, _ = steps[name](runner.params, batch, runner.rng,
+                                             temp)
+                runner.apply(grads, torch.clamp_min(n.float(), 1.0))
+            return run
+
+        peaks = {}
+        with matmul_precision("highest"):
+            for name in routes:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                grad(name)()
+                torch.cuda.synchronize()
+                peaks[name] = (torch.cuda.max_memory_allocated() - before) / 1e9
+            k_ms, c_ms = alternate(grad("kernels"), grad("cuDNN + dense"))
+            ku_ms, cu_ms = alternate(update("kernels"),
+                                     update("cuDNN + dense"))
+        log("timing", f"wav2vec 2.0 grad step B={b} x {t_wave} samples "
+            f"{dtype}: kernels {k_ms:.2f} ms ({frames / k_ms * 1e3:.0f} "
+            f"frames/s, peak {peaks['kernels']:.2f} GB above the live "
+            f"{before / 1e9:.2f} GB), cuDNN + dense {c_ms:.2f} ms "
+            f"({frames / c_ms * 1e3:.0f} frames/s, peak "
+            f"{peaks['cuDNN + dense']:.2f} GB); one update (grad step + "
+            f"apply): kernels {ku_ms:.2f} ms ({1e3 / ku_ms:.3f} updates/s), "
+            f"cuDNN + dense {cu_ms:.2f} ms ({1e3 / cu_ms:.3f} updates/s); "
+            f"{frames} frames [{gpu}]")
+
+
+def phase_w2v2_profile(runner, cudnn_model, batch, gpu: str):
+    """The bf16 wav2vec 2.0 grad step with the kernels and with cuDNN +
+    impl="dense"."""
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_wav2vec2_grad_step,
+    )
+
+    temp = runner.temp_history[-1][1]
+    for name, model, impl in (("kernels", runner.model, "auto"),
+                              ("cuDNN + dense", cudnn_model, "dense")):
+        step = make_wav2vec2_grad_step(model, compute_dtype=torch.bfloat16,
+                                       attn_impl=impl,
+                                       mask_shared_rounding=True)
+        profile_calls(f"wav2vec 2.0 grad step bf16 {name}",
+                      lambda: step(runner.params, batch, runner.rng, temp),
+                      gpu)
 
 
 def attention_library_ms(dev, gpu: str, dtype):
@@ -3360,6 +3884,19 @@ def attention_entry(name: str, record: dict, bounds: dict,
     return entry
 
 
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall time added to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3388,33 +3925,50 @@ def main() -> None:
             log("build", line.strip())
     hgmma = check_tensor_cores(_kernels)
 
-    record = phase_kernels(dev, gpu)
-    merge(record, phase_backward(dev, gpu))
-    conv = phase_conv(dev, gpu)
-    library = {dtype: attention_library_ms(dev, gpu, dtype)
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
+    record = timed("kernels", phase_kernels, dev, gpu)
+    merge(record, timed("backward", phase_backward, dev, gpu))
+    conv = timed("conv", phase_conv, dev, gpu)
+    library = {dtype: timed("library", attention_library_ms, dev, gpu, dtype)
                for dtype in (torch.float32, torch.bfloat16)}
     with tempfile.TemporaryDirectory() as tmp:
-        serve, extractors, wavs = phase_slice(dev, gpu, tmp)
-        phase_timing(extractors, wavs, gpu)
+        serve, extractors, wavs = timed("slice", phase_slice, dev, gpu, tmp)
+        timed("slice", phase_timing, extractors, wavs, gpu)
         if args.profile:
-            phase_profile(extractors, wavs, gpu)
+            timed("profile", phase_profile, extractors, wavs, gpu)
         del extractors
-        runner, batch, train, snapshot = phase_train(dev, gpu, tmp)
-        merge(record, phase_train_timing(runner, batch, gpu))
+        runner, batch, train, snapshot = timed("train", phase_train, dev,
+                                               gpu, tmp)
+        merge(record, timed("train", phase_train_timing, runner, batch, gpu))
         if args.profile:
-            phase_train_profile(runner, batch, gpu)
-        phase_resume(dev, gpu, tmp, runner, snapshot, batch)
+            timed("profile", phase_train_profile, runner, batch, gpu)
+        timed("resume", phase_resume, dev, gpu, tmp, runner, snapshot, batch)
         del runner, batch, snapshot
-        weight_prune = phase_weight_prune(dev, gpu, tmp)
-        head_prune, one_head = phase_head_prune(dev, gpu, tmp)
-        row_prune = phase_row_prune(dev, gpu, tmp, one_head)
-        distill = phase_distill(dev, gpu, tmp, one_head, args.profile)
-        hubert_serve = phase_hubert_serve(dev, gpu)
-        runner, hubert_train, cudnn_model, batch = phase_hubert_train(
-            dev, gpu, tmp)
-        phase_hubert_train_timing(runner, cudnn_model, batch, gpu)
+        weight_prune = timed("weight prune", phase_weight_prune, dev, gpu,
+                             tmp)
+        head_prune, one_head = timed("head prune", phase_head_prune, dev,
+                                     gpu, tmp)
+        row_prune = timed("row prune", phase_row_prune, dev, gpu, tmp,
+                          one_head)
+        distill = timed("distill", phase_distill, dev, gpu, tmp, one_head,
+                        args.profile)
+        hubert_serve = timed("hubert serve", phase_hubert_serve, dev, gpu)
+        runner, hubert_train, cudnn_model, batch = timed(
+            "hubert train", phase_hubert_train, dev, gpu, tmp)
+        timed("hubert train", phase_hubert_train_timing, runner, cudnn_model,
+              batch, gpu)
         if args.profile:
-            phase_hubert_profile(runner, cudnn_model, batch, gpu)
+            timed("profile", phase_hubert_profile, runner, cudnn_model,
+                  batch, gpu)
+        del runner, cudnn_model, batch
+        runner, w2v2_train, cudnn_model, batch = timed(
+            "w2v2 train", phase_w2v2_train, dev, gpu, tmp)
+        timed("w2v2 train", phase_w2v2_train_timing, runner, cudnn_model,
+              batch, gpu)
+        if args.profile:
+            timed("profile", phase_w2v2_profile, runner, cudnn_model, batch,
+                  gpu)
+        del runner, cudnn_model, batch
 
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after
@@ -3423,7 +3977,8 @@ def main() -> None:
              "melhubert head-pruning": head_prune,
              "melhubert row-pruning": row_prune,
              "melhubert distillation": distill,
-             "hubert serve": hubert_serve, "hubert train": hubert_train}
+             "hubert serve": hubert_serve, "hubert train": hubert_train,
+             "wav2vec2 train": w2v2_train}
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         if not head_prune[name]["f32"]:
             raise AssertionError(f"no f32 {name} launch on head pruning")
@@ -3448,7 +4003,9 @@ def main() -> None:
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")
     log("total", f"{time.perf_counter() - t_start:.1f} s of wall time, "
-        f"the build included [{gpu}]")
+        f"the build included; per phase "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in PHASE_SECONDS.items())
+        + f" [{gpu}]")
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
 """Configurations of the port, read without PyYAML.
 
-``MelHuBERTConfig`` and ``HuBERTConfig`` are the port's own copies of the
-JAX package's frozen dataclasses (``speech_ssl_compression_tpu/configs.py``)
-with the same fields, defaults and ``from_dict``/``to_dict``, so a config
-dict written by either package reads in the other.
-:func:`read_yaml` reads the repository's YAML files (the model configs
-under ``configs/*/config_model*.yaml`` with their ``melhubert:``,
-``hubert:`` and ``task:`` sections, the runner configs with their nested
-``runner:``, ``optimizer:``, ``datarc:``, ``lr_scheduler:``, ``task:`` and
-``prune:`` sections and block lists such as ``betas:`` and ``sets:``) into
+``MelHuBERTConfig``, ``HuBERTConfig`` and ``Wav2Vec2Config`` are the
+port's own copies of the JAX package's frozen dataclasses
+(``speech_ssl_compression_tpu/configs.py``) with the same fields, defaults
+and ``from_dict``/``to_dict``, so a config dict written by either package
+reads in the other. :func:`read_yaml` reads the repository's YAML files
+(the model configs under ``configs/*/config_model*.yaml`` with their
+``melhubert:``, ``hubert:``, ``wav2vec2:`` and ``task:`` sections, the
+runner configs with their nested ``runner:``, ``optimizer:``, ``datarc:``,
+``lr_scheduler:``, ``task:`` and ``prune:`` sections and block lists such as ``betas:`` and ``sets:``) into
 what ``yaml.safe_load`` gives, so a GPU machine running only the port needs
 no PyYAML.
 """
@@ -22,8 +22,9 @@ import re
 from dataclasses import dataclass
 from typing import Tuple
 
-__all__ = ["HuBERTConfig", "MelHuBERTConfig", "hubert_config_from_yaml",
-           "melhubert_config_from_yaml", "read_yaml"]
+__all__ = ["HuBERTConfig", "MelHuBERTConfig", "Wav2Vec2Config",
+           "hubert_config_from_yaml", "melhubert_config_from_yaml",
+           "read_yaml", "wav2vec2_config_from_yaml"]
 
 
 def _per_layer(value, n_layers: int) -> Tuple[int, ...]:
@@ -242,6 +243,115 @@ class HuBERTConfig:
         return dataclasses.replace(
             self, encoder_ffn_embed_dim=tuple(int(f) for f in ffn_per_layer))
 
+
+@dataclass(frozen=True)
+class Wav2Vec2Config:
+    """Copy of the JAX ``configs.Wav2Vec2Config`` (reference
+    model_config.py:117-195, defaults included). ``conv_frontend_impl``
+    keeps the JAX values, as in :class:`HuBERTConfig` ("tc_pallas": the
+    port's CUDA strided-conv kernels; every other value: cuDNN);
+    ``contrastive_impl`` keeps them too: "auto"/"dense" the
+    multiplicity-count InfoNCE, "index" the (B, T, T) cosines with scalar
+    gathers, "gathered" the (B, T, N, D) negatives."""
+
+    extractor_mode: str = "default"
+    encoder_layers: int = 12
+    encoder_embed_dim: int = 768
+    encoder_ffn_embed_dim: Tuple[int, ...] = (3072,) * 12
+    encoder_attention_heads: Tuple[int, ...] = (12,) * 12
+    head_dim: int = 64
+    activation_fn: str = "gelu"
+    layer_type: str = "transformer"
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.0
+    encoder_layerdrop: float = 0.0
+    dropout_input: float = 0.0
+    dropout_features: float = 0.0
+    final_dim: int = 0
+    layer_norm_first: bool = False
+    conv_feature_layers: Tuple[Tuple[int, int, int], ...] = (
+        (512, 10, 5),
+        (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
+        (512, 2, 2), (512, 2, 2),
+    )
+    conv_bias: bool = False
+    logit_temp: float = 0.1
+    quantize_targets: bool = False
+    same_quantizer: bool = False
+    target_glu: bool = False
+    feature_grad_mult: float = 1.0
+    quantizer_depth: int = 1
+    quantizer_factor: int = 3
+    latent_vars: int = 320
+    latent_groups: int = 2
+    latent_dim: int = 0
+    mask_length: int = 10
+    mask_prob: float = 0.65
+    mask_selection: str = "static"
+    mask_other: float = 0.0
+    no_mask_overlap: bool = False
+    mask_min_space: int = 1
+    require_same_masks: bool = True
+    mask_dropout: float = 0.0
+    mask_channel_length: int = 10
+    mask_channel_prob: float = 0.0
+    mask_channel_before: bool = False
+    mask_channel_selection: str = "static"
+    mask_channel_other: float = 0.0
+    no_mask_channel_overlap: bool = False
+    mask_channel_min_space: int = 1
+    num_negatives: int = 100
+    negatives_from_everywhere: bool = False
+    cross_sample_negatives: int = 0
+    codebook_negatives: int = 0
+    pos_emb_type: str = "conv"
+    conv_pos: int = 128
+    conv_pos_groups: int = 16
+    pos_conv_depth: int = 1
+    latent_temp: Tuple[float, float, float] = (2.0, 0.5, 0.999995)
+    max_positions: int = 100000
+    checkpoint_activations: bool = False
+    required_seq_len_multiple: int = 2
+    crop_seq_to_multiple: int = 1
+    conv_frontend_impl: str = "auto"
+    conv_frontend_barrier: object = False
+    contrastive_impl: str = "auto"
+
+    @classmethod
+    def from_dict(cls, cfg: dict) -> "Wav2Vec2Config":
+        n_layers = int(cfg.get("encoder_layers", 12))
+        embed_dim = int(cfg.get("encoder_embed_dim", 768))
+        heads = cfg.get("encoder_attention_heads", 12)
+        conv_spec = cfg.get(
+            "conv_feature_layers",
+            "[(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512,2,2)] + [(512,2,2)]")
+        if isinstance(conv_spec, str):
+            conv_spec = _parse_conv_spec(conv_spec)
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in cfg.items() if k in known}
+        kwargs["encoder_layers"] = n_layers
+        kwargs["encoder_ffn_embed_dim"] = _per_layer(
+            cfg.get("encoder_ffn_embed_dim", 3072), n_layers)
+        kwargs["encoder_attention_heads"] = _per_layer(heads, n_layers)
+        kwargs["head_dim"] = _resolve_head_dim(cfg, heads, embed_dim)
+        kwargs["conv_feature_layers"] = tuple(tuple(c) for c in conv_spec)
+        if "latent_temp" in cfg:
+            kwargs["latent_temp"] = tuple(float(x) for x in cfg["latent_temp"])
+        return cls(**kwargs)
+
+    def to_dict(self) -> dict:
+        return _wave_config_to_dict(self)
+
+    def with_heads(self, heads_per_layer) -> "Wav2Vec2Config":
+        return dataclasses.replace(
+            self, encoder_attention_heads=tuple(int(h) for h in heads_per_layer))
+
+    def with_ffn_dims(self, ffn_per_layer) -> "Wav2Vec2Config":
+        return dataclasses.replace(
+            self, encoder_ffn_embed_dim=tuple(int(f) for f in ffn_per_layer))
+
+
 # PyYAML's (YAML 1.1) resolvers for the plain scalars the configs use
 _BOOLS = {**dict.fromkeys("yes Yes YES true True TRUE on On ON".split(), True),
           **dict.fromkeys("no No NO false False FALSE off Off OFF".split(),
@@ -361,3 +471,13 @@ def hubert_config_from_yaml(path: str | os.PathLike) -> HuBERTConfig:
     if not section:
         raise ValueError(f"{path}: no 'hubert:' section")
     return HuBERTConfig.from_dict(section)
+
+
+def wav2vec2_config_from_yaml(path: str | os.PathLike) -> Wav2Vec2Config:
+    """The ``wav2vec2:`` section of a model YAML such as
+    ``configs/wav2vec2/config_model.yaml``, as ``train.py -u wav2vec2``
+    reads it with ``yaml.safe_load``."""
+    section = (read_yaml(path) or {}).get("wav2vec2")
+    if not section:
+        raise ValueError(f"{path}: no 'wav2vec2:' section")
+    return Wav2Vec2Config.from_dict(section)

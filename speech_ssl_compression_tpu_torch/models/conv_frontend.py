@@ -175,12 +175,15 @@ def wave_frontend_forward(
     *,
     generator: Optional[torch.Generator] = None,  # on source's device
     deterministic: bool = True,
+    dropout_features: bool = False,
 ):
     """Port of JAX ``wave_frontend_forward`` (reference model.py:276-346):
     the conv features, GradMultiply (whose scale also reaches the feature
     penalty, computed after it), the feature penalty mean(f^2) in f32, the
     LayerNorm, the frame-valid mask from the conv length arithmetic,
-    ``post_extract_proj`` and the input dropout. ``model`` holds
+    ``post_extract_proj`` and the input dropout (and, with
+    ``dropout_features``, wav2vec 2.0's ``cfg.dropout_features`` on the
+    unmasked features after it). ``model`` holds
     ``feature_extractor``, ``layer_norm`` and an optional
     ``post_extract_proj``. Returns (x, unmasked_features, frame_valid (B, T')
     bool, out_len (B,) numpy, features_pen)."""
@@ -205,4 +208,7 @@ def wave_frontend_forward(
     if proj is not None:
         x = proj(x)
     x = dropout(x, cfg.dropout_input, generator, deterministic)
+    if dropout_features:
+        unmasked_features = dropout(unmasked_features, cfg.dropout_features,
+                                    generator, deterministic)
     return x, unmasked_features, frame_valid, out_len, features_pen

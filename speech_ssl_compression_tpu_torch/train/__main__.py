@@ -1,5 +1,5 @@
-"""Training CLI of the port, for MelHuBERT and HuBERT pre-training and
-MelHuBERT weight, head and row pruning and distillation:
+"""Training CLI of the port, for MelHuBERT, HuBERT and wav2vec 2.0
+pre-training and MelHuBERT weight, head and row pruning and distillation:
 
     python -m speech_ssl_compression_tpu_torch.train -m melhubert \\
         -g configs/melhubert/config_model_20ms.yaml -c <runner.yaml> \\
@@ -25,20 +25,25 @@ MelHuBERT weight, head and row pruning and distillation:
     python -m speech_ssl_compression_tpu_torch.train -m melhubert -u hubert \\
         -g configs/hubert/config_model.yaml -c <runner.yaml with task:> \\
         -n <expdir> [--seed N] [--device cuda] [-i <ckpt> ...]
+    python -m speech_ssl_compression_tpu_torch.train -m melhubert \\
+        -u wav2vec2 -g configs/wav2vec2/config_model.yaml \\
+        -c <runner.yaml with task:> -n <expdir> [--seed N] [--device cuda] \\
+        [-i <ckpt> ...]
 
 Port of the repository's ``train.py`` (the reference's flags), with
 ``--device`` in place of ``--backend``: ``-u melhubert`` goes to
-``train/runner.py``, ``-u hubert`` to ``train/wave_runner.py``. ``-i``
+``train/runner.py``, ``-u hubert`` and ``-u wav2vec2`` to
+``train/wave_runner.py``. ``-i``
 starts from a checkpoint (the JAX package's npz, or a reference
 ``.ckpt``), and ``--init_optimizer_from_initial_weight`` also restores
 its Adam state (a resume); in ``-m distillation`` ``-i`` is the
 teacher, and that flag is ignored. The YAMLs are read without PyYAML
 (``configs.py::read_yaml``), and the two config files are copied into the
 experiment directory for provenance. Ported: pre-training (``-m
-melhubert``) of both models and ``-m weight-pruning``, ``-m
+melhubert``) of the three models and ``-m weight-pruning``, ``-m
 head-pruning`` (metrics l1 and data-driven, targets by_layer and
 by_whole), ``-m row-pruning`` and ``-m distillation`` of MelHuBERT; the
-pruning and distillation modes of HuBERT, ``-u wav2vec2`` and the
+pruning and distillation modes of HuBERT and wav2vec 2.0 and the
 parallel flags raise ``NotImplementedError``.
 """
 

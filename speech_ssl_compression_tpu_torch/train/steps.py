@@ -1,9 +1,9 @@
 """The pre-training grad step and the optimizer's apply step.
 
 Port of ``speech_ssl_compression_tpu/train/steps.py`` for MelHuBERT
-pre-training and distillation, and of the HuBERT grad step of
-``speech_ssl_compression_tpu/train/wave_runner.py``. Grad semantics match
-JAX's, which match the reference:
+pre-training and distillation, and of the HuBERT and wav2vec 2.0 grad
+steps of ``speech_ssl_compression_tpu/train/wave_runner.py``. Grad
+semantics match JAX's, which match the reference:
 
   * the micro-batch loss is divided by ``gradient_accumulate_steps``;
   * the accumulated grads are divided again by ``sample_size`` in the apply
@@ -396,5 +396,55 @@ def make_hubert_grad_step(model, *, accum_steps: int = 1,
         loss = out["loss"] / accum_steps
         return (loss.detach(), out["sample_size"], _grads(loss, params),
                 out["logs"])
+
+    return grad_step
+
+
+def make_wav2vec2_grad_step(model, *, accum_steps: int = 1,
+                            compute_dtype=torch.float32,
+                            attn_impl: str = "auto",
+                            mask_shared_rounding: bool = False):
+    """Returns ``grad_step(params, batch, rng, gumbel_temp,
+    mask_indices=None, masks=None, gumbel_uniform=None,
+    negative_counts=None) -> (loss, sample_size, grads, logs)``, port of
+    the wav2vec 2.0 branch of JAX ``WaveRunner._build_grad_step``
+    (train/wave_runner.py:332-385).
+
+    ``params`` maps ``model``'s (a ``Wav2Vec2Model``) parameter names to
+    the f32 masters (``masks`` as in :func:`make_melhubert_grad_step`);
+    ``batch`` holds the device tensor ``source`` (B, T_wave), the host
+    ``length`` (B,) numpy and, from a dataset with a mask config, the
+    ``precomputed_mask`` (B, T') the forward uses in place of a span mask.
+    ``gumbel_temp`` is the quantizer's temperature of this step (the
+    trainer anneals it on the host). ``mask_shared_rounding``: one
+    span-count draw per batch, for crop-collated (unpadded) batches.
+    Returns the loss / accum_steps (detached), the masked-frame count (a
+    device tensor), the gradients in ``params``' order (zeros for unused
+    ones) and the detached logs, with ``temp``, the temperature the
+    quantizer ran at. ``mask_indices``, ``gumbel_uniform`` and
+    ``negative_counts`` fix the step's draws for parity checks."""
+
+    def grad_step(params: Dict[str, torch.Tensor], batch: dict,
+                  rng: torch.Generator, gumbel_temp: float,
+                  mask_indices=None, masks=None, gumbel_uniform=None,
+                  negative_counts=None):
+        if mask_indices is None:
+            mask_indices = batch.get("precomputed_mask")
+        out = functional_call(
+            model,
+            cast_for_compute(mask_params(params, masks), compute_dtype),
+            (batch["source"].to(compute_dtype), batch["length"]),
+            dict(compute_loss=True, mask=True, mask_indices=mask_indices,
+                 rng=rng, deterministic=False,
+                 gumbel_temp=gumbel_temp, attn_impl=attn_impl,
+                 mask_shared_rounding=mask_shared_rounding,
+                 gumbel_uniform=gumbel_uniform,
+                 negative_counts=negative_counts),
+        )
+        loss = out["loss"] / accum_steps
+        logs = {k: v.detach() for k, v in out["logs"].items()}
+        if "temp" in out:
+            logs["temp"] = out["temp"]
+        return loss.detach(), out["sample_size"], _grads(loss, params), logs
 
     return grad_step

@@ -1,13 +1,18 @@
-"""The pre-training runner of the waveform models, HuBERT mode.
+"""The pre-training runner of the waveform models, HuBERT and wav2vec 2.0.
 
 Port of ``speech_ssl_compression_tpu/train/wave_runner.py::WaveRunner``
-for ``-u hubert`` pre-training in one process: the task config and its
-label-rate checks, the label dictionaries and lookups, a seeded fresh
-init, the collate step that aligns labels to conv frames on the host, the
-grad step (on bf16 copies of the f32 masters on a GPU when the runner YAML
-says ``bf16``, as the port's MelHuBERT runner decides; JAX's WaveRunner
-takes bf16 only on a TPU), the accumulation window divided by the masked
-frame count, the fused clip + Adam apply with its non-finite skip, log
+for ``-u hubert`` and ``-u wav2vec2`` pre-training in one process. HuBERT:
+the task config and its label-rate checks, the label dictionaries and
+lookups, the collate step that aligns labels to conv frames on the host.
+wav2vec 2.0: its task config, the percentile-bucketed raw-audio dataset
+(block masks per batch with ``task.precompute_mask_config``), one span-count
+draw per batch for crop-collated batches (``mask_shared_rounding = not
+pad``, the dataset's pad flag), and the Gumbel temperature annealed on the
+host at every micro-step (``anneal_temp(latent_temp, step)``). Both: a
+seeded fresh init, the grad step (on bf16 copies of the f32 masters on a
+GPU when the runner YAML says ``bf16``, as the port's MelHuBERT runner
+decides; JAX's WaveRunner takes bf16 only on a TPU), the accumulation
+window divided by the masked frame count, the fused clip + Adam apply with its non-finite skip, log
 lines and TensorBoard scalars, a window dropped whole on a CUDA
 out-of-memory error, and ``states-epoch-*.npz`` / ``last-step.npz``
 checkpoints in the JAX package's format. ``-i`` starts from the JAX
@@ -16,24 +21,28 @@ weight-pruning masks kept and applied in every grad step), and
 ``--init_optimizer_from_initial_weight`` restores its Adam state.
 
 Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1 item
-12): wav2vec 2.0, the weight-, head- and row-pruning modes on HuBERT,
-multi-process data parallelism and meshes.
+12): the weight-, head- and row-pruning and distillation modes on the
+waveform models, multi-process data parallelism and meshes.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import os
 import time
 
 import torch
 
-from ..configs import HuBERTConfig
+from ..configs import HuBERTConfig, Wav2Vec2Config
 from ..data.bucket_dataset import PrefetchIterator
 from ..data.dictionary import Dictionary, build_label_lookup
 from ..data.hubert_dataset import HubertWaveDataset
-from ..data.task_config import HubertTaskConfig
+from ..data.task_config import HubertTaskConfig, Wav2vec2TaskConfig
+from ..data.wav2vec2_dataset import Wav2Vec2AudioDataset
 from ..extract import resolve_device
 from ..models.conv_frontend import conv_output_length
+from ..models.gumbel_vq import anneal_temp
 from ..models.hubert import encode_aligned_targets_np, feat2tar_ratio
 from ..utils.checkpoint import save_checkpoint
 from ..utils.tb import TBLogger
@@ -42,32 +51,36 @@ from ..utils.torch_convert import (
     wave_params_to_state_dict,
 )
 from ..utils.weights import (
-    hubert_tree_from_named,
     init_hubert_params_np,
-    load_hubert_model,
+    init_wav2vec2_params_np,
+    load_wave_model,
     masks_tree,
     named_masks,
+    wave_tree_from_named,
 )
 from .optim_mixin import OptimizerScheduleMixin
-from .steps import accumulate_grads, make_hubert_grad_step
+from .steps import (
+    accumulate_grads,
+    make_hubert_grad_step,
+    make_wav2vec2_grad_step,
+)
 
 _UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
 
 
 class WaveRunner(OptimizerScheduleMixin):
     """``WaveRunner(args, runner_config, upstream_config).train()``, as the
-    JAX runner, for ``args.upstream == "hubert"`` pre-training
+    JAX runner, for ``args.upstream`` "hubert" or "wav2vec2" pre-training
     (``args.mode == "melhubert"``, the mode ``train.py`` passes for
     pre-training). ``args.device`` names the torch device
     (``cuda`` when absent: the CPU only when asked for)."""
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
-        if args.upstream != "hubert":
-            raise NotImplementedError(
-                f"upstream {args.upstream!r} is not ported yet (hubert only)")
+        if args.upstream not in ("hubert", "wav2vec2"):
+            raise NotImplementedError(f"upstream {args.upstream!r}")
         if args.mode != "melhubert":
             raise NotImplementedError(
-                f"mode {args.mode!r} on hubert is not ported yet "
+                f"mode {args.mode!r} on {args.upstream} is not ported yet "
                 "(pre-training only)")
         for name in _UNPORTED_ARGS:
             if getattr(args, name, None) not in (None, False, 1):
@@ -91,25 +104,11 @@ class WaveRunner(OptimizerScheduleMixin):
             else torch.float32
         )
 
-        self.task_cfg = HubertTaskConfig.from_dict(
-            runner_config.get("task", {}))
-        self.cfg = HuBERTConfig.from_dict(upstream_config["hubert"])
-        if self.task_cfg.label_rate < 0:
-            # sequence labels cannot be frame-aligned to cropped audio
-            raise NotImplementedError(
-                "task.label_rate = -1 (sequence labels) is not valid for "
-                "HuBERT pre-training; set the frame label rate (e.g. 50)")
-        if (self.task_cfg.label_rate > 0
-                and float(self.task_cfg.label_rate) != float(self.cfg.label_rate)):
-            raise ValueError(
-                f"task.label_rate ({self.task_cfg.label_rate}) != model "
-                f"label_rate ({self.cfg.label_rate})")
-        self.dictionaries = self._load_dictionaries()
-        self.num_classes = tuple(len(d) for d in self.dictionaries)
-
-        self._tree_from_named = hubert_tree_from_named
+        self._bind_upstream(runner_config.get("task", {}))
+        self._tree_from_named = lambda named: wave_tree_from_named(
+            named, self.upstream)
         self._named_from_tree = lambda tree: wave_params_to_state_dict(
-            tree, "hubert")
+            tree, self.upstream)
         self._init_params(seed)
         n = sum(p.numel() for p in self.params.values())
         print(f"[WaveRunner] - {self.upstream}: {n} parameters")
@@ -129,11 +128,68 @@ class WaveRunner(OptimizerScheduleMixin):
                       "compatible optimizer state - starting with fresh "
                       "Adam moments")
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
-        self.grad_step = make_hubert_grad_step(
+        self.grad_step = self._make_grad_step(
             self.model, accum_steps=self.accum_steps,
             compute_dtype=self.compute_dtype)
         # {"step", "loss", "grad_norm"} of every log line
         self.log_history: list = []
+        # wav2vec 2.0: (step, the temperature the quantizer ran at) of the
+        # last micro-steps
+        self.temp_history = collections.deque(maxlen=1024)
+
+    def _bind_upstream(self, task: dict):
+        """Everything that differs between the two upstreams, decided in
+        one place: the task config and the model config (HuBERT: the label
+        rate checks and the dictionaries; wav2vec 2.0: the dataset's pad
+        flag), the fresh init, the check of an ``-i`` tree, the grad step,
+        the dataset, the collate and the per-micro-step arguments of the
+        grad step."""
+        if self.upstream == "hubert":
+            self.task_cfg = HubertTaskConfig.from_dict(task)
+            self.cfg = HuBERTConfig.from_dict(self.upstream_config["hubert"])
+            if self.task_cfg.label_rate < 0:
+                # sequence labels cannot be frame-aligned to cropped audio
+                raise NotImplementedError(
+                    "task.label_rate = -1 (sequence labels) is not valid for "
+                    "HuBERT pre-training; set the frame label rate (e.g. 50)")
+            if (self.task_cfg.label_rate > 0
+                    and float(self.task_cfg.label_rate)
+                    != float(self.cfg.label_rate)):
+                raise ValueError(
+                    f"task.label_rate ({self.task_cfg.label_rate}) != model "
+                    f"label_rate ({self.cfg.label_rate})")
+            self.dictionaries = self._load_dictionaries()
+            self.num_classes = tuple(len(d) for d in self.dictionaries)
+            self._fresh_params = lambda seed: init_hubert_params_np(
+                self.cfg, self.num_classes, seed)
+            self._check_initial = self._check_label_embs
+            self._make_grad_step = make_hubert_grad_step
+            self._get_dataset = self._hubert_dataset
+            self._collate = self._hubert_collate
+            self._step_args = lambda step: {}
+        else:
+            self.task_cfg = Wav2vec2TaskConfig.from_dict(task)
+            self.cfg = Wav2Vec2Config.from_dict(
+                self.upstream_config["wav2vec2"])
+            # the dataset pads (rather than crops) its batches
+            self.pad = (self.task_cfg.labels is not None
+                        or self.task_cfg.enable_padding)
+            self._fresh_params = lambda seed: init_wav2vec2_params_np(
+                self.cfg, seed)
+            self._check_initial = lambda params: None
+            self._make_grad_step = functools.partial(
+                make_wav2vec2_grad_step, mask_shared_rounding=not self.pad)
+            self._get_dataset = self._wav2vec2_dataset
+            self._collate = self._wav2vec2_collate
+            # reference set_num_updates: annealed per update
+            self._step_args = lambda step: {
+                "gumbel_temp": anneal_temp(self.cfg.latent_temp, step)}
+
+    def _check_label_embs(self, params: dict):
+        n_embs = int(params["label_embs_concat"].shape[0])
+        assert n_embs == int(sum(self.num_classes)), (
+            f"checkpoint was trained with {n_embs} label embeddings "
+            f"but the dictionaries define {sum(self.num_classes)}")
 
     def _init_params(self, seed: int):
         """The model: fresh from the seed, or from ``-i`` (JAX
@@ -151,15 +207,12 @@ class WaveRunner(OptimizerScheduleMixin):
                 load_wave_initial_weight(init_w, self.upstream, self.cfg))
             self.pruned_heads = list(
                 (self._resumed_meta or {}).get("Pruned_heads", []))
-            n_embs = int(params["label_embs_concat"].shape[0])
-            assert n_embs == int(sum(self.num_classes)), (
-                f"checkpoint was trained with {n_embs} label embeddings but "
-                f"the dictionaries define {sum(self.num_classes)}")
+            self._check_initial(params)
             print(f"[WaveRunner] Initialized model from {init_w}")
         else:
-            params, masks = init_hubert_params_np(
-                self.cfg, self.num_classes, seed), None
-        self.model = load_hubert_model(params, self.cfg).to(self.device)
+            params, masks = self._fresh_params(seed), None
+        self.model = load_wave_model(params, self.cfg,
+                                     self.upstream).to(self.device)
         self.params = dict(self.model.named_parameters())
         if masks:
             self.masks = named_masks(masks, self.device)
@@ -178,17 +231,38 @@ class WaveRunner(OptimizerScheduleMixin):
         self._label_lookups = [build_label_lookup(d) for d in dicts]
         return dicts
 
-    def _get_dataset(self) -> HubertWaveDataset:
-        task = self.task_cfg
+    def _batch_size(self) -> int:
         datarc = self.runner_config.get("pretrain_expert", {}).get(
             "datarc", self.runner_config.get("datarc", {}))
+        return int(datarc.get("train_batch_size", 4))
+
+    def _wav2vec2_dataset(self):
+        task = self.task_cfg
+        conv_layers = self.cfg.conv_feature_layers
+        return Wav2Vec2AudioDataset(
+            manifest_path=f"{task.data}/train.tsv",
+            sample_rate=task.sample_rate,
+            batch_size=self._batch_size(),
+            max_sample_size=task.max_sample_size,
+            min_sample_size=task.min_sample_size or 0,
+            pad=self.pad,
+            normalize=task.normalize,
+            num_buckets=task.num_batch_buckets,
+            crop_seq_to_multiple=self.cfg.crop_seq_to_multiple,
+            seed=getattr(self.args, "seed", 1337),
+            precompute_mask_config=task.precompute_mask_config,
+            frames_fn=lambda n: conv_output_length(n, conv_layers),
+        )
+
+    def _hubert_dataset(self):
+        task = self.task_cfg
         label_dir = task.label_dir or task.data
         return HubertWaveDataset(
             manifest_path=f"{task.data}/train.tsv",
             sample_rate=task.sample_rate,
             label_paths=[f"{label_dir}/train.{l}" for l in self._label_sets()],
             label_rates=task.label_rate,
-            batch_size=int(datarc.get("train_batch_size", 4)),
+            batch_size=self._batch_size(),
             max_keep_sample_size=task.max_keep_size,
             min_keep_sample_size=task.min_sample_size,
             max_sample_size=task.max_sample_size,
@@ -199,10 +273,20 @@ class WaveRunner(OptimizerScheduleMixin):
             seed=getattr(self.args, "seed", 1337),
         )
 
-    def _collate(self, batch: dict) -> dict:
+    def _wav2vec2_collate(self, batch: dict) -> dict:
+        """The source and a precomputed block mask moved to the device; the
+        lengths stay a host array (the span mask is drawn on the host)."""
+        out = {"source": torch.from_numpy(batch["source"]).to(self.device),
+               "length": batch["length"]}
+        if "precomputed_mask" in batch:
+            out["precomputed_mask"] = torch.from_numpy(
+                batch["precomputed_mask"]).to(self.device)
+        return out
+
+    def _hubert_collate(self, batch: dict) -> dict:
         """Labels aligned to conv frames and encoded through the
         dictionaries on the host (JAX ``_collate_device_batch``), then the
-        source, targets and target-valid mask moved to the device; the
+        source, targets and target-valid mask moved to the device. The
         lengths stay a host array (the span mask is drawn on the host)."""
         t_frames = conv_output_length(batch["source"].shape[1],
                                       self.cfg.conv_feature_layers)
@@ -236,7 +320,7 @@ class WaveRunner(OptimizerScheduleMixin):
             meta["Pruned_heads"] = self.pruned_heads
         path = os.path.join(self.expdir, name)
         save_checkpoint(
-            path, hubert_tree_from_named(self.params),
+            path, self._tree_from_named(self.params),
             opt_state=self._opt_leaves(),
             masks=None if self.masks is None else masks_tree(self.masks),
             meta=meta, opt_treedef=self._opt_treedef)
@@ -277,9 +361,9 @@ class WaveRunner(OptimizerScheduleMixin):
                     self.save(step,
                               f"states-epoch-{step // step_per_epoch}.npz")
                 try:
-                    loss, sample_size, grads, _ = self.grad_step(
+                    loss, sample_size, grads, logs = self.grad_step(
                         self.params, self._collate(batch), self.rng,
-                        masks=self.masks)
+                        masks=self.masks, **self._step_args(step))
                 except torch.cuda.OutOfMemoryError:
                     # reference runner.py:379-386: drop the whole window and
                     # rewind its counters, so the surviving windows divide
@@ -291,6 +375,8 @@ class WaveRunner(OptimizerScheduleMixin):
                     sample_total = 0
                     accum_loss = 0.0
                     continue
+                if "temp" in logs:
+                    self.temp_history.append((step, logs["temp"]))
                 grads_acc = accumulate_grads(grads_acc, grads)
                 # device-side sums: no host sync per micro-batch
                 sample_total = sample_total + sample_size

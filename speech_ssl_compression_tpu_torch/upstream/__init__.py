@@ -25,9 +25,5 @@ from .melhubert_distiller import MelHuBERTDistillerExpert
 def get_pretrain_expert(upstream: str):
     """The ``UpstreamPretrainExpert`` class of ``upstream``'s module, the
     reference's importlib lookup (runner.py:131-134)."""
-    if upstream == "wav2vec2":
-        raise NotImplementedError(
-            "the wav2vec 2.0 expert is not ported yet (ROADMAP.md Queue 1, "
-            "item 12)")
     module = importlib.import_module(f".{upstream}", __package__)
     return getattr(module, "UpstreamPretrainExpert")

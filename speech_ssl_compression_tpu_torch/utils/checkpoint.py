@@ -111,7 +111,7 @@ def opt_leaves_of(opt_state: list, names: List[str],
     ``names``) -> numpy leaves in JAX's order and layout: count, then the
     leaves of the mu tree and of the nu tree, each made by
     ``tree_from_named`` (``weights.jax_tree_from_named`` or
-    ``hubert_tree_from_named``)."""
+    ``wave_tree_from_named``)."""
     n = len(names)
     leaves = [opt_state[0].cpu().numpy()]
     for moments in (opt_state[1:1 + n], opt_state[1 + n:]):

@@ -5,9 +5,10 @@ The port's copy of what it uses of
 ``speech_ssl_compression_tpu/utils/torch_convert.py``: the MelHuBERT
 direction both ways (``params_to_state_dict``,
 ``melhubert_state_dict_to_params``), the reference ``.ckpt`` loader
-(``load_reference_checkpoint``), the HuBERT direction both ways
-(``wave_state_dict_to_params``, ``wave_params_to_state_dict``; the
-wav2vec 2.0 branches are not copied), HuBERT's ``-i`` loaders
+(``load_reference_checkpoint``), the HuBERT and wav2vec 2.0 directions
+both ways (``wave_state_dict_to_params``, ``wave_params_to_state_dict``;
+wav2vec 2.0's ``quantizer.vars``, depth-1 and deep ``weight_proj`` and
+``project_q`` included), their ``-i`` loaders
 (``load_wave_initial_weight``, ``load_wave_reference_checkpoint``) and
 ``infer_pruned_dims``. Linear
 kernels are (in, out) in the trees and (out, in) in the state dicts;
@@ -22,7 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..configs import HuBERTConfig, MelHuBERTConfig
+from ..configs import HuBERTConfig, MelHuBERTConfig, Wav2Vec2Config
 
 
 def _to_np(t) -> np.ndarray:
@@ -198,27 +199,51 @@ def _conv_frontend_from_sd(sd: dict, prefix: str = "feature_extractor") -> list:
     return layers
 
 
+def _quantizer_from_sd(sd: dict) -> dict:
+    """wav2vec 2.0's ``quantizer.vars`` and ``quantizer.weight_proj``: a
+    Linear at depth 1 (``weight_orig``/``weight_mask`` folded), or at
+    depth > 1 the [Linear, GELU] blocks ``weight_proj.{i}.0.*`` and the
+    logits Linear ``weight_proj.{depth - 1}.*`` (reference
+    gumbel_vector_quantizer.py:64-76)."""
+    block = re.compile(r"quantizer\.weight_proj\.(\d+)\.0\.weight(_orig)?$")
+    ids = sorted(int(m.group(1)) for k in sd for m in [block.match(k)] if m)
+    if ids:
+        layers = [_linear(sd, f"quantizer.weight_proj.{i}.0") for i in ids]
+        layers.append(_linear(sd, f"quantizer.weight_proj.{len(ids)}"))
+        weight_proj = {"layers": layers}
+    else:
+        weight_proj = _linear(sd, "quantizer.weight_proj")
+    return {"vars": _to_np(sd["quantizer.vars"]).astype(np.float32),
+            "weight_proj": weight_proj}
+
+
 def wave_state_dict_to_params(
     sd: Dict[str, "np.ndarray"], upstream: str, keep_masks: bool = True,
 ) -> Tuple[dict, Optional[dict], dict]:
-    """Copy of the JAX ``wave_state_dict_to_params``, HuBERT only: a HuBERT
-    state dict (``feature_extractor``, ``layer_norm``, ``mask_emb``,
-    ``final_proj``, ``label_embs_concat``, optional ``post_extract_proj``
-    and ``target_glu.0``, the encoder) -> (params, masks, arch_info)."""
-    if upstream != "hubert":
-        raise NotImplementedError(
-            f"upstream {upstream!r}: only hubert's weights are ported")
+    """Copy of the JAX ``wave_state_dict_to_params``: a HuBERT or wav2vec
+    2.0 state dict (``feature_extractor``, ``layer_norm``, ``mask_emb``,
+    ``final_proj``, optional ``post_extract_proj`` and ``target_glu.0``,
+    the encoder; HuBERT's ``label_embs_concat``, wav2vec 2.0's
+    ``quantizer`` and ``project_q``) -> (params, masks, arch_info)."""
+    if upstream not in ("hubert", "wav2vec2"):
+        raise NotImplementedError(f"upstream {upstream!r}")
     params: dict = {
         "feature_extractor": _conv_frontend_from_sd(sd),
         "layer_norm": _layer_norm(sd, "layer_norm"),
         "mask_emb": _to_np(sd["mask_emb"]).astype(np.float32),
         "final_proj": _linear(sd, "final_proj"),
-        "label_embs_concat": _to_np(sd["label_embs_concat"]).astype(np.float32),
     }
     if "post_extract_proj.weight" in sd:
         params["post_extract_proj"] = _linear(sd, "post_extract_proj")
     if "target_glu.0.weight" in sd:
         params["target_glu"] = _linear(sd, "target_glu.0")
+    if upstream == "hubert":
+        params["label_embs_concat"] = _to_np(
+            sd["label_embs_concat"]).astype(np.float32)
+    else:
+        if "quantizer.vars" in sd:
+            params["quantizer"] = _quantizer_from_sd(sd)
+        params["project_q"] = _linear(sd, "project_q")
     enc, masks, any_mask, qkv_out_dims, ffn_dims = _encoder_from_sd(sd)
     params["encoder"] = enc
     arch_info = {"n_layers": len(enc["layers"]), "qkv_out_dims": qkv_out_dims,
@@ -227,7 +252,7 @@ def wave_state_dict_to_params(
 
 
 def load_wave_initial_weight(path: str, upstream: str, cfg):
-    """Copy of the JAX ``load_wave_initial_weight``, HuBERT only: the full
+    """Copy of the JAX ``load_wave_initial_weight``: the full
     ``-i initial_weight`` load of the waveform trainer, from the JAX
     package's npz or a reference ``.ckpt``; the per-layer heads and FFN
     widths of a structurally pruned start come from the array shapes, and
@@ -236,9 +261,6 @@ def load_wave_initial_weight(path: str, upstream: str, cfg):
 
     Returns (params, masks, cfg, meta, opt_leaves, opt_treedef) with numpy
     leaves; opt_leaves is None without optimizer state."""
-    if upstream != "hubert":
-        raise NotImplementedError(
-            f"upstream {upstream!r}: only hubert's weights are ported")
     opt_leaves = opt_treedef = None
     if path.endswith(".npz"):
         from .checkpoint import load_checkpoint
@@ -266,16 +288,16 @@ def load_wave_initial_weight(path: str, upstream: str, cfg):
 
 def load_wave_reference_checkpoint(path: str, upstream: str, *,
                                    trust_pickle: bool = False):
-    """Copy of the JAX ``load_wave_reference_checkpoint``, HuBERT only: a
-    reference ``.ckpt`` (a ``torch.save`` dict) -> (params, masks,
-    HuBERTConfig or None, extras), the architecture rebuilt from the
+    """Copy of the JAX ``load_wave_reference_checkpoint``: a reference
+    ``.ckpt`` (a ``torch.save`` dict) -> (params, masks, HuBERTConfig or
+    Wav2Vec2Config or None, extras), the architecture rebuilt from the
     checkpoint's metadata (reference upstream/hubert/pretrain_expert.py:
-    41-90). Loads with ``weights_only=True`` unless ``trust_pickle``."""
+    41-90, upstream/wav2vec2/pretrain_expert.py:41-78). Loads with
+    ``weights_only=True`` unless ``trust_pickle``."""
     import torch
 
-    if upstream != "hubert":
-        raise NotImplementedError(
-            f"upstream {upstream!r}: only hubert's weights are ported")
+    if upstream not in ("hubert", "wav2vec2"):
+        raise NotImplementedError(f"upstream {upstream!r}")
     try:
         all_states = torch.load(path, map_location="cpu", weights_only=True)
     except Exception as safe_err:
@@ -287,10 +309,11 @@ def load_wave_reference_checkpoint(path: str, upstream: str, *,
                 "only for checkpoints from a source you trust."
             ) from safe_err
         all_states = torch.load(path, map_location="cpu", weights_only=False)
+    cfg_cls = HuBERTConfig if upstream == "hubert" else Wav2Vec2Config
     cfg = None
     up_cfg = all_states.get("Upstream_Config") or {}
     if up_cfg.get(upstream):
-        cfg = HuBERTConfig.from_dict(dict(up_cfg[upstream]))
+        cfg = cfg_cls.from_dict(dict(up_cfg[upstream]))
     params, mask_tree, arch_info = wave_state_dict_to_params(
         all_states["model"], upstream)
     if cfg is not None:
@@ -304,13 +327,11 @@ def load_wave_reference_checkpoint(path: str, upstream: str, *,
 
 def wave_params_to_state_dict(params: dict, upstream: str,
                               masks: Optional[dict] = None) -> dict:
-    """Copy of the JAX ``wave_params_to_state_dict``, HuBERT only: the
-    inverse of :func:`wave_state_dict_to_params` (numpy, reference
-    naming; masks give ``weight_orig``/``weight_mask`` pairs on encoder
-    leaves)."""
-    if upstream != "hubert":
-        raise NotImplementedError(
-            f"upstream {upstream!r}: only hubert's weights are ported")
+    """Copy of the JAX ``wave_params_to_state_dict``: the inverse of
+    :func:`wave_state_dict_to_params` (numpy, reference naming; masks give
+    ``weight_orig``/``weight_mask`` pairs on encoder leaves)."""
+    if upstream not in ("hubert", "wav2vec2"):
+        raise NotImplementedError(f"upstream {upstream!r}")
     sd: dict = {}
     for i, layer in enumerate(params["feature_extractor"]):
         p = f"feature_extractor.conv_layers.{i}"
@@ -334,7 +355,20 @@ def wave_params_to_state_dict(params: dict, upstream: str,
         put_linear("post_extract_proj", params["post_extract_proj"])
     if "target_glu" in params:
         put_linear("target_glu.0", params["target_glu"])
-    sd["label_embs_concat"] = np.asarray(params["label_embs_concat"])
+    if upstream == "hubert":
+        sd["label_embs_concat"] = np.asarray(params["label_embs_concat"])
+    else:
+        if "quantizer" in params:
+            sd["quantizer.vars"] = np.asarray(params["quantizer"]["vars"])
+            wp = params["quantizer"]["weight_proj"]
+            if "layers" in wp:  # quantizer_depth > 1
+                *blocks, final = wp["layers"]
+                for i, lp in enumerate(blocks):
+                    put_linear(f"quantizer.weight_proj.{i}.0", lp)
+                put_linear(f"quantizer.weight_proj.{len(blocks)}", final)
+            else:
+                put_linear("quantizer.weight_proj", wp)
+        put_linear("project_q", params["project_q"])
     enc_sd = params_to_state_dict(
         {"encoder": params["encoder"], "final_proj": params["final_proj"]},
         masks)

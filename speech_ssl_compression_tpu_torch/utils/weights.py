@@ -22,7 +22,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..configs import HuBERTConfig, MelHuBERTConfig
+from ..configs import HuBERTConfig, MelHuBERTConfig, Wav2Vec2Config
 from .torch_convert import (
     infer_pruned_dims,
     melhubert_state_dict_to_params,
@@ -38,12 +38,12 @@ _LEAF_NAMES = {"kernel": "weight", "bias": "bias"}
 __all__ = [
     "PRUNABLE",
     "apply_masks",
-    "hubert_tree_from_named",
     "infer_pruned_dims",
     "init_hubert_params_np",
     "init_params_np",
+    "init_wav2vec2_params_np",
     "jax_tree_from_named",
-    "load_hubert_model",
+    "load_wave_model",
     "load_model",
     "masks_tree",
     "model_from_named",
@@ -52,6 +52,7 @@ __all__ = [
     "prunable_names",
     "prunable_tree",
     "state_dict_from_jax_params",
+    "wave_tree_from_named",
 ]
 
 
@@ -263,14 +264,10 @@ def init_params_np(cfg: MelHuBERTConfig, seed: int) -> dict:
     return params
 
 
-def init_hubert_params_np(cfg: HuBERTConfig, num_classes: Sequence[int],
-                          seed: int) -> dict:
-    """Random HuBERT params in the JAX layout, made with numpy from
-    ``seed``, drawn from the distributions of
-    ``speech_ssl_compression_tpu/models/hubert.py::init_hubert_params``:
-    Kaiming-normal convs, unit norms, uniform ``mask_emb`` and label
-    embeddings, the encoder's init and torch-default linears."""
-    rng = np.random.default_rng(seed)
+def _frontend_params_np(cfg, rng: np.random.Generator) -> list:
+    """The conv frontend's params in the JAX layout, drawn from the
+    distributions of JAX ``init_conv_frontend``: Kaiming-normal convs, zero
+    biases, unit norms."""
     f32 = np.float32
     frontend = []
     in_d = 1
@@ -286,6 +283,19 @@ def init_hubert_params_np(cfg: HuBERTConfig, num_classes: Sequence[int],
             layer["group_norm"] = norm
         frontend.append(layer)
         in_d = dim
+    return frontend
+
+
+def init_hubert_params_np(cfg: HuBERTConfig, num_classes: Sequence[int],
+                          seed: int) -> dict:
+    """Random HuBERT params in the JAX layout, made with numpy from
+    ``seed``, drawn from the distributions of
+    ``speech_ssl_compression_tpu/models/hubert.py::init_hubert_params``:
+    Kaiming-normal convs, unit norms, uniform ``mask_emb`` and label
+    embeddings, the encoder's init and torch-default linears."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    frontend = _frontend_params_np(cfg, rng)
     embed = cfg.conv_feature_layers[-1][0]
     d = cfg.encoder_embed_dim
     final_dim = cfg.final_dim if cfg.final_dim > 0 else d
@@ -307,25 +317,81 @@ def init_hubert_params_np(cfg: HuBERTConfig, num_classes: Sequence[int],
     return params
 
 
-def load_hubert_model(params: dict, cfg: HuBERTConfig,
-                      masks: Optional[dict] = None):
-    """A float32 CPU ``HuBERTModel`` for ``cfg`` holding the JAX package's
-    HuBERT ``params`` (a JAX-layout tree of numpy arrays), through
-    ``torch_convert.wave_params_to_state_dict``; the class count comes from
-    ``label_embs_concat`` (one label set). Weight-pruning masks are folded
-    in first. The load is strict."""
-    from ..models.hubert import HuBERTModel
+def init_wav2vec2_params_np(cfg: Wav2Vec2Config, seed: int) -> dict:
+    """Random wav2vec 2.0 params in the JAX layout, made with numpy from
+    ``seed``, drawn from the distributions of
+    ``speech_ssl_compression_tpu/models/wav2vec2.py::init_wav2vec2_params``
+    (the numbers differ: JAX's generator is not numpy's): the frontend and
+    encoder as HuBERT's, uniform ``mask_emb`` and codebook ``vars``, a
+    N(0, 1) ``weight_proj`` with zero bias at depth 1 (torch-default
+    linears past it) and torch-default linears elsewhere."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    embed = cfg.conv_feature_layers[-1][0]
+    d = cfg.encoder_embed_dim
+    final_dim = cfg.final_dim if cfg.final_dim > 0 else d
+    params = {
+        "feature_extractor": _frontend_params_np(cfg, rng),
+        "layer_norm": {"scale": np.ones((embed,), f32),
+                       "bias": np.zeros((embed,), f32)},
+        "mask_emb": rng.uniform(0.0, 1.0, (d,)).astype(f32),
+        "encoder": _encoder_params_np(cfg, rng),
+        "final_proj": _uniform_linear(rng, d, final_dim),
+    }
+    if embed != d:
+        params["post_extract_proj"] = _uniform_linear(rng, embed, d)
+    if cfg.quantize_targets:
+        vq_dim = cfg.latent_dim if cfg.latent_dim > 0 else final_dim
+        n_logits = cfg.latent_groups * cfg.latent_vars
+        if cfg.quantizer_depth > 1:
+            inner = embed * cfg.quantizer_factor
+            layers = [_uniform_linear(rng, embed if i == 0 else inner, inner)
+                      for i in range(cfg.quantizer_depth - 1)]
+            weight_proj = {"layers": layers
+                           + [_uniform_linear(rng, inner, n_logits)]}
+        else:
+            weight_proj = {
+                "kernel": rng.standard_normal((embed, n_logits)).astype(f32),
+                "bias": np.zeros((n_logits,), f32)}
+        params["quantizer"] = {
+            "vars": rng.uniform(0.0, 1.0, (
+                1, n_logits, vq_dim // cfg.latent_groups)).astype(f32),
+            "weight_proj": weight_proj,
+        }
+        params["project_q"] = _uniform_linear(rng, vq_dim, final_dim)
+    else:
+        params["project_q"] = _uniform_linear(rng, embed, final_dim)
+    return params
 
-    n_classes = int(np.shape(params["label_embs_concat"])[0])
-    model = HuBERTModel(cfg, (n_classes,))
-    sd = wave_params_to_state_dict(apply_masks(params, masks), "hubert")
+
+def load_wave_model(params: dict, cfg, upstream: str,
+                    masks: Optional[dict] = None):
+    """A float32 CPU model of ``upstream`` ("hubert": a ``HuBERTModel``
+    whose class count comes from ``label_embs_concat``, one label set;
+    "wav2vec2": a ``Wav2Vec2Model``) for ``cfg``, holding the JAX package's
+    ``params`` (a JAX-layout tree of numpy arrays), through
+    ``torch_convert.wave_params_to_state_dict``: the function that carries
+    weights across. Weight-pruning masks are folded in first. The load is
+    strict."""
+    if upstream == "hubert":
+        from ..models.hubert import HuBERTModel
+
+        n_classes = int(np.shape(params["label_embs_concat"])[0])
+        model = HuBERTModel(cfg, (n_classes,))
+    else:
+        from ..models.wav2vec2 import Wav2Vec2Model
+
+        model = Wav2Vec2Model(cfg)
+    sd = wave_params_to_state_dict(apply_masks(params, masks), upstream)
     model.load_state_dict({k: torch.tensor(np.asarray(v), dtype=torch.float32)
                            for k, v in sd.items()})
     return model
 
 
-def hubert_tree_from_named(named: Dict[str, torch.Tensor]) -> dict:
-    """Tensors under ``HuBERTModel``'s parameter names -> a JAX-layout
-    numpy tree, the inverse of :func:`load_hubert_model`'s mapping."""
+def wave_tree_from_named(named: Dict[str, torch.Tensor],
+                         upstream: str) -> dict:
+    """Tensors under the ``upstream`` model's parameter names (weights, or
+    anything laid out like them: gradients, Adam moments) -> a JAX-layout
+    numpy tree, the inverse of :func:`load_wave_model`'s mapping."""
     sd = {k: v.detach().float().cpu().numpy() for k, v in named.items()}
-    return wave_state_dict_to_params(sd, "hubert", keep_masks=False)[0]
+    return wave_state_dict_to_params(sd, upstream, keep_masks=False)[0]

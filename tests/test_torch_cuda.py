@@ -946,3 +946,113 @@ def test_distill_grad_step_kernels_match_dense(teacher_heads, loss_type):
         err = float(torch.linalg.vector_norm(g.double() - r.double()))
         assert err / den < GRAD_BAR, name
     assert not any(p.grad is not None for p in teacher.parameters())
+
+
+def _w2v2_model_and_batch(impl: str):
+    """A 2-layer wav2vec 2.0 of 768 wide (12 heads) on the base frontend
+    (layers 1-6 take the conv kernels with ``tc_pallas``), dropouts and
+    LayerDrop off; B = 2 x 32,000 samples, row 1 cut to 25,000 (99 frames
+    with 77 valid, the encoder's pad frame a padded key)."""
+    import dataclasses
+
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.configs import Wav2Vec2Config
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_wav2vec2_params_np, load_wave_model,
+    )
+
+    cfg = Wav2Vec2Config.from_dict(dict(
+        encoder_layers=2, final_dim=256, quantize_targets=True,
+        latent_vars=320, latent_groups=2, num_negatives=100, mask_prob=0.65,
+        mask_length=10, dropout=0.0, attention_dropout=0.0,
+        activation_dropout=0.0, dropout_input=0.0, dropout_features=0.0,
+        feature_grad_mult=0.1))
+    params = init_wav2vec2_params_np(cfg, seed=0)
+    cfg = dataclasses.replace(cfg, conv_frontend_impl=impl)
+    model = load_wave_model(params, cfg, "wav2vec2").cuda()
+    rng = np.random.default_rng(1)
+    lengths = np.array([32000, 25000])
+    source = rng.uniform(-0.3, 0.3, (2, 32000)).astype(np.float32)
+    source[1, 25000:] = 0.0
+    return cfg, model, {"source": torch.from_numpy(source).cuda(),
+                        "length": lengths}
+
+
+def test_wav2vec2_grad_step_kernels_match_cudnn_dense():
+    # one wav2vec 2.0 grad step, f32 (TF32 off), dropouts off, a fixed span
+    # mask, negative counts and Gumbel uniforms: the loss, its logs and
+    # every gradient with the attention and conv kernels within GRAD_BAR
+    # of cuDNN + impl="dense", the kernels launched once per layer
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.models import wav2vec2 as w2v
+    from speech_ssl_compression_tpu_torch.models.conv_frontend import (
+        frame_lengths,
+    )
+    from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_wav2vec2_grad_step,
+    )
+
+    cfg, kernel_model, batch = _w2v2_model_and_batch("tc_pallas")
+    _, cudnn_model, _ = _w2v2_model_and_batch("auto")
+    t = 99
+    n = frame_lengths(batch["length"], cfg.conv_feature_layers, t)
+    valid = torch.from_numpy(np.arange(t)[None, :] < n[:, None]).cuda()
+    mask = torch.from_numpy(w2v.span_mask(
+        cfg, n, t, np.random.default_rng(2))).cuda()
+    counts = w2v.sample_negative_counts(
+        torch.Generator(device="cuda").manual_seed(3), mask & valid, 100)
+    uniform = torch.rand((2 * t * 2, 320), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4))
+    params = dict(kernel_model.named_parameters())
+    out = {}
+    for impl, model in (("auto", kernel_model), ("dense", cudnn_model)):
+        step = make_wav2vec2_grad_step(model, attn_impl=impl)
+        fa.reset_launch_counts()
+        tc.reset_launch_counts()
+        with matmul_precision("highest"):
+            out[impl] = step(params, batch, torch.Generator(), 1.5,
+                             mask_indices=mask, gumbel_uniform=uniform,
+                             negative_counts=counts)
+        torch.cuda.synchronize()
+        launches = {**fa.launch_counts, **tc.launch_counts}
+        if impl == "auto":
+            assert launches == {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 2,
+                                "flash_attn_bwd_dkv": 2, "conv1d_fwd": 6,
+                                "conv1d_dw": 6, "conv1d_dx": 6}
+        else:
+            assert not any(launches.values())
+    (loss_k, n_k, grads_k, logs_k), (loss_d, n_d, grads_d, logs_d) = (
+        out["auto"], out["dense"])
+    assert int(n_k) == int(n_d) == int((mask & valid).sum()) > 0
+    assert logs_k["temp"] == logs_d["temp"] == 1.5
+    for a, r in [(loss_k, loss_d)] + [(logs_k[k], logs_d[k]) for k in (
+            "loss_infonce", "loss_prob_perplexity", "loss_features_pen")]:
+        assert abs(float(a) - float(r)) / abs(float(r)) < GRAD_BAR
+    total = float(torch.linalg.vector_norm(torch.cat(
+        [g.flatten() for g in grads_d]).double()))
+    for name, g, r in zip(params, grads_k, grads_d):
+        den = (total if name.endswith("k_proj.bias")
+               else float(torch.linalg.vector_norm(r.double())))
+        err = float(torch.linalg.vector_norm(g.double() - r.double()))
+        assert err / den < GRAD_BAR, name
+
+
+def test_wav2vec2_negative_counts_on_the_card_match_the_eq_formula():
+    # the scatter-add of ones over the (B, T, N) draws against JAX's
+    # formula, the (B, T, N, S) comparison of each draw with every frame's
+    # rank summed over N, on the same draws on the card
+    from speech_ssl_compression_tpu_torch.models import wav2vec2 as w2v
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mask = torch.rand((3, 300), device="cuda", generator=gen) < 0.5
+    mask[2] = False
+    draws, ordinal = w2v._negative_draws(gen, mask, 100)
+    got = w2v.negative_counts(draws, mask)
+    eq = draws[:, :, :, None] == ordinal[:, None, None, :]
+    want = eq.sum(2, dtype=torch.float32) * mask[:, None, :].float()
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    assert not got[2].any()
+    assert torch.equal(got[:2].sum(-1), torch.full((2, 300), 100.0,
+                                                   device="cuda"))

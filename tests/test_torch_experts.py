@@ -251,12 +251,15 @@ def test_hubert_expert_initial_weight_keeps_masks_and_pruned_dims(tmp_path):
 
 
 def test_dispatch_resolves_the_ported_experts_and_refuses_wav2vec2():
-    for name in ("melhubert", "melhubert_distiller", "hubert"):
+    # the name is older than the wav2vec 2.0 expert: dispatch now resolves
+    # all four upstreams and refuses only a name that has no module
+    for name in ("melhubert", "melhubert_distiller", "hubert", "wav2vec2"):
         cls = get_pretrain_expert(name)
         assert cls.__name__.endswith("Expert"), (name, cls)
         assert cls.__module__.startswith("speech_ssl_compression_tpu_torch.")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        get_pretrain_expert("wav2vec2")
+    assert get_pretrain_expert("wav2vec2").__name__ == "Wav2Vec2PretrainExpert"
+    with pytest.raises(ModuleNotFoundError):
+        get_pretrain_expert("wav2vec3")
 
 
 def test_experts_never_land_on_the_cpu_unasked(monkeypatch):

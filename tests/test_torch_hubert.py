@@ -23,6 +23,7 @@ from speech_ssl_compression_tpu.data.dictionary import (
     build_label_lookup as jax_lookup,
 )
 from speech_ssl_compression_tpu.models import hubert as jhubert
+from speech_ssl_compression_tpu.models import wav2vec2 as jw2v
 from speech_ssl_compression_tpu.utils import torch_convert as jconvert
 from speech_ssl_compression_tpu.utils.checkpoint import (
     load_checkpoint as jax_load_checkpoint,
@@ -41,9 +42,9 @@ from speech_ssl_compression_tpu_torch.ops import conv1d as tconv
 from speech_ssl_compression_tpu_torch.train.__main__ import main as train_main
 from speech_ssl_compression_tpu_torch.utils import torch_convert as tconvert
 from speech_ssl_compression_tpu_torch.utils.weights import (
-    hubert_tree_from_named,
     init_hubert_params_np,
-    load_hubert_model,
+    load_wave_model,
+    wave_tree_from_named,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,15 +122,25 @@ def test_weight_bridge_is_a_copy_of_jax():
     assert jax.tree.structure(back) == jax.tree.structure(jback)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jback)):
         np.testing.assert_array_equal(a, b)
-    model = load_hubert_model(params, tconfigs.HuBERTConfig.from_dict(
-        jcfg.to_dict()))
-    tree = hubert_tree_from_named(dict(model.named_parameters()))
+    model = load_wave_model(params, tconfigs.HuBERTConfig.from_dict(
+        jcfg.to_dict()), "hubert")
+    tree = wave_tree_from_named(dict(model.named_parameters()), "hubert")
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(params)):
         np.testing.assert_array_equal(a, b)
     assert tconvert.infer_pruned_dims(params, 64) == jconvert.infer_pruned_dims(
         params, 64)
+    # the wav2vec 2.0 branches are copies too (quantizer and project_q)
+    wcfg = jconfigs.Wav2Vec2Config.from_dict(dict(
+        TINY, quantize_targets=True, latent_vars=8, latent_groups=2))
+    w2v = jax.tree.map(np.asarray, jw2v.init_wav2vec2_params(
+        jax.random.PRNGKey(1), wcfg))
+    want = jconvert.wave_params_to_state_dict(w2v, "wav2vec2")
+    got = tconvert.wave_params_to_state_dict(w2v, "wav2vec2")
+    assert sorted(got) == sorted(want) and "quantizer.vars" in got
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
     with pytest.raises(NotImplementedError):
-        tconvert.wave_params_to_state_dict(params, "wav2vec2")
+        tconvert.wave_params_to_state_dict(params, "melhubert")
 
 
 def test_init_params_np_has_the_jax_tree():
@@ -151,7 +162,7 @@ def test_features_match_jax(impl):
             jax.tree.map(jnp.asarray, params), jcfg, jnp.asarray(src),
             jnp.asarray(LENGTHS), mask=False, features_only=True,
             attn_impl="dense")
-    model = load_hubert_model(params, tcfg)
+    model = load_wave_model(params, tcfg, "hubert")
     tconv.reset_launch_counts()
     with torch.no_grad():
         got = thubert.hubert_forward(model, torch.from_numpy(src), LENGTHS,
@@ -209,7 +220,7 @@ def test_loss_and_gradients_match_jax(monkeypatch):
         (jloss, jn), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(
             jax.tree.map(jnp.asarray, params))
 
-    model = load_hubert_model(params, tcfg)
+    model = load_wave_model(params, tcfg, "hubert")
     out = model(torch.from_numpy(src), LENGTHS, mask=True,
                 mask_indices=torch.from_numpy(mask),
                 target_list=[torch.from_numpy(tgt).long()],
@@ -220,9 +231,9 @@ def test_loss_and_gradients_match_jax(monkeypatch):
     named = dict(model.named_parameters())
     grads = torch.autograd.grad(out["loss"], list(named.values()),
                                 allow_unused=True)
-    tree = hubert_tree_from_named({
+    tree = wave_tree_from_named({
         k: torch.zeros_like(p) if g is None else g
-        for (k, p), g in zip(named.items(), grads)})
+        for (k, p), g in zip(named.items(), grads)}, "hubert")
     got = jax.tree.leaves_with_path(tree)
     want = jax.tree.leaves(jgrads)
     assert len(got) == len(want)
@@ -370,8 +381,8 @@ def test_cli_trains_hubert_and_jax_reads_the_checkpoint(tmp_path):
         state["params"]["feature_extractor"][1]["weight"],
         runner.params["feature_extractor.conv_layers.1.0.weight"]
         .detach().numpy())
-    back = load_hubert_model(state["params"], tconfigs.HuBERTConfig.from_dict(
-        state["meta"]["Config"]))
+    back = load_wave_model(state["params"], tconfigs.HuBERTConfig.from_dict(
+        state["meta"]["Config"]), "hubert")
     for k, v in back.named_parameters():
         assert torch.equal(v, runner.params[k].detach()), k
 
@@ -388,6 +399,7 @@ def test_hubert_refuses_what_is_not_ported(tmp_path):
             "--device", "cpu"]
     for extra in (["-m", "weight-pruning", "-u", "hubert"],
                   ["-m", "row-pruning", "-u", "hubert"],
-                  ["-m", "melhubert", "-u", "wav2vec2"]):
+                  ["-m", "weight-pruning", "-u", "wav2vec2"],
+                  ["-m", "head-pruning", "-u", "wav2vec2"]):
         with pytest.raises(NotImplementedError):
             train_main(base + extra)

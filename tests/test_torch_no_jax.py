@@ -1,7 +1,7 @@
 """The port imports and runs its CPU slices with ``jax`` and the JAX package
-``speech_ssl_compression_tpu`` unimportable (and, for training and weight
-pruning from a checkpoint, ``pandas`` and ``yaml`` too), as on a GPU
-machine that has none of them; no module of the port, and not
+``speech_ssl_compression_tpu`` unimportable (and, for training, the
+compression modes and a wav2vec 2.0 grad step, ``pandas`` and ``yaml``
+too), as on a GPU machine that has none of them; no module of the port, and not
 ``chip_smoke.py``, imports either."""
 
 import pathlib
@@ -231,6 +231,27 @@ runner = main(["-m", "melhubert", "-u", "hubert", "-g", str(d / "model.yaml"),
                "-c", str(d / "runner.yaml"), "-n", str(d / "exp"),
                "--device", "cpu"])
 assert (d / "exp" / "last-step.npz").exists()
+# a tiny wav2vec 2.0 and one grad step on two of those waveforms
+import torch
+from speech_ssl_compression_tpu_torch.configs import Wav2Vec2Config
+from speech_ssl_compression_tpu_torch.train.steps import make_wav2vec2_grad_step
+from speech_ssl_compression_tpu_torch.utils.weights import (
+    init_wav2vec2_params_np, load_wave_model)
+cfg = Wav2Vec2Config.from_dict(dict(
+    encoder_layers=1, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+    encoder_attention_heads=2, head_dim=16,
+    conv_feature_layers="[(32,10,5),(32,3,2),(32,2,2)]", final_dim=16,
+    conv_pos=16, conv_pos_groups=4, quantize_targets=True, latent_vars=8,
+    latent_groups=2, num_negatives=4, mask_length=4))
+model = load_wave_model(init_wav2vec2_params_np(cfg, 0), cfg, "wav2vec2")
+params = dict(model.named_parameters())
+source = torch.from_numpy(rng.uniform(-0.3, 0.3, (2, 3000)).astype(np.float32))
+loss, n, grads, logs = make_wav2vec2_grad_step(model)(
+    params, {"source": source, "length": np.array([3000, 2500])},
+    torch.Generator().manual_seed(0), gumbel_temp=2.0)
+assert bool(torch.isfinite(loss)) and int(n) > 0 and logs["temp"] == 2.0
+assert len(grads) == len(params) and all(bool(torch.isfinite(g).all())
+                                         for g in grads)
 assert all(sys.modules[n] is None
            for n in ("jax", "speech_ssl_compression_tpu", "pandas", "yaml"))
 print("updates", len(runner.log_history))

@@ -35,9 +35,9 @@ from speech_ssl_compression_tpu_torch.utils.torch_convert import (
     params_to_state_dict,
 )
 from speech_ssl_compression_tpu_torch.utils.weights import (
-    hubert_tree_from_named,
     jax_tree_from_named,
     masks_tree,
+    wave_tree_from_named,
 )
 from test_torch_hubert import (
     MODEL_YAML as HUBERT_MODEL_YAML,
@@ -316,7 +316,7 @@ def test_hubert_npz_initialises_the_wave_runner(tmp_path, capsys):
 
     runner = WaveRunner(wave_args(tmp_path / "a", with_opt, True), runner_cfg,
                         upstream)
-    assert _same_tree(hubert_tree_from_named(runner.params), params)
+    assert _same_tree(wave_tree_from_named(runner.params, "hubert"), params)
     assert _same_tree(masks_tree(runner.masks), masks)
     assert "Loaded optimizer state" in capsys.readouterr().out
     runner.train()  # trains on at the checkpoint's sparsity

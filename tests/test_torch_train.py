@@ -565,7 +565,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
                         NotImplementedError),
                        (["-m", "distillation", "-u", "hubert"],
                         NotImplementedError),
-                       (["-m", "melhubert", "-u", "wav2vec2"],
+                       (["-m", "row-pruning", "-u", "wav2vec2"],
+                        NotImplementedError),
+                       (["-m", "distillation", "-u", "wav2vec2"],
                         NotImplementedError),
                        (["-m", "melhubert", "--model_parallel", "2"],
                         NotImplementedError)):

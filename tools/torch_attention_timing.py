@@ -268,14 +268,15 @@ def hubert_step_ms(root: pathlib.Path, dev) -> float:
         make_hubert_grad_step,
     )
     from speech_ssl_compression_tpu_torch.utils.weights import (
-        init_hubert_params_np, load_hubert_model,
+        init_hubert_params_np, load_wave_model,
     )
 
     cfg = dataclasses.replace(
         hubert_config_from_yaml(root / "configs" / "hubert" / "config_model.yaml"),
         encoder_layerdrop=0.0, conv_frontend_impl="auto")
-    model = load_hubert_model(
-        init_hubert_params_np(cfg, (HUBERT_CLASSES,), seed=0), cfg).to(dev)
+    model = load_wave_model(
+        init_hubert_params_np(cfg, (HUBERT_CLASSES,), seed=0), cfg,
+        "hubert").to(dev)
     params = dict(model.named_parameters())
     b, t_wave = HUBERT_TRAIN
     rng = np.random.default_rng(0)

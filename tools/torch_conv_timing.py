@@ -233,14 +233,15 @@ def hubert_times(root: pathlib.Path, dev) -> dict:
         make_hubert_grad_step,
     )
     from speech_ssl_compression_tpu_torch.utils.weights import (
-        init_hubert_params_np, load_hubert_model,
+        init_hubert_params_np, load_wave_model,
     )
 
     times = {}
     for impl, label in (("tc_pallas", "conv kernels"), ("auto", "cuDNN")):
         cfg = hubert_cfg(root, impl)
-        model = load_hubert_model(
-            init_hubert_params_np(cfg, (HUBERT_CLASSES,), seed=0), cfg).to(dev)
+        model = load_wave_model(
+            init_hubert_params_np(cfg, (HUBERT_CLASSES,), seed=0), cfg,
+            "hubert").to(dev)
         params = dict(model.named_parameters())
         b, t_wave = HUBERT_TRAIN
         rng = np.random.default_rng(0)
