@@ -52,7 +52,10 @@ result line):
   timing    CUDA-event medians of 3 after a warm-up: serve-batch frames/s
             with the kernel and with impl="dense", f32 and bf16; then
             F.scaled_dot_product_attention's forward and backward at the
-            attention kernels' timed shapes, f32 and bf16;
+            attention kernels' timed shapes, f32 and bf16 (one time of 5
+            calls after a warm-up); the grad steps and updates of the
+            train phases against their yardsticks one time each in turns
+            after a warm-up (``alternate(..., reps=1)``);
   train     MelHuBERT-20ms pre-training at full width on a synthetic
             dataset, through the trainer's entry point (python -m
             speech_ssl_compression_tpu_torch.train): 3 updates of 8
@@ -74,10 +77,10 @@ result line):
   weight prune  -m weight-pruning through the trainer's entry point from
             that checkpoint, full width, bf16, B = 4, T = 768, 8
             micro-batches: configs/weight_pruning/config_runner_20ms.yaml's
-            prune: section with warnup, period and n_iters cut to 1, 1, 3
-            (its sparsity ladder to its first 3 entries, which n_iters
-            must match), pruning_condition always, total_steps 4; launch
-            counts per micro-batch; the events at steps 1, 2, 3, each after
+            prune: section with warnup, period and n_iters cut to 1, 1, 2
+            (its sparsity ladder to its first 2 entries, which n_iters
+            must match), pruning_condition always, total_steps 3; launch
+            counts per micro-batch; the events at steps 1 and 2, each after
             exactly that many updates (Adam count in its artifact); after
             each exactly round(amount * n) of the n ~ 85 M prunable entries
             masked, the masks equal to a host recompute by
@@ -93,30 +96,35 @@ result line):
   head prune  -m head-pruning through the trainer's entry point from the
             train phase's checkpoint, full width:
             configs/head_pruning/data_driven/config_runner_20ms.yaml with
-            its prune: section cut to warm_up 0, interval 1 (its 11
-            events, by_whole, 12 heads each, one before each of 11 bf16
-            updates) and data_ratio 1.0 of a 64-utterance set (two stacked
+            its prune: section cut to warm_up 0, interval 1, 2 events of
+            66 heads where the recipe takes 11 of 12 (by_whole, to the
+            recipe's endpoint; a cut in depth for the script's time), one
+            before each of 2 bf16 updates, and data_ratio 1.0 of a
+            64-utterance set (two stacked
             scoring groups of B = 32 a event, f32, dropout on); launch
             counts per dtype (the f32 dQ and dK/dV kernels in scoring);
             one head a layer at the end; each event's heads equal to a
             host recompute of select_heads_to_prune on its
-            heads_and_score_*.npy; the host seconds of each scoring pass
+            heads_and_score_*.npy; the attention kernels against their
+            plain versions at the scoring pass's shape in f32 at every H
+            from 12 to 1 a layer, and at the updates' in bf16 at each H
+            the run held; the host seconds of each scoring pass
             and each slicing and rebuild, and memory_allocated around each
             event (it must fall by the params and Adam moments pruned
             away); the scoring pass with the kernels against impl="dense"
             (f32, TF32 off, dropout off, a fixed span mask) at 12 heads a
-            layer and at the ragged heads of the 7th event, each layer's
+            layer and at the ragged heads of the 2nd event, each layer's
             scores within GRAD_BAR (rel. L2), and its peak memory; the
             sliced model against the unsliced one with the pruned heads'
-            out_proj input columns zeroed (events 1 and 11); the last
+            out_proj input columns zeroed (events 1 and 2); the last
             states_prune_*.npz served by MelHuBERTExtractor against the
-            in-memory model; then an l1, by_layer run of 2 events (10
-            heads a layer), each event's scores and heads recomputed on
-            the host from its artifact;
+            in-memory model; then an l1, by_layer run of 1 event (11
+            heads a layer), its scores and heads recomputed on the host
+            from its artifact;
   row prune  -m row-pruning likewise: configs/row_pruning/
             config_runner_20ms.yaml cut to warm_up 0, interval 1 and
-            256 rows an event where the recipe takes 128 (a cut in depth
-            for the script's time: 10 events, one before each of 10 bf16
+            1280 rows an event where the recipe takes 128 (a cut in depth
+            for the script's time: 2 events, one before each of 2 bf16
             updates); FFN 512 at the end; each event's rows equal to a host recompute of
             ffn_row_scores on the artifact before it; memory around each
             event; the sliced model against the unsliced one with the
@@ -129,7 +137,7 @@ result line):
             (a 12-layer teacher into a 6-layer student, bf16, B = 4, T =
             768, 8 micro-batches): A, configs/distillation/
             config_{model,runner}_20ms.yaml as shipped (nomasked, T = 1,
-            alpha = 1) cut to 3 updates, from the train phase's
+            alpha = 1) cut to 1 update, from the train phase's
             checkpoint; B, masked, T = 2, alpha = 0.5,
             initial_from_teacher, 1 update; C, from the head prune phase's
             one-head checkpoint, 1 update; launches per micro-batch (each
@@ -195,6 +203,38 @@ result line):
             their plain versions; 10 updates on one fixed batch, whose
             loss falls; the grad step and one update with the kernels and
             with cuDNN + dense, f32 and bf16, frames/s and peak memory;
+  wave prune  the pruning modes of HuBERT and wav2vec 2.0 through the
+            trainer's entry point (-m weight-pruning|head-pruning|
+            row-pruning -u hubert|wav2vec2), full width, bf16, from the
+            hubert train and w2v2 train phases' checkpoints on the w2v2
+            train phase's WAVs (its labels for HuBERT), at the shipped
+            recipes (configs/{weight_pruning,head_pruning/l1,row_pruning}/
+            <upstream>_config_runner.yaml: B = 12 x 250,000 samples,
+            wav2vec 2.0 weight pruning B = 4) with the events moved to
+            consecutive updates from the first on (WAVE_EVENTS): HuBERT
+            l1 head pruning's 11 events to one head a layer, wav2vec 2.0
+            weight pruning 2 events and row pruning 2 of 128 rows, the
+            other three pairs one event and one update; per run its
+            launches (every kernel per grad step, bf16), its events and
+            each event's host seconds (the artifact's save apart); HuBERT
+            head pruning: each event's heads against a host recompute of
+            the l1 scores on the artifact before it, the live bytes
+            around each event, the bf16 attention kernels against their
+            plain versions at (12, h, 782, 64), h = 12 ... 1, with the
+            pad key, dropout 0 and 0.1, the one-head last-step.npz
+            through the HuBERT expert (the trainer's weights, a training
+            forward) and its frames/s beside the full model's, f32;
+            activation checkpointing: one bf16 HuBERT grad step at
+            the recipe's batch with checkpoint_activations off and on
+            from the same generators (cuDNN deterministic): the loss and
+            every gradient, the peak memory of each, the forward
+            launches the recompute adds, and the two steps' times;
+            wav2vec 2.0 weight pruning: each
+            event's masks against a host recompute by
+            global_magnitude_prune, every masked entry's gradient 0 in a
+            bf16 grad step; wav2vec 2.0 row pruning: each event's rows
+            against a host recompute of ffn_row_scores, the live bytes
+            around each event;
   profile   (--profile only) device busy time, idle share and the largest
             device kernels of forward_packed from features, per path, and
             of the MelHuBERT, HuBERT and wav2vec 2.0 bf16 grad steps, the
@@ -266,6 +306,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import pathlib
 import re
@@ -274,6 +315,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+T_START = time.perf_counter()  # the whole run's clock: torch's import on
 
 import numpy as np
 import torch
@@ -376,24 +419,27 @@ CONV_REPLACES = {
 CONV_F32_BAR = 1e-5
 WP_MODEL_YAML = ROOT / "configs" / "weight_pruning" / "config_model_20ms.yaml"
 WP_RUNNER_YAML = ROOT / "configs" / "weight_pruning" / "config_runner_20ms.yaml"
-# the prune: keys the weight prune phase shortens (events at steps 1, 2, 3,
-# the first 3 of the ladder), and its updates: the event at step 3 fires at
-# the top of the 4th window
-WP_SHORT = dict(warnup=1, period=1, n_iters=3, pruning_condition="always")
-WP_STEPS = 4
+# the prune: keys the weight prune phase shortens (events at steps 1 and
+# 2, the first 2 of the ladder), and its updates: the event at step 2 fires
+# at the top of the 3rd window
+WP_SHORT = dict(warnup=1, period=1, n_iters=2, pruning_condition="always")
+WP_STEPS = 3
 HP_DIR = ROOT / "configs" / "head_pruning"
 RP_DIR = ROOT / "configs" / "row_pruning"
-# the recipes' prune events down to their endpoints (11 to one head a
-# layer; to FFN 512 in 10 events of RP_ROWS, where the recipe takes 20 of
-# 128: a cut in depth for the script's time), one before each update from
+# the recipes' prune events down to their endpoints (one head a layer in
+# HP_EVENTS events of HP_HEADS, where the data-driven recipe takes 11 of
+# 12; FFN 512 in RP_EVENTS events of RP_ROWS, where the recipe takes 20 of
+# 128: cuts in depth for the script's time), one before each update from
 # the first on
 STRUCTURED_SHORT = dict(warm_up=0, interval=1)
-HP_EVENTS, HP_L1_EVENTS, RP_EVENTS, RP_ROWS = 11, 2, 10, 256
+HP_EVENTS, HP_HEADS, HP_L1_EVENTS, RP_EVENTS, RP_ROWS = 2, 66, 1, 2, 1280
 # the head prune phase's set: 16 buckets of B = 4, two stacked scoring
 # groups of B = 32 at data_ratio 1.0
 HP_UTTS, HP_DATA_RATIO, HP_GROUPS = 64, 1.0, 2
 DISTILL_DIR = ROOT / "configs" / "distillation"
-DISTILL_STEPS = 3  # run A's updates of the shipped distillation recipe
+# run A's updates of the shipped distillation recipe (a cut in depth for the
+# script's time)
+DISTILL_STEPS = 1
 HUBERT_YAML = ROOT / "configs" / "hubert" / "config_model.yaml"
 HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
 HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
@@ -402,6 +448,20 @@ HUBERT_ACCUM = 2            # micro-batches per update in the trainer run
 W2V2_DIR = ROOT / "configs" / "wav2vec2"
 W2V2_TRAIN = (12, 250000)   # B x samples: the shipped recipe's batch
 W2V2_PARITY = (2, 250000, 200000)  # B x samples, row 1's valid samples
+# the wave prune phase: the shipped runner YAMLs of the waveform models'
+# pruning modes, and each (upstream, mode) pair's events, one before each
+# update from the first on: HuBERT's l1 head pruning to one head a layer
+# (the recipe's 11), wav2vec 2.0's weight pruning 2 of the recipe's 38 and
+# row pruning 2 of its 20 (128 rows each, as the recipe), the other three
+# pairs one
+WAVE_RECIPES = {"weight-pruning": ROOT / "configs" / "weight_pruning",
+                "head-pruning": HP_DIR / "l1", "row-pruning": RP_DIR}
+WAVE_EVENTS = {("hubert", "head-pruning"): 11,
+               ("wav2vec2", "weight-pruning"): 2,
+               ("wav2vec2", "row-pruning"): 2,
+               ("hubert", "weight-pruning"): 1,
+               ("hubert", "row-pruning"): 1,
+               ("wav2vec2", "head-pruning"): 1}
 # past GRAD_BAR of float64, a wav2vec 2.0 gradient may lie this many times
 # as far from it as the plain f32 route does (phase_w2v2_train says why)
 W2V2_CANCEL_FACTOR = 4.0
@@ -433,9 +493,11 @@ def gpu_name_and_power() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 3, inner: int = 1) -> float:
-    """Median over ``reps`` of CUDA-event time per call, after one warm-up."""
-    fn()
+def cuda_ms(fn, reps: int = 3, inner: int = 1, warm: bool = True) -> float:
+    """Median over ``reps`` of CUDA-event time per call, after one warm-up
+    (none without ``warm``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -705,13 +767,16 @@ def explain_straddles(fa, q, k, v, got, ref, rows, masks):
     return all(b <= BF16_ULP_BAR for *_, b in found), report
 
 
-def alternate(run_kernel, run_plain, inner: int = 1):
-    """(kernel ms, plain ms), each the mean of two CUDA-event medians taken
-    in the order plain, kernel, kernel, plain, to share drift."""
-    p1 = cuda_ms(run_plain, inner=inner)
-    k1 = cuda_ms(run_kernel, inner=inner)
-    k2 = cuda_ms(run_kernel, inner=inner)
-    p2 = cuda_ms(run_plain, inner=inner)
+def alternate(run_kernel, run_plain, inner: int = 1, reps: int = 3):
+    """(kernel ms, plain ms), each the mean of two CUDA-event medians of
+    ``reps`` taken in the order plain, kernel, kernel, plain, to share
+    drift; each warmed up once, before its first median. The grad steps
+    and updates take ``reps=1``: a call of 0.1-0.8 s varies by less than
+    its two turns do."""
+    p1 = cuda_ms(run_plain, reps, inner)
+    k1 = cuda_ms(run_kernel, reps, inner)
+    k2 = cuda_ms(run_kernel, reps, inner, warm=False)
+    p2 = cuda_ms(run_plain, reps, inner, warm=False)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -1173,7 +1238,7 @@ def phase_train_timing(runner, batch, gpu: str):
         def run(impl):
             return lambda: steps[impl](runner.params, batch, runner.rng)
 
-        kernel_ms, dense_ms = alternate(run("auto"), run("dense"))
+        kernel_ms, dense_ms = alternate(run("auto"), run("dense"), reps=1)
         log("timing", f"grad step B=4 T=768 {dtype}: kernels {kernel_ms:.2f} "
             f"ms, impl='dense' {dense_ms:.2f} ms ({frames} frames; "
             f"{frames / kernel_ms * 1e3:.0f} and {frames / dense_ms * 1e3:.0f} "
@@ -1189,7 +1254,7 @@ def phase_train_timing(runner, batch, gpu: str):
             acc = accumulate_grads(acc, grads)
         runner.apply(acc, float(accum))
 
-    ms = cuda_ms(update)
+    ms = cuda_ms(update, reps=1)
     log("timing", f"one update ({accum} micro-batches + apply, bf16): "
         f"{ms:.2f} ms, {1e3 / ms:.3f} updates/s, "
         f"{accum * frames / ms * 1e3:.0f} frames/s [{gpu}]")
@@ -1540,7 +1605,7 @@ def phase_weight_prune(dev, gpu: str, tmp: str):
         raise AssertionError("the pruned checkpoint serves wrong")
 
     # one update with the masks against one without (8 micro-batches + the
-    # apply, bf16), in the order without, with, with, without
+    # apply, bf16), in turns
     accum = runner.accum_steps
 
     def update(masks):
@@ -1553,15 +1618,12 @@ def phase_weight_prune(dev, gpu: str, tmp: str):
             runner.apply(acc, float(accum))
         return run
 
-    plain = [cuda_ms(update(None), reps=1)]
-    masked = [cuda_ms(update(runner.masks), reps=1) for _ in range(2)]
-    plain.append(cuda_ms(update(None), reps=1))
+    masked, plain = alternate(update(runner.masks), update(None), reps=1)
     b, t = batch["feat"].shape[:2]
     log("timing", f"one weight-pruning update ({accum} micro-batches + "
-        f"apply, {runner.compute_dtype}, B={b} T={t}): with masks {np.mean(masked):.2f} ms "
-        f"({masked[0]:.2f}, {masked[1]:.2f}), without "
-        f"{np.mean(plain):.2f} ms ({plain[0]:.2f}, {plain[1]:.2f}), "
-        f"{(np.mean(masked) / np.mean(plain) - 1) * 100:+.2f}% [{gpu}]")
+        f"apply, {runner.compute_dtype}, B={b} T={t}): with masks "
+        f"{masked:.2f} ms, without {plain:.2f} ms, "
+        f"{(masked / plain - 1) * 100:+.2f}% [{gpu}]")
     return by_dtype
 
 
@@ -1608,12 +1670,12 @@ def read_layers(path: pathlib.Path, modules) -> dict:
 
 
 def ragged_head_cases(dev, scored, updated):
-    """The attention shapes of a head-pruning run at every head count H a
-    layer held, as (name, q shape, mask kwargs, valid query rows, valid
-    keys, dtype): the f32 scoring pass (a stacked group of B = 32, the
-    training lengths tiled, dropout 0.1) at each H in ``scored`` and the
-    bf16 updates (TRAIN_SHAPE with H heads, its key padding, dropout 0
-    and 0.1) at each H in ``updated``."""
+    """The attention shapes of a head-pruning run at head counts H a layer
+    holds, as (name, q shape, mask kwargs, valid query rows, valid keys,
+    dtype): the f32 scoring pass (a stacked group of B = 32, the training
+    lengths tiled, dropout 0.1) at each H in ``scored`` and the bf16
+    updates (TRAIN_SHAPE with H heads, its key padding, dropout 0 and 0.1)
+    at each H in ``updated``."""
     b, _, t, d = TRAIN_SHAPE
     cases = []
     for dtype, heads, reps, dropouts in (
@@ -1734,6 +1796,7 @@ def phase_head_prune(dev, gpu: str, tmp: str):
     cfg = structured_prune_config(HP_DIR / "data_driven" /
                                   "config_runner_20ms.yaml", csv,
                                   total_steps=HP_EVENTS,
+                                  num_heads_each_step=HP_HEADS,
                                   data_ratio=HP_DATA_RATIO)
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1771,16 +1834,16 @@ def phase_head_prune(dev, gpu: str, tmp: str):
                              f"{runner.pruned_heads}, {runner.log_history}")
     check_event_memory("head prune", runner)
 
-    # the attention kernels at every head count the run's layers held, at
-    # the shapes the run gave them, against their plain versions (the
-    # run's layers hold 1 to 12 heads, and each count has its own TMA
-    # maps): f32 where it scored, bf16 where it updated
+    # the attention kernels against their plain versions at the shapes the
+    # run gave them (each head count has its own TMA maps): f32 where it
+    # scores, at every count from 12 to 1 a layer can hold whichever the
+    # run's events held, and bf16 at every count the run updated at
     t0 = time.perf_counter()
     held = [[left[0] // n_layers] * n_layers]
     for group in runner.pruned_heads:
         held.append([h - len(group.get(l, ()))
                      for l, h in enumerate(held[-1])])
-    scored = sorted({h for hs in held[:-1] for h in hs})
+    scored = list(range(1, left[0] // n_layers + 1))
     updated = sorted({h for hs in held[1:] for h in hs})
     gen = torch.Generator(device=dev).manual_seed(2)
     for name, qs, masks, valid_q, valid_k, dtype in ragged_head_cases(
@@ -1789,8 +1852,10 @@ def phase_head_prune(dev, gpu: str, tmp: str):
                       straddles=True)
         check_backward(fa, name, qs, qs, masks, valid_q, valid_k, dtype, gen)
     log("head prune", f"attention fwd, dQ and dK/dV kernels vs plain at the "
-        f"run's head counts: f32 (B = 32, dropout {DROPOUT_P:g}) at H = "
-        f"{scored}, bf16 (B = {TRAIN_SHAPE[0]}, dropout 0 and {DROPOUT_P:g}) "
+        f"scoring pass's shape, f32 (B = 32, dropout {DROPOUT_P:g}) at H = "
+        f"{scored} (the run scored at "
+        f"{sorted({h for hs in held[:-1] for h in hs})}), and at the "
+        f"run's, bf16 (B = {TRAIN_SHAPE[0]}, dropout 0 and {DROPOUT_P:g}) "
         f"at H = {updated}, each within the bars of the kernels and backward"
         f" phases (bf16 forward: straddles explained as in the serving case)"
         f"; {time.perf_counter() - t0:.2f} s")
@@ -1813,14 +1878,14 @@ def phase_head_prune(dev, gpu: str, tmp: str):
 
     # the scoring pass, kernels against impl="dense": a stacked group of
     # B = 32 at 12 heads a layer (the first event) and at the ragged heads
-    # of the 7th
+    # of the 2nd
     t0 = time.perf_counter()
     dataset = runner._get_dataloader()
     stacked = _stack_buckets([dataset.get_batch(i) for i in range(8)])
     batch = runner._device_batch(stacked)
     b, t = batch["feat"].shape[:2]
     for path in (expdir / f"states_prune_{left[0]}.npz",
-                 expdir / f"states_prune_{left[6]}.npz"):
+                 expdir / f"states_prune_{left[1]}.npz"):
         params, ckpt_cfg, _ = load_any_checkpoint(str(path))
         model = load_model(params, ckpt_cfg).to(dev)
         named = dict(model.named_parameters())
@@ -1894,8 +1959,8 @@ def phase_head_prune(dev, gpu: str, tmp: str):
         raise AssertionError("the head-pruned checkpoint serves wrong")
     del runner
 
-    # l1, by_layer: two events of one head a layer, each recomputed on the
-    # host from the weights its artifact holds
+    # l1, by_layer: HP_L1_EVENTS events of one head a layer, each
+    # recomputed on the host from the weights its artifact holds
     t0 = time.perf_counter()
     cfg = structured_prune_config(HP_DIR / "l1" / "config_runner_20ms.yaml",
                                   csv, total_steps=HP_L1_EVENTS)
@@ -2314,13 +2379,14 @@ def phase_distill(dev, gpu: str, tmp: str, one_head: pathlib.Path,
             acc = accumulate_grads(acc, micro()[1])
         apply(acc)
 
-    distill_ms, pretrain_ms = alternate(distill_micro, pretrain_micro)
+    distill_ms, pretrain_ms = alternate(distill_micro, pretrain_micro,
+                                        reps=1)
     update_ms, pretrain_update_ms = alternate(
         lambda: update(distill_micro, lambda acc: runner.apply(
             acc, float(runner.accum_steps))),
         lambda: update(pretrain_micro, lambda acc: fused_apply(
             runner.optimizer, list(pretrain_params.values()),
-            pretrain_state, acc, float(runner.accum_steps))))
+            pretrain_state, acc, float(runner.accum_steps))), reps=1)
     del pretrain, pretrain_step, pretrain_params, pretrain_state
     t_params = {k: v.detach().to(dtype)
                 for k, v in runner.teacher.named_parameters()}
@@ -2948,7 +3014,8 @@ def phase_hubert_serve(dev, gpu: str):
     for dtype in (torch.float32, torch.bfloat16):
         tag = "" if dtype == torch.float32 else " bf16"
         k_ms, c_ms = alternate(lambda: run(models["kernels" + tag], dtype),
-                               lambda: run(models["cudnn" + tag], dtype))
+                               lambda: run(models["cudnn" + tag], dtype),
+                               reps=1)
         log("timing", f"hubert_forward {dtype} B={b} x {t_wave} samples: "
             f"conv kernels {k_ms:.2f} ms ({frames / k_ms * 1e3:.0f} frames/s)"
             f", cuDNN {c_ms:.2f} ms ({frames / c_ms * 1e3:.0f} frames/s), "
@@ -3096,7 +3163,7 @@ def phase_hubert_train(dev, gpu: str, tmp: str):
             np.isfinite([e["loss"], e["grad_norm"]]).all() for e in hist):
         raise AssertionError(f"trainer log {hist}")
 
-    state = load_checkpoint(str(expdir / "last-step.npz"))
+    state = load_checkpoint(str(expdir / "last-step.npz"), load_opt=False)
     back = load_wave_model(state["params"],
                            HuBERTConfig.from_dict(state["meta"]["Config"]),
                            "hubert")
@@ -3195,8 +3262,10 @@ def phase_hubert_train_timing(runner, cudnn_model, batch, gpu: str):
             return run
 
         with matmul_precision("highest"):
-            k_ms, c_ms = alternate(grad("conv kernels"), grad("cuDNN"))
-            ku_ms, cu_ms = alternate(update("conv kernels"), update("cuDNN"))
+            k_ms, c_ms = alternate(grad("conv kernels"), grad("cuDNN"),
+                                   reps=1)
+            ku_ms, cu_ms = alternate(update("conv kernels"), update("cuDNN"),
+                                     reps=1)
         log("timing", f"HuBERT grad step B={b} x {t_wave} samples {dtype}: "
             f"conv kernels {k_ms:.2f} ms, cuDNN {c_ms:.2f} ms; one update "
             f"({HUBERT_ACCUM} grad steps + apply): conv kernels {ku_ms:.2f} ms"
@@ -3407,7 +3476,7 @@ def phase_w2v2_train(dev, gpu: str, tmp: str):
 
     # read back through the strict load of the weight bridge: every
     # parameter of the trainer's, none left over
-    state = load_checkpoint(str(expdir / "last-step.npz"))
+    state = load_checkpoint(str(expdir / "last-step.npz"), load_opt=False)
     saved_cfg = Wav2Vec2Config.from_dict(state["meta"]["Config"])
     back = dict(load_wave_model(state["params"],
                                     saved_cfg, "wav2vec2").named_parameters())
@@ -3665,9 +3734,10 @@ def phase_w2v2_train_timing(runner, cudnn_model, batch, gpu: str):
                 grad(name)()
                 torch.cuda.synchronize()
                 peaks[name] = (torch.cuda.max_memory_allocated() - before) / 1e9
-            k_ms, c_ms = alternate(grad("kernels"), grad("cuDNN + dense"))
+            k_ms, c_ms = alternate(grad("kernels"), grad("cuDNN + dense"),
+                                   reps=1)
             ku_ms, cu_ms = alternate(update("kernels"),
-                                     update("cuDNN + dense"))
+                                     update("cuDNN + dense"), reps=1)
         log("timing", f"wav2vec 2.0 grad step B={b} x {t_wave} samples "
             f"{dtype}: kernels {k_ms:.2f} ms ({frames / k_ms * 1e3:.0f} "
             f"frames/s, peak {peaks['kernels']:.2f} GB above the live "
@@ -3695,6 +3765,468 @@ def phase_w2v2_profile(runner, cudnn_model, batch, gpu: str):
         profile_calls(f"wav2vec 2.0 grad step bf16 {name}",
                       lambda: step(runner.params, batch, runner.rng, temp),
                       gpu)
+
+
+def wave_prune_config(upstream: str, mode: str, data: str,
+                      events: int) -> dict:
+    """The shipped runner YAML of ``upstream``'s ``mode``
+    (configs/{weight_pruning,head_pruning/l1,row_pruning}/
+    <upstream>_config_runner.yaml) with its events moved to consecutive
+    updates from the first on: weight pruning warnup 0, period 1,
+    n_iters ``events`` (its sparsity ladder cut to as many entries),
+    pruning_condition always; head and row pruning warm_up 0, interval 1,
+    total_steps ``events``. As many updates as events, a log line each,
+    ``data`` as the manifest (and the labels)."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+
+    cfg = read_yaml(WAVE_RECIPES[mode] / f"{upstream}_config_runner.yaml")
+    pc = cfg["prune"]
+    if mode == "weight-pruning":
+        pc.update(warnup=0, period=1, n_iters=events,
+                  pruning_condition="always")
+        pc["sparsity"] = pc["sparsity"][:events]
+    else:
+        pc.update(STRUCTURED_SHORT, total_steps=events)
+    cfg["runner"].update(total_steps=events, log_step=1)
+    cfg["task"]["data"] = data
+    if "label_dir" in cfg["task"]:
+        cfg["task"]["label_dir"] = data
+    return cfg
+
+
+def run_wave_trainer(upstream: str, mode: str, model_yaml, cfg: dict,
+                     root: pathlib.Path, start: str):
+    """``python -m speech_ssl_compression_tpu_torch.train -m <mode> -u
+    <upstream>`` from ``start`` with the runner config ``cfg``, the launch
+    counts from 0 just before it. Returns (runner, launch counts per dtype,
+    the encoder layers it ran (LayerDrop may skip some), seconds)."""
+    import speech_ssl_compression_tpu_torch.models.encoder as encoder
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+
+    name = f"{upstream}_{mode}"
+    runner_yaml = root / f"{name}.yaml"
+    runner_yaml.write_text(to_yaml(cfg) + "\n")
+    layer_forward, kept = encoder.encoder_layer_forward, []
+
+    def counting(*args, **kwargs):
+        kept.append(1)
+        return layer_forward(*args, **kwargs)
+
+    encoder.encoder_layer_forward = counting
+    # the trainers hold reference cycles: an earlier phase's may still be
+    # on the card until the collector runs, and must not run mid-event
+    # (check_event_memory)
+    gc.collect()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    try:
+        runner = train(["-m", mode, "-u", upstream, "-g", str(model_yaml),
+                        "-c", str(runner_yaml), "-n", str(root / name), "-i",
+                        start, "--device", "cuda", "--seed", "0"])
+        torch.cuda.synchronize()
+    finally:
+        encoder.encoder_layer_forward = layer_forward
+    return runner, dtype_launch_counts(), len(kept), time.perf_counter() - t0
+
+
+def check_wave_run(upstream: str, mode: str, runner, counts, layers: int,
+                   seconds: float, events: int, gpu: str) -> None:
+    """What every run of the wave prune phase must show: its events, one
+    finite log line an update, and every grad step through the kernels
+    (bf16): an attention forward, dQ and dK/dV per encoder layer run and
+    the conv kernels per frontend layer 1-6."""
+    cfg = runner.cfg
+    n_conv = len(conv_layer_shapes(1, W2V2_TRAIN[1], cfg.conv_feature_layers))
+    want = {**dict.fromkeys(("conv1d_fwd", "conv1d_dw", "conv1d_dx"),
+                            {"f32": 0, "bf16": events * n_conv}),
+            **dict.fromkeys(("flash_attn_fwd", "flash_attn_bwd_dq",
+                             "flash_attn_bwd_dkv"), {"f32": 0,
+                                                     "bf16": layers})}
+    fired = (runner.wp_state.pruning_times if mode == "weight-pruning"
+             else len(runner.prune_event_log))
+    hist = runner.log_history
+    log("wave prune", f"-m {mode} -u {upstream} -i last-step.npz "
+        f"({runner.compute_dtype}, B = {runner._batch_size()}): {fired} "
+        f"events at steps {list(map(int, runner.prune_steps))}, "
+        f"{len(hist)} updates, losses "
+        f"{[round(e['loss'], 4) for e in hist]}, heads "
+        f"{cfg.encoder_attention_heads}, FFN {cfg.encoder_ffn_embed_dim}; "
+        f"{layers} encoder layers run; launches {counts}; "
+        f"{seconds:.2f} s [{gpu}]")
+    for e in runner.prune_event_log:
+        log("wave prune", f"{upstream} {mode} event at step {e['step']} on "
+            f"the host: its artifact's save {e['save_seconds']:.3f} s, "
+            + (f"the masks {e['seconds']:.3f} s" if "seconds" in e else
+               f"scoring {e['score_seconds']:.3f} s, slicing and rebuild "
+               f"{e['slice_seconds']:.3f} s") + f" [{gpu}]")
+    if counts != want:
+        raise AssertionError(f"{upstream} {mode} launches {counts}, want "
+                             f"{want}")
+    if not (runner.compute_dtype == torch.bfloat16 and fired == events
+            and len(hist) == events
+            and np.isfinite([[e["loss"], e["grad_norm"]]
+                             for e in hist]).all()):
+        raise AssertionError(f"{upstream} {mode} run: {fired} events, log "
+                             f"{hist}")
+
+
+def check_hubert_head_prune(dev, gpu: str, runner, expdir: pathlib.Path,
+                            events: int) -> None:
+    """Each event's heads against a host recompute of the l1 scores on the
+    JAX-layout view of the artifact before it; the live bytes around each
+    event; the bf16 attention kernels against their plain versions at
+    every head count the run held, at the path's shape (B, h, 782, 64)
+    with its pad key, dropout 0 and 0.1."""
+    from speech_ssl_compression_tpu_torch.compress import head_pruning as hp
+    from speech_ssl_compression_tpu_torch.models.conv_frontend import (
+        conv_output_length,
+    )
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg = runner.cfg
+    n_layers = cfg.encoder_layers
+    per_layer = cfg.encoder_attention_heads[0] + events
+    for i, group in enumerate(runner.pruned_heads):
+        h = per_layer - i
+        params = read_layers(expdir / f"states_prune_{n_layers * h}.npz",
+                             ("q_proj", "k_proj", "v_proj"))
+        scores = hp.l1_head_scores(params, cfg.with_heads((h,) * n_layers))
+        again = hp.select_heads_to_prune(scores, n_layers, "by_layer",
+                                         n_layers)
+        if again != group:
+            raise AssertionError(f"hubert l1 event {i + 1}: {group}, "
+                                 f"recomputed {again}")
+    log("wave prune", f"the {events} HuBERT events' heads equal to a host "
+        f"recompute of l1_head_scores on the JAX-layout view of the "
+        f"artifact before each (states_prune_{n_layers * per_layer} ... "
+        f"states_prune_{n_layers * (per_layer - events + 1)}.npz); heads "
+        f"a layer {cfg.encoder_attention_heads}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if cfg.encoder_attention_heads != (1,) * n_layers:
+        raise AssertionError("HuBERT head pruning did not reach one head a "
+                             "layer")
+    check_event_memory("wave prune", runner)
+
+    t0 = time.perf_counter()
+    b, t_wave = W2V2_TRAIN
+    t_frames = conv_output_length(t_wave, cfg.conv_feature_layers)
+    t_enc = t_frames + (-t_frames % cfg.required_seq_len_multiple)
+    pad = torch.zeros((b, t_enc), dtype=torch.bool, device=dev)
+    pad[:, t_frames:] = True
+    rows = torch.ones_like(pad)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for h in range(per_layer, 0, -1):
+        shape = (b, h, t_enc, cfg.head_dim)
+        for p in (0.0, DROPOUT_P):
+            masks = dict(key_padding_mask=pad)
+            if p:
+                masks.update(dropout_p=p, dropout_seed=DROPOUT_SEED)
+            name = f"hubert_heads_{h}_p{p:g}"
+            check_forward(fa, name, shape, shape, masks, rows,
+                          torch.bfloat16, gen, straddles=True)
+            check_backward(fa, name, shape, shape, masks, rows, ~pad,
+                           torch.bfloat16, gen)
+    log("wave prune", f"bf16 attention fwd, dQ and dK/dV kernels vs plain "
+        f"at (B, h, T, d) = ({b}, h, {t_enc}, {cfg.head_dim}), h = "
+        f"{per_layer} ... 1, the pad key, dropout 0 and {DROPOUT_P:g}: each "
+        f"within the bars of the kernels and backward phases, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def serve_pruned_hubert(dev, gpu: str, up: dict, data: str, pruned: str,
+                        model, full) -> None:
+    """The HuBERT expert on the one-head checkpoint ``pruned``: it loads
+    at its widths with the trainer's ``model``'s weights and takes a
+    training step; then it serves hubert_forward(features_only=True) on
+    the hubert serve phase's batch beside the full model ``full`` (the
+    start checkpoint's), f32 (TF32 off, the extractors' default), in
+    turns."""
+    from speech_ssl_compression_tpu_torch.data.dictionary import Dictionary
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.models.hubert import hubert_forward
+    from speech_ssl_compression_tpu_torch.upstream import get_pretrain_expert
+
+    t0 = time.perf_counter()
+    dicts = [Dictionary.load(f"{data}/dict.km.txt")]
+    expert_cls = get_pretrain_expert("hubert")
+    one = expert_cls(up, initial_weight=pruned, device=dev, dicts=dicts)
+    same = all(torch.equal(v, p.detach()) for (_, v), p in zip(
+        one.model.named_parameters(), model.parameters()))
+    rng = np.random.default_rng(0)
+    n = 32000
+    labels = [rng.integers(0, 500, n // 320) for _ in range(2)]
+    data_in = {"net_input": {"source": rng.uniform(-0.3, 0.3, (2, n)).astype(
+        np.float32), "padding_mask": np.zeros((2, n), bool)},
+        "target_list": [labels]}
+    loss, frames_masked = one.forward(data_in)
+    loss.backward()
+    log("wave prune", f"HuBERT expert on the one-head last-step.npz: heads "
+        f"{one.cfg.encoder_attention_heads}, weights bitwise the trainer's: "
+        f"{same}; a training forward on 2 x {n} samples: loss "
+        f"{float(loss):.4f} over {frames_masked} masked frames, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (same and one.cfg.encoder_attention_heads == (1,) * len(
+            one.cfg.encoder_attention_heads) and torch.isfinite(loss)):
+        raise AssertionError("the HuBERT expert does not load the one-head "
+                             "checkpoint")
+    del loss
+    b, t_wave = HUBERT_SERVE
+    src_np, lengths = hubert_source(b, t_wave, seed=0)
+    src = torch.from_numpy(src_np).to(dev)
+    models = {"1 head a layer": one.model.eval(), "full": full.eval()}
+
+    def run(model):
+        with matmul_precision("highest"), torch.inference_mode():
+            return hubert_forward(model, src, lengths, mask=False,
+                                  features_only=True)
+
+    frames = int((~run(models["full"])["padding_mask"]).sum())
+    one_ms, full_ms = alternate(lambda: run(models["1 head a layer"]),
+                                lambda: run(models["full"]), reps=1)
+    log("timing", f"HuBERT expert models serving hubert_forward "
+        f"{torch.float32}, B={b} x {t_wave} samples: one head a layer "
+        f"{one_ms:.2f} ms ({frames / one_ms * 1e3:.0f} frames/s), full "
+        f"{full_ms:.2f} ms ({frames / full_ms * 1e3:.0f} frames/s), "
+        f"{full_ms / one_ms:.3f}x [{gpu}]")
+    del models
+
+
+def check_remat(dev, gpu: str, start: str, batch):
+    """One bf16 HuBERT grad step at the recipe's batch with
+    checkpoint_activations off and on, from the same generators and
+    weights, cuDNN deterministic: the loss and every gradient (bitwise
+    expected), the peak memory of each, the forward launches the
+    recompute adds, and the step's time with and without it.
+    Returns the model of ``start`` it ran (f32)."""
+    from speech_ssl_compression_tpu_torch.configs import HuBERTConfig
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_hubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        load_wave_model, wave_model_from_named,
+    )
+
+    t0 = time.perf_counter()
+    state = load_checkpoint(start, load_opt=False)
+    cfg = HuBERTConfig.from_dict(state["meta"]["Config"])
+    model = load_wave_model(state["params"], cfg, "hubert").to(dev)
+    del state
+    named = dict(model.named_parameters())
+    models = {"off": model, "on": wave_model_from_named(
+        named, dataclasses.replace(cfg, checkpoint_activations=True),
+        "hubert")}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    results = {}
+    try:
+        for name, m in models.items():
+            step = make_hubert_grad_step(m, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            loss, n, grads, _ = step(named, batch,
+                                     torch.Generator().manual_seed(11))
+            torch.cuda.synchronize()
+            results[name] = (float(loss), int(n), grads, launch_counts(),
+                             torch.cuda.max_memory_allocated(dev) - base)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            flags)
+    (loss_a, n_a, grads_a, counts_a, peak_a), (
+        loss_b, n_b, grads_b, counts_b, peak_b) = results.values()
+    names = list(named)
+    bitwise = [bool(torch.equal(a, b)) for a, b in zip(grads_a, grads_b)]
+    errs = grad_errors(names, grads_b, grads_a)
+    worst = int(np.argmax(errs))
+    extra = {k: counts_b[k] - counts_a[k] for k in counts_a}
+    b, t_wave = batch["source"].shape
+    log("wave prune", f"checkpoint_activations, one bf16 HuBERT grad step "
+        f"(B={b} x {t_wave} samples, {n_a} masked frames, dropouts on, the "
+        f"same generators): loss {loss_a:.6f} off, {loss_b:.6f} on, equal "
+        f"{loss_a == loss_b}; {sum(bitwise)} of {len(names)} gradients "
+        f"bitwise equal, worst rel L2 {errs[worst]:.3e} ({names[worst]}); "
+        f"peak memory above the model {peak_a} B off, {peak_b} B on "
+        f"({peak_b / peak_a:.3f}x); launches off {counts_a}, on {counts_b},"
+        f" the recompute's {extra}; {time.perf_counter() - t0:.2f} s [{gpu}]")
+    want_extra = {**dict.fromkeys(extra, 0),
+                  "flash_attn_fwd": cfg.encoder_layers}
+    if not (n_a == n_b and extra == want_extra and peak_b < peak_a):
+        raise AssertionError("checkpoint_activations did not recompute the "
+                             "layers, or saved no memory")
+    if not (loss_a == loss_b and all(bitwise)):
+        # a kernel that is not bitwise repeatable: within the bf16 bar
+        if not (abs(loss_b - loss_a) <= BF16_SLICE_BAR * abs(loss_a)
+                and max(errs) < BF16_SLICE_BAR):
+            raise AssertionError("checkpoint_activations changes the "
+                                 "gradients")
+    del grads_a, grads_b, results
+    # the grad step with and without the recompute, one CUDA-event time
+    # each after a warm-up
+    ms = {}
+    for k, m in models.items():
+        step = make_hubert_grad_step(m, compute_dtype=torch.bfloat16)
+        ms[k] = cuda_ms(lambda: step(named, batch,
+                                     torch.Generator().manual_seed(11)),
+                        reps=1)
+    log("timing", f"HuBERT bf16 grad step B={b} x {t_wave} samples, dropouts "
+        f"on: checkpoint_activations off {ms['off']:.2f} ms, on "
+        f"{ms['on']:.2f} ms, {ms['on'] / ms['off']:.3f}x [{gpu}]")
+    return model
+
+
+def check_w2v2_weight_prune(runner, expdir: pathlib.Path, sparsity) -> None:
+    """Each event's masks against a host recompute by
+    global_magnitude_prune on the folded weights of the artifact before
+    it (the first on the start checkpoint's), every masked entry's
+    gradient exactly 0 in a bf16 grad step of the run's model."""
+    from speech_ssl_compression_tpu_torch.compress import weight_pruning as wp
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import tree_leaves
+
+    t0 = time.perf_counter()
+    files = [expdir / f"before-pruning-{i}.npz" for i in range(len(sparsity))]
+    states = [read_prune_state(f) for f in files + [expdir / "last-step.npz"]]
+    for i, (before, after) in enumerate(zip(states, states[1:])):
+        params, old, meta, updates = before
+        want = wp.global_magnitude_prune(wp.fold_masks(params, old or None),
+                                         sparsity[i])
+        got = tree_leaves(after[1])
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(got, tree_leaves(want)))
+        n = sum(m.size for m in got)
+        masked = n - sum(int(np.count_nonzero(m)) for m in got)
+        log("wave prune", f"wav2vec 2.0 weight event {i + 1} "
+            f"({files[i].name}): Step {meta['Step']}, after {updates} "
+            f"updates; {masked} of {n} prunable entries masked "
+            f"(round(amount n) = {round(sparsity[i] * n)}); masks equal to "
+            f"the host recompute: {same}")
+        if not (same and masked == round(sparsity[i] * n)
+                and meta["Step"] == updates == i):
+            raise AssertionError(f"wav2vec 2.0 weight event {i + 1} is wrong")
+    last = states[-1][2]
+    if last.get("Pruning", {}).get("pruning_times") != len(sparsity):
+        raise AssertionError("last-step.npz lacks the pruning state")
+    del states
+
+    dataset = runner._get_dataset()
+    batch = runner._collate(next(iter(dataset.epoch(shuffle=False))))
+    _, _, grads, _ = runner.grad_step(runner.params, batch, runner.rng,
+                                      masks=runner.masks,
+                                      gumbel_temp=runner.temp_history[-1][1])
+    named = dict(zip(runner.params, grads))
+    zero = all(bool((named[k][m == 0] == 0).all())
+               for k, m in runner.masks.items())
+    log("wave prune", f"wav2vec 2.0 masked grad step (bf16): every masked "
+        f"entry's gradient exactly 0: {zero}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not zero:
+        raise AssertionError("a masked wav2vec 2.0 weight has a gradient")
+
+
+def check_w2v2_row_prune(runner, expdir: pathlib.Path, rows: int) -> None:
+    """Each event's rows against a host recompute of ffn_row_scores on
+    the artifact before it; the live bytes around each event."""
+    from speech_ssl_compression_tpu_torch.compress import row_pruning as rp
+
+    t0 = time.perf_counter()
+    ffn = runner.cfg.encoder_ffn_embed_dim[0]
+    events = len(runner.prune_event_log)
+    for i, e in enumerate(runner.prune_event_log):
+        layers = read_layers(expdir / f"states_prune_{ffn + rows * (events - i)}"
+                             ".npz", ("fc1", "fc2"))["encoder"]["layers"]
+        again = [rp.rows_to_keep(rp.ffn_row_scores(l), rows) for l in layers]
+        if not all(np.array_equal(a, k) for a, k in zip(again, e["kept"])):
+            raise AssertionError(f"wav2vec 2.0 row event {i + 1} kept other "
+                                 "rows than the host recompute")
+    log("wave prune", f"the {events} wav2vec 2.0 row events' rows equal to "
+        f"a host recompute of ffn_row_scores on the artifact before each; "
+        f"FFN {runner.cfg.encoder_ffn_embed_dim}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if runner.cfg.encoder_ffn_embed_dim != (3072 - rows * events,) * len(
+            runner.cfg.encoder_ffn_embed_dim):
+        raise AssertionError("wav2vec 2.0 row pruning left other widths")
+    check_event_memory("wave prune", runner)
+
+
+def phase_wave_prune(dev, gpu: str, tmp: str):
+    """The pruning modes of HuBERT and wav2vec 2.0 through the trainer's
+    entry point, full width, bf16, from the hubert train and w2v2 train
+    phases' checkpoints on the w2v2 train phase's WAVs (with its labels
+    for HuBERT): the six (upstream, mode) pairs at their shipped recipes
+    with the events moved to consecutive updates (WAVE_EVENTS), each with
+    its checks; activation checkpointing on a HuBERT grad step. Returns
+    the launch counts of each run per dtype, by path."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tmp) / "wave_prune"
+    root.mkdir()
+    data = str(pathlib.Path(tmp) / "w2v2" / "data")
+    starts = {"hubert": str(pathlib.Path(tmp) / "hubert" / "exp" /
+                            "last-step.npz"),
+              "wav2vec2": str(pathlib.Path(tmp) / "w2v2" / "exp" /
+                              "last-step.npz")}
+    model_yamls = {"hubert": pathlib.Path(tmp) / "hubert" /
+                   "config_model.yaml",
+                   "wav2vec2": pathlib.Path(tmp) / "w2v2" /
+                   "config_model.yaml"}
+    paths = {}
+    for (upstream, mode), events in WAVE_EVENTS.items():
+        cfg = wave_prune_config(upstream, mode, data, events)
+        runner, counts, layers, seconds = run_wave_trainer(
+            upstream, mode, model_yamls[upstream], cfg, root,
+            starts[upstream])
+        check_wave_run(upstream, mode, runner, counts, layers, seconds,
+                       events, gpu)
+        paths[f"{upstream} {mode}"] = counts
+        expdir = root / f"{upstream}_{mode}"
+        if (upstream, mode) == ("hubert", "head-pruning"):
+            check_hubert_head_prune(dev, gpu, runner, expdir, events)
+            # a batch of the recipe's shape, as the run's dataset gives it
+            batch = runner._collate(next(iter(
+                runner._get_dataset().epoch(shuffle=False))))
+            pruned = runner.model
+            del runner
+            full = check_remat(dev, gpu, starts["hubert"], batch)
+            del batch
+            serve_pruned_hubert(
+                dev, gpu, {"hubert": read_yaml(model_yamls["hubert"])[
+                    "hubert"]}, data, str(expdir / "last-step.npz"), pruned,
+                full)
+            del pruned, full
+        elif (upstream, mode) == ("wav2vec2", "weight-pruning"):
+            check_w2v2_weight_prune(runner, expdir, cfg["prune"]["sparsity"])
+        elif (upstream, mode) == ("wav2vec2", "row-pruning"):
+            check_w2v2_row_prune(runner, expdir,
+                                 cfg["prune"]["num_rows_each_step"])
+        elif mode == "head-pruning":
+            if set(runner.cfg.encoder_attention_heads) != {12 - events}:
+                raise AssertionError(f"{upstream} head pruning left heads "
+                                     f"{runner.cfg.encoder_attention_heads}")
+        elif mode == "row-pruning":
+            if set(runner.cfg.encoder_ffn_embed_dim) != {
+                    3072 - events * cfg["prune"]["num_rows_each_step"]}:
+                raise AssertionError(f"{upstream} row pruning left FFN "
+                                     f"{runner.cfg.encoder_ffn_embed_dim}")
+        else:
+            from speech_ssl_compression_tpu_torch.compress.weight_pruning \
+                import sparsity_of
+            got = sparsity_of(runner.masks)
+            if abs(got - cfg["prune"]["sparsity"][-1]) > 1e-6:
+                raise AssertionError(f"{upstream} weight pruning left "
+                                     f"sparsity {got}")
+        runner = None
+        gc.collect()
+        for path in expdir.glob("*.npz"):
+            path.unlink()
+    log("wave prune", f"phase {time.perf_counter() - t_phase:.2f} s")
+    return paths
 
 
 def attention_library_ms(dev, gpu: str, dtype):
@@ -3740,14 +4272,14 @@ def attention_library_ms(dev, gpu: str, dtype):
                                                   dropout_p=p)
 
         with torch.no_grad():
-            out["flash_attn_fwd", case] = cuda_ms(fwd, inner=5)
+            out["flash_attn_fwd", case] = cuda_ms(fwd, reps=1, inner=5)
         if case == "serving":
             continue
         o = fwd()
         dout = randn(qs)
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), dout,
                                                      retain_graph=True),
-                         inner=5)
+                         reps=1, inner=5)
         out["flash_attn_bwd_dq", case] = out["flash_attn_bwd_dkv", case] = (
             bwd_ms)
         del o, q, k, v, dout
@@ -3903,7 +4435,6 @@ def main() -> None:
                         help="also profile forward_packed per path and the "
                         "grad step")
     args = parser.parse_args()
-    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
@@ -3969,6 +4500,7 @@ def main() -> None:
             timed("profile", phase_w2v2_profile, runner, cudnn_model, batch,
                   gpu)
         del runner, cudnn_model, batch
+        wave_prune = timed("wave prune", phase_wave_prune, dev, gpu, tmp)
 
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after
@@ -3978,7 +4510,7 @@ def main() -> None:
              "melhubert row-pruning": row_prune,
              "melhubert distillation": distill,
              "hubert serve": hubert_serve, "hubert train": hubert_train,
-             "wav2vec2 train": w2v2_train}
+             "wav2vec2 train": w2v2_train, **wave_prune}
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         if not head_prune[name]["f32"]:
             raise AssertionError(f"no f32 {name} launch on head pruning")
@@ -4002,8 +4534,8 @@ def main() -> None:
     missing = [e["name"] for e in entries if not e["launches"]]
     if missing:
         raise AssertionError(f"kernels no main path launched: {missing}")
-    log("total", f"{time.perf_counter() - t_start:.1f} s of wall time, "
-        f"the build included; per phase "
+    log("total", f"{time.perf_counter() - T_START:.1f} s of wall time from "
+        f"torch's import, the build included; per phase "
         + ", ".join(f"{k} {v:.1f} s" for k, v in PHASE_SECONDS.items())
         + f" [{gpu}]")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -15,6 +15,11 @@ and LayerDrop. Randomness comes from one explicit host
 device from it for the dropout bits, and each layer draws its attention
 seed (the key of the kernels' keep bits) and its LayerDrop coin from it.
 
+With ``checkpoint_activations`` (HuBERT and wav2vec 2.0 configs; JAX's
+``jax.checkpoint`` around each layer) a training forward keeps only each
+layer's input and recomputes the layer in the backward
+(:func:`checkpoint_layer`).
+
 ``layer_norm`` is PyTorch's: in bf16 it takes its statistics in f32 and
 rounds its output to bf16, where JAX's ``layer_norm`` rounds each step of
 its bf16 arithmetic. The two agree to bf16 rounding.
@@ -22,11 +27,14 @@ its bf16 arithmetic. The two agree to bf16 rounding.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import get_activation_fn
 from ..ops.attention import SelfAttention, multi_head_self_attention
@@ -176,6 +184,67 @@ def encoder_layer_forward(
     return x, context
 
 
+@contextlib.contextmanager
+def _holding(module: nn.Module, tensors: dict):
+    """``module``'s parameters replaced by ``tensors`` (name -> tensor, as
+    ``named_parameters`` gives them) for the duration."""
+    swapped = []
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner)
+        swapped.append((sub, leaf, sub._parameters[leaf]))
+        sub._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for sub, leaf, t in swapped:
+            sub._parameters[leaf] = t
+
+
+def checkpoint_layer(run, x: torch.Tensor, layer: nn.Module,
+                     generator: Optional[torch.Generator]):
+    """``run(x)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    layer's activations are freed after the forward and recomputed in the
+    backward, which must see what the forward saw. Two things are not
+    where checkpoint looks for them:
+
+      * the residual and activation dropouts draw from ``generator``, an
+        explicit device generator, which checkpoint's own RNG stash (the
+        default generators only) does not cover: the recompute would draw
+        new bits, and the loss would be right and the gradients wrong. So
+        the generator's state before the layer is set again for the
+        recompute, and its state of that moment put back after it;
+      * ``run`` reads ``layer``'s parameters, which a grad step swaps for
+        its masked, compute-dtype copies only while its forward runs
+        (``torch.func.functional_call``): the backward would recompute on
+        the f32 masters. So the tensors the layer held in the forward are
+        put back into it for the recompute.
+
+    Nothing in a layer draws from the default generators (the attention's
+    keep bits are counter-based on a seed drawn before the layer), so none
+    is stashed."""
+    state = None if generator is None else generator.get_state()
+    held = dict(layer.named_parameters())
+    calls = []
+
+    def wrapped(h):
+        calls.append(1)
+        if len(calls) == 1:
+            return run(h)
+        with _holding(layer, held):
+            if state is None:
+                return run(h)
+            now = generator.get_state()
+            generator.set_state(state)
+            try:
+                return run(h)
+            finally:
+                generator.set_state(now)
+
+    return checkpoint(wrapped, x, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def encoder_prologue(
     x: torch.Tensor,  # (B, T, D)
     enc: TransformerEncoder,
@@ -221,8 +290,12 @@ def encoder_layers_forward(
     dropped layer here is not run). A dropped layer's input stands in its
     ``layer_hiddens`` slot, as in JAX, and None in its ``contexts`` slot
     (its heads score 0: JAX computes the layer and selects its input, so
-    the context's gradient is 0 there)."""
+    the context's gradient is 0 there). With
+    ``cfg.checkpoint_activations`` a training forward that records a
+    graph runs each layer through :func:`checkpoint_layer`."""
     layer_hiddens = []
+    remat = (getattr(cfg, "checkpoint_activations", False)
+             and not deterministic and torch.is_grad_enabled())
     for i, layer in enumerate(enc.layers):
         seed = None
         if not deterministic:
@@ -234,8 +307,8 @@ def encoder_layers_forward(
                 if contexts is not None:
                     contexts.append(None)
                 continue
-        x, context = encoder_layer_forward(
-            x, layer,
+        run = functools.partial(
+            encoder_layer_forward, layer=layer,
             layer_norm_first=cfg.layer_norm_first,
             key_padding_mask=padding_mask,
             causal=causal,
@@ -249,6 +322,8 @@ def encoder_layers_forward(
             attention_seed=seed,
             deterministic=deterministic,
         )
+        x, context = (checkpoint_layer(run, x, layer, generator) if remat
+                      else run(x))
         if get_hidden:
             layer_hiddens.append(x)
         if contexts is not None:

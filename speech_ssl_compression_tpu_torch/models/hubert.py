@@ -22,8 +22,8 @@ from torch import nn
 
 from ..configs import HuBERTConfig
 from ..ops.activations import at_least_f32
-from ..ops.dropout import device_generator, draw_seed
-from ..ops.masking import compute_mask_indices_np
+from ..ops.dropout import device_generator, host_mask_rng
+from ..ops.masking import channel_mask, compute_mask_indices_np
 from .conv_frontend import (
     ConvFeatureExtractor,
     conv_downsample_rate,
@@ -41,12 +41,6 @@ class HuBERTModel(nn.Module):
 
     def __init__(self, cfg: HuBERTConfig, num_classes: Sequence[int]):
         super().__init__()
-        if cfg.mask_channel_prob > 0:
-            raise NotImplementedError(
-                "mask_channel_prob > 0 (channel masking) is not ported yet")
-        if cfg.checkpoint_activations:
-            raise NotImplementedError(
-                "checkpoint_activations (remat) is not ported yet")
         self.cfg = cfg
         self.num_classes = tuple(int(n) for n in num_classes)
         embed = cfg.conv_feature_layers[-1][0]
@@ -139,6 +133,7 @@ def hubert_forward(
     features_only: bool = False,
     get_hidden: bool = False,
     mask_indices: Optional[torch.Tensor] = None,  # (B, T') bool
+    mask_channel_indices: Optional[torch.Tensor] = None,  # (B, C) bool
     rng: Optional[torch.Generator] = None,  # host generator
     deterministic: bool = True,
     attn_impl: str = "auto",
@@ -151,7 +146,12 @@ def hubert_forward(
     ``features_only`` keeps the reference signature; as in JAX it changes
     nothing (the encoder runs either way, and ``mask`` alone decides the
     masking). With ``mask`` and no ``mask_indices``, the span mask is drawn
-    on the host from ``rng``. ``deterministic=False`` turns the dropouts on,
+    on the host from ``rng``. With ``mask_channel_prob > 0`` a (B, C)
+    channel mask zeroes feature channels after the time mask (JAX's
+    fairseq ``apply_mask`` semantics), drawn from the same host stream
+    after the span mask unless ``mask_channel_indices`` is given; like
+    JAX's, it applies only where the time mask does (``mask`` and
+    ``mask_prob > 0``). ``deterministic=False`` turns the dropouts on,
     drawing from ``rng``, a host ``torch.Generator``."""
     cfg = model.cfg
     generator = None
@@ -166,15 +166,19 @@ def hubert_forward(
     b, t_frames = x.shape[0], x.shape[1]
 
     if mask and cfg.mask_prob > 0:
+        host_rng = host_mask_rng(rng)
         if mask_indices is None:
-            if rng is None:
-                raise ValueError("drawing a span mask needs an rng (or pass "
-                                 "mask_indices)")
-            mask_indices = torch.from_numpy(span_mask(
-                cfg, out_len, t_frames, np.random.default_rng(draw_seed(rng))))
+            mask_indices = torch.from_numpy(span_mask(cfg, out_len, t_frames,
+                                                      host_rng()))
         mask_indices = mask_indices.to(device=x.device, dtype=torch.bool)
         x = torch.where(mask_indices[:, :, None],
                         model.mask_emb.to(x.dtype)[None, None, :], x)
+        if cfg.mask_channel_prob > 0:
+            if mask_channel_indices is None:
+                mask_channel_indices = torch.from_numpy(channel_mask(
+                    cfg, b, x.shape[-1], host_rng()))
+            x = x.masked_fill(mask_channel_indices.to(
+                device=x.device, dtype=torch.bool)[:, None, :], 0.0)
     else:
         mask_indices = torch.zeros((b, t_frames), dtype=torch.bool,
                                    device=x.device)

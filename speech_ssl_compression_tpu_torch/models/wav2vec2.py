@@ -37,8 +37,8 @@ from torch import nn
 
 from ..configs import Wav2Vec2Config
 from ..ops.activations import at_least_f32
-from ..ops.dropout import device_generator, draw_seed
-from ..ops.masking import compute_mask_indices_np
+from ..ops.dropout import device_generator, host_mask_rng
+from ..ops.masking import channel_mask, compute_mask_indices_np
 from .conv_frontend import ConvFeatureExtractor, wave_frontend_forward
 from .encoder import TransformerEncoder, encoder_forward
 from .gumbel_vq import (
@@ -61,12 +61,6 @@ class Wav2Vec2Model(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
-        if cfg.mask_channel_prob > 0:
-            raise NotImplementedError(
-                "mask_channel_prob > 0 (channel masking) is not ported yet")
-        if cfg.checkpoint_activations:
-            raise NotImplementedError(
-                "checkpoint_activations (remat) is not ported yet")
         if cfg.contrastive_impl not in CONTRASTIVE_IMPLS:
             raise ValueError(
                 f"unknown contrastive_impl {cfg.contrastive_impl!r}")
@@ -219,6 +213,7 @@ def wav2vec2_forward(
     features_only: bool = False,
     get_hidden: bool = False,
     mask_indices: Optional[torch.Tensor] = None,  # (B, T') bool
+    mask_channel_indices: Optional[torch.Tensor] = None,  # (B, C) bool
     rng: Optional[torch.Generator] = None,  # host generator
     deterministic: bool = True,
     gumbel_temp: Optional[float] = None,  # None: latent_temp[0]
@@ -238,7 +233,11 @@ def wav2vec2_forward(
     A supplied ``mask_indices`` is used only when ``mask_prob > 0`` and is
     confined to the valid frames; without it the span mask is drawn on the
     host from ``rng`` (``mask_shared_rounding``: one span-count draw for
-    the batch). ``deterministic=False`` turns the dropouts and LayerDrop
+    the batch). With ``mask`` and ``mask_channel_prob > 0`` a (B, C)
+    channel mask zeroes feature channels before the time mask
+    (``mask_channel_before``) or after it, drawn from the same host
+    stream in that order unless ``mask_channel_indices`` is given.
+    ``deterministic=False`` turns the dropouts and LayerDrop
     on and the quantizer's Gumbel noise (its uniforms from
     ``gumbel_uniform`` when given) with ``gumbel_temp``. A supplied
     ``negative_counts`` (B, T, T) stands in for the dense path's draw
@@ -257,13 +256,23 @@ def wav2vec2_forward(
                               dropout_features=True))
     b, t_frames = x.shape[0], x.shape[1]
 
+    host_rng = host_mask_rng(rng)
+    channels = mask and cfg.mask_channel_prob > 0
+
+    def zero_channels(x):
+        nonlocal mask_channel_indices
+        if mask_channel_indices is None:
+            mask_channel_indices = torch.from_numpy(channel_mask(
+                cfg, b, x.shape[-1], host_rng()))
+        return x.masked_fill(mask_channel_indices.to(
+            device=dev, dtype=torch.bool)[:, None, :], 0.0)
+
+    if channels and cfg.mask_channel_before:
+        x = zero_channels(x)
     if mask and cfg.mask_prob > 0:
         if mask_indices is None:
-            if rng is None:
-                raise ValueError("drawing a span mask needs an rng (or pass "
-                                 "mask_indices)")
             mask_indices = torch.from_numpy(span_mask(
-                cfg, out_len, t_frames, np.random.default_rng(draw_seed(rng)),
+                cfg, out_len, t_frames, host_rng(),
                 shared_rounding=mask_shared_rounding))
         mask_indices = (mask_indices.to(device=dev, dtype=torch.bool)
                         & frame_valid)
@@ -271,6 +280,8 @@ def wav2vec2_forward(
                         model.mask_emb.to(x.dtype)[None, None, :], x)
     else:
         mask_indices = torch.zeros((b, t_frames), dtype=torch.bool, device=dev)
+    if channels and not cfg.mask_channel_before:
+        x = zero_channels(x)
 
     hidden, layer_hiddens = encoder_forward(
         x, model.encoder, cfg, padding_mask=~frame_valid,

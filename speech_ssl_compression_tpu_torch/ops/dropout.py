@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox-4x32 multipliers
@@ -39,6 +40,24 @@ def keep_threshold(p: float) -> int:
 def draw_seed(generator: torch.Generator) -> int:
     """One seed in [0, 2^31 - 1) from a host generator (no device sync)."""
     return int(torch.randint(0, SEED_BOUND, (), generator=generator))
+
+
+def host_mask_rng(generator: Optional[torch.Generator]):
+    """A function that returns one ``numpy.random.Generator`` seeded by
+    :func:`draw_seed` of ``generator``, drawn at its first call: the host
+    stream a forward draws its span and channel masks from, in the order
+    it applies them. A forward whose masks are all given draws nothing."""
+    made = []
+
+    def get() -> np.random.Generator:
+        if not made:
+            if generator is None:
+                raise ValueError("drawing a span or channel mask needs an "
+                                 "rng (or pass the mask)")
+            made.append(np.random.default_rng(draw_seed(generator)))
+        return made[0]
+
+    return get
 
 
 def device_generator(generator: torch.Generator,

@@ -7,6 +7,10 @@ Port of the NumPy half of ``speech_ssl_compression_tpu/ops/masking.py``:
 ``numpy.random.Generator``. The same generator state gives the JAX
 function's mask bit for bit. JAX's on-device ``compute_span_mask`` (a
 static-shape answer to XLA) is not ported; a device version is later work.
+The channel masks (:func:`compute_channel_mask_np`, JAX
+``compute_channel_mask``) are drawn here too, with that function's
+settings; JAX draws them on the device, so the two agree in distribution,
+not bit for bit.
 """
 
 from __future__ import annotations
@@ -125,3 +129,41 @@ def compute_mask_indices_np(
             idx = rng.choice(idx, len(idx) - holes, replace=False)
         mask[i, idx.astype(np.int64)] = True
     return mask
+
+
+def compute_channel_mask_np(
+    batch: int,
+    channels: int,
+    *,
+    mask_prob: float,
+    mask_length: int,
+    mask_selection: str = "static",
+    mask_other: float = 0.0,
+    no_overlap: bool = False,
+    min_space: int = 1,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+    """(B, C) bool feature-channel mask, with the settings JAX
+    ``compute_channel_mask`` fixes (the reference's channel calls,
+    model.py:574-583): no padding mask, so one shared count draw for every
+    row, ``min_masks=0``, ``require_same_masks=True``, no mask dropout."""
+    return compute_mask_indices_np(
+        (batch, channels), None, mask_prob=mask_prob,
+        mask_length=mask_length, mask_selection=mask_selection,
+        mask_other=mask_other, min_masks=0, no_overlap=no_overlap,
+        min_space=min_space, require_same_masks=True, mask_dropout=0.0,
+        rng=rng)
+
+
+def channel_mask(cfg, batch: int, channels: int,
+                 rng: np.random.Generator) -> np.ndarray:
+    """(B, C) bool channel mask of a HuBERT or wav2vec 2.0 config's
+    ``mask_channel_*`` fields, the arguments JAX's forwards give
+    ``compute_channel_mask``."""
+    return compute_channel_mask_np(
+        batch, channels, mask_prob=cfg.mask_channel_prob,
+        mask_length=cfg.mask_channel_length,
+        mask_selection=cfg.mask_channel_selection,
+        mask_other=cfg.mask_channel_other,
+        no_overlap=cfg.no_mask_channel_overlap,
+        min_space=cfg.mask_channel_min_space, rng=rng)

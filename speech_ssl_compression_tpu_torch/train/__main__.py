@@ -1,5 +1,6 @@
 """Training CLI of the port, for MelHuBERT, HuBERT and wav2vec 2.0
-pre-training and MelHuBERT weight, head and row pruning and distillation:
+pre-training, weight, head and row pruning of the three, and MelHuBERT
+distillation:
 
     python -m speech_ssl_compression_tpu_torch.train -m melhubert \\
         -g configs/melhubert/config_model_20ms.yaml -c <runner.yaml> \\
@@ -29,6 +30,13 @@ pre-training and MelHuBERT weight, head and row pruning and distillation:
         -u wav2vec2 -g configs/wav2vec2/config_model.yaml \\
         -c <runner.yaml with task:> -n <expdir> [--seed N] [--device cuda] \\
         [-i <ckpt> ...]
+    python -m speech_ssl_compression_tpu_torch.train \\
+        -m weight-pruning|head-pruning|row-pruning -u hubert|wav2vec2 \\
+        -g configs/{hubert,wav2vec2}/config_model.yaml \\
+        -c configs/<dir>/<upstream>_config_runner.yaml -n <expdir> \\
+        -i <pretrained .npz or reference .ckpt> [--device cuda]
+
+(``<dir>``: ``weight_pruning``, ``head_pruning/l1`` or ``row_pruning``.)
 
 Port of the repository's ``train.py`` (the reference's flags), with
 ``--device`` in place of ``--backend``: ``-u melhubert`` goes to
@@ -40,11 +48,12 @@ its Adam state (a resume); in ``-m distillation`` ``-i`` is the
 teacher, and that flag is ignored. The YAMLs are read without PyYAML
 (``configs.py::read_yaml``), and the two config files are copied into the
 experiment directory for provenance. Ported: pre-training (``-m
-melhubert``) of the three models and ``-m weight-pruning``, ``-m
-head-pruning`` (metrics l1 and data-driven, targets by_layer and
-by_whole), ``-m row-pruning`` and ``-m distillation`` of MelHuBERT; the
-pruning and distillation modes of HuBERT and wav2vec 2.0 and the
-parallel flags raise ``NotImplementedError``.
+melhubert``), ``-m weight-pruning``, ``-m head-pruning`` and ``-m
+row-pruning`` of the three models (head pruning: l1 and data-driven,
+by_layer and by_whole on MelHuBERT; l1 on HuBERT and wav2vec 2.0, as in
+JAX) and ``-m distillation`` of MelHuBERT. ``-m distillation`` with ``-u
+hubert|wav2vec2`` and the parallel flags raise ``NotImplementedError``
+(JAX's WaveRunner trains plain pre-training under that mode's name).
 """
 
 from __future__ import annotations

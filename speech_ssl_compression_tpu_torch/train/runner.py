@@ -52,14 +52,8 @@ import numpy as np
 import torch
 
 from ..compress import head_pruning as hp
-from ..compress import row_pruning as rp
 from ..compress import weight_pruning as wp
 from ..compress.distillation import init_student_from_teacher
-from ..compress.schedule import (
-    set_prune_interval,
-    sparsity_ladder,
-    weight_prune_steps,
-)
 from ..configs import MelHuBERTConfig
 from ..data.bucket_dataset import MelFeatBuckets, PrefetchIterator
 from ..extract import load_any_checkpoint, resolve_device
@@ -77,10 +71,9 @@ from ..utils.weights import (
     masks_tree,
     model_from_named,
     named_masks,
-    prunable_names,
-    prunable_tree,
 )
 from .optim_mixin import OptimizerScheduleMixin
+from .prune_mixin import PruneMixin
 from .steps import (
     accumulate_grads,
     host_span_mask,
@@ -115,12 +108,15 @@ def _stack_buckets(batches: list) -> dict:
     }
 
 
-class Runner(OptimizerScheduleMixin):
+class Runner(OptimizerScheduleMixin, PruneMixin):
     """``Runner(args, runner_config, upstream_config).train()``, as the JAX
     runner, for ``args.mode`` ``melhubert``, ``weight-pruning``,
     ``head-pruning``, ``row-pruning`` or ``distillation``.
     ``args.device`` names the torch device (``cuda`` when absent: the CPU
     only when asked for)."""
+
+    _log_tag = "[Runner]"
+    _strict_prune_schedule = True
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
         if args.mode not in _PORTED_MODES:
@@ -175,16 +171,7 @@ class Runner(OptimizerScheduleMixin):
             self._resync_schedule_offset()
 
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
-        if self.mode == "distillation":
-            self.grad_step = make_distill_grad_step(
-                self.teacher, self.model, temperature=self.loss_temp,
-                alpha=self.loss_alpha, loss_type=self.loss_type,
-                accum_steps=self.accum_steps,
-                compute_dtype=self.compute_dtype)
-        else:
-            self.grad_step = make_melhubert_grad_step(
-                self.model, accum_steps=self.accum_steps,
-                compute_dtype=self.compute_dtype)
+        self._build_grad_step()
         # {"step", "loss", "grad_norm"} of every log line; each prune
         # event's step and host seconds, and for a head or row event what
         # it chose and the device memory around it
@@ -270,68 +257,36 @@ class Runner(OptimizerScheduleMixin):
         n = sum(p.numel() for p in self.params.values())
         print(f"[Runner] - Number of parameters: {n} (student)")
 
-    def _init_mode_schedules(self):
-        """The prune steps and each pruning mode's state (JAX
-        ``_init_mode_schedules``); no prune steps in pre-training."""
-        self.prune_steps = []
-        if self.mode in ("head-pruning", "row-pruning"):
-            self._init_structured_schedule()
-        if self.mode != "weight-pruning":
-            return
-        pc = self.runner_config["prune"]
-        n_iters = pc.get("n_iters", 38)
-        self.wp_state = wp.WeightPruningState(
-            sparsity=sparsity_ladder(pc["sparsity"], n_iters),
-            prune_condition=pc.get("pruning_condition", "converge"),
-            smooth_factor=pc.get("smooth_factor", 0.999),
-            avg_len=pc.get("average_length", 15000),
-            con_tol=pc.get("converge_loss_tolerance", 0.001),
-            warnup=pc.get("warnup", 25000),
-            period=pc.get("period", 25000),
-        )
-        self.prune_steps = weight_prune_steps(
-            self.wp_state.warnup, self.wp_state.period, n_iters)
-        if self.masks is None:
-            self.masks = {k: torch.ones_like(self.params[k])
-                          for k in prunable_names(self.params)}
-        if self._resumed_meta and "Pruning" in self._resumed_meta:
-            self.wp_state.load_meta(self._resumed_meta["Pruning"])
+    def _build_grad_step(self):
+        if self.mode == "distillation":
+            self.grad_step = make_distill_grad_step(
+                self.teacher, self.model, temperature=self.loss_temp,
+                alpha=self.loss_alpha, loss_type=self.loss_type,
+                accum_steps=self.accum_steps,
+                compute_dtype=self.compute_dtype)
+        else:
+            self.grad_step = make_melhubert_grad_step(
+                self.model, accum_steps=self.accum_steps,
+                compute_dtype=self.compute_dtype)
 
-    def _init_structured_schedule(self):
-        """Head and row pruning: masks of a weight-pruned ``-i`` folded
-        into the weights for good (the scores must see the zeros, and the
-        events change shapes the masks would no longer match), the prune
-        steps, and JAX's three construction-time checks."""
-        if self.masks is not None:
-            print("[Runner] - Folding weight-pruning masks into params")
-            with torch.no_grad():
-                for name, m in self.masks.items():
-                    self.params[name].mul_(m)
-            self.masks = None
-        pc = self.runner_config["prune"]
-        self.total_prune_step = pc["total_steps"]
-        self.prune_steps = set_prune_interval(pc["interval"], pc["warm_up"],
-                                              pc["total_steps"])
-        assert len(self.prune_steps) == self.total_prune_step
-        cfg = self.cfg
-        if self.mode == "row-pruning":
-            self.num_rows_each_step = pc["num_rows_each_step"]
-            # strict <: an FFN pruned to zero rows is degenerate
-            assert (self.num_rows_each_step * self.total_prune_step
-                    < min(cfg.encoder_ffn_embed_dim)), (
-                "row-prune schedule would empty the FFN")
-            return
-        # l1 prunes one head per layer per event
-        self.num_heads_each_step = (cfg.encoder_layers if pc["metric"] == "l1"
-                                    else pc["num_heads_each_step"])
-        if pc.get("target", "by_layer") == "by_layer":
-            assert self.total_prune_step < min(cfg.encoder_attention_heads), (
-                f"{self.total_prune_step} by_layer head-prune events would "
-                "empty a layer")
-        else:  # by_whole protects each layer's top head
-            prunable = sum(cfg.encoder_attention_heads) - cfg.encoder_layers
-            assert self.num_heads_each_step * self.total_prune_step <= (
-                prunable), "by_whole schedule exceeds the prunable head pool"
+    def _heads_each_step(self, pc: dict) -> int:
+        # l1 prunes one head per layer per event, whatever the target
+        return (self.cfg.encoder_layers if pc["metric"] == "l1"
+                else pc["num_heads_each_step"])
+
+    def _weight_prune_artifact(self, global_step: int, total: int):
+        """``[mask-]before-pruning-states-{step}-sparsity-{s}.npz`` (s the
+        sparsity so far), with ``TotalStep``."""
+        state = self.wp_state
+        prefix = "mask-" if state.pruning_times > 0 else ""
+        cur = (0 if state.pruning_times == 0
+               else state.sparsity[state.pruning_times - 1])
+        return (f"{prefix}before-pruning-states-{global_step}-sparsity-"
+                f"{cur}.npz", {"total_step": total})
+
+    @staticmethod
+    def _model_from_named(named, cfg):
+        return model_from_named(named, cfg)
 
     def _get_dataloader(self) -> MelFeatBuckets:
         datarc = self.runner_config["datarc"]
@@ -381,105 +336,6 @@ class Runner(OptimizerScheduleMixin):
             meta=meta, opt_treedef=self._opt_treedef)
         print(f"[Runner] - Saved checkpoint to {path}")
 
-    def _prune_hook(self, global_step: int, pbar_state: dict):
-        """A prune event where ``global_step`` is a prune step (reference
-        runner.py:329-356, JAX ``_prune_hook``)."""
-        if global_step not in self.prune_steps:
-            return
-        if self.mode == "weight-pruning":
-            self._weight_prune_event(global_step, pbar_state)
-        else:
-            self._structured_prune_event(global_step)
-
-    def _weight_prune_event(self, global_step: int, pbar_state: dict):
-        """Not converged, the schedule grows by one period; else the
-        before-pruning artifact, then fold and re-threshold."""
-        state = self.wp_state
-        if not state.converged():
-            print("[Weight Pruning] - Not converge, keep training")
-            pbar_state["total"] += state.period
-            self.prune_steps.append(max(self.prune_steps) + state.period)
-            return
-        prefix = "mask-" if state.pruning_times > 0 else ""
-        cur = (0 if state.pruning_times == 0
-               else state.sparsity[state.pruning_times - 1])
-        self.save(global_step,
-                  f"{prefix}before-pruning-states-{global_step}-sparsity-"
-                  f"{cur}.npz", total_step=pbar_state["total"])
-        t0 = time.perf_counter()
-        self.params, self.masks, _ = wp.prune_event(self.params, self.masks,
-                                                    state)
-        seconds = time.perf_counter() - t0
-        self.prune_event_log.append({"step": global_step, "seconds": seconds})
-        print(f"[Weight Pruning] - iter {state.pruning_times} at step "
-              f"{global_step}, sparsity {wp.sparsity_of(self.masks):.4f} "
-              f"({seconds:.2f} s on the host)")
-
-    def _structured_prune_event(self, global_step: int):
-        """A head- or row-prune event: ``states_prune_{n}.npz`` of the
-        state before it, the scores and what they choose, the slicing, and
-        a new model for the new widths (on the sliced tensors, no copy of
-        the rest), with a fresh Adam state and grad step, so nothing holds
-        the old model or its Adam state."""
-        cfg = self.cfg
-        before = self._allocated()
-        self.save(global_step, self._states_prune_name())
-        t0 = time.perf_counter()
-        if self.mode == "head-pruning":
-            group = self._select_heads()
-            record = {"group": group}
-            t1 = time.perf_counter()
-            named, new_cfg = hp.prune_heads(self.params, cfg, group)
-        else:
-            keeps = rp.select_rows(self.params, self.num_rows_each_step)
-            record = {"kept": keeps}
-            t1 = time.perf_counter()
-            named, new_cfg = rp.prune_rows(self.params, cfg, keeps)
-        n_old = sum(p.numel() for p in self.params.values())
-        self.cfg = new_cfg
-        self.model = model_from_named(named, new_cfg)
-        del named
-        self.params = dict(self.model.named_parameters())
-        self._reset_optimizer(global_step)
-        self.grad_step = make_melhubert_grad_step(
-            self.model, accum_steps=self.accum_steps,
-            compute_dtype=self.compute_dtype)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
-        record.update(step=global_step, score_seconds=t1 - t0,
-                      slice_seconds=t2 - t1, params=(n_old, sum(
-                          p.numel() for p in self.params.values())),
-                      memory=(before, self._allocated()))
-        self.prune_event_log.append(record)
-        if self.mode == "head-pruning":
-            print(f"[Head Pruning] {sum(new_cfg.encoder_attention_heads)} "
-                  f"heads remain ({t1 - t0:.2f} s scoring, {t2 - t1:.2f} s "
-                  "slicing)")
-        else:
-            print(f"[Row Pruning] {min(new_cfg.encoder_ffn_embed_dim)} hidden "
-                  f"dims remain in FFN ({t2 - t0:.2f} s on the host)")
-
-    def _states_prune_name(self) -> str:
-        """``states_prune_{n}.npz``, n the heads left (head pruning) or the
-        narrowest FFN (row pruning), as JAX names its artifacts."""
-        left = (sum(self.cfg.encoder_attention_heads)
-                if self.mode == "head-pruning"
-                else min(self.cfg.encoder_ffn_embed_dim))
-        return f"states_prune_{left}.npz"
-
-    def _allocated(self):
-        """(memory_allocated, the bytes the live tensors requested) on the
-        card, None off it. The allocator may place a tensor in a cached
-        block up to 1 MB larger than it asked for, so memory_allocated can
-        rise where the live tensors shrink; the requested bytes count them
-        exactly."""
-        if self.device.type != "cuda":
-            return None
-        stats = torch.cuda.memory_stats(self.device)
-        return (stats["allocated_bytes.all.current"],
-                stats["requested_bytes.all.current"])
-
     def _select_heads(self) -> dict:
         """The heads of this event (JAX ``_head_prune_event``): l1 scores
         on the JAX-layout host view, or the data-driven pass, written to
@@ -488,9 +344,7 @@ class Runner(OptimizerScheduleMixin):
         pc = self.runner_config["prune"]
         metric = pc["metric"]
         if metric == "l1":
-            scores = hp.l1_head_scores(
-                prunable_tree(self.params, modules=("q_proj", "k_proj",
-                                                    "v_proj")), self.cfg)
+            scores = self._l1_scores()
         elif metric == "data-driven":
             scores = self._data_driven_head_scores()
         else:

@@ -394,8 +394,12 @@ def make_hubert_grad_step(model, *, accum_steps: int = 1,
                  target_valid=batch["target_valid"]),
         )
         loss = out["loss"] / accum_steps
+        # detached: a log entry on the graph would keep the masters alive
+        # past a prune event's rebuild
+        logs = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                for k, v in out["logs"].items()}
         return (loss.detach(), out["sample_size"], _grads(loss, params),
-                out["logs"])
+                logs)
 
     return grad_step
 

@@ -1,28 +1,43 @@
-"""The pre-training runner of the waveform models, HuBERT and wav2vec 2.0.
+"""The runner of the waveform models, HuBERT and wav2vec 2.0: pre-training
+and the weight-, head- and row-pruning modes.
 
 Port of ``speech_ssl_compression_tpu/train/wave_runner.py::WaveRunner``
-for ``-u hubert`` and ``-u wav2vec2`` pre-training in one process. HuBERT:
-the task config and its label-rate checks, the label dictionaries and
-lookups, the collate step that aligns labels to conv frames on the host.
-wav2vec 2.0: its task config, the percentile-bucketed raw-audio dataset
-(block masks per batch with ``task.precompute_mask_config``), one span-count
-draw per batch for crop-collated batches (``mask_shared_rounding = not
-pad``, the dataset's pad flag), and the Gumbel temperature annealed on the
-host at every micro-step (``anneal_temp(latent_temp, step)``). Both: a
-seeded fresh init, the grad step (on bf16 copies of the f32 masters on a
-GPU when the runner YAML says ``bf16``, as the port's MelHuBERT runner
-decides; JAX's WaveRunner takes bf16 only on a TPU), the accumulation
-window divided by the masked frame count, the fused clip + Adam apply with its non-finite skip, log
-lines and TensorBoard scalars, a window dropped whole on a CUDA
-out-of-memory error, and ``states-epoch-*.npz`` / ``last-step.npz``
-checkpoints in the JAX package's format. ``-i`` starts from the JAX
-package's npz or a reference ``.ckpt`` (pruned widths from the shapes;
-weight-pruning masks kept and applied in every grad step), and
-``--init_optimizer_from_initial_weight`` restores its Adam state.
+for ``-u hubert`` and ``-u wav2vec2`` in one process. HuBERT: the task
+config and its label-rate checks, the label dictionaries and lookups, the
+collate step that aligns labels to conv frames on the host. wav2vec 2.0:
+its task config, the percentile-bucketed raw-audio dataset (block masks
+per batch with ``task.precompute_mask_config``), one span-count draw per
+batch for crop-collated batches (``mask_shared_rounding = not pad``, the
+dataset's pad flag), and the Gumbel temperature annealed on the host at
+every micro-step (``anneal_temp(latent_temp, step)``, on across prune
+events). Both: a seeded fresh init, the grad step (on bf16 copies of the
+f32 masters on a GPU when the runner YAML says ``bf16``, as the port's
+MelHuBERT runner decides; JAX's WaveRunner takes bf16 only on a TPU), the
+accumulation window divided by the masked frame count, the fused clip +
+Adam apply with its non-finite skip, log lines and TensorBoard scalars, a
+window dropped whole on a CUDA out-of-memory error (its prune event does
+not fire twice), and checkpoints in the JAX package's format
+(``states-epoch-*.npz`` in pre-training only, ``last-step.npz`` at the
+end). ``-i`` starts from the JAX package's npz or a reference ``.ckpt``
+(pruned widths from the shapes; weight-pruning masks kept and applied in
+every grad step), and ``--init_optimizer_from_initial_weight`` restores
+its Adam state.
 
-Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1 item
-12): the weight-, head- and row-pruning and distillation modes on the
-waveform models, multi-process data parallelism and meshes.
+The pruning modes (``train/prune_mixin.py``, shared with the MelHuBERT
+runner, with JAX WaveRunner's choices where its two runners differ):
+``-m weight-pruning`` writes ``before-pruning-{step}.npz`` before each
+event (no ``TotalStep``), feeds the controller each window's loss per
+masked frame, and a deferred event adds one period to the schedule and
+the run; ``-m head-pruning`` (l1 only, by_layer or by_whole with
+``num_heads_each_step``) and ``-m row-pruning`` write
+``states_prune_{n}.npz`` before each event, slice, and rebuild the model,
+a fresh Adam state and the grad step for the new widths; a weight-pruned
+``-i`` has its masks folded first. ``Pruning`` and ``Pruned_heads`` go
+into every checkpoint's meta.
+
+Not ported (each raises ``NotImplementedError``): multi-process data
+parallelism and meshes. ``-m distillation`` is refused: JAX's WaveRunner
+has no teacher and trains plain pre-training under that mode's name.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ import time
 
 import torch
 
+from ..compress import head_pruning as hp
 from ..configs import HuBERTConfig, Wav2Vec2Config
 from ..data.bucket_dataset import PrefetchIterator
 from ..data.dictionary import Dictionary, build_label_lookup
@@ -56,9 +72,11 @@ from ..utils.weights import (
     load_wave_model,
     masks_tree,
     named_masks,
+    wave_model_from_named,
     wave_tree_from_named,
 )
 from .optim_mixin import OptimizerScheduleMixin
+from .prune_mixin import PruneMixin
 from .steps import (
     accumulate_grads,
     make_hubert_grad_step,
@@ -66,22 +84,30 @@ from .steps import (
 )
 
 _UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
+_PRUNING_MODES = ("weight-pruning", "head-pruning", "row-pruning")
 
 
-class WaveRunner(OptimizerScheduleMixin):
+class WaveRunner(OptimizerScheduleMixin, PruneMixin):
     """``WaveRunner(args, runner_config, upstream_config).train()``, as the
-    JAX runner, for ``args.upstream`` "hubert" or "wav2vec2" pre-training
-    (``args.mode == "melhubert"``, the mode ``train.py`` passes for
-    pre-training). ``args.device`` names the torch device
+    JAX runner, for ``args.upstream`` "hubert" or "wav2vec2": pre-training
+    (``args.mode == "melhubert"``, the mode ``train.py`` passes for it) or
+    one of the pruning modes. ``args.device`` names the torch device
     (``cuda`` when absent: the CPU only when asked for)."""
+
+    _log_tag = "[WaveRunner]"
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
         if args.upstream not in ("hubert", "wav2vec2"):
             raise NotImplementedError(f"upstream {args.upstream!r}")
-        if args.mode != "melhubert":
+        if args.mode == "distillation":
             raise NotImplementedError(
-                f"mode {args.mode!r} on {args.upstream} is not ported yet "
-                "(pre-training only)")
+                f"mode 'distillation' on {args.upstream}: JAX's WaveRunner "
+                "has no teacher and trains plain pre-training under this "
+                "mode's name; the port refuses it (use -m melhubert for "
+                "pre-training)")
+        if args.mode not in ("melhubert",) + _PRUNING_MODES:
+            raise NotImplementedError(
+                f"mode {args.mode!r} on {args.upstream}")
         for name in _UNPORTED_ARGS:
             if getattr(args, name, None) not in (None, False, 1):
                 raise NotImplementedError(f"--{name} is not ported")
@@ -113,6 +139,7 @@ class WaveRunner(OptimizerScheduleMixin):
         n = sum(p.numel() for p in self.params.values())
         print(f"[WaveRunner] - {self.upstream}: {n} parameters")
 
+        self._init_mode_schedules()
         self._init_optimizer_state()
         if getattr(args, "init_optimizer_from_initial_weight", False):
             if self._resumed_opt_leaves:
@@ -128,11 +155,12 @@ class WaveRunner(OptimizerScheduleMixin):
                       "compatible optimizer state - starting with fresh "
                       "Adam moments")
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
-        self.grad_step = self._make_grad_step(
-            self.model, accum_steps=self.accum_steps,
-            compute_dtype=self.compute_dtype)
-        # {"step", "loss", "grad_norm"} of every log line
+        self._build_grad_step()
+        # {"step", "loss", "grad_norm"} of every log line; each prune
+        # event's step and host seconds, and for a head or row event what
+        # it chose and the device memory around it
         self.log_history: list = []
+        self.prune_event_log: list = []
         # wav2vec 2.0: (step, the temperature the quantizer ran at) of the
         # last micro-steps
         self.temp_history = collections.deque(maxlen=1024)
@@ -184,6 +212,44 @@ class WaveRunner(OptimizerScheduleMixin):
             # reference set_num_updates: annealed per update
             self._step_args = lambda step: {
                 "gumbel_temp": anneal_temp(self.cfg.latent_temp, step)}
+
+    def _build_grad_step(self):
+        self.grad_step = self._make_grad_step(
+            self.model, accum_steps=self.accum_steps,
+            compute_dtype=self.compute_dtype)
+
+    def _heads_each_step(self, pc: dict) -> int:
+        """JAX WaveRunner's rule: l1 only; one head a layer by_layer,
+        ``num_heads_each_step`` by_whole."""
+        if pc.get("metric", "l1") != "l1":
+            raise NotImplementedError(
+                "data-driven head scoring is MelHuBERT-only (as in the "
+                "reference, hp_utils.py:242 uses MelFeatDataset)")
+        if pc.get("target", "by_layer") == "by_layer":
+            return self.cfg.encoder_layers
+        return pc["num_heads_each_step"]
+
+    @staticmethod
+    def _weight_prune_artifact(global_step: int, total: int):
+        """``before-pruning-{step}.npz``, without ``TotalStep``."""
+        return f"before-pruning-{global_step}.npz", {}
+
+    def _select_heads(self) -> dict:
+        """One event's heads: l1 scores on the JAX-layout host view, the
+        selection appended to ``Pruned_heads`` in JAX's form. Returns
+        {layer: [head, ...]}."""
+        group = hp.select_heads_to_prune(
+            self._l1_scores(), self.num_heads_each_step,
+            self.runner_config["prune"].get("target", "by_layer"),
+            self.cfg.encoder_layers)
+        print(f"[Head Pruning] - These heads are pruned: {group}")
+        self.pruned_heads.append({int(k): list(v) for k, v in group.items()})
+        return group
+
+    def _model_from_named(self, named, cfg):
+        return wave_model_from_named(
+            named, cfg, self.upstream,
+            self.num_classes if self.upstream == "hubert" else None)
 
     def _check_label_embs(self, params: dict):
         n_embs = int(params["label_embs_concat"].shape[0])
@@ -306,9 +372,10 @@ class WaveRunner(OptimizerScheduleMixin):
         }
 
     def save(self, global_step: int, name: str):
-        """A checkpoint in the JAX package's format: params, masks and the
+        """A checkpoint in the JAX package's format: params, masks, the
         Adam state's leaves [count, *mu, *nu] in JAX's leaf order and
-        layout."""
+        layout, and the meta (``Pruning`` and ``Pruned_heads`` where they
+        apply; JAX's WaveRunner writes no ``TotalStep``)."""
         meta = {
             "Step": global_step,
             "Args": dict(vars(self.args)),
@@ -316,6 +383,8 @@ class WaveRunner(OptimizerScheduleMixin):
             "Upstream_Config": self.upstream_config,
             "Config": self.cfg.to_dict(),
         }
+        if self.wp_state is not None:
+            meta["Pruning"] = self.wp_state.to_meta()
         if self.pruned_heads:
             meta["Pruned_heads"] = self.pruned_heads
         path = os.path.join(self.expdir, name)
@@ -344,22 +413,32 @@ class WaveRunner(OptimizerScheduleMixin):
         step_per_epoch = max(1, len(dataset) // accum)
         save_cadence = max(1, int(runner.get("save_every_x_epochs", 10)
                                   * step_per_epoch))
+        pretrain = self.mode not in _PRUNING_MODES
+        # the run's length: a deferred weight-prune event adds a period
+        pbar = {"total": total_steps}
 
         step = backward = 0
+        # an OOM rewinds the window: its prune event must not fire twice
+        last_prune_fired = -1
         grads_acc = None
         sample_total = 0
         accum_loss = 0.0
         window_loss, window_n = 0.0, 0
         t0 = time.time()
-        while step < total_steps:
+        while step < pbar["total"]:
             batches = PrefetchIterator(dataset.epoch(shuffle=True))
             for batch in batches:
-                if step >= total_steps:
+                if step >= pbar["total"]:
                     break
-                if (backward % accum == 0 and step > 0
+                first_accu = backward % accum == 0
+                if (pretrain and first_accu and step > 0
                         and step % save_cadence == 0):
                     self.save(step,
                               f"states-epoch-{step // step_per_epoch}.npz")
+                if (not pretrain and first_accu and step in self.prune_steps
+                        and step != last_prune_fired):
+                    last_prune_fired = step
+                    self._prune_hook(step, pbar)
                 try:
                     loss, sample_size, grads, logs = self.grad_step(
                         self.params, self._collate(batch), self.rng,
@@ -378,6 +457,7 @@ class WaveRunner(OptimizerScheduleMixin):
                 if "temp" in logs:
                     self.temp_history.append((step, logs["temp"]))
                 grads_acc = accumulate_grads(grads_acc, grads)
+                del grads  # no handle on a pruned-away shape past an event
                 # device-side sums: no host sync per micro-batch
                 sample_total = sample_total + sample_size
                 accum_loss = accum_loss + loss
@@ -389,13 +469,20 @@ class WaveRunner(OptimizerScheduleMixin):
                 window_n += accum
                 st = torch.clamp_min(torch.as_tensor(
                     sample_total, device=self.device).float(), 1.0)
+                if self.wp_state is not None:
+                    # the controller's one host float a window: the
+                    # window's loss per masked frame (JAX :682-694)
+                    self.wp_state.update_smooth_loss(
+                        float(accum_loss) / float(st))
+                    self.wp_state.update_target_smooth_loss(
+                        step, self.prune_steps)
                 grad_norm = self.apply(grads_acc, st)
                 grads_acc = None
                 sample_total = 0
                 accum_loss = 0.0
                 step += 1
 
-                if step % log_step == 0 or step == total_steps:
+                if step % log_step == 0 or step == pbar["total"]:
                     norm_loss = float(window_loss) / max(window_n, 1)
                     lr_now = self._applied_lr()
                     prefix = f"{self.mode}/train-"
@@ -406,7 +493,7 @@ class WaveRunner(OptimizerScheduleMixin):
                         self.logger.scalar(f"{prefix}lr", lr_now, step)
                     lr_text = "" if lr_now is None else f" lr={lr_now:.3e}"
                     rate = step / (time.time() - t0)
-                    print(f"[WaveRunner] step {step}/{total_steps} "
+                    print(f"[WaveRunner] step {step}/{pbar['total']} "
                           f"loss={norm_loss:.4f} gnorm={float(grad_norm):.3f}"
                           f"{lr_text} ({rate:.2f} steps/s)", flush=True)
                     self.log_history.append({"step": step, "loss": norm_loss,

@@ -25,6 +25,7 @@ import torch
 from ..configs import HuBERTConfig, MelHuBERTConfig, Wav2Vec2Config
 from .torch_convert import (
     infer_pruned_dims,
+    kernel_from_weight,
     melhubert_state_dict_to_params,
     params_to_state_dict,
     wave_params_to_state_dict,
@@ -52,6 +53,7 @@ __all__ = [
     "prunable_names",
     "prunable_tree",
     "state_dict_from_jax_params",
+    "wave_model_from_named",
     "wave_tree_from_named",
 ]
 
@@ -106,9 +108,9 @@ def masks_tree(named: Dict[str, torch.Tensor]) -> dict:
     tree: dict = {}
     for name, m in named.items():
         i, mod, leaf = _split_name(name)
-        m = m.detach().float().cpu().numpy()
         tree.setdefault(f"layer_{i}", {}).setdefault(mod, {})[leaf] = (
-            np.ascontiguousarray(m.T) if leaf == "kernel" else m)
+            kernel_from_weight(m) if leaf == "kernel"
+            else m.detach().float().cpu().numpy())
     return tree
 
 
@@ -136,9 +138,10 @@ def prunable_tree(named: Dict[str, torch.Tensor],
     layers = [{} for _ in range(_n_layers(named))]
     for name in prunable_names(named, modules):
         i, mod, leaf = _split_name(name)
-        a = named[name].detach().float().cpu().numpy()
+        a = named[name]
         layers[i].setdefault(mod, {})[leaf] = (
-            np.ascontiguousarray(a.T) if leaf == "kernel" else a)
+            kernel_from_weight(a) if leaf == "kernel"
+            else a.detach().float().cpu().numpy())
     return {"encoder": {"layers": layers}}
 
 
@@ -160,7 +163,7 @@ def jax_tree_from_named(named: Dict[str, torch.Tensor]) -> dict:
     out like them: gradients, Adam moments) -> a JAX-layout numpy tree
     (kernels transposed to (in, out), ``scale`` for LayerNorm weights), the
     inverse of :func:`state_dict_from_jax_params`."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in named.items()}
+    sd = {k: v.detach().float() for k, v in named.items()}
     return melhubert_state_dict_to_params(sd, keep_masks=False)[0]
 
 
@@ -393,5 +396,32 @@ def wave_tree_from_named(named: Dict[str, torch.Tensor],
     """Tensors under the ``upstream`` model's parameter names (weights, or
     anything laid out like them: gradients, Adam moments) -> a JAX-layout
     numpy tree, the inverse of :func:`load_wave_model`'s mapping."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in named.items()}
+    sd = {k: v.detach().float() for k, v in named.items()}
     return wave_state_dict_to_params(sd, upstream, keep_masks=False)[0]
+
+
+def wave_model_from_named(named: Dict[str, torch.Tensor], cfg,
+                          upstream: str,
+                          num_classes: Optional[Sequence[int]] = None):
+    """The waveform counterpart of :func:`model_from_named`: a
+    ``HuBERTModel`` (of ``num_classes``; without them one label set, its
+    class count from ``label_embs_concat``) or ``Wav2Vec2Model`` for
+    ``cfg`` whose
+    parameters are the tensors of ``named`` themselves (detached, on their
+    device, no copy), built on the meta device; the rebuild after a head-
+    or row-prune event. The load is strict."""
+    if upstream == "hubert":
+        from ..models.hubert import HuBERTModel
+
+        if num_classes is None:
+            num_classes = (int(named["label_embs_concat"].shape[0]),)
+        with torch.device("meta"):
+            model = HuBERTModel(cfg, num_classes)
+    else:
+        from ..models.wav2vec2 import Wav2Vec2Model
+
+        with torch.device("meta"):
+            model = Wav2Vec2Model(cfg)
+    model.load_state_dict({k: v.detach() for k, v in named.items()},
+                          assign=True)
+    return model

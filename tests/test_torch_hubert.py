@@ -388,18 +388,35 @@ def test_cli_trains_hubert_and_jax_reads_the_checkpoint(tmp_path):
 
 
 def test_hubert_refuses_what_is_not_ported(tmp_path):
-    _, tcfg = _cfgs(mask_channel_prob=0.1)
-    with pytest.raises(NotImplementedError, match="mask_channel_prob"):
-        thubert.HuBERTModel(tcfg, N_CLASSES)
+    # channel masks and checkpoint_activations are ported now: the model
+    # builds; what stays refused is -m distillation (JAX's WaveRunner
+    # trains plain pre-training under that name), a head metric other
+    # than l1, --model_parallel and a set with no batch
+    _, tcfg = _cfgs(mask_channel_prob=0.1, checkpoint_activations=True)
+    model = thubert.HuBERTModel(tcfg, N_CLASSES)
+    assert model.cfg.mask_channel_prob == 0.1
     data = make_wav_dataset(tmp_path / "data", n_utts=3)
     (tmp_path / "model.yaml").write_text(MODEL_YAML)
     (tmp_path / "runner.yaml").write_text(RUNNER_YAML.format(data=data))
     base = ["-g", str(tmp_path / "model.yaml"), "-c",
             str(tmp_path / "runner.yaml"), "-n", str(tmp_path / "e"),
             "--device", "cpu"]
-    for extra in (["-m", "weight-pruning", "-u", "hubert"],
-                  ["-m", "row-pruning", "-u", "hubert"],
-                  ["-m", "weight-pruning", "-u", "wav2vec2"],
-                  ["-m", "head-pruning", "-u", "wav2vec2"]):
+    for extra in (["-m", "distillation", "-u", "hubert"],
+                  ["-m", "distillation", "-u", "wav2vec2"],
+                  ["-m", "melhubert", "-u", "hubert", "--model_parallel",
+                   "2"]):
         with pytest.raises(NotImplementedError):
             train_main(base + extra)
+    (tmp_path / "dd.yaml").write_text(
+        RUNNER_YAML.format(data=data) + "prune:\n  metric: data-driven\n"
+        "  target: by_whole\n  num_heads_each_step: 1\n  total_steps: 1\n"
+        "  interval: 1\n  warm_up: 0\n  data_ratio: 1.0\n")
+    with pytest.raises(NotImplementedError, match="data-driven"):
+        train_main(base[:2] + ["-c", str(tmp_path / "dd.yaml")] + base[4:]
+                   + ["-m", "head-pruning", "-u", "hubert"])
+    (tmp_path / "none.yaml").write_text(
+        RUNNER_YAML.format(data=data).replace("min_sample_size: 1000",
+                                              "min_sample_size: 100000"))
+    with pytest.raises(ValueError, match="no batch"):
+        train_main(base[:2] + ["-c", str(tmp_path / "none.yaml")] + base[4:]
+                   + ["-m", "melhubert", "-u", "hubert"])

@@ -1,7 +1,7 @@
 """The port imports and runs its CPU slices with ``jax`` and the JAX package
 ``speech_ssl_compression_tpu`` unimportable (and, for training, the
-compression modes and a wav2vec 2.0 grad step, ``pandas`` and ``yaml``
-too), as on a GPU machine that has none of them; no module of the port, and not
+compression modes, HuBERT's l1 head pruning and a wav2vec 2.0 grad step,
+``pandas`` and ``yaml`` too), as on a GPU machine that has none of them; no module of the port, and not
 ``chip_smoke.py``, imports either."""
 
 import pathlib
@@ -231,6 +231,16 @@ runner = main(["-m", "melhubert", "-u", "hubert", "-g", str(d / "model.yaml"),
                "-c", str(d / "runner.yaml"), "-n", str(d / "exp"),
                "--device", "cpu"])
 assert (d / "exp" / "last-step.npz").exists()
+# l1 head pruning of that checkpoint, one event of one head a layer
+(d / "hp.yaml").write_text(
+    (d / "runner.yaml").read_text() + "prune:\n  metric: l1\n"
+    "  target: by_layer\n  total_steps: 1\n  interval: 1\n  warm_up: 0\n")
+hp = main(["-m", "head-pruning", "-u", "hubert", "-g", str(d / "model.yaml"),
+           "-c", str(d / "hp.yaml"), "-n", str(d / "hp"), "-i",
+           str(d / "exp" / "last-step.npz"), "--device", "cpu"])
+assert hp.cfg.encoder_attention_heads == (1,) and len(hp.pruned_heads) == 1
+assert {"states_prune_2.npz", "last-step.npz"} <= {
+    p.name for p in (d / "hp").iterdir()}
 # a tiny wav2vec 2.0 and one grad step on two of those waveforms
 import torch
 from speech_ssl_compression_tpu_torch.configs import Wav2Vec2Config
