@@ -56,6 +56,24 @@ result line):
             calls after a warm-up); the grad steps and updates of the
             train phases against their yardsticks one time each in turns
             after a warm-up (``alternate(..., reps=1)``);
+  stream    streaming causal serving (streaming.py) at full width, a
+            causal MelHuBERT-20ms with seeded random weights, at bench.py's
+            two streaming rows: f32 lockstep StreamingCausalBatchExtractor
+            B = 16, chunks of 128 frames, max_frames 3072, TF32 off, 16
+            synthetic utterances of 8-40 s through push_wav in ragged
+            pieces, two slots finished early and opened again; every
+            stream's hidden states against the full causal forward of its
+            utterance with impl="dense" (atol 2e-5, rtol 1e-5, the JAX
+            streaming test's bar) and with the flash kernel (SLICE_BAR);
+            the stream launches no kernel, the kernel forwards 12 each;
+            then the bf16 ring, B = 64, window 1024 (capacity 1152), a
+            stream of 2000 frames past the ring's wrap and a slot reused
+            after it, every stream against the dense windowed forward in
+            f32 (rel. L2 < BF16_SLICE_BAR); for both, CUDA-event times of
+            20 lockstep steps (one poll() each, from features), the
+            aggregate realtime factor, the idle share of 3 steps under
+            the profiler and the step's FLOP bound (attention at the
+            cache's full capacity; f32 at 67 TFLOP/s, TF32 off);
   train     MelHuBERT-20ms pre-training at full width on a synthetic
             dataset, through the trainer's entry point (python -m
             speech_ssl_compression_tpu_torch.train): 3 updates of 8
@@ -387,6 +405,26 @@ BF16_BEYOND_BAR = 0.001
 STRADDLE_CASES = ("serving",)
 MAX_STRADDLE_ROWS = 64  # rows past one ulp the flip search takes
 SLICE_BAR, PACKED_BAR, BF16_SLICE_BAR = 1e-4, 2e-4, 5e-2
+# the stream phase at bench.py's two streaming rows (JAX package, :297-308):
+# f32 lockstep B = 16 against a cache of 3072 frames, and the bf16 ring
+# B = 64 over a 1024-frame window; chunks of 128 frames
+STREAM_F32 = dict(batch=16, chunk_frames=128, max_frames=3072,
+                  dtype=torch.float32, matmul_precision="highest")
+STREAM_BF16 = dict(batch=64, chunk_frames=128, window_frames=1024,
+                   dtype=torch.bfloat16, matmul_precision="default")
+STREAM_SECONDS = (8.0, 40.0)  # the f32 streams' lengths, uniform
+STREAM_REOPEN = (0, 1)        # slots finished early and opened again
+STREAM_STEPS = 20             # timed lockstep steps per shape
+# f32 stream against the dense full forward: tests/test_streaming.py's bar
+STREAM_ATOL, STREAM_RTOL = 2e-5, 1e-5
+# the ring's longest stream (past its wrap: the ring holds ceil((1024 +
+# 128) / 128) * 128 = 1152 frames; bench.py's max_frames 1280 is ignored
+# with a window), its reused slot's stream, and the range of the other
+# slots' lengths, in stacked frames
+RING_LONG, RING_REUSED, RING_LENGTHS = 2000, 400, (300, 1400)
+# the stream steps' products: f32 with TF32 off on the CUDA cores (67
+# TFLOP/s, the H100 SXM data sheet), bf16 on the tensor cores
+STREAM_PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 CONV_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/conv1d_sm90.cu"
 # the f32 conv kernels, all three in split TF32 in one file (csrc/conv1d.cu
 # keeps the C entry points and dW's reduce kernel)
@@ -2587,11 +2625,11 @@ def device_busy_us(events) -> float:
     return busy
 
 
-def profile_calls(label: str, fn, gpu: str, calls: int = 3) -> None:
+def profile_calls(label: str, fn, gpu: str, calls: int = 3) -> float:
     """torch.profiler over ``calls`` calls of ``fn`` (after 2 warm-ups):
     device busy time per call, idle share against the CUDA-event wall
     time, the largest device kernels, and the port's own kernels with
-    their share of the busy time."""
+    their share of the busy time. Returns the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2625,6 +2663,7 @@ def profile_calls(label: str, fn, gpu: str, calls: int = 3) -> None:
         f"busy {busy:.2f} ms/call, idle {1 - busy / wall:.1%}; largest "
         f"device kernels per call: {top}; the port's kernels: "
         f"{ours or 'none'} [{gpu}]")
+    return 1 - busy / wall
 
 
 def phase_profile(extractors, wavs, gpu: str):
@@ -2634,6 +2673,356 @@ def phase_profile(extractors, wavs, gpu: str):
         profile_calls(f"forward_packed from features {tag} attn={impl}",
                       lambda: ext._pack_and_dispatch(feat, pad_mask, lengths),
                       gpu)
+
+
+def stream_work(cfg, batch: int, chunk: int, cap: int, dtype) -> tuple:
+    """(FLOPs, bytes) of one lockstep step, attention counted at the full
+    cache capacity as the step computes it (bench.py's count, JAX package,
+    :513-523): per row and layer the q/k/v/out projections 8 C D^2, scores
+    and context 4 C cap D, the FFN 4 C D F; the pos-conv 2 C K D^2 / g.
+    Bytes: the weights, both caches of every layer read once, the window
+    of features in and the chunk's hidden state out (f32)."""
+    d, c = cfg.encoder_embed_dim, chunk
+    flops = batch * (sum(8 * c * d * d + 4 * c * cap * d + 4 * c * d * f
+                         for f in cfg.encoder_ffn_embed_dim)
+                     + 2 * c * cfg.conv_pos * d * d // cfg.conv_pos_groups)
+    size = torch.tensor([], dtype=dtype).element_size()
+    weights = (cfg.feat_emb_dim * d + d + d * d // cfg.conv_pos_groups
+               * cfg.conv_pos + sum(
+                   4 * d * h * cfg.head_dim + 2 * d * f + 8 * d + f
+                   for h, f in zip(cfg.encoder_attention_heads,
+                                   cfg.encoder_ffn_embed_dim)))
+    caches = sum(2 * batch * h * cap * cfg.head_dim
+                 for h in cfg.encoder_attention_heads)
+    io = batch * ((c + cfg.conv_pos - 1) * cfg.feat_emb_dim + c * d) * 4
+    return flops, (weights + caches) * size + io
+
+
+def windowed_forward(model, cfg, feat, window: int):
+    """The ring stream's oracle: the full forward of one utterance ``feat``
+    (T, F) built from the encoder's components, with dense attention over
+    keys in (q - window, q] (tests/test_streaming.py::_full_windowed of the
+    JAX package). Scores and context in f32 from the compute dtype.
+    Returns the last hidden state (T, D)."""
+    from speech_ssl_compression_tpu_torch.models.encoder import (
+        encoder_layer_forward, encoder_prologue, layer_norm,
+    )
+    from speech_ssl_compression_tpu_torch.models.melhubert import pre_project
+    from speech_ssl_compression_tpu_torch.ops.activations import at_least_f32
+    from speech_ssl_compression_tpu_torch.ops.attention import (
+        output_projection, project_to_heads,
+    )
+    from speech_ssl_compression_tpu_torch.ops.flash_attention import NEG_INF
+
+    enc = model.encoder
+    dtype = enc.layer_norm.weight.dtype
+    h = encoder_prologue(pre_project(model, feat[None].to(dtype)), enc, cfg)
+    pos = torch.arange(h.shape[1], device=h.device)
+    banned = ((pos[None, :] > pos[:, None])
+              | (pos[None, :] <= pos[:, None] - window))  # (Tq, Tk)
+    scale = torch.reciprocal(torch.sqrt(torch.tensor(float(cfg.head_dim),
+                                                     dtype=dtype)))
+
+    def attend(x, attn, heads):
+        q, k, v = (project_to_heads(x, proj, heads, cfg.head_dim)
+                   for proj in (attn.q_proj, attn.k_proj, attn.v_proj))
+        s = torch.matmul(at_least_f32(q * scale),
+                         at_least_f32(k).transpose(-1, -2))
+        p = torch.softmax(s.masked_fill(banned, NEG_INF), dim=-1)
+        ctx = torch.matmul(at_least_f32(p.to(dtype)),
+                           at_least_f32(v)).to(dtype)
+        return output_projection(ctx, attn.out_proj), ctx
+
+    for i, layer in enumerate(enc.layers):
+        h, _ = encoder_layer_forward(
+            h, layer, layer_norm_first=cfg.layer_norm_first,
+            activation_fn=cfg.activation_fn,
+            attn_fn=lambda x, layer=layer, i=i: attend(
+                x, layer.self_attn, cfg.encoder_attention_heads[i]))
+    return (layer_norm(h, enc.layer_norm) if cfg.layer_norm_first
+            else h)[0]
+
+
+def stream_wav(rng, seconds: float) -> np.ndarray:
+    """16 kHz tones and noise, as synthetic_wavs."""
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    tone = sum(0.1 * np.sin(2 * np.pi * rng.uniform(80, 4000) * t)
+               for _ in range(3))
+    return (tone + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def drive_lockstep(sb, plan, rng) -> dict:
+    """Feed each slot's utterances (``plan[i]``, waveforms) through
+    push_wav in ragged pieces of 0.3-3 s, one piece per live slot and a
+    poll() a round; a slot with another utterance is opened again once
+    its stream is finished and drained. Returns {(slot, k): output of the
+    slot's k-th stream}."""
+    from speech_ssl_compression_tpu_torch.streaming import _merge_out
+
+    b = sb.batch
+    k, pos = [0] * b, [0] * b
+    feeding = [True] * b
+    outs = {(i, 0): [] for i in range(b)}
+
+    def take(polled):
+        for i, o in enumerate(polled):
+            outs[i, k[i]].append(o)
+
+    while any(feeding) or any(k[i] + 1 < len(plan[i]) for i in range(b)):
+        for i in range(b):
+            if feeding[i]:
+                wav = plan[i][k[i]]
+                n = int(rng.uniform(0.3, 3.0) * 16000)
+                sb.push_wav(i, wav[pos[i]:pos[i] + n])
+                pos[i] += n
+                if pos[i] >= len(wav):
+                    sb.finish(i)
+                    feeding[i] = False
+            elif k[i] + 1 < len(plan[i]) and sb.slot_finished(i):
+                sb.open_stream(i)
+                k[i], pos[i], feeding[i] = k[i] + 1, 0, True
+                outs[i, k[i]] = []
+        take(sb.poll())
+    take(sb.flush())
+    return {key: _merge_out(*o) for key, o in outs.items()}
+
+
+def stream_against(got, ref) -> tuple:
+    """(max |d| / (STREAM_ATOL + STREAM_RTOL |ref|), the check passing at
+    <= 1; max |d|; max |d| / mean |ref|) of a stream's output (host) and
+    its reference (device)."""
+    got = torch.from_numpy(got).to(ref.device)
+    d = (got - ref.float()).abs()
+    return (float((d / (STREAM_ATOL + STREAM_RTOL * ref.abs())).max()),
+            float(d.max()), float(d.max() / ref.abs().mean()))
+
+
+def check_lockstep(sb, gpu: str, rng):
+    """The f32 lockstep run at full width and its references: every
+    stream's hidden states against the full causal forward of its whole
+    utterance with impl="dense" (STREAM_ATOL, STREAM_RTOL) and with the
+    flash kernel (SLICE_BAR); the launches of both. Returns (the stream's
+    launches, the kernel reference's)."""
+    from speech_ssl_compression_tpu_torch.extract import (
+        matmul_precision, wav_to_mel,
+    )
+    from speech_ssl_compression_tpu_torch.models.melhubert import (
+        melhubert_forward,
+    )
+
+    t0 = time.perf_counter()
+    lo, hi = STREAM_SECONDS
+    plan = [[stream_wav(rng, rng.uniform(lo, lo + 2) if i in STREAM_REOPEN
+                        else rng.uniform(lo, hi))] for i in range(sb.batch)]
+    for i in STREAM_REOPEN:
+        plan[i].append(stream_wav(rng, rng.uniform(12.0, 20.0)))
+    reset_launch_counts()
+    got = drive_lockstep(sb, plan, rng)
+    torch.cuda.synchronize()
+    stream_counts = dtype_launch_counts()
+    n_frames = sum(len(o["last_hidden_state"]) for o in got.values())
+    log("stream", f"f32 lockstep B = {sb.batch}: {len(got)} streams "
+        f"({len(STREAM_REOPEN)} slots opened again), {n_frames} frames "
+        f"from push_wav, {time.perf_counter() - t0:.2f} s; launches "
+        f"{ {k: v for k, v in stream_counts.items() if sum(v.values())} }")
+    if any(sum(v.values()) for v in stream_counts.values()):
+        raise AssertionError("the stream launched a kernel")
+
+    t0 = time.perf_counter()
+    cfg, worst = sb.cfg, {"dense": (0.0, 0.0, 0.0), "auto": (0.0, 0.0, 0.0)}
+    reset_launch_counts()
+    for (i, k), out in got.items():
+        feat = wav_to_mel(plan[i][k], sb.mean, sb.std, fp=20)
+        if len(out["last_hidden_state"]) != len(feat):
+            raise AssertionError(f"slot {i} stream {k}: "
+                                 f"{len(out['last_hidden_state'])} frames "
+                                 f"of {len(feat)}")
+        x = torch.from_numpy(feat[None]).to(sb.device)
+        for impl in ("dense", "auto"):
+            with matmul_precision("highest"), torch.inference_mode():
+                ref = melhubert_forward(sb.model, x, torch.ones(x.shape[:2],
+                                        device=x.device), no_pred=True,
+                                        get_hidden=True, attn_impl=impl)
+            refs = [ref["pre_feat"]] + ref["layer_hiddens"] + [ref["hidden"]]
+            for a, r in zip(out["hidden_states"] + [out["last_hidden_state"]],
+                            refs):
+                worst[impl] = tuple(map(max, worst[impl],
+                                        stream_against(a, r[0])))
+    torch.cuda.synchronize()
+    causal_counts = dtype_launch_counts()
+    launches = causal_counts["flash_attn_fwd"]["f32"]
+    log("stream", f"f32 streams against the full causal forward, every "
+        f"hidden state: impl='dense' max |d| {worst['dense'][1]:.3e}, "
+        f"max |d| / (atol + rtol |ref|) {worst['dense'][0]:.3f} (atol "
+        f"{STREAM_ATOL:g}, rtol {STREAM_RTOL:g}), max|d|/mean|ref| "
+        f"{worst['dense'][2]:.3e}; the flash kernel (flash_attn_fwd "
+        f"launches {launches}) max|d|/mean|ref| {worst['auto'][2]:.3e} "
+        f"(bar {SLICE_BAR:g}), max |d| {worst['auto'][1]:.3e}, "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    if not worst["dense"][0] <= 1.0:
+        raise AssertionError("the f32 stream disagrees with the dense "
+                             "full causal forward")
+    if not worst["auto"][2] < SLICE_BAR:
+        raise AssertionError("the f32 stream disagrees with the kernel's "
+                             "full causal forward")
+    if launches != cfg.encoder_layers * len(got):
+        raise AssertionError(f"{launches} flash_attn_fwd launches in the "
+                             f"causal forwards, want "
+                             f"{cfg.encoder_layers * len(got)}")
+    return stream_counts, causal_counts
+
+
+def check_ring(sb, model_f32, gpu: str, rng):
+    """The bf16 ring at full width: slot 0 runs RING_LONG frames, past the
+    ring's wrap; slot 1 a short stream, then (after the wrap) RING_REUSED
+    frames in the same slot; the others RING_LENGTHS. Every stream against
+    windowed_forward on the f32 model (TF32 off) by rel. L2."""
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.streaming import _merge_out
+
+    t0 = time.perf_counter()
+    cfg, b, cap = sb.cfg, sb.batch, sb._cap
+    lengths = rng.integers(*RING_LENGTHS, b)
+    lengths[0], lengths[1] = RING_LONG, RING_LENGTHS[0] // 2
+    feats = [rng.standard_normal((n, cfg.feat_emb_dim)).astype(np.float32)
+             for n in lengths]
+    reused = rng.standard_normal((RING_REUSED, cfg.feat_emb_dim)).astype(
+        np.float32)
+    # slot 0's frames before slot 1 is reused: the first poll() carries
+    # the clock past the ring's capacity and every other slot's stream
+    right = cfg.conv_pos - 1 - cfg.conv_pos // 2
+    head = max(cap, int(lengths[2:].max())) + 2 * sb.chunk + right
+    if head >= RING_LONG:
+        raise AssertionError(f"RING_LONG {RING_LONG} <= {head}")
+    for i in range(b):
+        sb.push_feat(i, feats[i][:head] if i == 0 else feats[i])
+        if i:
+            sb.finish(i)
+    first = sb.poll()
+    clock = len(first[0]["last_hidden_state"])
+    if not (clock > cap and all(sb.slot_finished(i) for i in range(1, b))):
+        raise AssertionError(f"clock {clock} not past the ring's {cap} or "
+                             "a finished slot not drained")
+    sb.open_stream(1)
+    sb.push_feat(1, reused)
+    sb.push_feat(0, feats[0][head:])
+    tail = sb.flush()
+    streams = [(feats[0], _merge_out(first[0], tail[0])),
+               (feats[1], first[1]), (reused, tail[1])]
+    streams += [(feats[i], first[i]) for i in range(2, b)]
+    worst_l2 = worst_max = 0.0
+    for feat, out in streams:
+        with matmul_precision("highest"), torch.inference_mode():
+            ref = windowed_forward(model_f32, cfg, torch.from_numpy(
+                feat).to(sb.device), sb.window)
+        got = torch.from_numpy(out["last_hidden_state"]).to(ref.device)
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"ring stream {tuple(got.shape)} against "
+                                 f"{tuple(ref.shape)}, or not finite")
+        worst_l2 = max(worst_l2, float(torch.linalg.vector_norm(got - ref)
+                                       / torch.linalg.vector_norm(ref)))
+        worst_max = max(worst_max, float((got - ref).abs().max()
+                                         / ref.abs().max()))
+    log("stream", f"bf16 ring B = {b}, window {sb.window}, capacity {cap}: "
+        f"{len(streams)} streams, the longest {RING_LONG} frames, slot 1 "
+        f"reused at frame {clock}; against the f32 windowed forward |d|_2/"
+        f"|ref|_2 {worst_l2:.3e} (bar {BF16_SLICE_BAR:g}), max|d|/max|ref| "
+        f"{worst_max:.3e}, {time.perf_counter() - t0:.2f} s [{gpu}]")
+    if not worst_l2 < BF16_SLICE_BAR:
+        raise AssertionError("the bf16 ring disagrees with the windowed "
+                             "forward")
+
+
+def stream_timing(sb, tag: str, gpu: str, rng) -> None:
+    """CUDA-event times of STREAM_STEPS lockstep steps (one poll() each,
+    from features; the host's window assembly, the copies to and from the
+    card and the step), after 2 warm-ups, and the idle share of 3 steps
+    under the profiler; the realtime factor and the FLOP bound."""
+    cfg, b, c = sb.cfg, sb.batch, sb.chunk
+    block = rng.standard_normal((c, cfg.feat_emb_dim)).astype(np.float32)
+    right = cfg.conv_pos - 1 - cfg.conv_pos // 2
+
+    def feed(n):
+        for i in range(b):
+            sb.push_feat(i, block[:n])
+
+    def step():
+        feed(c)
+        if len(sb.poll()[0]["last_hidden_state"]) != c:
+            raise AssertionError("a timed poll() ran no step")
+
+    sb.get_hidden = False  # serving reads the last hidden state only
+    sb.reset()
+    feed(right)
+    step()
+    step()
+    times = []
+    for _ in range(STREAM_STEPS):
+        feed(c)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sb.poll()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    sb.reset()
+    feed(right)
+    idle = profile_calls(f"stream {tag} lockstep step B={b}", step, gpu)
+    ms = statistics.median(times)
+    flops, n_bytes = stream_work(cfg, b, c, sb._cap, sb.dtype)
+    t_ops = flops / STREAM_PEAK_FLOPS[sb.dtype] * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    log("stream", f"{tag} B = {b}, chunk {c} ({c * 0.02:.2f} s), capacity "
+        f"{sb._cap}: step {ms:.3f} ms median of {STREAM_STEPS} (min "
+        f"{min(times):.3f}, max {max(times):.3f}), realtime "
+        f"{b * c * 0.02 / ms * 1e3:.1f}x aggregate, idle {idle:.1%} of 3 "
+        f"steps; bound {max(t_ops, t_bytes):.3f} ms by "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'} "
+        f"({flops / 1e12:.3f} TFLOP at "
+        f"{STREAM_PEAK_FLOPS[sb.dtype] / 1e12:g} TFLOP/s, "
+        f"{n_bytes / 1e9:.3f} GB) [{gpu}]")
+
+
+def phase_stream(dev, gpu: str):
+    """Streaming causal serving at full width (bench.py's streaming rows):
+    a causal MelHuBERT-20ms (CONFIG_YAML with attention_type causal,
+    seeded random weights handed over as params=, cfg=) through
+    StreamingCausalBatchExtractor: the f32 lockstep check and the bf16
+    ring check, each with its timing. Returns (the stream's launches, the
+    causal forwards')."""
+    from speech_ssl_compression_tpu_torch.configs import (
+        melhubert_config_from_yaml,
+    )
+    from speech_ssl_compression_tpu_torch.streaming import (
+        StreamingCausalBatchExtractor,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import init_params_np
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(melhubert_config_from_yaml(CONFIG_YAML),
+                              attention_type="causal")
+    params = init_params_np(cfg, seed=1)
+    rng = np.random.default_rng(7)
+    sb = StreamingCausalBatchExtractor(
+        params=params, cfg=cfg, fp=20, mean_std_npy_path=str(MEAN_STD),
+        get_hidden=True, device=dev, **STREAM_F32)
+    log("stream", f"causal MelHuBERT-20ms {cfg.encoder_layers}L/"
+        f"{cfg.encoder_embed_dim}, weights drawn and loaded, "
+        f"{time.perf_counter() - t0:.2f} s")
+    counts = check_lockstep(sb, gpu, rng)
+    stream_timing(sb, "f32", gpu, rng)
+    model_f32 = sb.model
+    del sb
+    ring = StreamingCausalBatchExtractor(
+        params=params, cfg=cfg, fp=20, mean_std_npy_path=str(MEAN_STD),
+        device=dev, **STREAM_BF16)
+    check_ring(ring, model_f32, gpu, rng)
+    stream_timing(ring, "bf16 ring", gpu, rng)
+    del ring, model_f32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_train_profile(runner, batch, gpu: str):
@@ -4468,6 +4857,7 @@ def main() -> None:
         if args.profile:
             timed("profile", phase_profile, extractors, wavs, gpu)
         del extractors
+        stream, causal_serve = timed("stream", phase_stream, dev, gpu)
         runner, batch, train, snapshot = timed("train", phase_train, dev,
                                                gpu, tmp)
         merge(record, timed("train", phase_train_timing, runner, batch, gpu))
@@ -4504,7 +4894,9 @@ def main() -> None:
 
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after
-    paths = {"melhubert serve": serve, "melhubert train": train,
+    paths = {"melhubert serve": serve, "melhubert stream": stream,
+             "melhubert causal serve": causal_serve,
+             "melhubert train": train,
              "melhubert weight-pruning": weight_prune,
              "melhubert head-pruning": head_prune,
              "melhubert row-pruning": row_prune,

@@ -53,8 +53,14 @@ class MelFeatBuckets:
         self.rng = np.random.default_rng(seed)
 
         rows = [r for s in sets for r in read_manifest(s)]
-        # stable, like pandas' sort_values on one column
-        rows.sort(key=lambda r: r[2], reverse=True)
+        # descending by length in the order pandas' sort_values gives
+        # (its nargsort: numpy's quicksort, which is not stable, on the
+        # reversed lengths, then reversed back), so tied lengths land as
+        # they do in JAX's buckets
+        lens = np.array([r[2] for r in rows], np.int64)
+        order = np.arange(len(rows))[::-1][
+            lens[::-1].argsort(kind="quicksort")][::-1]
+        rows = [rows[i] for i in order]
         # signed max_timestep: > 0 drops longer, < 0 drops shorter
         # (melhubert_dataset.py:30-34)
         if max_timestep > 0:

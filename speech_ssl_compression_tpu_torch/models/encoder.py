@@ -150,11 +150,16 @@ def encoder_layer_forward(
     generator: Optional[torch.Generator] = None,  # on x's device
     attention_seed: Optional[int] = None,
     deterministic: bool = True,
+    attn_fn=None,
 ):
     """Post-LN (default) or pre-LN BERT layer (reference module.py:82-133).
     With ``deterministic=False`` the residual and activation dropouts draw
     from ``generator`` and attention dropout keys its bits on
-    ``attention_seed``. Returns (x, context)."""
+    ``attention_seed``. Returns (x, context).
+
+    ``attn_fn``, when given, replaces the built-in self-attention with a
+    callable ``h -> (out, context)`` (the streaming KV-cache attention,
+    ``streaming.py``); the residuals, norms and FFN stay the ones here."""
     attn = layer.self_attn
     act = get_activation_fn(activation_fn)
 
@@ -162,6 +167,8 @@ def encoder_layer_forward(
         return dropout(h, p, generator, deterministic)
 
     def self_attn(h):
+        if attn_fn is not None:
+            return attn_fn(h)
         return multi_head_self_attention(
             h, attn, num_heads=attn.num_heads, head_dim=attn.head_dim,
             key_padding_mask=key_padding_mask, causal=causal,

@@ -252,3 +252,30 @@ def test_launch_fields_count_per_dtype_and_path():
     assert conv["launches_by_dtype"] == {"f32": 6, "bf16": 0}
     assert conv["launches_by_path"]["melhubert serve"] == {"f32": 0,
                                                            "bf16": 0}
+
+
+@pytest.mark.parametrize("which,tflop,bound_ms", [
+    ("f32", 0.599, 8.94), ("bf16", 1.817, 1.837)])
+def test_stream_step_work_counts_attention_at_the_cache_capacity(
+        which, tflop, bound_ms):
+    # bench.py's count (JAX package, :513-523) at the stream phase's two
+    # shapes: f32 B = 16 against 3072 cached frames, 67 TFLOP/s with TF32
+    # off; the bf16 ring B = 64 against its 1152 (window 1024 + a chunk)
+    from speech_ssl_compression_tpu_torch.configs import (
+        melhubert_config_from_yaml,
+    )
+
+    cfg = melhubert_config_from_yaml(chip_smoke.CONFIG_YAML)
+    shape = chip_smoke.STREAM_F32 if which == "f32" else chip_smoke.STREAM_BF16
+    cap = shape.get("max_frames") or (-(-(shape["window_frames"] + 128)
+                                        // 128) * 128)
+    dtype = shape["dtype"]
+    flops, n_bytes = chip_smoke.stream_work(cfg, shape["batch"],
+                                            shape["chunk_frames"], cap, dtype)
+    assert flops / 1e12 == pytest.approx(tflop, rel=1e-3)
+    ops_ms = flops / chip_smoke.STREAM_PEAK_FLOPS[dtype] * 1e3
+    assert ops_ms == pytest.approx(bound_ms, rel=1e-3)
+    assert ops_ms > n_bytes / chip_smoke.PEAK_BYTES * 1e3  # operations bound
+    # the caches dominate the bytes: 2 x 12 layers x B x 768 x cap x size
+    size = 4 if which == "f32" else 2
+    assert n_bytes > 24 * shape["batch"] * 768 * cap * size

@@ -436,10 +436,13 @@ def test_yaml_reader_scalars_and_refusals(tmp_path):
 
 # ------------------------------------------------- data and the trainer
 
-def make_dataset(tmp_path, n_utts=8, seed=0):
+def make_dataset(tmp_path, n_utts=8, seed=0, tied=False):
+    """A CSV manifest of ``n_utts`` 40-d feature files with labels, of
+    distinct lengths, or with ``tied`` of lengths drawn from [40, 46)."""
     rng = np.random.default_rng(seed)
     rows = ["file_path,label_path,length"]
-    lengths = rng.permutation(np.arange(40, 40 + 3 * n_utts, 3))
+    lengths = (rng.integers(40, 46, n_utts) if tied
+               else rng.permutation(np.arange(40, 40 + 3 * n_utts, 3)))
     for i, n in enumerate(lengths):
         fp, lp = tmp_path / f"feat_{i}.npy", tmp_path / f"label_{i}.npy"
         np.save(fp, rng.standard_normal((n, 40)).astype(np.float32))
@@ -450,12 +453,20 @@ def make_dataset(tmp_path, n_utts=8, seed=0):
     return str(csv)
 
 
-def test_buckets_match_jax_batches(tmp_path):
-    csv = make_dataset(tmp_path, n_utts=9)
-    kw = dict(frame_period=20, sequence_length=24, bucket_size=2, sets=[csv],
-              max_timestep=-41, seed=3)
+@pytest.mark.parametrize("lengths", ["distinct", "tied"])
+def test_buckets_match_jax_batches(tmp_path, lengths):
+    if lengths == "distinct":
+        csv = make_dataset(tmp_path, n_utts=9)
+        kw = dict(bucket_size=2, max_timestep=-41)
+        n_buckets = 4  # 8 kept, a trailing singleton dropped
+    else:  # pandas' sort is not stable: tied lengths follow its quicksort
+        csv = make_dataset(tmp_path, n_utts=40, seed=3, tied=True)
+        kw = dict(bucket_size=4, max_timestep=0)
+        n_buckets = 10
+    kw.update(frame_period=20, sequence_length=24, sets=[csv], seed=3)
     ours, ref = MelFeatBuckets(**kw), JaxBuckets(**kw)
-    assert len(ours) == len(ref) == 4  # 8 kept, a trailing singleton dropped
+    assert len(ours) == len(ref) == n_buckets
+    assert ours.buckets == [tuple(map(list, b)) for b in ref.buckets]
     for _ in range(2):  # two epochs: the shuffle and crop streams advance
         for a, b in zip(ours.epoch(), ref.epoch()):
             assert a.keys() == b.keys()
