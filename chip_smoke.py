@@ -56,6 +56,23 @@ result line):
             calls after a warm-up); the grad steps and updates of the
             train phases against their yardsticks one time each in turns
             after a warm-up (``alternate(..., reps=1)``);
+  wave serve  serving from waveforms on the slice phase's model: the
+            card's featurize_batch at fp 20 and 10 (float and int16-exact
+            audio, uploaded as int16) against the host fbank in float64
+            and the port's plain CPU featurize_batch (FBANK_BAR), n_valid
+            exact, rows past it 0; forward_packed(featurizer="device") f32
+            and bf16 against featurizer="host" (WAVE_BAR, BF16_SLICE_BAR)
+            and hubconf's compression_20ms_melhubert_960hours_local
+            expert (packed, device featurizer) bitwise forward_packed,
+            flash_attn_fwd launches counted; forward_stream over
+            WAVE_BATCHES batches of 16 utterances bitwise sequential
+            forward_packed, its launches counted; frames/s from waveforms,
+            streamed and fence-per-call (in turns), device and host
+            featurizer, and the idle share under the profiler; the
+            stream's last layer dumped (extract_feature.dump_features) and
+            clustered by python -m speech_ssl_compression_tpu_torch.cluster
+            (K = 500, 2 epochs, on the card; its per-epoch seconds), the
+            labels against the CPU kmeans_assign away from near-ties;
   stream    streaming causal serving (streaming.py) at full width, a
             causal MelHuBERT-20ms with seeded random weights, at bench.py's
             two streaming rows: f32 lockstep StreamingCausalBatchExtractor
@@ -230,9 +247,9 @@ result line):
             <upstream>_config_runner.yaml: B = 12 x 250,000 samples,
             wav2vec 2.0 weight pruning B = 4) with the events moved to
             consecutive updates from the first on (WAVE_EVENTS): HuBERT
-            l1 head pruning's 11 events to one head a layer, wav2vec 2.0
-            weight pruning 2 events and row pruning 2 of 128 rows, the
-            other three pairs one event and one update; per run its
+            l1 head pruning's 11 events to one head a layer, the other
+            five pairs one event and one update (wav2vec 2.0 row
+            pruning's of 128 rows); per run its
             launches (every kernel per grad step, bf16), its events and
             each event's host seconds (the artifact's save apart); HuBERT
             head pruning: each event's heads against a host recompute of
@@ -323,6 +340,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import dataclasses
 import gc
 import json
@@ -425,6 +443,22 @@ RING_LONG, RING_REUSED, RING_LENGTHS = 2000, 400, (300, 1400)
 # the stream steps' products: f32 with TF32 off on the CUDA cores (67
 # TFLOP/s, the H100 SXM data sheet), bf16 on the tensor cores
 STREAM_PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the wave serve phase: forward_stream over WAVE_BATCHES batches of 16
+# utterances at SERVE_LENGTHS (synthetic_wavs(seed=i), the first the slice
+# phase's own); the device fbank within FBANK_BAR (max |d| / max |ref|) of
+# the host's in float64 and of the port's plain CPU version; the
+# device-featurized f32 serve within WAVE_BAR (max |d| / mean |ref|) of the
+# host-featurized one (the features differ by float32 rounding, and 12
+# layers carry it); the last layer clustered by the cluster CLI into K =
+# 500 (the HuBERT iteration-2 recipe) in 2 epochs of 1024-row chunks (the
+# D^2 seeding runs on the host, O(rows K D))
+WAVE_BATCHES = 8
+FBANK_BAR = 1e-4
+FBANK_EVERY = 4  # the host fbank of every 4th utterance, short and long
+WAVE_BAR = 1e-3
+KMEANS_K, KMEANS_EPOCHS, KMEANS_CHUNK = 500, 2, 1024
+KMEANS_TIE = 1e-4  # a top-2 score gap under this share of |top| is a tie
+SLICE_CKPT = "melhubert_20ms_seed0.npz"
 CONV_SM90_SOURCE = "speech_ssl_compression_tpu_torch/csrc/conv1d_sm90.cu"
 # the f32 conv kernels, all three in split TF32 in one file (csrc/conv1d.cu
 # keeps the C entry points and dW's reduce kernel)
@@ -489,14 +523,14 @@ W2V2_PARITY = (2, 250000, 200000)  # B x samples, row 1's valid samples
 # the wave prune phase: the shipped runner YAMLs of the waveform models'
 # pruning modes, and each (upstream, mode) pair's events, one before each
 # update from the first on: HuBERT's l1 head pruning to one head a layer
-# (the recipe's 11), wav2vec 2.0's weight pruning 2 of the recipe's 38 and
-# row pruning 2 of its 20 (128 rows each, as the recipe), the other three
-# pairs one
+# (the recipe's 11), the other five pairs one (wav2vec 2.0's weight and
+# row pruning took 2 until the wave serve phase came: a cut in depth for
+# the script's time; the MelHuBERT phases chain events on the same code)
 WAVE_RECIPES = {"weight-pruning": ROOT / "configs" / "weight_pruning",
                 "head-pruning": HP_DIR / "l1", "row-pruning": RP_DIR}
 WAVE_EVENTS = {("hubert", "head-pruning"): 11,
-               ("wav2vec2", "weight-pruning"): 2,
-               ("wav2vec2", "row-pruning"): 2,
+               ("wav2vec2", "weight-pruning"): 1,
+               ("wav2vec2", "row-pruning"): 1,
                ("hubert", "weight-pruning"): 1,
                ("hubert", "row-pruning"): 1,
                ("wav2vec2", "head-pruning"): 1}
@@ -2510,7 +2544,7 @@ def phase_slice(dev, gpu: str, tmp: str):
 
     t0 = time.perf_counter()
     cfg = melhubert_config_from_yaml(CONFIG_YAML)
-    ckpt = str(pathlib.Path(tmp) / "melhubert_20ms_seed0.npz")
+    ckpt = str(pathlib.Path(tmp) / SLICE_CKPT)
     save_checkpoint(ckpt, init_params_np(cfg, seed=0),
                     meta={"Upstream_Config": {"melhubert": cfg.to_dict()},
                           "Step": 0})
@@ -2625,21 +2659,24 @@ def device_busy_us(events) -> float:
     return busy
 
 
-def profile_calls(label: str, fn, gpu: str, calls: int = 3) -> float:
-    """torch.profiler over ``calls`` calls of ``fn`` (after 2 warm-ups):
-    device busy time per call, idle share against the CUDA-event wall
-    time, the largest device kernels, and the port's own kernels with
-    their share of the busy time. Returns the idle share."""
+def profile_calls(label: str, fn, gpu: str, calls: int = 3,
+                  warm: int = 2, host: bool = True) -> tuple:
+    """torch.profiler over ``calls`` calls of ``fn`` (after ``warm``
+    warm-ups): device busy time per call, idle share against the
+    CUDA-event wall time, the largest device kernels, and the port's own
+    kernels with their share of the busy time; ``host=False`` traces the
+    device alone (a trace of thousands of host ops takes seconds to read).
+    Returns (the idle share, the device busy ms per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(calls):
             fn()
@@ -2663,7 +2700,7 @@ def profile_calls(label: str, fn, gpu: str, calls: int = 3) -> float:
         f"busy {busy:.2f} ms/call, idle {1 - busy / wall:.1%}; largest "
         f"device kernels per call: {top}; the port's kernels: "
         f"{ours or 'none'} [{gpu}]")
-    return 1 - busy / wall
+    return 1 - busy / wall, busy
 
 
 def phase_profile(extractors, wavs, gpu: str):
@@ -2673,6 +2710,236 @@ def phase_profile(extractors, wavs, gpu: str):
         profile_calls(f"forward_packed from features {tag} attn={impl}",
                       lambda: ext._pack_and_dispatch(feat, pad_mask, lengths),
                       gpu)
+
+
+def fbank_against(ext, wavs, fp: int) -> tuple:
+    """The card's featurize_batch on the extractor's batch assembly at
+    frame period ``fp``, against the host fbank in float64 (wav_to_mel,
+    precision "high", every FBANK_EVERY-th utterance) and the port's plain
+    CPU featurize_batch on the same batch: (upload dtype, max |d| / max
+    |ref| against each). n_valid must equal the host's frame counts and
+    every row past it must be 0."""
+    from speech_ssl_compression_tpu_torch.extract import wav_to_mel
+    from speech_ssl_compression_tpu_torch.ops.fbank import featurize_batch
+    from speech_ssl_compression_tpu_torch.utils.device import upload
+
+    ext = copy.copy(ext)  # the same weights at another frame period
+    ext.fp = fp
+    batch, n_samp, max_frames, stack, lengths, _ = (
+        ext._assemble_wave_batch(wavs))
+    feat, n_valid = featurize_batch(
+        upload(batch, ext.device), upload(np.asarray(n_samp), ext.device),
+        ext._mean, ext._std, max_frames, stack=stack)
+    plain, plain_n = featurize_batch(
+        torch.from_numpy(batch), torch.tensor(n_samp), ext._mean.cpu(),
+        ext._std.cpu(), max_frames, stack=stack)
+    feat, n_valid = feat.cpu(), n_valid.cpu()
+    if n_valid.tolist() != lengths or plain_n.tolist() != lengths:
+        raise AssertionError(f"fbank n_valid {n_valid.tolist()}, plain "
+                             f"{plain_n.tolist()}, want {lengths}")
+    past = torch.arange(feat.shape[1])[None, :] >= n_valid[:, None]
+    if feat[past].any():
+        raise AssertionError("device fbank rows past n_valid are not 0")
+    err_plain = float((feat - plain).abs().max() / plain.abs().max())
+    worst, top = 0.0, 0.0
+    for i, w in list(enumerate(wavs))[::FBANK_EVERY]:
+        ref = torch.from_numpy(wav_to_mel(w, ext.mean, ext.std, fp,
+                                          precision="high"))
+        worst = max(worst, float((feat[i, :len(ref)] - ref).abs().max()))
+        top = max(top, float(ref.abs().max()))
+    return batch.dtype, worst / top, err_plain
+
+
+def wall_s(fn) -> float:
+    """Host seconds of ``fn()``, the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_wave_serve(dev, gpu: str, tmp: str, extractors):
+    """Serving from waveforms on the slice phase's full-width MelHuBERT:
+    the card's fbank against the host's, forward_packed with
+    featurizer="device" (f32 and bf16) against featurizer="host", one
+    hubconf factory's UpstreamExpert, forward_stream over WAVE_BATCHES
+    batches against sequential forward_packed (bitwise), frames/s from
+    waveforms streamed and fence-per-call with the idle share, then the
+    stream's last layer dumped and clustered by the cluster CLI (K = 500,
+    2 epochs) against the CPU kmeans_assign. Returns the launches of the
+    serve path (the two forward_packed calls and the expert's) and of the
+    stream."""
+    import contextlib
+    import io
+
+    from speech_ssl_compression_tpu_torch import cluster
+    from speech_ssl_compression_tpu_torch.extract_feature import dump_features
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.ops.kmeans import kmeans_assign
+    from speech_ssl_compression_tpu_torch.s3prl import hubconf
+
+    ext, ext_bf16 = extractors["f32", "kernel"], extractors["bf16", "kernel"]
+    n_layers = ext.cfg.encoder_layers
+    wavs = synthetic_wavs(seed=0)
+    t0 = time.perf_counter()
+    exact = [(np.round(w * 32767) / 32768).astype(np.float32) for w in wavs]
+    for fp, case, batch in ((20, "float", wavs), (10, "float", wavs),
+                            (20, "int16-exact", exact)):
+        dtype, err_host, err_plain = fbank_against(ext, batch, fp)
+        log("wave serve", f"featurize_batch fp {fp}, {case} audio "
+            f"(uploaded as {dtype}): max|d|/max|ref| {err_host:.3e} against "
+            f"the host fbank in float64, {err_plain:.3e} against the plain "
+            f"CPU version (bar {FBANK_BAR:g})")
+        if not (err_host < FBANK_BAR and err_plain < FBANK_BAR):
+            raise AssertionError("the device fbank disagrees")
+        if (dtype == np.int16) != (case == "int16-exact"):
+            raise AssertionError(f"{case} audio uploaded as {dtype}")
+    log("wave serve", f"fbank checks {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    expert = hubconf.compression_20ms_melhubert_960hours_local(
+        str(pathlib.Path(tmp) / SLICE_CKPT), packed=True, featurizer="device",
+        device=dev)
+    log("wave serve", f"hubconf.compression_20ms_melhubert_960hours_local "
+        f"loaded, {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = ext.forward_packed(wavs, featurizer="device")
+    out_bf16 = ext_bf16.forward_packed(wavs, featurizer="device")
+    out_expert = expert(wavs)
+    torch.cuda.synchronize()
+    serve = dtype_launch_counts()
+    got = serve["flash_attn_fwd"]
+    log("wave serve", f"forward_packed(featurizer='device') f32 and bf16 "
+        f"and the expert: flash_attn_fwd launches {got} (expected f32 "
+        f"{2 * n_layers}, bf16 {n_layers}), "
+        f"{time.perf_counter() - t0:.2f} s")
+    if got != {"f32": 2 * n_layers, "bf16": n_layers}:
+        raise AssertionError(f"flash_attn_fwd launches {got}")
+    del expert
+    lengths = torch.tensor(out["lengths"], device=dev)
+    valid = (torch.arange(out["last_hidden_state"].shape[1], device=dev)
+             [None, :] < lengths[:, None])
+
+    def states(o):
+        return o["hidden_states"] + [o["last_hidden_state"]]
+
+    if not all(torch.equal(a, b) for a, b in zip(states(out_expert),
+                                                 states(out))):
+        raise AssertionError("the hubconf expert differs from forward_packed")
+    host = ext.forward_packed(wavs)
+    err = max(rel_err(a, b, valid) for a, b in zip(states(out), states(host)))
+    host_bf16 = ext_bf16.forward_packed(wavs)
+    err_bf16 = max(rel_l2(a, b, valid)
+                   for a, b in zip(states(out_bf16), states(host_bf16)))
+    log("wave serve", f"featurizer 'device' vs 'host', all hidden states: "
+        f"f32 max|d|/mean|ref| {err:.3e} (bar {WAVE_BAR:g}), bf16 "
+        f"|d|_2/|ref|_2 {err_bf16:.3e} (bar {BF16_SLICE_BAR:g}); the "
+        "expert bitwise forward_packed")
+    if not (err < WAVE_BAR and err_bf16 < BF16_SLICE_BAR):
+        raise AssertionError("device featurizer serving disagrees")
+    del out, out_bf16, out_expert, host, host_bf16
+
+    t0 = time.perf_counter()
+    batches = [synthetic_wavs(seed=i) for i in range(WAVE_BATCHES)]
+    want = [ext.forward_packed(b, featurizer="device") for b in batches]
+    reset_launch_counts()
+    got = list(ext.forward_stream(iter(batches), featurizer="device"))
+    torch.cuda.synchronize()
+    stream = dtype_launch_counts()
+    launches = fa.launch_counts["flash_attn_fwd"]
+    same = all(torch.equal(a, b) for g, w in zip(got, want)
+               for a, b in zip(states(g), states(w)))
+    log("wave serve", f"forward_stream over {len(batches)} batches of "
+        f"{len(wavs)}: flash_attn_fwd launches {launches} (expected "
+        f"{n_layers * len(batches)}), bitwise sequential forward_packed "
+        f"{same}, {time.perf_counter() - t0:.2f} s")
+    if launches != n_layers * len(batches) or len(got) != len(batches):
+        raise AssertionError("forward_stream launched the wrong kernels")
+    if not same:
+        raise AssertionError("forward_stream differs from forward_packed")
+    t0 = time.perf_counter()
+    dump = pathlib.Path(tmp) / "wave_dump"
+    for i, o in enumerate(got):
+        dump_features(dump / f"b{i}", [f"u{j}" for j in range(len(wavs))],
+                      o["last_hidden_state"].cpu().numpy(), o["lengths"])
+    del want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("wave serve", f"last layer dumped, {time.perf_counter() - t0:.2f} s")
+
+    frames = sum(SERVE_LENGTHS) * len(batches)
+
+    def streamed(featurizer):
+        for o in ext.forward_stream(iter(batches), featurizer=featurizer):
+            o["last_hidden_state"].cpu()
+
+    def fenced(featurizer):
+        for b in batches:
+            ext.forward_packed(b, featurizer=featurizer)[
+                "last_hidden_state"].cpu()
+
+    # the same device work both ways: the busy time of one streamed run
+    # under the profiler gives each way's idle share against its wall time
+    # with the profiler off
+    t0 = time.perf_counter()
+    _, busy_ms = profile_calls(f"{len(batches)} batches from waveforms, "
+                               "streamed, featurizer 'device'",
+                               lambda: streamed("device"), gpu, calls=1,
+                               warm=0, host=False)
+    log("wave serve", f"profiled, {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    times = collections.defaultdict(list)
+    for name, fn in (("fence-per-call", fenced), ("streamed", streamed),
+                     ("streamed", streamed), ("fence-per-call", fenced)):
+        times[name, "device"].append(wall_s(lambda: fn("device")))
+    times["streamed", "host"].append(wall_s(lambda: streamed("host")))
+    for (name, feat), ts in times.items():
+        log("wave serve", f"{frames} frames from waveforms, {name}, "
+            f"featurizer {feat!r}, f32: " + ", ".join(
+                f"{t:.4f} s ({frames / t:.0f} frames/s)" for t in ts)
+            + (f"; idle {1 - busy_ms / 1e3 / min(ts):.1%} against the "
+               f"streamed run's device busy {busy_ms:.2f} ms"
+               if feat == "device" else "") + f" [{gpu}]")
+    log("wave serve", f"timed, {time.perf_counter() - t0:.2f} s")
+
+    out_dir = pathlib.Path(tmp) / "wave_labels"
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cluster.main(["-f", str(dump / "*" / "*.npy"), "-k", str(KMEANS_K),
+                      "-o", str(out_dir), "--epochs", str(KMEANS_EPOCHS),
+                      "--chunk-rows", str(KMEANS_CHUNK), "--device",
+                      str(dev)])
+    seconds = time.perf_counter() - t0
+    for line in printed.getvalue().splitlines():
+        log("wave serve", line)
+    log("wave serve", f"cluster CLI {seconds:.2f} s in all [{gpu}]")
+    t0 = time.perf_counter()
+    paths = cluster._feature_paths(str(dump / "*" / "*.npy"))
+    x = torch.from_numpy(np.concatenate([np.load(p) for p in paths]))
+    centers = torch.from_numpy(np.load(out_dir / "centers.npy"))
+    labels = np.asarray([int(v) for line in
+                         (out_dir / "labels.km").read_text().splitlines()
+                         for v in line.split()])
+    lens = [int(v) for v in (out_dir / "labels.len").read_text().split()]
+    if lens != [len(np.load(p, mmap_mode="r")) for p in paths]:
+        raise AssertionError("labels.len disagrees with the dump")
+    cpu = kmeans_assign(x, centers).numpy()
+    top = torch.topk(2 * x @ centers.T - (centers ** 2).sum(-1), 2).values
+    tie = ((top[:, 0] - top[:, 1])
+           <= KMEANS_TIE * top[:, 0].abs().clamp_min(1.0)).numpy()
+    differ = int(((labels != cpu) & ~tie).sum())
+    log("wave serve", f"k-means K = {KMEANS_K}, {len(x)} frames of "
+        f"{x.shape[1]}: labels on the card against the CPU kmeans_assign: "
+        f"{differ} differ of {int((~tie).sum())} away from near-ties "
+        f"({int(tie.sum())} near-ties, {int((labels != cpu).sum())} differ "
+        f"in all), {len(np.unique(labels))} clusters used, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if differ or len(labels) != len(x):
+        raise AssertionError("k-means labels disagree with the CPU")
+    return serve, stream
 
 
 def stream_work(cfg, batch: int, chunk: int, cap: int, dtype) -> tuple:
@@ -2968,7 +3235,7 @@ def stream_timing(sb, tag: str, gpu: str, rng) -> None:
         times.append(start.elapsed_time(end))
     sb.reset()
     feed(right)
-    idle = profile_calls(f"stream {tag} lockstep step B={b}", step, gpu)
+    idle, _ = profile_calls(f"stream {tag} lockstep step B={b}", step, gpu)
     ms = statistics.median(times)
     flops, n_bytes = stream_work(cfg, b, c, sb._cap, sb.dtype)
     t_ops = flops / STREAM_PEAK_FLOPS[sb.dtype] * 1e3
@@ -4856,6 +5123,8 @@ def main() -> None:
         timed("slice", phase_timing, extractors, wavs, gpu)
         if args.profile:
             timed("profile", phase_profile, extractors, wavs, gpu)
+        wave_serve, wave_stream = timed("wave serve", phase_wave_serve, dev,
+                                        gpu, tmp, extractors)
         del extractors
         stream, causal_serve = timed("stream", phase_stream, dev, gpu)
         runner, batch, train, snapshot = timed("train", phase_train, dev,
@@ -4895,6 +5164,8 @@ def main() -> None:
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after
     paths = {"melhubert serve": serve, "melhubert stream": stream,
+             "melhubert wave serve": wave_serve,
+             "melhubert wave stream": wave_stream,
              "melhubert causal serve": causal_serve,
              "melhubert train": train,
              "melhubert weight-pruning": weight_prune,

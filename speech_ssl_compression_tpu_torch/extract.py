@@ -2,13 +2,14 @@
 
 Port of ``speech_ssl_compression_tpu/extract.py``: load a checkpoint (the
 JAX package's npz or a reference ``.ckpt``), featurize waveforms on the host
-with the Kaldi-compatible fbank, and run the encoder with ``no_pred`` and
-``get_hidden``. The bulk path is :meth:`MelHuBERTExtractor.forward_packed`,
-which packs utterances into fixed-capacity rows with segment-masked
-attention.
+(the Kaldi-compatible fbank in NumPy) or on the device
+(:meth:`MelHuBERTExtractor.featurize_device`), and run the encoder with
+``no_pred`` and ``get_hidden``. The bulk paths are
+:meth:`MelHuBERTExtractor.forward_packed`, which packs utterances into
+fixed-capacity rows with segment-masked attention, and
+:meth:`MelHuBERTExtractor.forward_stream`, which pipelines it over batches.
 
-Not ported yet: ``featurize_device``, ``forward_seqpar`` and
-``forward_stream``.
+Not ported yet: ``forward_seqpar``.
 """
 
 from __future__ import annotations
@@ -23,11 +24,16 @@ from .configs import MelHuBERTConfig
 from .data.audio import read_audio
 from .models.encoder import encoder_layers_forward, encoder_prologue
 from .models.melhubert import melhubert_forward, pre_project
-from .ops.fbank import kaldi_fbank_np, normalize_fbank, stack_frame_pairs_np
+from .ops.fbank import (
+    featurize_batch,
+    kaldi_fbank_np,
+    normalize_fbank,
+    num_frames,
+    stack_frame_pairs_np,
+)
 from .ops.packing import build_pack_arrays, plan_packing
+from .utils.device import PRECISIONS, matmul_precision, resolve_device, upload
 from .utils.weights import apply_masks, infer_pruned_dims, load_model
-
-PRECISIONS = ("default", "high", "highest")
 
 
 def load_mean_std(mean_std_npy_path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -78,43 +84,8 @@ def load_any_checkpoint(path: str):
     return params, cfg, extras  # masks already folded by the converter
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, refusing CUDA where there is none: a run
-    asked for the GPU never lands on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but CUDA is not available "
-            "(pass device='cpu' to run on the CPU)"
-        )
-    return dev
-
-
-@contextlib.contextmanager
-def matmul_precision(precision: str):
-    """For the duration of a forward: "highest" turns TF32 off for both
-    matmuls and cuDNN convolutions (true f32); "high" and "default" turn it
-    on. The previous flags are restored on exit."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"matmul_precision must be one of {PRECISIONS}")
-    tf32 = precision != "highest"
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
-
-
 def _check_featurizer(featurizer: str):
-    if featurizer == "device":
-        raise NotImplementedError(
-            "featurizer='device' (featurize_device) is not ported yet"
-        )
-    if featurizer != "host":
+    if featurizer not in ("host", "device"):
         raise ValueError(
             f"featurizer must be 'host' or 'device', got {featurizer!r}"
         )
@@ -171,6 +142,10 @@ class MelHuBERTExtractor:
         else:
             self.mean = np.zeros(40)
             self.std = np.ones(40)
+        # the device featurizer's copies, uploaded once
+        self._mean, self._std = (
+            torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+            for a in (self.mean, self.std))
 
     def get_downsample_rates(self, key: str = "") -> int:
         return 320 if self.fp == 20 else 160
@@ -194,14 +169,68 @@ class MelHuBERTExtractor:
         ).astype(np.float32)
         return feat, pad_mask, lengths
 
+    def featurize_device(self, wavs: Sequence[np.ndarray]):
+        """Port of ``MelHuBERTExtractor.featurize_device``: fbank, normalize
+        and stacking on the extractor's device (``ops/fbank.py::
+        featurize_batch``). Returns (feat (B, T_pad, D) f32 tensor on the
+        device, pad_mask (B, T_pad) f32 array, lengths), shaped as
+        :meth:`featurize` shapes them."""
+        return self._featurize_batch_device(*self._assemble_wave_batch(wavs))
+
+    def _assemble_wave_batch(self, wavs):
+        """Host half of :meth:`featurize_device`: scale, pad and size the
+        batch. Pure NumPy, so it may run in a prefetch worker thread."""
+        n_samp = [int(w.shape[-1]) for w in wavs]
+        frames10 = [num_frames(n) for n in n_samp]
+        stack = self.fp == 20  # 20 ms: pairs of 10 ms frames
+        lengths = [-(-f // 2) for f in frames10] if stack else frames10
+        t_pad = -(-max(lengths) // self.pad_multiple) * self.pad_multiple
+        max_frames = 2 * t_pad if stack else t_pad
+        # snip-edges leftovers: the longest wav may carry up to 159 samples
+        # past its last frame's reach (and a frame count can land exactly
+        # on the pad boundary), so the buffer takes whichever is larger
+        max_samples = max((max_frames - 1) * 160 + 400, max(n_samp))
+        batch = np.zeros((len(wavs), max_samples), np.float32)
+        for i, w in enumerate(wavs):
+            batch[i, : n_samp[i]] = np.asarray(w, np.float32) * (2**15)
+        # 16-bit-sourced audio scales back to exact int16: upload half the
+        # bytes, bit for bit (featurize_batch casts to f32 on the device);
+        # other audio stays f32
+        if (np.abs(batch).max(initial=0.0) <= 32767.0
+                and np.array_equal(batch, np.round(batch))):
+            batch = batch.astype(np.int16)
+        return batch, n_samp, max_frames, stack, lengths, t_pad
+
+    def _featurize_batch_device(self, batch, n_samp, max_frames, stack,
+                                lengths, t_pad):
+        """Device half of :meth:`featurize_device`: the uploads and
+        ``featurize_batch`` (the calling thread's, never a worker's)."""
+        feat, _ = featurize_batch(
+            upload(batch, self.device),
+            upload(np.asarray(n_samp, np.int64), self.device),
+            self._mean, self._std, max_frames, stack=stack,
+        )
+        pad_mask = (
+            np.arange(t_pad)[None, :] < np.asarray(lengths)[:, None]
+        ).astype(np.float32)
+        return feat, pad_mask, lengths
+
+    def _featurize(self, wavs, featurizer: str):
+        _check_featurizer(featurizer)
+        if featurizer == "device":
+            return self.featurize_device(wavs)
+        return self.featurize(wavs)
+
     def _to_device(self, feat, pad_mask):
-        return (torch.from_numpy(feat).to(self.device, self.dtype),
-                torch.from_numpy(pad_mask).to(self.device))
+        """Features (an array, or a tensor from the device featurizer) and
+        the pad mask on the device, the features in the compute dtype."""
+        if not torch.is_tensor(feat):
+            feat = upload(feat, self.device)
+        return feat.to(self.dtype), upload(pad_mask, self.device)
 
     def forward(self, wavs: Sequence[np.ndarray],
                 featurizer: str = "host") -> dict:
-        _check_featurizer(featurizer)
-        feat, pad_mask, lengths = self.featurize(wavs)
+        feat, pad_mask, lengths = self._featurize(wavs, featurizer)
         feat, pad_mask = self._to_device(feat, pad_mask)
         with matmul_precision(self.matmul_precision), torch.inference_mode():
             out = melhubert_forward(
@@ -264,7 +293,7 @@ class MelHuBERTExtractor:
         if int(self.cfg.encoder_layers) == 0:
             # no encoder to pack over: the plain path's gelu(pre_feat)
             return self.forward(wavs, featurizer=featurizer)
-        feat, pad_mask, lengths = self.featurize(wavs)
+        feat, pad_mask, lengths = self._featurize(wavs, featurizer)
         return self._pack_and_dispatch(feat, pad_mask, lengths, capacity)
 
     def _pack_and_dispatch(self, feat, pad_mask, lengths,
@@ -279,7 +308,7 @@ class MelHuBERTExtractor:
             lengths, rows, cap, t
         )
         feat, pad_mask = self._to_device(feat, pad_mask)
-        idx = [torch.from_numpy(a).to(self.device)
+        idx = [upload(a, self.device)
                for a in (gather_idx, seg_ids, unpack_idx)]
         with matmul_precision(self.matmul_precision), torch.inference_mode():
             out = self._packed_impl(feat, pad_mask, *idx)
@@ -289,3 +318,85 @@ class MelHuBERTExtractor:
             "lengths": lengths,
             "n_packed_rows": len(rows),
         }
+
+    def forward_stream(self, batch_iter, capacity: Optional[int] = None,
+                       featurizer: str = "host", depth: int = 2):
+        """Port of ``MelHuBERTExtractor.forward_stream``: yields
+        :meth:`forward_packed`'s outputs for an iterator of wav batches, in
+        input order. A prefetch thread does the host work (the NumPy fbank,
+        or the batch assembly for the device featurizer) and makes no CUDA
+        call; this thread uploads without a host fence and dispatches, so up
+        to ``depth`` batches are in flight on the device before the first
+        is yielded. Sustained throughput then approaches max(featurize,
+        encode) instead of their sum. A consumer fences an item by reading
+        it (for example ``.cpu()`` of one tensor).
+
+        On a GPU the batches run on a stream of their own, and each item is
+        handed to the caller's current stream through its own event, so
+        reading item i waits for batch i alone (JAX's per-array readiness),
+        not for batch i + 1 queued behind it, which keeps computing."""
+        from collections import deque
+
+        from .data.bucket_dataset import PrefetchIterator
+
+        _check_featurizer(featurizer)
+        if int(self.cfg.encoder_layers) == 0:
+            # no encoder to pack over: forward per batch, as forward_packed
+            # routes it
+            for b in batch_iter:
+                yield self.forward(b, featurizer=featurizer)
+            return
+        host_work = (self._assemble_wave_batch if featurizer == "device"
+                     else self.featurize)
+        items = PrefetchIterator((host_work(b) for b in batch_iter),
+                                 depth=depth)
+        lane = _Lane(self.device)
+        try:
+            pending = deque()
+            for item in items:
+                with lane.dispatch():
+                    if featurizer == "device":
+                        item = self._featurize_batch_device(*item)
+                    out = self._pack_and_dispatch(*item, capacity)
+                pending.append((out, lane.mark()))
+                if len(pending) >= depth:
+                    yield lane.hand_over(*pending.popleft())
+            while pending:
+                yield lane.hand_over(*pending.popleft())
+        finally:
+            items.close()
+
+
+class _Lane:
+    """``forward_stream``'s stream on a GPU (a no-op on the CPU): work is
+    dispatched on it, an event marks each batch's end, and a batch's
+    outputs are handed to the caller's current stream by that event, with
+    ``record_stream`` so the caching allocator does not reuse their memory
+    before the caller's stream is done with them."""
+
+    def __init__(self, device: torch.device):
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.Stream(device)
+            # the weights and anything else the caller queued come first
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+
+    def dispatch(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def mark(self):
+        if self.stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self.stream)
+        return event
+
+    def hand_over(self, out: dict, event) -> dict:
+        if event is not None:
+            current = torch.cuda.current_stream(self.stream.device)
+            current.wait_event(event)
+            for t in out["hidden_states"] + [out["last_hidden_state"]]:
+                t.record_stream(current)
+        return out

@@ -6,7 +6,8 @@
 
 MODE is accepted for interface parity; the checkpoint flavor is detected
 from the checkpoint itself. The utterances go through
-``MelHuBERTExtractor.forward_packed``. ``--device cuda`` (the default)
+``MelHuBERTExtractor.forward_packed``; ``--featurizer device`` runs the
+fbank on ``--device`` too. ``--device cuda`` (the default)
 fails on a machine without CUDA; it never falls back to the CPU.
 """
 
@@ -47,8 +48,8 @@ def get_args(argv=None):
                         help="compute dtype")
     parser.add_argument("--featurizer", default="host",
                         choices=["host", "device"],
-                        help="where fbank+normalize+stacking run ('device' is "
-                             "not ported yet)")
+                        help="where fbank+normalize+stacking run: 'host' "
+                             "(NumPy) or 'device' (torch on --device)")
     parser.add_argument("--fbank-precision", default="fast",
                         choices=["fast", "high"],
                         help="host featurizer numerics: 'fast' = f32 fbank, "
@@ -65,9 +66,28 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
+def dump_features(dump_dir, names, layer, lengths) -> int:
+    """One ``.npy`` (T, D) f32 per utterance, its valid frames of ``layer``
+    (B, T_pad, D), and a ``features.csv`` manifest (file_path, length), the
+    input of the cluster CLI. Returns the number of utterances."""
+    import numpy as np
+
+    dump = pathlib.Path(dump_dir)
+    dump.mkdir(parents=True, exist_ok=True)
+    rows = []
+    for i, (p, n) in enumerate(zip(names, lengths)):
+        path = dump / f"{i:06d}_{pathlib.Path(p).stem}.npy"
+        np.save(path, layer[i, :n].astype(np.float32))
+        rows.append((str(path), int(n)))
+    with open(dump / "features.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["file_path", "length"])
+        w.writerows(rows)
+    return len(rows)
+
+
 def main(argv=None):
     args = get_args(argv)
-    import numpy as np
     import torch
 
     from .extract import MelHuBERTExtractor, read_wavs
@@ -103,20 +123,10 @@ def main(argv=None):
           f"({n_frames / dt:.0f} frames/s incl. featurization, first call)")
 
     if args.dump_dir:
-        dump = pathlib.Path(args.dump_dir)
-        dump.mkdir(parents=True, exist_ok=True)
         layer = out["hidden_states"][args.dump_layer].float().cpu().numpy()
-        rows = []
-        for i, (p, n) in enumerate(zip(wav_path, out["lengths"])):
-            path = dump / f"{i:06d}_{pathlib.Path(p).stem}.npy"
-            np.save(path, layer[i, :n].astype(np.float32))
-            rows.append((str(path), int(n)))
-        with open(dump / "features.csv", "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["file_path", "length"])
-            w.writerows(rows)
+        n = dump_features(args.dump_dir, wav_path, layer, out["lengths"])
         print(f"[Extractor] - Dumped layer {args.dump_layer} features for "
-              f"{len(rows)} utterances to {dump} (features.csv manifest)")
+              f"{n} utterances to {args.dump_dir} (features.csv manifest)")
 
 
 if __name__ == "__main__":

@@ -1,17 +1,25 @@
-"""Kaldi-compatible log-Mel filterbank, host side (NumPy).
+"""Kaldi-compatible log-Mel filterbank: the host side in NumPy and the
+batched featurizer on the tensor's device in PyTorch.
 
-Mirror of the NumPy half of ``speech_ssl_compression_tpu/ops/fbank.py``,
-which cannot be imported here because that module also holds the JAX
-featurizer. Semantics (torchaudio's ``compliance.kaldi.fbank`` defaults):
-snip_edges framing, per-frame DC removal, preemphasis 0.97, symmetric
-Hamming window, zero-padding to 512, power spectrum, Kaldi triangular Mel
-bank with a zero Nyquist column, log floored at float32 eps. The
-on-device featurizer (``featurize_batch``) is not ported yet.
+Port of ``speech_ssl_compression_tpu/ops/fbank.py``. Semantics
+(torchaudio's ``compliance.kaldi.fbank`` defaults): snip_edges framing,
+per-frame DC removal, preemphasis 0.97, symmetric Hamming window,
+zero-padding to 512, power spectrum, Kaldi triangular Mel bank with a zero
+Nyquist column, log floored at float32 eps. :func:`featurize_batch` runs
+that on a (B, samples) batch with ``torch.fft`` and one matmul, TF32 off;
+JAX computes it with XLA, not in Pallas, so no kernel of the port stands
+behind it. ``mfcc39_np`` gives the cluster CLI its MFCC-39 features.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.device import matmul_precision
 
 MEL_LOW_HZ = 20.0
 EPSILON_F32 = 1.1920928955078125e-07  # float32 machine eps, Kaldi's log floor
@@ -128,3 +136,119 @@ def stack_frame_pairs_np(feats: np.ndarray) -> np.ndarray:
             [b, np.zeros((1, b.shape[1]), dtype=feats.dtype)], axis=0
         )
     return np.concatenate([a, b], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_constants(device: torch.device, num_mel_bins: int):
+    """The Hamming window (400,) and the Mel bank (257, num_mel_bins), f32
+    on ``device``, uploaded once per device (a blocking copy per batch
+    would fence the host)."""
+    window = torch.from_numpy(_hamming(400).astype(np.float32))
+    bank = torch.from_numpy(
+        np.ascontiguousarray(mel_banks(num_mel_bins, 512, 16000.0).T,
+                             dtype=np.float32))
+    return window.to(device), bank.to(device)
+
+
+def featurize_batch(
+    waveforms: torch.Tensor,    # (B, max_samples) f32 or int16, x 2**15
+    num_samples: torch.Tensor,  # (B,) int true sample counts
+    mean: torch.Tensor,         # (num_mel_bins,) f32
+    std: torch.Tensor,          # (num_mel_bins,) f32
+    max_frames: int,            # 10 ms frame capacity per row
+    stack: bool = True,         # 20 ms frame period: stack even/odd pairs
+    num_mel_bins: int = 40,
+):
+    """Port of ``ops/fbank.py::featurize_batch`` (with ``kaldi_fbank`` and
+    ``stack_frame_pairs``): wav -> normalized, optionally stacked features
+    on the batch's device, 16 kHz / 25 ms / 10 ms.
+
+    Returns (feats (B, T_out, D) f32, n_valid (B,) int32) with rows past
+    n_valid zero; T_out = ceil(max_frames / 2) and D = 2 * num_mel_bins
+    when ``stack``, else max_frames and num_mel_bins. The Mel product runs
+    with TF32 off whatever the caller's matmul precision."""
+    window_size, window_shift, padded = 400, 160, 512
+    dev = waveforms.device
+    window, bank = _device_constants(dev, num_mel_bins)
+    w = waveforms.to(torch.float32)
+    need = (max_frames - 1) * window_shift + window_size
+    if w.shape[1] < need:
+        # rows reaching past the buffer are past n_valid and zeroed below
+        w = F.pad(w, (0, need - w.shape[1]))
+    frames = w.unfold(1, window_size, window_shift)[:, :max_frames]
+    frames = frames - frames.mean(dim=2, keepdim=True)
+    offset = torch.cat([frames[..., :1], frames[..., :-1]], dim=2)
+    frames = (frames - 0.97 * offset) * window
+    spec = torch.fft.rfft(frames, n=padded, dim=2)
+    power = spec.real ** 2 + spec.imag ** 2
+    with matmul_precision("highest"):
+        mel = power @ bank
+    feats = torch.log(torch.clamp_min(mel, EPSILON_F32))
+
+    n = num_samples.to(dev, torch.int64)
+    n_valid = torch.clamp(
+        torch.div(n - window_size, window_shift, rounding_mode="floor") + 1,
+        0, max_frames)
+    valid = torch.arange(max_frames, device=dev)[None, :] < n_valid[:, None]
+    feats = torch.where(valid[..., None], normalize_fbank(feats, mean, std),
+                        0.0)
+    if stack:
+        if max_frames % 2:
+            feats = F.pad(feats, (0, 0, 0, 1))
+        feats = torch.cat([feats[:, 0::2], feats[:, 1::2]], dim=2)
+        n_valid = (n_valid + 1) // 2
+        valid = (torch.arange(feats.shape[1], device=dev)[None, :]
+                 < n_valid[:, None])
+        feats = torch.where(valid[..., None], feats, 0.0)
+    return feats, n_valid.to(torch.int32)
+
+
+def _dct_matrix(n_ceps: int, n_mels: int) -> np.ndarray:
+    """Mirror of ``ops/fbank.py::_dct_matrix``: orthonormal DCT-II rows
+    (Kaldi/HTK convention), (n_ceps, n_mels)."""
+    j = np.arange(n_mels, dtype=np.float64)
+    m = np.cos(np.pi / n_mels * (j + 0.5)[None, :]
+               * np.arange(n_ceps, dtype=np.float64)[:, None])
+    m *= np.sqrt(2.0 / n_mels)
+    m[0] *= 1.0 / np.sqrt(2.0)
+    return m
+
+
+def _deltas(x: np.ndarray, window: int = 2) -> np.ndarray:
+    """Mirror of ``ops/fbank.py::_deltas``: regression deltas over
+    +-window frames with edge replication."""
+    denom = 2.0 * sum(i * i for i in range(1, window + 1))
+    pad = np.concatenate(
+        [np.repeat(x[:1], window, axis=0), x,
+         np.repeat(x[-1:], window, axis=0)], axis=0
+    )
+    out = np.zeros_like(x)
+    for i in range(1, window + 1):
+        out += i * (pad[window + i: window + i + len(x)]
+                    - pad[window - i: window - i + len(x)])
+    return out / denom
+
+
+def mfcc39_np(
+    waveform: np.ndarray,
+    num_ceps: int = 13,
+    num_mel_bins: int = 23,
+    cepstral_lifter: float = 22.0,
+    dtype=np.float32,
+) -> np.ndarray:
+    """Mirror of ``ops/fbank.py::mfcc39_np``: 39-dim MFCC (13 cepstra +
+    deltas + delta-deltas), the features of first-iteration HuBERT cluster
+    labels. 23-bin log-Mel fbank, orthonormal DCT-II, lifter 22, regression
+    deltas over +-2 frames."""
+    logmel = kaldi_fbank_np(waveform, num_mel_bins=num_mel_bins,
+                            dtype=dtype)
+    ceps = logmel @ _dct_matrix(num_ceps, num_mel_bins).T.astype(dtype)
+    if cepstral_lifter > 0:
+        q = np.arange(num_ceps, dtype=np.float64)
+        lift = 1.0 + 0.5 * cepstral_lifter * np.sin(
+            np.pi * q / cepstral_lifter
+        )
+        ceps = ceps * lift.astype(dtype)[None, :]
+    d1 = _deltas(ceps)
+    d2 = _deltas(d1)
+    return np.concatenate([ceps, d1, d2], axis=1).astype(dtype)

@@ -4,7 +4,7 @@ layout of an attention kernel's entry in that line, the launches per dtype
 and path in it, and the check that the attention kernels (forward, dQ,
 dK/dV; bf16, and f32 in split TF32), the f32 conv forward (split TF32) and
 the bf16 conv forward, dW and dX run on the tensor cores (HGMMA in their
-SASS)."""
+SASS); and the wave serve phase end to end at a tiny width."""
 
 import pathlib
 import sys
@@ -279,3 +279,53 @@ def test_stream_step_work_counts_attention_at_the_cache_capacity(
     # the caches dominate the bytes: 2 x 12 layers x B x 768 x cap x size
     size = 4 if which == "f32" else 2
     assert n_bytes > 24 * shape["batch"] * 768 * cap * size
+
+
+def test_wave_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    # the wave serve phase end to end at 2 layers of 64 and short
+    # utterances, the plain attention counted as the kernel's launches and
+    # the CUDA synchronisation and profiler stubbed: its launch counts per
+    # path, its checks (fbank, featurizers, expert, stream, k-means labels)
+    from speech_ssl_compression_tpu_torch.configs import MelHuBERTConfig
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import init_params_np
+
+    plain = fa._reference_fwd
+
+    def counted(q, *args, **kwargs):
+        fa._count("flash_attn_fwd", q)
+        return plain(q, *args, **kwargs)
+
+    monkeypatch.setattr(fa, "_reference_fwd", counted)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "profile_calls",
+                        lambda label, fn, gpu, **kw: (fn(), (0.0, 1.0))[1])
+    monkeypatch.setattr(chip_smoke, "SERVE_LENGTHS", (21, 21, 92, 92))
+    monkeypatch.setattr(chip_smoke, "WAVE_BATCHES", 2)
+    monkeypatch.setattr(chip_smoke, "KMEANS_K", 8)
+    monkeypatch.setattr(chip_smoke, "KMEANS_CHUNK", 64)
+    cfg = MelHuBERTConfig.from_dict(dict(
+        feat_emb_dim=80, encoder_layers=2, encoder_embed_dim=64,
+        encoder_ffn_embed_dim=128, encoder_attention_heads=1, head_dim=64,
+        conv_pos=16, conv_pos_groups=4, num_cluster=32))
+    ckpt = str(tmp_path / chip_smoke.SLICE_CKPT)
+    save_checkpoint(ckpt, init_params_np(cfg, seed=0),
+                    meta={"Upstream_Config": {"melhubert": cfg.to_dict()}})
+    extractors = {
+        (tag, "kernel"): MelHuBERTExtractor(
+            ckpt, mean_std_npy_path=str(chip_smoke.MEAN_STD), dtype=dtype,
+            device="cpu")
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    serve, stream = chip_smoke.phase_wave_serve(
+        torch.device("cpu"), "cpu", str(tmp_path), extractors)
+    assert serve["flash_attn_fwd"] == {"f32": 4, "bf16": 2}
+    assert stream["flash_attn_fwd"] == {"f32": 2 * chip_smoke.WAVE_BATCHES,
+                                        "bf16": 0}
+    labels = (tmp_path / "wave_labels" / "labels.km").read_text().split()
+    assert len(labels) == chip_smoke.WAVE_BATCHES * sum(
+        chip_smoke.SERVE_LENGTHS)

@@ -1056,3 +1056,80 @@ def test_wav2vec2_negative_counts_on_the_card_match_the_eq_formula():
     assert not got[2].any()
     assert torch.equal(got[:2].sum(-1), torch.full((2, 300), 100.0,
                                                    device="cuda"))
+
+
+def _tiny_wave_extractor(tmp_path, device):
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.configs import MelHuBERTConfig
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import init_params_np
+
+    cfg = MelHuBERTConfig.from_dict(dict(
+        feat_emb_dim=80, encoder_layers=2, encoder_embed_dim=128,
+        encoder_ffn_embed_dim=256, encoder_attention_heads=2, head_dim=64,
+        conv_pos=16, conv_pos_groups=4, num_cluster=32))
+    path = tmp_path / "tiny.npz"
+    if not path.exists():
+        save_checkpoint(str(path), init_params_np(cfg, seed=0), meta={
+            "Upstream_Config": {"melhubert": cfg.to_dict()}})
+    rng = np.random.default_rng(0)
+    wavs = [(0.1 * rng.standard_normal(n)).astype(np.float32)
+            for n in (16000, 9000, 41300, 4000)]
+    return MelHuBERTExtractor(str(path), device=device), wavs
+
+
+def test_device_featurizer_and_forward_stream_on_the_card(tmp_path):
+    # the card's fbank within 1e-4 of max |ref| of the plain CPU version on
+    # the same batch; forward_stream bitwise sequential forward_packed, one
+    # forward kernel launch per layer and batch
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.ops.fbank import featurize_batch
+
+    ext, wavs = _tiny_wave_extractor(tmp_path, "cuda")
+    cpu, _ = _tiny_wave_extractor(tmp_path, "cpu")
+    batch, n_samp, max_frames, stack, lengths, _ = (
+        ext._assemble_wave_batch(wavs))
+    got = ext.featurize_device(wavs)[0].cpu()
+    ref, n_valid = featurize_batch(torch.from_numpy(batch),
+                                   torch.tensor(n_samp), cpu._mean, cpu._std,
+                                   max_frames, stack=stack)
+    assert n_valid.tolist() == lengths
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    batches = [wavs, wavs[::-1], wavs[1:]]
+    want = [ext.forward_packed(b, featurizer="device") for b in batches]
+    fa.reset_launch_counts()
+    out = list(ext.forward_stream(iter(batches), featurizer="device"))
+    torch.cuda.synchronize()
+    assert fa.launch_counts["flash_attn_fwd"] == 2 * len(batches)
+    for g, w in zip(out, want):
+        assert g["lengths"] == w["lengths"]
+        for a, b in zip(g["hidden_states"] + [g["last_hidden_state"]],
+                        w["hidden_states"] + [w["last_hidden_state"]]):
+            assert torch.equal(a, b)
+    assert np.isfinite(out[0]["last_hidden_state"].cpu().numpy()).all()
+
+
+def test_kmeans_on_the_card_matches_the_cpu():
+    import numpy as np
+    from speech_ssl_compression_tpu_torch.ops.kmeans import (
+        kmeans_assign,
+        kmeans_fit,
+    )
+
+    rng = np.random.default_rng(0)
+    true = rng.standard_normal((8, 16)).astype(np.float32) * 5
+    x = (true[rng.integers(0, 8, 2048)]
+         + 0.1 * rng.standard_normal((2048, 16))).astype(np.float32)
+    chunks = [x[i:i + 256] for i in range(0, len(x), 256)]
+    card, _ = kmeans_fit(0, chunks, 8, epochs=2, reseed_every=3,
+                         device="cuda")
+    host, _ = kmeans_fit(0, chunks, 8, epochs=2, reseed_every=3,
+                         device="cpu")
+    np.testing.assert_allclose(card, host, atol=1e-5)
+    ids = kmeans_assign(torch.from_numpy(x).cuda(), torch.from_numpy(card)
+                        .cuda()).cpu()
+    assert torch.equal(ids, kmeans_assign(torch.from_numpy(x),
+                                          torch.from_numpy(card)))

@@ -188,8 +188,8 @@ def test_forward_packed_matches_unpacked(port_extractor):
 
 
 def test_extractor_refuses_what_it_cannot_do(ckpts, port_extractor):
-    with pytest.raises(NotImplementedError, match="featurize_device"):
-        port_extractor.forward_packed(_wavs()[:1], featurizer="device")
+    with pytest.raises(ValueError, match="featurizer"):
+        port_extractor.forward_packed(_wavs()[:1], featurizer="gpu")
     with pytest.raises(ValueError, match="matmul_precision"):
         port.MelHuBERTExtractor(ckpts["dense"], device="cpu",
                                 matmul_precision="bf16")

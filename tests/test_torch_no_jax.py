@@ -43,6 +43,14 @@ out = ext.forward_packed([rng.standard_normal(n).astype(np.float32) * 0.1
                           for n in (8000, 16000, 3000)])
 h = out["last_hidden_state"]
 assert h.shape == (3, 128, 128) and bool(h.isfinite().all())
+dev = ext.forward_packed([rng.standard_normal(n).astype(np.float32) * 0.1
+                          for n in (8000, 3000)], featurizer="device")
+assert bool(dev["last_hidden_state"].isfinite().all())
+for new in ("cluster", "ops.kmeans", "s3prl.expert", "s3prl.hubconf"):
+    assert "speech_ssl_compression_tpu_torch." + new in names, new
+from speech_ssl_compression_tpu_torch.ops.kmeans import kmeans_fit
+centers, _ = kmeans_fit(0, [h[0].numpy()], 4, device="cpu")
+assert centers.shape == (4, 128)
 assert sys.modules["jax"] is None
 assert sys.modules["speech_ssl_compression_tpu"] is None
 print("modules", len(names), "rows", out["n_packed_rows"])
