@@ -192,6 +192,37 @@ result line):
             pretrain grad step and one update; the grad step's peak memory
             and what the teacher's forward leaves allocated (its logits
             and nothing more);
+  long      the long-sequence paths at full width. The 10 ms recipe
+            through the trainer's entry point (python -m
+            speech_ssl_compression_tpu_torch.train -m melhubert -f 10,
+            configs/melhubert/config_{model,runner}_10ms.yaml cut to one
+            update of the shipped 8 micro-batches of B = 4 x T = 1500
+            crops, bf16, dropout 0.1) on the train phase's set: launches,
+            the batch's shape; its f32 grad step with the kernels against
+            impl="dense" (TF32 off, dropout off, a fixed span mask); its
+            bf16 grad step with and without remat (dropout on, the same
+            generators, cuDNN deterministic): every gradient bitwise, the
+            peak memory of each, the forwards the recompute adds, the
+            times, and one update's. T = 8192 extraction from its
+            checkpoint: one utterance of 1,311,000 samples (8192 frames of
+            10 ms) through MelHuBERTExtractor.forward in f32 and bf16 and
+            with featurizer="device", and the fp = 10 serve batch through
+            forward_packed; against impl="dense" at full T (SLICE_BAR),
+            bf16 against f32 (BF16_SLICE_BAR), the device featurizer
+            against the host's (WAVE_BAR); frames/s and x realtime. The
+            attention kernels at (1, 12, 8192, 64) against their plain
+            versions (f32 in float64; bf16 by the straddle rule), timed
+            beside them and SDPA. T = 8192 distillation (bench.py's
+            long-form row: B = 1, nomasked, dropouts 0) of the 10 ms run's
+            model into the 10 ms recipe's 6-layer student through
+            make_distill_grad_step and the fused apply, LONG_DISTILL_STEPS
+            updates in f32 and in bf16: launches; each student layer's
+            attention call, as captured (q, k, v, dO), against the plain
+            backward (f32 in float64; bf16 by the straddle rule); the
+            whole f32 step against impl="dense" (its memory reckoned
+            first); the update's time and peak memory. Fails unless the
+            forward, dQ and dK/dV kernels each launched past T = 4096
+            (the calls JAX sends to its streamed kernels) on these paths;
   conv      the strided-conv forward, dW and dX kernels against their plain
             version at the shapes of HuBERT's frontend layers 1-6 in the
             training batch, at T = 777 / 515, at the ragged edges of the
@@ -246,17 +277,17 @@ result line):
             recipes (configs/{weight_pruning,head_pruning/l1,row_pruning}/
             <upstream>_config_runner.yaml: B = 12 x 250,000 samples,
             wav2vec 2.0 weight pruning B = 4) with the events moved to
-            consecutive updates from the first on (WAVE_EVENTS): HuBERT
-            l1 head pruning's 11 events to one head a layer, the other
-            five pairs one event and one update (wav2vec 2.0 row
+            consecutive updates from the first on (WAVE_EVENTS): each
+            pair one event and one update (HuBERT l1 head pruning the
+            first of its 11, to 11 heads a layer; wav2vec 2.0 row
             pruning's of 128 rows); per run its
             launches (every kernel per grad step, bf16), its events and
             each event's host seconds (the artifact's save apart); HuBERT
             head pruning: each event's heads against a host recompute of
             the l1 scores on the artifact before it, the live bytes
             around each event, the bf16 attention kernels against their
-            plain versions at (12, h, 782, 64), h = 12 ... 1, with the
-            pad key, dropout 0 and 0.1, the one-head last-step.npz
+            plain versions at (12, h, 782, 64), h = 12 and 11, with the
+            pad key, dropout 0 and 0.1, the head-pruned last-step.npz
             through the HuBERT expert (the trainer's weights, a training
             forward) and its frames/s beside the full model's, f32;
             activation checkpointing: one bf16 HuBERT grad step at
@@ -324,7 +355,9 @@ each, its dispatch included), bound_ms (the larger of the FLOPs at the
 dtype's peak, 165 TFLOP/s f32 (495 / 3: f32-accurate products in split
 TF32 on the tensor cores) or 989 TFLOP/s bf16, and the bytes at 3.35
 TB/s) and bound_by; launches (the main paths' runs), launches_by_dtype and
-launches_by_path (per dtype). The attention
+launches_by_path (per dtype); for the attention kernels also
+launches_past_4096 and launches_past_4096_by_path, the long phase's
+launches with max(Tq, Tk) past JAX's stream threshold. The attention
 kernels' ms times their launches alone (launch_fwd, launch_bwd_dq,
 launch_bwd_dkv on prebuilt masks); the forward's wrapper_ms times
 flash_attention (or flash_attention_kv_full), the call the model makes,
@@ -411,7 +444,8 @@ GRAD_BAR = 1e-4  # rel. L2, loss and every gradient: kernels vs impl="dense"
 SERVE_LENGTHS = (101,) * 8 + (792,) * 8
 CAPACITY = 896  # pack row width those lengths give (792 rounded up to 128)
 RECT_VALID_KEYS = 4800  # of the 5000 keys of the rectangular case
-TIMED_CASES = ("serving", "training_dropout", "long", "rectangular")
+TIMED_CASES = ("serving", "training_dropout", "long", "rectangular",
+               "long_8192")
 F32_BAR, LSE_BAR = 1e-4, 1e-4  # max |d| / mean |ref|; lse max |d|
 BF16_ULP_BAR = 1.0     # max |d| in bf16 ulps of max(|ref|, mean |ref|)
 BF16_SHARE_BAR = 0.03  # share of valid bf16 outputs that differ at all
@@ -512,6 +546,17 @@ DISTILL_DIR = ROOT / "configs" / "distillation"
 # run A's updates of the shipped distillation recipe (a cut in depth for the
 # script's time)
 DISTILL_STEPS = 1
+# the long phase (bench.py's long-form rows, JAX package :395, :797, :979):
+# the shipped 10 ms recipe, one update; one utterance of LONG_SAMPLES
+# samples, (N - 400) // 160 + 1 = LONG_T frames of 10 ms with snip edges;
+# the 10 ms distillation student (dropouts 0) under a 12-layer 10 ms
+# teacher at B = 1, LONG_DISTILL_STEPS updates a dtype
+TEN_MS_MODEL_YAML = ROOT / "configs" / "melhubert" / "config_model_10ms.yaml"
+TEN_MS_RUNNER_YAML = (ROOT / "configs" / "melhubert" /
+                      "config_runner_10ms.yaml")
+DISTILL_10MS_YAML = DISTILL_DIR / "config_model_10ms.yaml"
+LONG_T, LONG_SAMPLES = 8192, 1_311_000
+LONG_DISTILL_STEPS = 2
 HUBERT_YAML = ROOT / "configs" / "hubert" / "config_model.yaml"
 HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
 HUBERT_TRAIN = (4, 245760)  # B x samples: train/wave_bench.py's recipe
@@ -522,13 +567,14 @@ W2V2_TRAIN = (12, 250000)   # B x samples: the shipped recipe's batch
 W2V2_PARITY = (2, 250000, 200000)  # B x samples, row 1's valid samples
 # the wave prune phase: the shipped runner YAMLs of the waveform models'
 # pruning modes, and each (upstream, mode) pair's events, one before each
-# update from the first on: HuBERT's l1 head pruning to one head a layer
-# (the recipe's 11), the other five pairs one (wav2vec 2.0's weight and
-# row pruning took 2 until the wave serve phase came: a cut in depth for
-# the script's time; the MelHuBERT phases chain events on the same code)
+# update from the first on, one event each: HuBERT's l1 head pruning took
+# all of the recipe's 11, to one head a layer, until the long phase came,
+# wav2vec 2.0's weight and row pruning 2 until the wave serve phase came:
+# cuts in depth for the script's time (the MelHuBERT phases chain events
+# on the same code, and reach one head a layer)
 WAVE_RECIPES = {"weight-pruning": ROOT / "configs" / "weight_pruning",
                 "head-pruning": HP_DIR / "l1", "row-pruning": RP_DIR}
-WAVE_EVENTS = {("hubert", "head-pruning"): 11,
+WAVE_EVENTS = {("hubert", "head-pruning"): 1,
                ("wav2vec2", "weight-pruning"): 1,
                ("wav2vec2", "row-pruning"): 1,
                ("hubert", "weight-pruning"): 1,
@@ -687,16 +733,22 @@ def training_cases(dev):
 
 
 def check_forward(fa, name, qs, ks, masks, valid, dtype, gen,
-                  straddles=False):
+                  straddles=False, inputs=None):
     """One forward case of phase_kernels: the kernel on random q, k, v
-    of ``dtype`` drawn from ``gen`` against the plain version at the
-    bars above (``straddles``: a bf16 entry may lie past one ulp where
-    straddling p explain it). Logs the comparison, raises where the two
-    disagree, and returns (q, k, v, max |d| of the output)."""
+    of ``dtype`` drawn from ``gen`` (or the given ``inputs``, (q, k, v) of
+    a model's call) against the plain version at the bars above
+    (``straddles``: a bf16 entry may lie past one ulp where straddling p
+    explain it). Logs the comparison, raises where the two disagree, and
+    returns (q, k, v, max |d| of the output). A model's bf16 call need not
+    show the control's share, as check_backward says; its share is
+    logged."""
     t0 = time.perf_counter()
-    q = torch.randn(qs, generator=gen, device=gen.device).to(dtype)
-    k = torch.randn(ks, generator=gen, device=gen.device).to(dtype)
-    v = torch.randn(ks, generator=gen, device=gen.device).to(dtype)
+    if inputs is None:
+        q = torch.randn(qs, generator=gen, device=gen.device).to(dtype)
+        k = torch.randn(ks, generator=gen, device=gen.device).to(dtype)
+        v = torch.randn(ks, generator=gen, device=gen.device).to(dtype)
+    else:
+        q, k, v = inputs
     # the bound is built from the inputs, before the kernel runs
     bound = (fa.bf16_forward_straddle_bounds(q, k, v, **masks)
              if dtype == torch.bfloat16 else None)
@@ -764,7 +816,7 @@ def check_forward(fa, name, qs, ks, masks, valid, dtype, gen,
             # is that key's V row, and must be its bits
             ok = ok and share == 0.0
             detail += " (one key: bar 0% differing)"
-        elif not ctl_share >= BF16_SHARE_BAR:
+        elif inputs is None and not ctl_share >= BF16_SHARE_BAR:
             raise AssertionError(
                 f"bf16 check at {name} cannot tell a kernel that "
                 f"leaves P in f32 apart ({ctl_share:.3%} differ)")
@@ -893,19 +945,33 @@ def rows_of(valid, shape):
 
 
 def check_backward(fa, name, qs, ks, masks, valid_q, valid_k, dtype,
-                   gen):
+                   gen, inputs=None):
     """One backward case of phase_backward: the dQ and dK/dV kernels on
     the forward kernel's (out, lse) of random q, k, v and dO of
-    ``dtype`` drawn from ``gen`` against the plain backward at the bars
-    above. Logs the comparison, raises where they disagree, and
-    returns (the backward_args tuple, max |d| of dq, dk and dv)."""
+    ``dtype`` drawn from ``gen`` (or the given ``inputs``, (q, k, v, dO)
+    of a model's call) against the plain backward at the bars above.
+    Logs the comparison, raises where they disagree, and returns (the
+    backward_args tuple, max |d| of dq, dk and dv).
+
+    In bf16 the control (the plain backward with dS and Pd left in f32)
+    must differ from the plain version in BF16_SHARE_BAR of the entries,
+    or the check could not see the kernels' rounding of dS and Pd. A
+    model's call (``inputs``) need not show it: where its gradients are
+    sums over many keys of terms far below their rounding, the rounding
+    of dS and Pd moves few bf16 outputs (the random inputs at the same
+    shape carry that proof). There the control's share is logged, and
+    every gradient's rel. L2 from the plain backward in float64 beside
+    the plain bf16 backward's own."""
     t0 = time.perf_counter()
-    q, dout = (torch.randn(qs, generator=gen, device=gen.device).to(dtype)
-               for _ in range(2))
+    if inputs is None:
+        q, dout = (torch.randn(qs, generator=gen, device=gen.device).to(
+            dtype) for _ in range(2))
+        k, v = (torch.randn(ks, generator=gen, device=gen.device).to(dtype)
+                for _ in range(2))
+    else:
+        q, k, v, dout = inputs
     # padded query rows carry dO = 0, as they do in the model
     dout = dout.masked_fill(~valid_q[:, None, :, None], 0.0)
-    k, v = (torch.randn(ks, generator=gen, device=gen.device).to(dtype)
-            for _ in range(2))
     if ks != qs:
         out, lse = fa.flash_attention_kv_full(q, k, v, return_lse=True,
                                               **masks)
@@ -976,7 +1042,14 @@ def check_backward(fa, name, qs, ks, masks, valid_q, valid_k, dtype,
             in zip(names, diffs, ctl, n_valid))
         detail += (f"; bars {BF16_SHARE_BAR:.0%}, 1 ulp + straddle "
                    f"bound, {BF16_BEYOND_BAR:.1%} beyond 1 ulp")
-        if not all(csh >= BF16_SHARE_BAR for csh, _ in ctl):
+        if inputs is not None:
+            exact = fa.reference_bwd(*fa.float64_args(args))[:3]
+            detail += "; rel L2 from the plain version in float64: " + \
+                ", ".join(f"{n} {rel_l2(g, e, s):.3e} (plain bf16 "
+                          f"{rel_l2(r, e, s):.3e})" for n, g, r, e, s
+                          in zip(names, got, ref, exact, sel))
+            del exact
+        elif not all(csh >= BF16_SHARE_BAR for csh, _ in ctl):
             raise AssertionError(
                 f"bf16 backward check at {name} cannot tell kernels "
                 "that leave dS and Pd in f32 apart")
@@ -1015,11 +1088,13 @@ def phase_backward(dev, gpu: str):
     return record
 
 
-def backward_timing(args, case: str, tag: str, record: dict, gpu: str):
+def backward_timing(args, case: str, tag: str, record: dict, gpu: str,
+                    inner: int = 5):
     """CUDA-event times, in turns, of the dQ kernel against its plain
     version (reference_dd, then reference_bwd_dq: the kernel computes D
     itself) and of the dK/dV kernel against reference_bwd_dkv, on one
-    backward_args tuple; into record[kernel, case, tag]."""
+    backward_args tuple, ``inner`` calls a median; into record[kernel,
+    case, tag]."""
     from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
 
     _, dd = fa.launch_bwd_dq(*args)
@@ -1032,7 +1107,7 @@ def backward_timing(args, case: str, tag: str, record: dict, gpu: str):
             ("flash_attn_bwd_dq", lambda: fa.launch_bwd_dq(*args), dq_plain),
             ("flash_attn_bwd_dkv", lambda: fa.launch_bwd_dkv(*args, dd),
              lambda: fa.reference_bwd_dkv(*args, ref_dd))):
-        kernel_ms, plain_ms = alternate(kernel, plain, inner=5)
+        kernel_ms, plain_ms = alternate(kernel, plain, inner=inner)
         record.setdefault((name, case, tag), {}).update(ms=kernel_ms,
                                                         plain_ms=plain_ms)
         log("timing", f"{name} {case} q{tuple(args[0].shape)} "
@@ -2518,19 +2593,550 @@ def phase_distill(dev, gpu: str, tmp: str, one_head: pathlib.Path,
     return counts
 
 
+def long_launch_counts():
+    """The attention kernels' launches with max(Tq, Tk) past the stream
+    threshold (JAX's streamed kernels' calls), per input dtype, a copy."""
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    return {name: dict(c) for name, c in fa.long_launch_counts.items()}
+
+
+def long_wav(seed: int) -> np.ndarray:
+    """LONG_SAMPLES samples of 16 kHz tones and noise."""
+    return tones_and_noise(np.random.default_rng(seed), LONG_SAMPLES)
+
+
+def long_10ms_train(dev, gpu: str, tmp: str, root: pathlib.Path):
+    """The 10 ms recipe through the trainer's entry point (one update of the
+    shipped 8 micro-batches of B = 4 x T = 1500, bf16, dropout 0.1) on the
+    train phase's set, then the checks on its model: the f32 grad step with
+    the kernels against impl="dense", and the bf16 grad step with and
+    without remat. Returns (runner, launch counts per dtype, those past the
+    stream threshold)."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        accumulate_grads, make_melhubert_grad_step,
+    )
+
+    t0 = time.perf_counter()
+    rc = read_yaml(TEN_MS_RUNNER_YAML)
+    rc["runner"].update(n_epochs=0, total_steps=1, log_step=1)
+    rc["datarc"].update(sets=[str(pathlib.Path(tmp) / "train" / "data" /
+                                  "train.csv")], num_workers=1)
+    runner_yaml = root / "config_runner_10ms.yaml"
+    runner_yaml.write_text(to_yaml(rc) + "\n")
+    reset_launch_counts()
+    runner = train(["-m", "melhubert", "-f", "10", "-g",
+                    str(TEN_MS_MODEL_YAML), "-c", str(runner_yaml), "-n",
+                    str(root / "exp"), "--device", dev.type, "--seed", "0"])
+    torch.cuda.synchronize()
+    counts, long_counts = dtype_launch_counts(), long_launch_counts()
+    cfg, accum = runner.cfg, runner.accum_steps
+    batch = runner._device_batch(runner._get_dataloader().get_batch(0))
+    b, t, f = batch["feat"].shape
+    hist = runner.log_history
+    log("long", f"-m melhubert -f 10 (config_{{model,runner}}_10ms.yaml): "
+        f"{cfg.encoder_layers}L/{cfg.encoder_embed_dim}, {f}-d input, "
+        f"{runner.compute_dtype}, dropout {cfg.dropout:g}, 1 update x "
+        f"{accum} micro-batches of B = {b}, T = {t} (crops of "
+        f"{int(batch['length'].max())}); launches {counts}; loss "
+        f"{hist[-1]['loss']:.6f}, grad norm {hist[-1]['grad_norm']:.6f}; "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    tag = "bf16" if runner.compute_dtype == torch.bfloat16 else "f32"
+    want = {k: {"f32": 0, "bf16": 0} for k in fa.launch_counts}
+    for k in want:
+        want[k][tag] = cfg.encoder_layers * accum
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"10 ms launch counts {counts}, want {want}")
+    if (f, cfg.feat_emb_dim) != (40, 40) or int(batch["length"].max()) != (
+            read_yaml(TEN_MS_MODEL_YAML)["task"]["sequence_length"]):
+        raise AssertionError(f"10 ms batch {tuple(batch['feat'].shape)}")
+    if [e["step"] for e in hist] != [1] or not np.isfinite(
+            [hist[0]["loss"], hist[0]["grad_norm"]]).all():
+        raise AssertionError(f"trainer log {hist}")
+
+    # the f32 grad step with the kernels against impl="dense"
+    t0 = time.perf_counter()
+    mask = torch.from_numpy(span_mask(cfg, batch["length"], t,
+                                      np.random.default_rng(0))).to(dev)
+    results = {}
+    for impl in ("auto", "dense"):
+        step = make_melhubert_grad_step(runner.model, attn_impl=impl,
+                                        deterministic=True)
+        fa.reset_launch_counts()
+        with matmul_precision("highest"):
+            loss, grads, _ = step(runner.params, batch, torch.Generator(),
+                                  mask_indices=mask)
+        torch.cuda.synchronize()
+        results[impl] = (loss, grads, dict(fa.launch_counts))
+    (loss_k, grads_k, n_k), (loss_d, grads_d, n_d) = results.values()
+    loss_rel = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
+    names = list(runner.params)
+    errs = grad_errors(names, grads_k, grads_d)
+    worst = int(np.argmax(errs))
+    log("long", f"10 ms grad step B = {b}, T = {t}, kernels vs impl='dense' "
+        f"(f32, TF32 off, dropout off, fixed span mask of mask_length "
+        f"{cfg.mask_length}): loss rel {loss_rel:.3e}; worst of {len(errs)} "
+        f"gradients rel L2 {errs[worst]:.3e} ({names[worst]}), bar "
+        f"{GRAD_BAR:g}; launches {n_k} and {n_d}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (loss_rel < GRAD_BAR and max(errs) < GRAD_BAR):
+        raise AssertionError("10 ms gradients disagree with the dense path")
+    if set(n_k.values()) != {cfg.encoder_layers} or any(n_d.values()):
+        raise AssertionError("the 10 ms parity run took the wrong path")
+    del results, grads_k, grads_d
+
+    # remat: the bf16 grad step (dropout on) with and without it, from the
+    # same generators, cuDNN deterministic: bitwise gradients, peak memory,
+    # the forwards the recompute adds, times
+    t0 = time.perf_counter()
+    frames = int(batch["length"].sum())
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    out, steps = {}, {}
+    try:
+        for remat in (False, True):
+            steps[remat] = make_melhubert_grad_step(
+                runner.model, compute_dtype=runner.compute_dtype,
+                remat=remat)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            loss, grads, _ = steps[remat](runner.params, batch,
+                                          torch.Generator().manual_seed(11),
+                                          mask_indices=mask)
+            torch.cuda.synchronize()
+            out[remat] = (loss, grads, launch_counts(),
+                          torch.cuda.max_memory_allocated(dev) - base)
+        ms = {remat: cuda_ms(lambda s=s: s(
+            runner.params, batch, torch.Generator().manual_seed(11),
+            mask_indices=mask)) for remat, s in steps.items()}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+            flags)
+    (loss_a, grads_a, n_a, peak_a), (loss_b, grads_b, n_b, peak_b) = (
+        out[False], out[True])
+    bitwise = [bool(torch.equal(x, y)) for x, y in zip(grads_a, grads_b)]
+    extra = {k: n_b[k] - n_a[k] for k in fa.launch_counts}
+    log("long", f"remat, one {runner.compute_dtype} 10 ms grad step (B = "
+        f"{b}, T = {t}, dropout {cfg.dropout:g}, the same generators): loss "
+        f"{float(loss_a):.6f} off, {float(loss_b):.6f} on; {sum(bitwise)} of "
+        f"{len(bitwise)} gradients bitwise equal; peak memory above the "
+        f"model {peak_a} B off, {peak_b} B on ({peak_b / peak_a:.3f}x); the "
+        f"recompute's launches {extra}; {time.perf_counter() - t0:.2f} s")
+    if not (torch.equal(loss_a, loss_b) and all(bitwise)):
+        raise AssertionError("remat changes the 10 ms gradients")
+    if extra != {"flash_attn_fwd": cfg.encoder_layers, "flash_attn_bwd_dq": 0,
+                 "flash_attn_bwd_dkv": 0} or not peak_b < peak_a:
+        raise AssertionError("remat did not recompute the layers or saved "
+                             "no memory")
+    del out, grads_a, grads_b
+
+    def update():
+        acc = None
+        for _ in range(accum):
+            acc = accumulate_grads(acc, steps[False](
+                runner.params, batch, runner.rng, mask_indices=mask)[1])
+        runner.apply(acc, float(accum))
+
+    update_ms = cuda_ms(update, reps=1, warm=False)
+    log("timing", f"10 ms {runner.compute_dtype} grad step B = {b}, T = {t} "
+        f"({frames} frames): remat off {ms[False]:.2f} ms "
+        f"({frames / ms[False] * 1e3:.0f} frames/s), on {ms[True]:.2f} ms "
+        f"({frames / ms[True] * 1e3:.0f} frames/s, {ms[True] / ms[False]:.3f}"
+        f"x); one update ({accum} micro-batches + apply) {update_ms:.2f} ms, "
+        f"{accum * frames / update_ms * 1e3:.0f} frames/s [{gpu}]")
+    del steps
+    return runner, counts, long_counts
+
+
+def long_serve(dev, gpu: str, ckpt: str):
+    """T = LONG_T extraction from the 10 ms checkpoint ``ckpt``: one
+    utterance through MelHuBERTExtractor.forward in f32 (host featurizer)
+    and bf16, and in f32 with featurizer="device", and the fp = 10 serve
+    batch (bench.py's 16 utterances) through forward_packed, f32; then the
+    kernel route against impl="dense" at full T, bf16 against f32, the
+    device featurizer against the host's, and the rates. Returns (launch
+    counts per dtype, those past the stream threshold)."""
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    exts = {dtype: MelHuBERTExtractor(
+        ckpt, fp=10, mean_std_npy_path=str(MEAN_STD), dtype=dtype,
+        matmul_precision="highest", device=dev)
+        for dtype in (torch.float32, torch.bfloat16)}
+    ext = exts[torch.float32]
+    n_layers = ext.cfg.encoder_layers
+    wav, wavs = long_wav(1), synthetic_wavs(0)
+    log("long", f"10 ms checkpoint served by two extractors (f32, bf16); "
+        f"one utterance of {LONG_SAMPLES} samples "
+        f"({LONG_SAMPLES / 16000:.2f} s), {time.perf_counter() - t0:.2f} s")
+
+    # the main path: counts from exactly these forwards
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = ext.forward([wav])
+    out_dev = ext.forward([wav], featurizer="device")
+    out_bf16 = exts[torch.bfloat16].forward([wav])
+    packed = ext.forward_packed(wavs)
+    torch.cuda.synchronize()
+    counts, long_counts = dtype_launch_counts(), long_launch_counts()
+    t = out["last_hidden_state"].shape[1]
+    log("long", f"forward f32 (host and device featurizer) and bf16 of one "
+        f"utterance: lengths {out['lengths']}, {t} frames, hidden "
+        f"{tuple(out['last_hidden_state'].shape)}; forward_packed f32 of "
+        f"the fp = 10 serve batch ({len(wavs)} utterances, "
+        f"{sum(packed['lengths'])} frames in {packed['n_packed_rows']} rows "
+        f"of {packed['last_hidden_state'].shape[1]}); launches "
+        f"{counts['flash_attn_fwd']}, past the stream threshold "
+        f"{long_counts['flash_attn_fwd']}, {time.perf_counter() - t0:.2f} s")
+    if out["lengths"] != [LONG_T]:
+        raise AssertionError(f"{out['lengths']} frames, want [{LONG_T}]")
+    if (counts["flash_attn_fwd"] != {"f32": 3 * n_layers, "bf16": n_layers}
+            or long_counts["flash_attn_fwd"] != {"f32": 2 * n_layers,
+                                                 "bf16": n_layers}):
+        raise AssertionError(f"long serve launches {counts}, past the "
+                             f"threshold {long_counts}")
+
+    t0 = time.perf_counter()
+    valid = torch.arange(t, device=dev)[None, :] < LONG_T
+    states = lambda o: o["hidden_states"] + [o["last_hidden_state"]]
+    if not all(torch.isfinite(s.float()[valid]).all()
+               for o in (out, out_dev, out_bf16) for s in states(o)):
+        raise AssertionError("non-finite long output")
+    ext.attn_impl = "dense"
+    ref = ext.forward([wav])
+    ref_packed = ext.forward_packed(wavs)
+    ext.attn_impl = "auto"
+    torch.cuda.synchronize()
+    err = max(rel_err(a, b, valid) for a, b in zip(states(out), states(ref)))
+    err_bf16 = max(rel_l2(a, b, valid) for a, b in zip(states(out_bf16),
+                                                       states(ref)))
+    err_dev = max(rel_err(a, b, valid) for a, b in zip(states(out_dev),
+                                                       states(out)))
+    lengths = torch.tensor(packed["lengths"], device=dev)
+    valid_p = (torch.arange(packed["last_hidden_state"].shape[1],
+                            device=dev)[None, :] < lengths[:, None])
+    err_packed = max(rel_err(a, b, valid_p) for a, b in zip(
+        states(packed), states(ref_packed)))
+    log("long", f"T = {t}, all hidden states: kernel vs impl='dense' (f32, "
+        f"TF32 off) max|d|/mean|ref| {err:.3e} (bar {SLICE_BAR:g}); bf16 vs "
+        f"f32 |d|_2/|ref|_2 {err_bf16:.3e} (bar {BF16_SLICE_BAR:g}); device "
+        f"featurizer vs host max|d|/mean|ref| {err_dev:.3e} (bar "
+        f"{WAVE_BAR:g}); the fp = 10 batch kernel vs impl='dense' "
+        f"{err_packed:.3e} (bar {SLICE_BAR:g}), "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (err < SLICE_BAR and err_bf16 < BF16_SLICE_BAR
+            and err_dev < WAVE_BAR and err_packed < SLICE_BAR):
+        raise AssertionError("long serving disagrees")
+    del ref, ref_packed, out, out_dev, out_bf16, packed
+
+    # the first and last layers' attention calls of the f32 and bf16
+    # forwards, as captured, against the plain version
+    t0 = time.perf_counter()
+    for dtype, e in exts.items():
+        captured, undo = capture_attention("flash_attention")
+        try:
+            e.forward([wav])
+        finally:
+            undo()
+        for i in (0, n_layers - 1):
+            q, k, v, pad, _ = captured[i]
+            check_forward(fa, f"long_serve_layer{i}", tuple(q.shape),
+                          tuple(k.shape), dict(key_padding_mask=pad),
+                          ~pad, dtype, None, straddles=True,
+                          inputs=(q, k, v))
+        del captured
+    log("long", f"T = {LONG_T} serving's attention calls of layers 0 and "
+        f"{n_layers - 1}, f32 and bf16, as captured: within the bars of "
+        f"the kernels phase, {time.perf_counter() - t0:.2f} s")
+
+    frames = int(lengths.sum())
+    ms = {dtype: cuda_ms(lambda e=e: e.forward([wav], featurizer="device"))
+          for dtype, e in exts.items()}
+    batch_ms = cuda_ms(lambda: ext.forward_packed(wavs, featurizer="device"))
+    log("timing", ", ".join(
+        f"T = {LONG_T} from a waveform, device featurizer, {dtype}: "
+        f"{m:.2f} ms, {LONG_T / m * 1e3:.0f} frames/s, "
+        f"{LONG_SAMPLES / 16000 / m * 1e3:.1f}x realtime"
+        for dtype, m in ms.items())
+        + f"; the fp = 10 serve batch f32 {batch_ms:.2f} ms, "
+        f"{frames / batch_ms * 1e3:.0f} frames/s [{gpu}]")
+    return counts, long_counts
+
+
+def long_kernels(dev, gpu: str, heads: int, record: dict) -> None:
+    """The attention kernels at (1, heads, LONG_T, 64), the shape of the
+    long paths, on random inputs: the forward against its plain version
+    (f32 in float64, bf16 in its key tiles), the dQ and dK/dV kernels
+    against the plain backward, f32 and bf16, and the times of each kernel
+    and its plain version into record[kernel, "long_8192", tag]."""
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shape = (1, heads, LONG_T, 64)
+    rows = torch.ones((1, LONG_T), dtype=torch.bool, device=dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        # 8192 keys a row: a few p that straddle a bf16 rounding point can
+        # move an entry past one ulp, as at the ragged heads' shapes
+        q, k, v, max_abs = check_forward(fa, "long_8192", shape, shape, {},
+                                         rows, dtype, gen, straddles=True)
+        args = fa.forward_args(q, k, v)
+        kernel_ms, plain_ms = alternate(
+            lambda: fa.launch_fwd(*args),
+            lambda: fa.flash_attention_reference(q, k, v))
+        wrapper_ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+        record["flash_attn_fwd", "long_8192", tag] = dict(
+            max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+            wrapper_ms=wrapper_ms)
+        log("timing", f"flash_attn_fwd long_8192 {tag} {shape}: kernel "
+            f"{kernel_ms:.3f} ms, wrapper {wrapper_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms [{gpu}]")
+        del q, k, v, args
+        args, abs_errs = check_backward(fa, "long_8192", shape, shape, {},
+                                        rows, rows, dtype, gen)
+        record.setdefault(("flash_attn_bwd_dq", "long_8192", tag), {})[
+            "max_abs_err"] = abs_errs[0]
+        record.setdefault(("flash_attn_bwd_dkv", "long_8192", tag), {})[
+            "max_abs_err"] = max(abs_errs[1:])
+        backward_timing(args, "long_8192", tag, record, gpu, inner=1)
+        del args
+    log("long", f"attention kernels at {shape}, f32 and bf16: forward, dQ "
+        f"and dK/dV within the bars of the kernels and backward phases, "
+        f"timed, {time.perf_counter() - t0:.2f} s")
+
+
+def long_distill(dev, gpu: str, teacher):
+    """T = LONG_T distillation, B = 1, nomasked, dropouts 0 (bench.py's
+    long-form row): ``teacher`` (the 10 ms run's model, 12 layers) into
+    the 10 ms recipe's 6-layer student, LONG_DISTILL_STEPS updates through
+    make_distill_grad_step and the fused apply in f32 and in bf16; then
+    each captured student attention call against the plain backward, the
+    whole f32 step against impl="dense", the times and the peak memory.
+    Returns (launch counts per dtype, those past the stream threshold)."""
+    from speech_ssl_compression_tpu_torch.configs import (
+        MelHuBERTConfig, read_yaml,
+    )
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        fused_apply, init_opt_state, make_distill_grad_step, make_optimizer,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_params_np, load_model,
+    )
+
+    t0 = time.perf_counter()
+    scfg = MelHuBERTConfig.from_dict(dict(
+        read_yaml(DISTILL_10MS_YAML)["student"], dropout=0.0,
+        attention_dropout=0.0, activation_dropout=0.0))
+    student = load_model(init_params_np(scfg, 1), scfg).to(dev)
+    tcfg = teacher.cfg
+    rng = np.random.default_rng(3)
+    batch = {"feat": torch.from_numpy(rng.standard_normal(
+        (1, LONG_T, scfg.feat_emb_dim)).astype(np.float32)).to(dev),
+        "label": torch.from_numpy(rng.integers(
+            0, tcfg.num_cluster, (1, LONG_T))).to(dev),
+        "pad_mask": torch.ones((1, LONG_T), device=dev),
+        "length": np.array([LONG_T])}
+    hyper = make_optimizer(lr=1e-4)
+    dtypes = (torch.float32, torch.bfloat16)
+    steps = {dtype: make_distill_grad_step(
+        teacher, student, temperature=1.0, alpha=1.0, loss_type="nomasked",
+        compute_dtype=dtype) for dtype in dtypes}
+    state = {dtype: {k: torch.nn.Parameter(p.detach().clone())
+                     for k, p in student.named_parameters()}
+             for dtype in dtypes}
+    opt = {dtype: init_opt_state(list(state[dtype].values()))
+           for dtype in dtypes}
+
+    def update(dtype):
+        loss, grads, logs = steps[dtype](state[dtype], batch,
+                                         torch.Generator())
+        fused_apply(hyper, list(state[dtype].values()), opt[dtype], grads,
+                    1.0)
+        return loss
+
+    # the main path: counts from exactly these updates
+    reset_launch_counts()
+    losses = {dtype: [float(update(dtype)) for _ in range(
+        LONG_DISTILL_STEPS)] for dtype in dtypes}
+    torch.cuda.synchronize()
+    counts, long_counts = dtype_launch_counts(), long_launch_counts()
+    n = LONG_DISTILL_STEPS
+    want = {"flash_attn_fwd": n * (tcfg.encoder_layers + scfg.encoder_layers),
+            "flash_attn_bwd_dq": n * scfg.encoder_layers,
+            "flash_attn_bwd_dkv": n * scfg.encoder_layers}
+    log("long", f"distillation at T = {LONG_T}, B = 1, nomasked, dropouts 0: "
+        f"teacher {tcfg.encoder_layers}L/{tcfg.encoder_embed_dim} -> student "
+        f"{scfg.encoder_layers}L, {n} updates in f32 and in bf16: losses "
+        f"{ {str(d): [round(x, 6) for x in v] for d, v in losses.items()} }; "
+        f"launches {counts}, past the stream threshold {long_counts}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, k in want.items():
+        if not (counts[name] == long_counts[name] == {"f32": k, "bf16": k}):
+            raise AssertionError(f"long distill launches {counts}, past the "
+                                 f"threshold {long_counts}, want {want}")
+    if not np.isfinite([x for v in losses.values() for x in v]).all():
+        raise AssertionError(f"long distill losses {losses}")
+
+    # each student attention call of one grad step per dtype, as captured
+    # (q, k, v and dO per layer), against the plain backward
+    t0 = time.perf_counter()
+    rows = torch.ones((1, LONG_T), dtype=torch.bool, device=dev)
+    for dtype in dtypes:
+        captured, undo = capture_attention("flash_attention")
+        try:
+            steps[dtype](state[dtype], batch, torch.Generator())
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        # the student's calls: the teacher's record no graph, and no dO
+        captured = [e for e in captured if len(e) == 6]
+        if len(captured) != scfg.encoder_layers:
+            raise AssertionError(f"{len(captured)} student calls captured")
+        for i, (q, k, v, pad, _, do) in enumerate(captured):
+            check_backward(fa, f"long_distill_layer{i}", tuple(q.shape),
+                           tuple(k.shape), dict(key_padding_mask=pad), rows,
+                           ~pad, dtype, None, inputs=(q, k, v, do))
+        del captured
+    log("long", f"the {scfg.encoder_layers} student layers' attention calls "
+        f"of one grad step, f32 and bf16, as captured: dQ and dK/dV within "
+        f"the bars of the backward phase, {time.perf_counter() - t0:.2f} s")
+
+    # the whole f32 step with the kernels against impl="dense": the plain
+    # autograd keeps each student layer's softmax output, (1, H, T, T) f32
+    t0 = time.perf_counter()
+    heads = scfg.encoder_attention_heads[0]
+    p_bytes = heads * LONG_T * LONG_T * 4
+    free, total = torch.cuda.mem_get_info(dev)
+    # what the caching allocator holds and no tensor uses is free to it
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    need = (scfg.encoder_layers + 4) * p_bytes
+    log("long", f"the dense f32 step at T = {LONG_T} keeps "
+        f"{scfg.encoder_layers} x {p_bytes / 2**30:.2f} GiB of softmax "
+        f"outputs and holds ~4 more of them at once: ~{need / 2**30:.1f} GiB "
+        f"against {free / 2**30:.1f} GiB free of {total / 2**30:.1f}")
+    if need > 0.9 * free:
+        raise AssertionError("no room for the dense f32 step at T = "
+                             f"{LONG_T}")
+    out = {}
+    for impl in ("auto", "dense"):
+        step = make_distill_grad_step(
+            teacher, student, temperature=1.0, alpha=1.0,
+            loss_type="nomasked", attn_impl=impl, deterministic=True)
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with matmul_precision("highest"):
+            loss, grads, logs = step(state[torch.float32], batch,
+                                     torch.Generator())
+        torch.cuda.synchronize()
+        out[impl] = (loss, grads, logs, dict(fa.launch_counts),
+                     torch.cuda.max_memory_allocated(dev) - base)
+        del step
+    (loss_k, grads_k, logs_k, n_k, peak_k), (loss_d, grads_d, logs_d, n_d,
+                                             peak_d) = out.values()
+    rels = {k: abs(float(a) - float(r)) / abs(float(r)) for k, a, r in
+            [("loss", loss_k, loss_d)] + [(k, logs_k[k], logs_d[k]) for k in (
+                "hard_loss", "soft_loss", "teacher_loss")]}
+    names = list(state[torch.float32])
+    errs = grad_errors(names, grads_k, grads_d)
+    i = int(np.argmax(errs))
+    log("long", f"distill grad step at T = {LONG_T}, kernels vs impl='dense' "
+        f"(f32, TF32 off): {({k: f'{v:.3e}' for k, v in rels.items()})} rel; "
+        f"worst of {len(errs)} student gradients rel L2 {errs[i]:.3e} "
+        f"({names[i]}), bar {GRAD_BAR:g}; launches {n_k} and {n_d}; peak "
+        f"above what was allocated {peak_k} B with the kernels, {peak_d} B "
+        f"dense; {time.perf_counter() - t0:.2f} s")
+    if not (max(errs) < GRAD_BAR and max(rels.values()) < GRAD_BAR):
+        raise AssertionError("long distill gradients disagree with dense")
+    if n_k != {k: v // n for k, v in want.items()} or any(n_d.values()):
+        raise AssertionError("the long parity run took the wrong path")
+    del out, grads_k, grads_d
+
+    # the times and the peak memory of one update (grad step + apply)
+    t0 = time.perf_counter()
+    report = []
+    for dtype in dtypes:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        update(dtype)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        ms = cuda_ms(lambda d=dtype: update(d), reps=1, warm=False)
+        report.append(f"{dtype} {ms:.2f} ms ({1e3 / ms:.3f} steps/s, "
+                      f"{LONG_T / ms * 1e3:.0f} frames/s), peak above the "
+                      f"model {peak / 2**30:.2f} GiB")
+    log("timing", f"one distillation update at T = {LONG_T}, B = 1 "
+        f"(teacher forward, student forward and backward, apply): "
+        + "; ".join(report) + f"; {time.perf_counter() - t0:.2f} s [{gpu}]")
+    return counts, long_counts
+
+
+def phase_long(dev, gpu: str, tmp: str, record: dict):
+    """The long-sequence paths at full width: the 10 ms recipe, T = LONG_T
+    extraction and distillation, and the attention kernels at their
+    shape. Returns ({path: launch counts per dtype}, {path: those past the
+    stream threshold}); fails unless the forward, dQ and dK/dV kernels
+    each launched past it on these paths."""
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tmp) / "long"
+    root.mkdir()
+    paths, long_paths = {}, {}
+    runner, *counts = long_10ms_train(dev, gpu, tmp, root)
+    paths["melhubert 10ms train"], long_paths["melhubert 10ms train"] = counts
+    teacher = runner.model
+    heads = runner.cfg.encoder_attention_heads[0]
+    del runner
+    gc.collect()
+    counts = long_serve(dev, gpu, str(root / "exp" / "last-step.npz"))
+    paths["melhubert long serve"], long_paths["melhubert long serve"] = counts
+    long_kernels(dev, gpu, heads, record)
+    counts = long_distill(dev, gpu, teacher)
+    paths["melhubert long distill"], long_paths["melhubert long distill"] = (
+        counts)
+    del teacher
+    for path in root.glob("*/*.npz"):
+        path.unlink()
+    past = {name: sum(c[name][tag] for c in long_paths.values()
+                      for tag in ("f32", "bf16"))
+            for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                         "flash_attn_bwd_dkv")}
+    log("long", f"launches past the stream threshold on the long paths: "
+        f"{past}; phase {time.perf_counter() - t_phase:.2f} s")
+    if not all(past.values()):
+        raise AssertionError(f"a kernel launched nothing past T = 4096 on "
+                             f"the long paths: {past}")
+    return paths, long_paths
+
+
+def tones_and_noise(rng, samples: int) -> np.ndarray:
+    """``samples`` of 16 kHz audio: three tones drawn from ``rng`` and
+    noise, f32."""
+    t = np.arange(samples) / 16000.0
+    tone = sum(0.1 * np.sin(2 * np.pi * rng.uniform(80, 4000) * t)
+               for _ in range(3))
+    return (tone + 0.02 * rng.standard_normal(samples)).astype(np.float32)
+
+
 def synthetic_wavs(seed: int):
     """16 kHz noise + tones whose stacked 20 ms frame counts are
     SERVE_LENGTHS (n frames <- 400 + 160 * (2n - 2) samples)."""
     rng = np.random.default_rng(seed)
-    wavs = []
-    for n in SERVE_LENGTHS:
-        samples = 400 + 160 * (2 * n - 2)
-        t = np.arange(samples) / 16000.0
-        tone = sum(0.1 * np.sin(2 * np.pi * rng.uniform(80, 4000) * t)
-                   for _ in range(3))
-        wavs.append((tone + 0.02 * rng.standard_normal(samples))
-                    .astype(np.float32))
-    return wavs
+    return [tones_and_noise(rng, 400 + 160 * (2 * n - 2))
+            for n in SERVE_LENGTHS]
 
 
 def phase_slice(dev, gpu: str, tmp: str):
@@ -3978,16 +4584,18 @@ def w2v2_draws(cfg, batch, seed: int):
     return mask, counts, uniform, valid
 
 
-def capture_dense_attention():
-    """Patches ``ops.attention.dense_attention`` to keep, per call, [q, k,
-    v, key padding, O] and, once the backward has run, the gradient dO of
-    O. Returns (the list it fills, a function that undoes the patch)."""
+def capture_attention(name: str = "dense_attention"):
+    """Patches ``ops.attention.<name>`` (dense_attention or
+    flash_attention) to keep, per call, [q, k, v, key padding, O] and, once
+    the backward has run, the gradient dO of O (calls that record no graph
+    keep none). Returns (the list it fills, a function that undoes the
+    patch)."""
     from speech_ssl_compression_tpu_torch.ops import attention
 
-    dense, captured = attention.dense_attention, []
+    attend, captured = getattr(attention, name), []
 
     def capturing(q, k, v, *, key_padding_mask=None, **kwargs):
-        o = dense(q, k, v, key_padding_mask=key_padding_mask, **kwargs)
+        o = attend(q, k, v, key_padding_mask=key_padding_mask, **kwargs)
         pad = (key_padding_mask if key_padding_mask is not None else
                torch.zeros(q.shape[0], q.shape[2], dtype=torch.bool,
                            device=q.device))
@@ -3997,10 +4605,10 @@ def capture_dense_attention():
             o.register_hook(lambda g: entry.append(g.detach()))
         return o
 
-    attention.dense_attention = capturing
+    setattr(attention, name, capturing)
 
     def undo():
-        attention.dense_attention = dense
+        setattr(attention, name, attend)
 
     return captured, undo
 
@@ -4185,7 +4793,7 @@ def phase_w2v2_train(dev, gpu: str, tmp: str):
         step = make_wav2vec2_grad_step(model, attn_impl=impl,
                                        compute_dtype=dtype)
         if name == "cudnn+dense f64":
-            captured, undo = capture_dense_attention()
+            captured, undo = capture_attention()
         reset_launch_counts()
         try:
             with matmul_precision(precision):
@@ -4559,9 +5167,9 @@ def check_hubert_head_prune(dev, gpu: str, runner, expdir: pathlib.Path,
         f"states_prune_{n_layers * (per_layer - events + 1)}.npz); heads "
         f"a layer {cfg.encoder_attention_heads}, "
         f"{time.perf_counter() - t0:.2f} s")
-    if cfg.encoder_attention_heads != (1,) * n_layers:
-        raise AssertionError("HuBERT head pruning did not reach one head a "
-                             "layer")
+    if cfg.encoder_attention_heads != (per_layer - events,) * n_layers:
+        raise AssertionError(f"HuBERT head pruning did not reach "
+                             f"{per_layer - events} heads a layer")
     check_event_memory("wave prune", runner)
 
     t0 = time.perf_counter()
@@ -4572,7 +5180,8 @@ def check_hubert_head_prune(dev, gpu: str, runner, expdir: pathlib.Path,
     pad[:, t_frames:] = True
     rows = torch.ones_like(pad)
     gen = torch.Generator(device=dev).manual_seed(9)
-    for h in range(per_layer, 0, -1):
+    held = range(per_layer, per_layer - events - 1, -1)
+    for h in held:
         shape = (b, h, t_enc, cfg.head_dim)
         for p in (0.0, DROPOUT_P):
             masks = dict(key_padding_mask=pad)
@@ -4585,14 +5194,15 @@ def check_hubert_head_prune(dev, gpu: str, runner, expdir: pathlib.Path,
                            torch.bfloat16, gen)
     log("wave prune", f"bf16 attention fwd, dQ and dK/dV kernels vs plain "
         f"at (B, h, T, d) = ({b}, h, {t_enc}, {cfg.head_dim}), h = "
-        f"{per_layer} ... 1, the pad key, dropout 0 and {DROPOUT_P:g}: each "
+        f"{held[0]} ... {held[-1]}, the pad key, dropout 0 and "
+        f"{DROPOUT_P:g}: each "
         f"within the bars of the kernels and backward phases, "
         f"{time.perf_counter() - t0:.2f} s")
 
 
 def serve_pruned_hubert(dev, gpu: str, up: dict, data: str, pruned: str,
                         model, full) -> None:
-    """The HuBERT expert on the one-head checkpoint ``pruned``: it loads
+    """The HuBERT expert on the head-pruned checkpoint ``pruned``: it loads
     at its widths with the trainer's ``model``'s weights and takes a
     training step; then it serves hubert_forward(features_only=True) on
     the hubert serve phase's batch beside the full model ``full`` (the
@@ -4617,20 +5227,22 @@ def serve_pruned_hubert(dev, gpu: str, up: dict, data: str, pruned: str,
         "target_list": [labels]}
     loss, frames_masked = one.forward(data_in)
     loss.backward()
-    log("wave prune", f"HuBERT expert on the one-head last-step.npz: heads "
+    log("wave prune", f"HuBERT expert on the head-pruned last-step.npz: heads "
         f"{one.cfg.encoder_attention_heads}, weights bitwise the trainer's: "
         f"{same}; a training forward on 2 x {n} samples: loss "
         f"{float(loss):.4f} over {frames_masked} masked frames, "
         f"{time.perf_counter() - t0:.2f} s")
-    if not (same and one.cfg.encoder_attention_heads == (1,) * len(
-            one.cfg.encoder_attention_heads) and torch.isfinite(loss)):
-        raise AssertionError("the HuBERT expert does not load the one-head "
-                             "checkpoint")
+    heads = one.cfg.encoder_attention_heads
+    if not (same and heads == model.cfg.encoder_attention_heads
+            and torch.isfinite(loss)):
+        raise AssertionError("the HuBERT expert does not load the "
+                             "head-pruned checkpoint")
     del loss
     b, t_wave = HUBERT_SERVE
     src_np, lengths = hubert_source(b, t_wave, seed=0)
     src = torch.from_numpy(src_np).to(dev)
-    models = {"1 head a layer": one.model.eval(), "full": full.eval()}
+    label = f"{heads[0]} heads a layer"
+    models = {label: one.model.eval(), "full": full.eval()}
 
     def run(model):
         with matmul_precision("highest"), torch.inference_mode():
@@ -4638,10 +5250,10 @@ def serve_pruned_hubert(dev, gpu: str, up: dict, data: str, pruned: str,
                                   features_only=True)
 
     frames = int((~run(models["full"])["padding_mask"]).sum())
-    one_ms, full_ms = alternate(lambda: run(models["1 head a layer"]),
+    one_ms, full_ms = alternate(lambda: run(models[label]),
                                 lambda: run(models["full"]), reps=1)
     log("timing", f"HuBERT expert models serving hubert_forward "
-        f"{torch.float32}, B={b} x {t_wave} samples: one head a layer "
+        f"{torch.float32}, B={b} x {t_wave} samples: {label} "
         f"{one_ms:.2f} ms ({frames / one_ms * 1e3:.0f} frames/s), full "
         f"{full_ms:.2f} ms ({frames / full_ms * 1e3:.0f} frames/s), "
         f"{full_ms / one_ms:.3f}x [{gpu}]")
@@ -4890,10 +5502,11 @@ def attention_library_ms(dev, gpu: str, dtype):
     off), the flash kernels' library yardstick (timed here, never called by
     the port): {(kernel, case): ms}. The forward at the serving shape with
     the packed segments as a boolean mask, at the training shape with key
-    padding and dropout 0.1 (its own random mask), at T = 5000 and at
-    1024 x 5000 with key padding; the backward (dq, dk and dv in one call,
-    the yardstick of the dQ and dK/dV pair) at the training shape with key
-    padding and dropout 0.1, at T = 5000 and at 1024 x 5000."""
+    padding and dropout 0.1 (its own random mask), at T = 5000 and T =
+    LONG_T and at 1024 x 5000 with key padding; the backward (dq, dk and dv
+    in one call, the yardstick of the dQ and dK/dV pair) at the training
+    shape with key padding and dropout 0.1, at T = 5000 and T = LONG_T and
+    at 1024 x 5000."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4917,6 +5530,7 @@ def attention_library_ms(dev, gpu: str, dtype):
         "long": ((1, 12, 5000, 64), None, None, 0.0),
         "rectangular": ((1, 12, 1024, 64), (1, 12, 5000, 64), keep(pad_rect),
                         0.0),
+        "long_8192": ((1, 12, LONG_T, 64), None, None, 0.0),
     }
     out = {}
     for case, (qs, ks, mask, p) in cases.items():
@@ -4972,8 +5586,9 @@ def attention_bounds(dtype) -> dict:
     """{(kernel, case): (ms, bound_by)} of the flash kernels in ``dtype`` at
     the line's shapes: the forward at the serving batch, counting only the
     (query, key) pairs of one segment; every kernel at the training shape
-    (every query row against the valid keys), at T = 5000 (every pair) and
-    at 1024 x 5000 (every query against the 4,800 valid keys)."""
+    (every query row against the valid keys), at T = 5000 and at T =
+    LONG_T (every pair) and at 1024 x 5000 (every query against the 4,800
+    valid keys)."""
     seg = packed_segments(SERVE_LENGTHS, CAPACITY, "cpu")
     serving = (seg.shape[0], 12, CAPACITY, 64)
     work = {
@@ -4986,6 +5601,8 @@ def attention_bounds(dtype) -> dict:
         "long": attention_work((1, 12, 5000, 64), 5000, 5000.0 * 5000, dtype),
         "rectangular": attention_work((1, 12, 1024, 64), 5000,
                                       1024.0 * RECT_VALID_KEYS, dtype),
+        "long_8192": attention_work((1, 12, LONG_T, 64), LONG_T,
+                                    float(LONG_T) * LONG_T, dtype),
     }
     out = {}
     for case, per_kernel in work.items():
@@ -4996,16 +5613,27 @@ def attention_bounds(dtype) -> dict:
     return out
 
 
-def launch_fields(name: str, paths: dict) -> dict:
+def launch_fields(name: str, paths: dict, long_paths=None) -> dict:
     """A kernel's launches on the main paths, from {path: {kernel: {"f32":
     n, "bf16": n}}}: in all (launches), per dtype (launches_by_dtype) and
-    per path and dtype (launches_by_path)."""
-    by_path = {p: dict(counts.get(name, {"f32": 0, "bf16": 0}))
-               for p, counts in paths.items()}
-    by_dtype = {tag: sum(c[tag] for c in by_path.values())
-                for tag in ("f32", "bf16")}
-    return dict(launches=sum(by_dtype.values()), launches_by_dtype=by_dtype,
-                launches_by_path=by_path)
+    per path and dtype (launches_by_path); with ``long_paths``, the same
+    counts of its launches past the stream threshold, per dtype
+    (launches_past_4096) and per path and dtype
+    (launches_past_4096_by_path)."""
+    def per_path(counts_by_path):
+        by_path = {p: dict(counts.get(name, {"f32": 0, "bf16": 0}))
+                   for p, counts in counts_by_path.items()}
+        return by_path, {tag: sum(c[tag] for c in by_path.values())
+                         for tag in ("f32", "bf16")}
+
+    by_path, by_dtype = per_path(paths)
+    out = dict(launches=sum(by_dtype.values()), launches_by_dtype=by_dtype,
+               launches_by_path=by_path)
+    if long_paths is not None:
+        long_by_path, long_by_dtype = per_path(long_paths)
+        out.update(launches_past_4096=long_by_dtype,
+                   launches_past_4096_by_path=long_by_path)
+    return out
 
 
 def merge(into: dict, more: dict) -> None:
@@ -5142,6 +5770,8 @@ def main() -> None:
                           one_head)
         distill = timed("distill", phase_distill, dev, gpu, tmp, one_head,
                         args.profile)
+        long_counts, long_paths = timed("long", phase_long, dev, gpu, tmp,
+                                        record)
         hubert_serve = timed("hubert serve", phase_hubert_serve, dev, gpu)
         runner, hubert_train, cudnn_model, batch = timed(
             "hubert train", phase_hubert_train, dev, gpu, tmp)
@@ -5173,7 +5803,7 @@ def main() -> None:
              "melhubert row-pruning": row_prune,
              "melhubert distillation": distill,
              "hubert serve": hubert_serve, "hubert train": hubert_train,
-             "wav2vec2 train": w2v2_train, **wave_prune}
+             "wav2vec2 train": w2v2_train, **wave_prune, **long_counts}
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         if not head_prune[name]["f32"]:
             raise AssertionError(f"no f32 {name} launch on head pruning")
@@ -5192,7 +5822,9 @@ def main() -> None:
     for e in entries:
         e["hgmma"] = hgmma.get((e["name"], "f32"), 0)
         e["hgmma_bf16"] = hgmma.get((e["name"], "bf16"), 0)
-        e.update(route="cuda", **launch_fields(e["name"], paths))
+        e.update(route="cuda", **launch_fields(
+            e["name"], paths,
+            long_paths if e["name"].startswith("flash_attn") else None))
     assert set(launch_counts()) == {e["name"] for e in entries}
     missing = [e["name"] for e in entries if not e["launches"]]
     if missing:

@@ -18,7 +18,8 @@ seed (the key of the kernels' keep bits) and its LayerDrop coin from it.
 With ``checkpoint_activations`` (HuBERT and wav2vec 2.0 configs; JAX's
 ``jax.checkpoint`` around each layer) a training forward keeps only each
 layer's input and recomputes the layer in the backward
-(:func:`checkpoint_layer`).
+(:func:`checkpoint_layer`); ``remat=True`` does the same for any forward
+that records a graph (MelHuBERT's grad step, JAX's ``remat=``).
 
 ``layer_norm`` is PyTorch's: in bf16 it takes its statistics in f32 and
 rounds its output to bf16, where JAX's ``layer_norm`` rounds each step of
@@ -286,6 +287,7 @@ def encoder_layers_forward(
     generator: Optional[torch.Generator] = None,  # on x's device
     deterministic: bool = True,
     contexts: Optional[list] = None,
+    remat: bool = False,
 ):
     """The layer stack + final (pre-LN) norm. Returns (x, layer_hiddens).
     A ``contexts`` list receives each layer's attention context (B, H_i,
@@ -299,10 +301,13 @@ def encoder_layers_forward(
     (its heads score 0: JAX computes the layer and selects its input, so
     the context's gradient is 0 there). With
     ``cfg.checkpoint_activations`` a training forward that records a
-    graph runs each layer through :func:`checkpoint_layer`."""
+    graph runs each layer through :func:`checkpoint_layer`; with ``remat``
+    (JAX's ``jax.checkpoint`` per layer, encoder.py:396-397) every forward
+    that records a graph does."""
     layer_hiddens = []
-    remat = (getattr(cfg, "checkpoint_activations", False)
-             and not deterministic and torch.is_grad_enabled())
+    remat = ((remat or (getattr(cfg, "checkpoint_activations", False)
+                        and not deterministic))
+             and torch.is_grad_enabled())
     for i, layer in enumerate(enc.layers):
         seed = None
         if not deterministic:
@@ -352,10 +357,12 @@ def encoder_forward(
     rng: Optional[torch.Generator] = None,  # host generator
     deterministic: bool = True,
     contexts: Optional[list] = None,
+    remat: bool = False,
 ):
     """Prologue + layer stack. Returns (x, layer_hiddens). Training
     (``deterministic=False``) needs ``rng``, a host ``torch.Generator``.
-    ``contexts`` is passed to :func:`encoder_layers_forward`.
+    ``contexts`` and ``remat`` are passed to
+    :func:`encoder_layers_forward`.
 
     ``cfg.required_seq_len_multiple`` (the HuBERT/wav2vec 2.0 encoders) is
     kept as in JAX (reference module.py:492-541): after the prologue T is
@@ -381,6 +388,7 @@ def encoder_forward(
         x, enc, cfg, padding_mask=padding_mask, causal=causal,
         get_hidden=get_hidden, attn_impl=attn_impl, rng=rng,
         generator=generator, deterministic=deterministic, contexts=contexts,
+        remat=remat,
     )
     if pad:
         x = x[:, :t]

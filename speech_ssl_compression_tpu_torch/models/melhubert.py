@@ -91,6 +91,7 @@ def melhubert_forward(
     deterministic: bool = True,
     attn_impl: str = "auto",
     return_contexts: bool = False,
+    remat: bool = False,
 ) -> Dict[str, Optional[object]]:
     """Returns a dict with keys
       hidden         (B, T, D) final encoder output
@@ -104,7 +105,10 @@ def melhubert_forward(
 
     ``mask=True`` masks the spans of ``teacher_mask_indices`` (drawn with
     :func:`span_mask`). ``deterministic=False`` turns the dropouts on,
-    drawing from ``rng``, a host ``torch.Generator``."""
+    drawing from ``rng``, a host ``torch.Generator``. ``remat=True``
+    recomputes each encoder layer in the backward instead of keeping its
+    activations (``models/encoder.py::checkpoint_layer``; JAX's
+    ``remat=``)."""
     cfg = model.cfg
     valid = pad_mask.to(torch.bool)
     mask_indices = torch.zeros_like(valid)
@@ -134,6 +138,7 @@ def melhubert_forward(
             rng=rng,
             deterministic=deterministic,
             contexts=contexts if return_contexts else None,
+            remat=remat,
         )
     else:
         hidden = gelu(x)

@@ -53,26 +53,40 @@ KERNEL_BLOCK_K = 64  # keys per tile of the forward kernel's online softmax
 # straddling p per row that bf16_forward_straddle_flips tries rounding the
 # other way, in every subset (2^16 of them)
 FLIP_KEYS = 16
-DROPOUT_MAX_T = 4096  # flash_attention with dropout refuses longer T, as JAX
+# JAX's _STREAM_THRESHOLD: past it JAX streams K/V (or Q/dO) through the
+# grid (``_fa_fwd_stream_kernel``, ``_fa_bwd_dq_stream_kernel``,
+# ``_fa_bwd_dkv_stream_kernel``); the CUDA kernels take any T, and count
+# their launches past it apart (long_launch_counts)
+STREAM_THRESHOLD = 4096
+# flash_attention with dropout refuses longer T, as JAX does (its dropout
+# forward shares the whole-K/V-resident grid of its backward)
+DROPOUT_MAX_T = STREAM_THRESHOLD
 
 # launches of the CUDA kernels, counted where each is launched (read and
-# reset by chip_smoke.py to show which path a run took): in all, and per
-# input dtype
+# reset by chip_smoke.py to show which path a run took): in all, per input
+# dtype, and per input dtype those with max(Tq, Tk) > STREAM_THRESHOLD (the
+# calls JAX sends to its streamed kernels)
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                  "flash_attn_bwd_dkv": 0}
 dtype_launch_counts = {name: {"f32": 0, "bf16": 0} for name in launch_counts}
+long_launch_counts = {name: {"f32": 0, "bf16": 0} for name in launch_counts}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
         dtype_launch_counts[name] = {"f32": 0, "bf16": 0}
+        long_launch_counts[name] = {"f32": 0, "bf16": 0}
 
 
-def _count(name: str, q: torch.Tensor) -> None:
+def _count(name: str, q: torch.Tensor, tk: Optional[int] = None) -> None:
+    """One launch of kernel ``name`` on q (B, H, Tq, d) against ``tk`` keys
+    (Tq where not given)."""
+    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
     launch_counts[name] += 1
-    dtype_launch_counts[name]["bf16" if q.dtype == torch.bfloat16
-                              else "f32"] += 1
+    dtype_launch_counts[name][tag] += 1
+    if max(q.shape[2], tk or q.shape[2]) > STREAM_THRESHOLD:
+        long_launch_counts[name][tag] += 1
 
 
 def _masks(k, key_padding_mask, segment_ids):
@@ -368,7 +382,7 @@ def launch_fwd(q, k, v, bias, segq, segk, causal, dropout_p=0.0, seed=None):
         *_dropout_args(dropout_p, seed), q.device.index, stream,
     )
     _kernels.check(lib, err, "flash_attn_fwd launch")
-    _count("flash_attn_fwd", q)
+    _count("flash_attn_fwd", q, k.shape[2])
     return out, lse
 
 
@@ -405,7 +419,7 @@ def launch_bwd_dq(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(lib, err, "flash_attn_bwd_dq launch")
-    _count("flash_attn_bwd_dq", q)
+    _count("flash_attn_bwd_dq", q, k.shape[2])
     return dq, dd
 
 
@@ -427,7 +441,7 @@ def launch_bwd_dkv(q, k, v, bias, segq, segk, causal, dropout_p, seed, lse,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(lib, err, "flash_attn_bwd_dkv launch")
-    _count("flash_attn_bwd_dkv", q)
+    _count("flash_attn_bwd_dkv", q, k.shape[2])
     return dk, dv
 
 
@@ -508,7 +522,8 @@ def _fwd(q, k, v, bias, segq, segk, causal, dropout_p=0.0, seed=None):
             raise NotImplementedError(
                 f"flash_attention with dropout supports T <= {DROPOUT_MAX_T} "
                 f"(got T={max(tq, tk)}); dropout is a training feature — "
-                "crop or bucket training data to at most 4096 frames"
+                f"crop or bucket training data to at most {DROPOUT_MAX_T} "
+                "frames"
             )
     _route(q)
     return _FlashAttention.apply(q, k, v, bias, segq, segk, bool(causal),

@@ -39,7 +39,9 @@ checkpoints hold the student, ``Config`` the student's and
 ``Upstream_Config`` the whole YAML.
 
 Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1):
-meshes, pipeline parallelism and remat.
+meshes and pipeline parallelism. Remat is a grad-step option
+(``steps.make_melhubert_grad_step(remat=True)``), which JAX's Runner does
+not expose either.
 """
 
 from __future__ import annotations

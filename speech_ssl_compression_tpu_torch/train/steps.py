@@ -269,10 +269,13 @@ def host_span_mask(cfg, batch: dict, rng: torch.Generator):
 def make_melhubert_grad_step(model, *, accum_steps: int = 1,
                              compute_dtype=torch.float32,
                              attn_impl: str = "auto",
-                             deterministic: bool = False):
+                             deterministic: bool = False,
+                             remat: bool = False):
     """Returns ``grad_step(params, batch, rng, mask_indices=None,
     masks=None) -> (loss, grads, logs)``, port of JAX
-    ``make_melhubert_grad_step``.
+    ``make_melhubert_grad_step``. ``remat=True`` recomputes each encoder
+    layer in the backward (JAX's ``remat=``: less memory, the same
+    gradients bit for bit, dropout included).
 
     ``params`` maps ``model``'s parameter names to the f32 masters;
     ``masks`` (weight pruning) maps some of those names to 0/1 tensors of
@@ -300,7 +303,8 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
             cast_for_compute(mask_params(params, masks), compute_dtype),
             (feat.to(compute_dtype), batch["pad_mask"]),
             dict(mask=True, teacher_mask_indices=mask_indices, rng=rng,
-                 deterministic=deterministic, attn_impl=attn_impl),
+                 deterministic=deterministic, attn_impl=attn_impl,
+                 remat=remat),
         )
         loss, logs = melhubert_pretrain_loss(out, batch["label"],
                                              batch["pad_mask"], cfg)

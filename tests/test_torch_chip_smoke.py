@@ -254,6 +254,49 @@ def test_launch_fields_count_per_dtype_and_path():
                                                            "bf16": 0}
 
 
+def test_launch_fields_count_launches_past_the_stream_threshold_apart():
+    # the long phase's paths carry the attention kernels' launches past
+    # T = 4096 beside their launches in all; a path without them has none
+    paths = {"melhubert train": {"flash_attn_fwd": {"f32": 0, "bf16": 288}},
+             "melhubert long serve": {"flash_attn_fwd": {"f32": 36,
+                                                         "bf16": 12}},
+             "melhubert long distill": {"flash_attn_fwd": {"f32": 54,
+                                                           "bf16": 54}}}
+    long_paths = {"melhubert long serve": {"flash_attn_fwd": {"f32": 24,
+                                                              "bf16": 12}},
+                  "melhubert long distill": {"flash_attn_fwd": {"f32": 54,
+                                                                "bf16": 54}}}
+    fwd = chip_smoke.launch_fields("flash_attn_fwd", paths, long_paths)
+    assert fwd["launches"] == 444
+    assert fwd["launches_past_4096"] == {"f32": 78, "bf16": 66}
+    assert set(fwd["launches_past_4096_by_path"]) == set(long_paths)
+    dq = chip_smoke.launch_fields("flash_attn_bwd_dq", paths, long_paths)
+    assert dq["launches"] == 0
+    assert dq["launches_past_4096"] == {"f32": 0, "bf16": 0}
+    # without long paths (the conv kernels) there are no such fields
+    assert "launches_past_4096" not in chip_smoke.launch_fields(
+        "conv1d_fwd", paths)
+
+
+def test_long_phase_shapes_are_benchs():
+    # one utterance of LONG_SAMPLES gives LONG_T frames of 10 ms with snip
+    # edges, (N - 400) // 160 + 1, as bench.py's long-form rows; the bound
+    # of the forward at (1, 12, 8192, 64) is its 4 H T^2 d FLOPs
+    from speech_ssl_compression_tpu_torch.ops.fbank import num_frames
+
+    assert num_frames(chip_smoke.LONG_SAMPLES) == chip_smoke.LONG_T == 8192
+    assert chip_smoke.LONG_T > 4096
+    flops = chip_smoke.attention_work((1, 12, 8192, 64), 8192, 8192.0 ** 2,
+                                      torch.float32)["flash_attn_fwd"][0]
+    assert flops == pytest.approx(206.2e9, rel=1e-3)
+    ms, by = chip_smoke.attention_bounds(torch.float32)[
+        "flash_attn_fwd", "long_8192"]
+    assert by == "operations" and ms == pytest.approx(1.2496, rel=1e-3)
+    ms_bf16, _ = chip_smoke.attention_bounds(torch.bfloat16)[
+        "flash_attn_fwd", "long_8192"]
+    assert ms_bf16 == pytest.approx(0.2085, rel=1e-3)
+
+
 @pytest.mark.parametrize("which,tflop,bound_ms", [
     ("f32", 0.599, 8.94), ("bf16", 1.817, 1.837)])
 def test_stream_step_work_counts_attention_at_the_cache_capacity(
@@ -329,3 +372,170 @@ def test_wave_serve_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     labels = (tmp_path / "wave_labels" / "labels.km").read_text().split()
     assert len(labels) == chip_smoke.WAVE_BATCHES * sum(
         chip_smoke.SERVE_LENGTHS)
+
+
+def test_long_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    # the long phase end to end at 2 layers of 64 (one head) and T = 4160,
+    # past the stream threshold: the 10 ms recipe cut to 2 micro-batches of
+    # B = 2 and dropout 0 (the plain Philox is slow on the CPU), the plain
+    # attention counted as the kernels' launches (its bf16 forward walked
+    # in the kernel's key tiles), the CUDA timing and memory calls stubbed,
+    # and the per-case kernel checks (the kernels and backward phases' own,
+    # each seconds at this T on the CPU) recorded: its launch counts per
+    # path, those past the threshold, its model checks, the kernel checks
+    # it asks for and the kernels line's long_8192 records
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    plain_fwd, plain_bwd = fa._reference_fwd, fa.reference_bwd
+
+    def counted_fwd(q, k, v, *args, **kwargs):
+        # the autograd route's call (bias, segments, causal; the keep
+        # arguments by name): a bf16 P rounded per key tile, as the kernel
+        if len(args) == 4 and q.dtype == torch.bfloat16:
+            kwargs["block_k"] = fa.KERNEL_BLOCK_K
+        fa._count("flash_attn_fwd", q, k.shape[2])
+        return plain_fwd(q, k, v, *args, **kwargs)
+
+    def counted_bwd(q, k, *args):
+        for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            fa._count(name, q, k.shape[2])
+        return plain_bwd(q, k, *args)
+
+    def launch_fwd(q, k, v, bias, segq, segk, causal, dropout_p=0.0,
+                   seed=None):
+        block = fa.KERNEL_BLOCK_K if q.dtype == torch.bfloat16 else None
+        return plain_fwd(q, k, v, bias, segq, segk, causal, block,
+                         dropout_p, seed)
+
+    def launch_bwd_dq(*args):
+        dd = fa.reference_dd(*args)
+        return fa.reference_bwd_dq(*args, dd), dd
+
+    monkeypatch.setattr(fa, "_reference_fwd", counted_fwd)
+    monkeypatch.setattr(fa, "reference_bwd", counted_bwd)
+    monkeypatch.setattr(fa, "launch_fwd", launch_fwd)
+    monkeypatch.setattr(fa, "launch_bwd", plain_bwd)
+    monkeypatch.setattr(fa, "launch_bwd_dq", launch_bwd_dq)
+    monkeypatch.setattr(fa, "launch_bwd_dkv", fa.reference_bwd_dkv)
+    for name, value in (("synchronize", None), ("reset_peak_memory_stats",
+                                                None),
+                        ("max_memory_allocated", 1), ("memory_allocated", 0),
+                        ("memory_reserved", 0),
+                        ("mem_get_info", (2**36, 2**36))):
+        monkeypatch.setattr(torch.cuda, name,
+                            lambda *a, _v=value, **k: _v)
+    timed = set()
+
+    def cuda_ms(fn, reps=3, inner=1, warm=True):
+        # each timed call once (by where it is written), for its errors
+        if fn.__code__ not in timed:
+            timed.add(fn.__code__)
+            fn()
+        return 1.0
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", cuda_ms)
+    checks = []
+
+    def check_forward(fa_, name, qs, ks, masks, valid, dtype, gen,
+                      straddles=False, inputs=None):
+        checks.append(("forward", name, qs, dtype, inputs is not None))
+        q, k, v = inputs or (torch.randn(qs, generator=gen).to(dtype)
+                             for _ in "qkv")
+        assert straddles and q.dtype == dtype and tuple(q.shape) == qs
+        return q, k, v, 0.0
+
+    def check_backward(fa_, name, qs, ks, masks, valid_q, valid_k, dtype,
+                       gen, inputs=None):
+        checks.append(("backward", name, qs, dtype, inputs is not None))
+        q, k, v, dout = inputs or (torch.randn(qs, generator=gen).to(dtype)
+                                   for _ in "qkvd")
+        assert q.dtype == dtype and tuple(q.shape) == qs
+        lse = torch.zeros(qs[:3])
+        return fa.backward_args(q, k, v, lse, dout, **masks), [0.0] * 3
+
+    def backward_timing(args, case, tag, record, gpu, inner=5):
+        for name in KERNELS[1:]:
+            record.setdefault((name, case, tag), {}).update(ms=1.0,
+                                                            plain_ms=1.0)
+
+    monkeypatch.setattr(chip_smoke, "check_forward", check_forward)
+    monkeypatch.setattr(chip_smoke, "check_backward", check_backward)
+    monkeypatch.setattr(chip_smoke, "backward_timing", backward_timing)
+    # the remat check wants less peak memory with it than without
+    peaks = iter([2, 1])
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: next(peaks, 1))
+    narrow = dict(encoder_layers=2, encoder_embed_dim=64,
+                  encoder_ffn_embed_dim=128, encoder_attention_heads=1,
+                  conv_pos=16, conv_pos_groups=4)
+    model = read_yaml(chip_smoke.TEN_MS_MODEL_YAML)
+    model["melhubert"].update(narrow, dropout=0.0, attention_dropout=0.0,
+                              activation_dropout=0.0)
+    runner = read_yaml(chip_smoke.TEN_MS_RUNNER_YAML)
+    runner["runner"].update(gradient_accumulate_steps=2)
+    runner["datarc"].update(train_batch_size=2)
+    distill = read_yaml(chip_smoke.DISTILL_10MS_YAML)
+    distill["student"].update(narrow, encoder_layers=1)
+    for name, tree in (("model", model), ("runner", runner),
+                       ("distill", distill)):
+        (tmp_path / f"{name}.yaml").write_text(chip_smoke.to_yaml(tree)
+                                               + "\n")
+    monkeypatch.setattr(chip_smoke, "TEN_MS_MODEL_YAML",
+                        tmp_path / "model.yaml")
+    monkeypatch.setattr(chip_smoke, "TEN_MS_RUNNER_YAML",
+                        tmp_path / "runner.yaml")
+    monkeypatch.setattr(chip_smoke, "DISTILL_10MS_YAML",
+                        tmp_path / "distill.yaml")
+    monkeypatch.setattr(chip_smoke, "LONG_T", 4160)
+    monkeypatch.setattr(chip_smoke, "LONG_SAMPLES", 4159 * 160 + 400)
+    monkeypatch.setattr(chip_smoke, "LONG_DISTILL_STEPS", 1)
+    chip_smoke.write_dataset(tmp_path / "train" / "data", n_utts=8)
+    record = {}
+    # two threads: the test's products are large, and the suite's workers
+    # share the machine's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        paths, long_paths = chip_smoke.phase_long(
+            torch.device("cpu"), "cpu", str(tmp_path), record)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(paths) == set(long_paths) == {
+        "melhubert 10ms train", "melhubert long serve",
+        "melhubert long distill"}
+    # the 10 ms run: 2 layers x 2 micro-batches, f32 on the CPU, none past
+    # the threshold
+    assert paths["melhubert 10ms train"]["flash_attn_bwd_dq"] == {
+        "f32": 4, "bf16": 0}
+    assert long_paths["melhubert 10ms train"]["flash_attn_fwd"] == {
+        "f32": 0, "bf16": 0}
+    # T = 4160: three f32 forwards and one bf16 past it, the batch not
+    assert paths["melhubert long serve"]["flash_attn_fwd"] == {
+        "f32": 6, "bf16": 2}
+    assert long_paths["melhubert long serve"]["flash_attn_fwd"] == {
+        "f32": 4, "bf16": 2}
+    # one update a dtype: teacher 2 + student 1 forwards, 1 of each backward
+    assert long_paths["melhubert long distill"] == {
+        "flash_attn_fwd": {"f32": 3, "bf16": 3},
+        "flash_attn_bwd_dq": {"f32": 1, "bf16": 1},
+        "flash_attn_bwd_dkv": {"f32": 1, "bf16": 1}}
+    for name in KERNELS:
+        for tag in ("f32", "bf16"):
+            assert {"max_abs_err", "ms", "plain_ms"} <= set(
+                record[name, "long_8192", tag])
+    # the served utterance's first and last layers' attention calls as
+    # captured (T padded to 4224), the kernels at (1, H, T, 64) on random
+    # inputs, and the student layer's captured call, f32 and bf16
+    shape, served = (1, 1, 4160, 64), (1, 1, 4224, 64)
+    assert checks == [
+        ("forward", "long_serve_layer0", served, torch.float32, True),
+        ("forward", "long_serve_layer1", served, torch.float32, True),
+        ("forward", "long_serve_layer0", served, torch.bfloat16, True),
+        ("forward", "long_serve_layer1", served, torch.bfloat16, True),
+        ("forward", "long_8192", shape, torch.float32, False),
+        ("backward", "long_8192", shape, torch.float32, False),
+        ("forward", "long_8192", shape, torch.bfloat16, False),
+        ("backward", "long_8192", shape, torch.bfloat16, False),
+        ("backward", "long_distill_layer0", shape, torch.float32, True),
+        ("backward", "long_distill_layer0", shape, torch.bfloat16, True)]
