@@ -112,12 +112,12 @@ result line):
   weight prune  -m weight-pruning through the trainer's entry point from
             that checkpoint, full width, bf16, B = 4, T = 768, 8
             micro-batches: configs/weight_pruning/config_runner_20ms.yaml's
-            prune: section with warnup, period and n_iters cut to 1, 1, 2
-            (its sparsity ladder to its first 2 entries, which n_iters
-            must match), pruning_condition always, total_steps 3; launch
-            counts per micro-batch; the events at steps 1 and 2, each after
-            exactly that many updates (Adam count in its artifact); after
-            each exactly round(amount * n) of the n ~ 85 M prunable entries
+            prune: section with warnup, period and n_iters cut to 1, 1, 1
+            (its sparsity ladder to its first entry, which n_iters must
+            match), pruning_condition always, total_steps 2; launch counts
+            per micro-batch; the event at step 1, after exactly one update
+            (Adam count in its artifact); after it exactly round(amount *
+            n) of the n ~ 85 M prunable entries
             masked, the masks equal to a host recompute by
             global_magnitude_prune on the artifact's folded weights; the
             artifacts and last-step.npz (masks, Pruning, TotalStep); every
@@ -301,6 +301,35 @@ result line):
             bf16 grad step; wav2vec 2.0 row pruning: each event's rows
             against a host recompute of ffn_row_scores, the live bytes
             around each event;
+  parallel  data- and tensor-parallel training on the one card: two
+            ranks of the trainer CLI's entry point (this script with
+            --child, python -m speech_ssl_compression_tpu_torch.train's
+            main, --multi_host --dist_backend gloo, torchrun's variables;
+            NCCL refuses two ranks on one device), started before wave
+            prune (they wait for the phase's spec), each in a directory of
+            its own, full-width MelHuBERT from the train phase's
+            checkpoint (-i), B = 4 x T = 768 a rank: (a) data parallel
+            f32 (TF32 off, dropout 0) for 3 updates, held to the
+            1-process replay of its global batches in this process
+            (losses rtol 2e-4; update_check: every update's gradients
+            rel. L2 1e-4, each run's parameters within JAX's elementwise
+            rtol 1e-4 + atol 1e-6 of a plain Adam on its own gradients,
+            and of the replay's but for the entries rounding decides,
+            counted), which must fail three planted faults made from the
+            run's data (a LayerNorm bias left unreduced, Adam without bias
+            corrections), then 2 bf16 updates with the shipped dropouts;
+            (b) --model_parallel 2, f32 for one update, its gathered
+            gradient and checkpoint held to the 1-process step by
+            update_check, the checkpoint served by a 1-process
+            MelHuBERTExtractor against the step's parameters (SLICE_BAR),
+            then one bf16 grad step of its model timed; (c) HuBERT data
+            parallel, bf16, tc_pallas, one update; the ranks write only
+            the f32 runs' last-step.npz (the checkpoints the phase reads).
+            Per update and rank: its time,
+            its grad steps', its collectives' (gloo runs them on the host:
+            the rank's idle share, at least), and per run the peak memory
+            and the saves' seconds; only rank 0 writes; the ranks'
+            launches count as the main path's;
   profile   (--profile only) device busy time, idle share and the largest
             device kernels of forward_packed from features, per path, and
             of the MelHuBERT, HuBERT and wav2vec 2.0 bf16 grad steps, the
@@ -373,12 +402,15 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -525,11 +557,11 @@ CONV_REPLACES = {
 CONV_F32_BAR = 1e-5
 WP_MODEL_YAML = ROOT / "configs" / "weight_pruning" / "config_model_20ms.yaml"
 WP_RUNNER_YAML = ROOT / "configs" / "weight_pruning" / "config_runner_20ms.yaml"
-# the prune: keys the weight prune phase shortens (events at steps 1 and
-# 2, the first 2 of the ladder), and its updates: the event at step 2 fires
-# at the top of the 3rd window
-WP_SHORT = dict(warnup=1, period=1, n_iters=2, pruning_condition="always")
-WP_STEPS = 3
+# the prune: keys the weight prune phase shortens (one event at step 1,
+# the ladder's first entry; a cut in depth for the script's time), and its
+# updates: the event fires at the top of the 2nd window
+WP_SHORT = dict(warnup=1, period=1, n_iters=1, pruning_condition="always")
+WP_STEPS = 2
 HP_DIR = ROOT / "configs" / "head_pruning"
 RP_DIR = ROOT / "configs" / "row_pruning"
 # the recipes' prune events down to their endpoints (one head a layer in
@@ -5497,6 +5529,660 @@ def phase_wave_prune(dev, gpu: str, tmp: str):
     return paths
 
 
+PAR_RANKS = 2          # ranks of the parallel phase, sharing the one card
+PAR_F32_UPDATES = 3    # the f32 data-parallel run, held to the replay
+PAR_BF16_UPDATES = 2   # the bf16 data-parallel run, dropout on, timed
+PAR_TIMEOUT = 300      # seconds the ranks may take once they have the spec
+PAR_WAIT = 900         # seconds a rank waits for the spec
+PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-4, 1e-6  # JAX's bars
+PAR_LOSS_RTOL = 2e-4   # (tests/test_multiprocess_train.py:308-319)
+# the replicated leaf whose rank-local gradient the f32 data-parallel run
+# also dumps: the planted fault "left unreduced" that update_check must fail
+PAR_CONTROL_LEAF = "encoder.layers.0.final_layer_norm.bias"
+
+
+def parallel_child_command(spec: pathlib.Path, rank: int, port: int):
+    """(argv, env) of one rank of the parallel phase: this script with
+    ``--child`` (which runs the runs of ``spec`` through the trainer CLI's
+    entry point, ``python -m speech_ssl_compression_tpu_torch.train``'s
+    ``main``), and torchrun's variables for a gloo group of PAR_RANKS on
+    this host."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               RANK=str(rank), WORLD_SIZE=str(PAR_RANKS),
+               LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(PAR_RANKS))
+    return ([sys.executable, str(ROOT / "chip_smoke.py"), "--child",
+             str(spec)], env)
+
+
+def parallel_runs(root: pathlib.Path, starts: dict, csv: str,
+                  hubert: pathlib.Path) -> list:
+    """The phase's runs, each a CLI argv (every one with --multi_host
+    --dist_backend gloo) and what the child records: (a) data parallel f32
+    (TF32 off, dropout 0) for PAR_F32_UPDATES updates, each update's
+    gradient dumped, then bf16 with the shipped dropouts; (b) tensor
+    parallel (--model_parallel 2) f32 for one update, its gradient
+    gathered and dumped, then (``bf16_step``) one bf16 grad step of its
+    model timed; (c) HuBERT data parallel, bf16, tc_pallas, one update. A
+    MelHuBERT run starts from the checkpoint
+    of its dtype in ``starts`` (-i: the model config is the checkpoint's,
+    f32 without dropout); each rank reads 4 utterances a micro-batch.
+    A run writes only the checkpoints in its ``save``: the f32 runs' final
+    last-step.npz, which the phase reads (not the trainer's states-epoch-0
+    at step 0, nor the bf16 runs', which nothing reads)."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+
+    base = root / "runner_base.yaml"
+    base.write_text(RUNNER_YAML.format(csv=csv))
+    runner = read_yaml(base)
+    runner["runner"].update(gradient_accumulate_steps=1,
+                            save_every_x_epochs=1000)
+    files = {}
+    for name, updates, bf16 in (("f32_3", PAR_F32_UPDATES, False),
+                                ("bf16_2", PAR_BF16_UPDATES, True),
+                                ("f32_1", 1, False)):
+        tree = copy.deepcopy(runner)
+        tree["runner"].update(total_steps=updates, bf16=bf16)
+        files[name] = root / f"runner_{name}.yaml"
+        files[name].write_text(to_yaml(tree) + "\n")
+    files["hubert"] = root / "runner_hubert.yaml"
+    files["hubert"].write_text(
+        (hubert / "config_runner.yaml").read_text()
+        .replace("total_steps: 3", "total_steps: 1")
+        .replace(f"gradient_accumulate_steps: {HUBERT_ACCUM}",
+                 "gradient_accumulate_steps: 1"))
+
+    def mel(tag, dtype, runner_file, tp, updates, dump):
+        return dict(tag=tag, updates=updates, tf32=False,
+                    save=["last-step.npz"] if dump else [],
+                    dump=str(root / f"grads_{tag}") if dump else None,
+                    argv=["-m", "melhubert", "-g", str(CONFIG_YAML),
+                          "-c", str(files[runner_file]), "-n", f"exp_{tag}",
+                          "-i", starts[dtype], "--device", "cuda", "--seed",
+                          "0", "--model_parallel", str(tp)])
+
+    runs = [mel("dp_f32", "f32", "f32_3", 1, PAR_F32_UPDATES, True),
+            mel("dp_bf16", "bf16", "bf16_2", 1, PAR_BF16_UPDATES, False),
+            dict(mel("tp_f32", "f32", "f32_1", 2, 1, True), bf16_step=True),
+            dict(tag="hubert_dp_bf16", updates=1, tf32=False, dump=None,
+                 save=[],
+                 argv=["-m", "melhubert", "-u", "hubert", "-g",
+                       str(hubert / "config_model.yaml"), "-c",
+                       str(files["hubert"]), "-n", "exp_hubert",
+                       "--device", "cuda", "--seed", "0"])]
+    for run in runs:
+        run["argv"] += ["--multi_host", "--dist_backend", "gloo"]
+    return runs
+
+
+def child_main(spec_path: str) -> None:
+    """One rank of the parallel phase: each run of the spec through the
+    trainer CLI's entry point, with the launch counts set to 0 just before
+    it and read just after; per run the peak memory, the seconds its
+    checkpoint saves take (the gathers included), and per update its
+    CUDA-synchronized wall time, its grad steps' times, and the time of
+    its collectives (the window's gradient all-reduce and, under tensor
+    parallel, the activations' all-reduces inside the grad steps). Gloo
+    runs a collective on the host, between copies to and from the card, so
+    the collectives' share of an update is time the card does no work of
+    this rank: the rank's idle share, at least (no profiler: it costs more
+    than the updates). Where the spec asks (``dump``), each update's
+    gradient as the apply takes it (gathered under tensor parallel) is
+    dumped with its sample size, and under data parallel also this rank's
+    own gradient of PAR_CONTROL_LEAF before the all-reduce; the dumps'
+    seconds are not the update's. A run writes only the checkpoints its
+    ``save`` names. Where it asks for ``bf16_step``, one bf16 grad step of
+    the run's model is timed after the run (its launches are not the
+    run's).
+    Writes its record to ``<spec>.<rank>.json``; prints no result line."""
+    from speech_ssl_compression_tpu_torch.parallel import mesh
+    from speech_ssl_compression_tpu_torch.train import optim_mixin
+    from speech_ssl_compression_tpu_torch.train import parallel_mixin
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+    from speech_ssl_compression_tpu_torch.train.runner import Runner
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.train.wave_runner import WaveRunner
+
+    torch.zeros((), device="cuda")  # the CUDA context, while the parent works
+    deadline = time.perf_counter() + PAR_WAIT
+    while not pathlib.Path(spec_path).exists():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"no spec at {spec_path} in {PAR_WAIT} s")
+        time.sleep(0.2)
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    state = {}
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = now()
+            out = fn(*a, **k)
+            state[key] += 1e3 * (now() - t0)
+            return out
+        return run
+
+    for cls in (Runner, WaveRunner):
+        def build(self, _orig=cls._build_grad_step):
+            _orig(self)
+            step = self.grad_step
+
+            def first_timed(*a, **k):
+                if state["t_update"] is None:
+                    state["t_update"] = now()
+                return timed("step_ms", step)(*a, **k)
+
+            self.grad_step = first_timed
+        cls._build_grad_step = build
+        def save(self, step, name, *a, _orig=cls.save, **k):
+            if name in state["save"]:
+                timed("save_ms", _orig)(self, step, name, *a, **k)
+
+        cls.save = save
+
+    mesh._all_reduce_f32 = timed("collective_ms", mesh._all_reduce_f32)
+    reduce_window = timed("reduce_ms",
+                          parallel_mixin.ParallelMixin._reduce_window)
+
+    def reduce_hooked(self, grads, scalars):
+        if state["dump"] and not self._sharded:
+            own = dict(zip(self.params, grads))[PAR_CONTROL_LEAF]
+            state["control"] = own.detach().float().cpu()
+        return reduce_window(self, grads, scalars)
+
+    parallel_mixin.ParallelMixin._reduce_window = reduce_hooked
+    apply = optim_mixin.OptimizerScheduleMixin.apply
+
+    def apply_hooked(self, grads, sample_size):
+        if state["dump"]:
+            t_dump = now()
+            named = dict(zip(self.params, grads))
+            if self._sharded:
+                named = mesh.gather_named([named], self.cfg, self.mesh)[0]
+            if self.primary:
+                torch.save(dict(
+                    grads={k: v.detach().float().cpu()
+                           for k, v in named.items()},
+                    sample_size=float(sample_size),
+                    control=state["control"]),
+                    f"{state['dump']}_{len(state['updates'])}.pt")
+            state["t_update"] += now() - t_dump
+        out = apply(self, grads, sample_size)
+        wall = 1e3 * (now() - state["t_update"])
+        state["updates"].append(dict(
+            update_ms=wall, step_ms=state["step_ms"],
+            reduce_ms=state["reduce_ms"],
+            collective_ms=state["collective_ms"],
+            idle=(state["reduce_ms"] + state["collective_ms"]) / wall))
+        state.update(t_update=None, step_ms=0.0, reduce_ms=0.0,
+                     collective_ms=0.0)
+        return out
+
+    optim_mixin.OptimizerScheduleMixin.apply = apply_hooked
+    records = []
+    for run in spec["runs"]:
+        state.update(updates=[], dump=run["dump"], save=run["save"],
+                     control=None, t_update=None, step_ms=0.0,
+                     reduce_ms=0.0, collective_ms=0.0, save_ms=0.0,
+                     bf16_step=None)
+        torch.backends.cuda.matmul.allow_tf32 = run["tf32"]
+        torch.backends.cudnn.allow_tf32 = run["tf32"]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        runner = train(run["argv"])
+        torch.cuda.synchronize()
+        counts = dtype_launch_counts()
+        if run.get("bf16_step"):
+            # one bf16 grad step of the run's model on its first batch,
+            # timed after a warm-up (all ranks in step: it all-reduces)
+            batch = runner._device_batch(
+                runner._get_dataloader().get_batch(0))
+            step = make_melhubert_grad_step(runner.model,
+                                            compute_dtype=torch.bfloat16)
+            for _ in range(2):
+                state["collective_ms"] = 0.0
+                t1 = now()
+                step(runner.params, batch, runner.rng)
+                bf16_ms = 1e3 * (now() - t1)
+            state["bf16_step"] = (bf16_ms, state["collective_ms"])
+        records.append(dict(
+            tag=run["tag"], counts=counts,
+            log=runner.log_history, updates=state["updates"],
+            bf16_step=state["bf16_step"],
+            save_s=state["save_ms"] / 1e3,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            seconds=time.perf_counter() - t0, grid=runner.mesh.shape,
+            local_heads=list(runner.model.cfg.encoder_attention_heads)))
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    pathlib.Path(f"{spec_path}.{rank}.json").write_text(json.dumps(records))
+
+
+def parallel_reference(argv, expdir: pathlib.Path, replay: bool):
+    """The 1-process run of a phase run's argv in this process (no
+    --multi_host) into ``expdir``, f32 with TF32 off; with ``replay`` on
+    the dataset's replay of the data ranks' global batches
+    (process_index None): (runner, each update's gradient by name and
+    sample size as its apply took them)."""
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+    from speech_ssl_compression_tpu_torch.train.__main__ import get_args
+    from speech_ssl_compression_tpu_torch.train.runner import Runner
+
+    args = get_args([a for a in argv if a not in (
+        "--multi_host", "--dist_backend", "gloo")])
+    args.expdir, args.model_parallel = str(expdir), 1
+    grads = []
+
+    class Reference(Runner):
+        def _data_shard(self):
+            return (dict(process_index=None, process_count=PAR_RANKS)
+                    if replay else super()._data_shard())
+
+        def apply(self, update, sample_size):
+            grads.append(({k: g.detach().float().clone() for k, g in
+                           zip(self.params, update)}, float(sample_size)))
+            return super().apply(update, sample_size)
+
+        def save(self, *args, **kwargs):
+            pass  # a yardstick: its parameters are read in memory
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runner = Reference(args, read_yaml(args.runner_config),
+                           read_yaml(args.upstream_config))
+        runner.train()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    return runner, grads
+
+
+def named_params(tree: dict, dev) -> dict:
+    """A checkpoint's MelHuBERT tree as {name: f32 tensor on ``dev``} under
+    the trainer's names."""
+    from speech_ssl_compression_tpu_torch.utils.torch_convert import (
+        params_to_state_dict,
+    )
+
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+            for k, v in params_to_state_dict(tree).items()}
+
+
+def plain_adam(start: dict, grads: list, hyper: dict,
+               corrected: bool = True) -> dict:
+    """{name: f32 tensor}: the parameters after one Adam update from
+    ``start`` for each (``{name: gradient}``, sample size) of ``grads``,
+    written here apart from the port's fused apply with the arithmetic of
+    JAX's ``_fused_apply``: the clip on the norm of the whole gradient over
+    the sample size, L2 (``weight_decay``) added after the clip, the
+    moments, and the bias corrections and schedule on the step's count
+    (``corrected=False`` drops the corrections: a planted fault). ``hyper``
+    is the trainer's (``runner.optimizer``)."""
+    b1, b2, eps = hyper["b1"], hyper["b2"], hyper["eps"]
+    wd, clip = hyper["weight_decay"], hyper["clip"]
+    schedule = hyper.get("schedule")
+    p = {k: v.detach().float().clone() for k, v in start.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    v = {k: torch.zeros_like(x) for k, x in p.items()}
+    for t, (g, size) in enumerate(grads, 1):
+        norm = torch.sqrt(sum(torch.sum(torch.square(g[k].float()))
+                              for k in p)) / size
+        scale = clip / norm if 0 < clip <= norm else 1.0
+        lr = (float(schedule(torch.tensor(t, dtype=torch.int32)))
+              if schedule is not None else hyper["lr"])
+        c1, c2 = ((1.0 - b1 ** t, 1.0 - b2 ** t) if corrected
+                  else (1.0, 1.0))
+        for k in p:
+            ge = g[k].float() * (scale / size)
+            if wd > 0:
+                ge = ge + wd * p[k]
+            m[k] = b1 * m[k] + (1.0 - b1) * ge
+            v[k] = b2 * v[k] + (1.0 - b2) * torch.square(ge)
+            p[k] = p[k] - lr * (m[k] / c1) / (torch.sqrt(v[k] / c2) + eps)
+    return p
+
+
+def update_check(start: dict, got: dict, ref: dict, grads_got: list,
+                 grads_ref: list, hyper: dict) -> dict:
+    """How a parallel run's parameters after its updates (``got``) agree
+    with the 1-process run's from the same ``start`` (``ref``), all
+    {name: tensor} on one device; ``grads_*``: each run's updates as
+    plain_adam takes them. Three checks, each of every entry or leaf:
+
+      grads   every update's gradients within GRAD_BAR (rel. L2, as
+              grad_errors takes it) of the 1-process run's;
+      follow  each run's parameters within JAX's elementwise bar (|d| <=
+              PAR_PARAM_ATOL + PAR_PARAM_RTOL |p|) of plain_adam on that
+              run's own gradients: the update itself, no allowance;
+      past    ``got`` within JAX's bar of ``ref``, but for the entries that
+              rounding decides: those where plain_adam of the two runs'
+              gradients already lie past the bar. Adam moves an entry by
+              about lr whatever its gradient's size, so where a gradient is
+              within rounding of 0 (softmax ignores a shift of a row's
+              scores: the k_proj biases'; a few entries anywhere) two sums
+              of it in other orders step it apart. Their count is returned.
+
+    Returns the worst gradient error with its leaf and update, the counts
+    past each bar, and the worst unexplained entry's excess and leaf."""
+    names = list(ref)
+    out = dict(grad_err=0.0, grad_at=None, n=0, follow_got=0, follow_ref=0,
+               follow_excess=0.0, past=0, decided=0, unexplained=0,
+               unexplained_excess=0.0, unexplained_at=None)
+    if len(grads_got) != len(grads_ref):
+        raise ValueError(f"{len(grads_got)} updates against "
+                         f"{len(grads_ref)}")
+    for t, ((g, _), (r, _)) in enumerate(zip(grads_got, grads_ref), 1):
+        errs = grad_errors(names, [g[k] for k in names],
+                           [r[k] for k in names])
+        i = int(np.argmax(errs))
+        if errs[i] >= out["grad_err"]:
+            out.update(grad_err=errs[i], grad_at=(names[i], t))
+    adam_got = plain_adam(start, grads_got, hyper)
+    adam_ref = plain_adam(start, grads_ref, hyper)
+
+    def excess(a, b):  # |a - b| over JAX's bar about b
+        return (a - b).abs() / (PAR_PARAM_ATOL + PAR_PARAM_RTOL * b.abs())
+
+    for k in names:
+        g, r = got[k].float(), ref[k].float()
+        out["n"] += r.numel()
+        for key, e in (("follow_got", excess(g, adam_got[k])),
+                       ("follow_ref", excess(r, adam_ref[k]))):
+            out[key] += int((e > 1.0).sum())
+            out["follow_excess"] = max(out["follow_excess"], float(e.max()))
+        past = excess(g, r) > 1.0
+        decided = excess(adam_got[k], adam_ref[k]) > 1.0
+        loose = past & ~decided
+        out["past"] += int(past.sum())
+        out["decided"] += int(decided.sum())
+        if loose.any():
+            out["unexplained"] += int(loose.sum())
+            worst = float(excess(g, r)[loose].max())
+            if worst > out["unexplained_excess"]:
+                out.update(unexplained_excess=worst, unexplained_at=k)
+    return out
+
+
+def update_failures(check: dict) -> list:
+    """The bars update_check's result misses, as sentences (none: it
+    agrees)."""
+    fails = []
+    if not check["grad_err"] < GRAD_BAR:
+        fails.append(f"gradient {check['grad_at']} rel L2 "
+                     f"{check['grad_err']:.3e} >= {GRAD_BAR:g}")
+    if check["follow_got"] or check["follow_ref"]:
+        fails.append(f"{check['follow_got']} + {check['follow_ref']} "
+                     "entries past JAX's bar of plain Adam on their own "
+                     "gradients")
+    if check["unexplained"]:
+        fails.append(f"{check['unexplained']} entries past JAX's bar that "
+                     f"rounding does not decide ({check['unexplained_at']}, "
+                     f"{check['unexplained_excess']:.3g}x)")
+    return fails
+
+
+def describe_update_check(check: dict) -> str:
+    return (f"gradients of every update worst rel L2 {check['grad_err']:.3e}"
+            f" ({check['grad_at']}, bar {GRAD_BAR:g}); entries past JAX's "
+            f"bar (rtol {PAR_PARAM_RTOL:g}, atol {PAR_PARAM_ATOL:g}) of "
+            f"plain Adam on the run's own gradients "
+            f"{check['follow_got']}, on the 1-process run's "
+            f"{check['follow_ref']} (largest |d| over the bound "
+            f"{check['follow_excess']:.3g}); of the 1-process run's "
+            f"parameters {check['past']} of {check['n']}, rounding decides "
+            f"{check['decided']}, the rest {check['unexplained']}")
+
+
+def parallel_paths(records: list) -> dict:
+    """{"parallel <tag>": {kernel: {"f32": n, "bf16": n}}} of the ranks'
+    records ([{tag: record}] per rank), every rank's launches summed."""
+    paths = {}
+    for tag in records[0]:
+        counts = {}
+        for rec in (r[tag] for r in records):
+            for name, by in rec["counts"].items():
+                for k, n in by.items():
+                    counts.setdefault(name, {"f32": 0, "bf16": 0})[k] += n
+        paths[f"parallel {tag}"] = counts
+    return paths
+
+
+@contextlib.contextmanager
+def parallel_ranks(tmp: str):
+    """The PAR_RANKS ranks of the parallel phase, started now (their imports
+    and CUDA contexts overlap the phases before it), each in
+    ``<tmp>/parallel/rank<r>``, its output in ``rank<r>.log``; they wait
+    for ``spec.json``, which phase_parallel writes. Yields {"root", "spec",
+    "procs"}; every rank still running on exit is killed."""
+    root = pathlib.Path(tmp) / "parallel"
+    root.mkdir()
+    spec = root / "spec.json"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    try:
+        for rank in range(PAR_RANKS):
+            cwd = root / f"rank{rank}"
+            cwd.mkdir()
+            argv, env = parallel_child_command(spec, rank, port)
+            logs.append(open(root / f"rank{rank}.log", "w"))
+            procs.append(subprocess.Popen(argv, env=env, cwd=cwd,
+                                          stdout=logs[-1],
+                                          stderr=subprocess.STDOUT))
+        yield dict(root=root, spec=spec, procs=procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+
+
+def phase_parallel(dev, gpu: str, tmp: str, ranks: dict):
+    """Data- and tensor-parallel training on the one card: PAR_RANKS ranks
+    of the trainer's CLI (--multi_host, gloo, torchrun's variables) sharing
+    it, through the flash kernels (and the conv kernels in HuBERT's run),
+    from the train phase's checkpoint at full width; the f32 runs held to
+    the 1-process runs of this process. Returns {path: launch counts per
+    kernel and dtype}, both ranks summed."""
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    root = ranks["root"]
+    train_root = pathlib.Path(tmp) / "train"
+    state = load_checkpoint(str(train_root / "exp" / "last-step.npz"),
+                            load_opt=False)
+    starts = {}
+    for dtype in ("f32", "bf16"):
+        up = copy.deepcopy(state["meta"]["Upstream_Config"])
+        if dtype == "f32":  # the parity runs: no dropout
+            up["melhubert"].update(dropout=0.0, attention_dropout=0.0,
+                                   activation_dropout=0.0)
+        starts[dtype] = str(root / f"start_{dtype}.npz")
+        save_checkpoint(starts[dtype], state["params"],
+                        meta={"Upstream_Config": up, "Step": 0})
+    start = named_params(state["params"], dev)
+    del state
+    csv = str(train_root / "data" / "train.csv")
+    runs = parallel_runs(root, starts, csv, pathlib.Path(tmp) / "hubert")
+    spec, procs = ranks["spec"], ranks["procs"]
+    spec.with_suffix(".tmp").write_text(json.dumps({"runs": runs}))
+    spec.with_suffix(".tmp").rename(spec)  # the ranks poll for it
+    log("parallel", f"{PAR_RANKS} ranks sharing cuda:0, backend gloo "
+        "(NCCL refuses two ranks on one device), torchrun's variables, "
+        f"each from its own directory, started before the wave prune phase: "
+        f"{len(runs)} runs ({', '.join(r['tag'] for r in runs)}) through "
+        f"the CLI's main, e.g. {' '.join(runs[0]['argv'])}")
+    t0 = time.perf_counter()
+    deadline = t0 + PAR_TIMEOUT
+    for p in procs:
+        p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (root / f"rank{rank}.log").read_text()[-6000:]
+            raise AssertionError(f"rank {rank} exited {p.returncode}:\n{tail}")
+    ranks_s = time.perf_counter() - t0
+    records = [{r["tag"]: r for r in json.loads(
+        pathlib.Path(f"{spec}.{rank}.json").read_text())}
+        for rank in range(PAR_RANKS)]
+    wrote = sorted(os.listdir(root / "rank0"))
+    if os.listdir(root / "rank1") or len(wrote) != len(runs):
+        raise AssertionError(f"rank 1 wrote {os.listdir(root / 'rank1')}, "
+                             f"rank 0 {wrote}")
+    log("parallel", f"ranks done in {ranks_s:.1f} s; only rank 0 wrote: "
+        f"{wrote}, rank 1's directory empty")
+    for tag in records[0]:
+        for rank, rec in enumerate(r[tag] for r in records):
+            last = rec["updates"][-1]
+            log("parallel", f"{tag} rank {rank} grid {rec['grid']} local "
+                f"heads {rec['local_heads'][0]}: updates "
+                f"{[round(u['update_ms'], 1) for u in rec['updates']]} ms; "
+                f"the last: grad steps {last['step_ms']:.1f} ms (activation "
+                f"all-reduces in them {last['collective_ms']:.1f} ms), "
+                f"gradient all-reduce {last['reduce_ms']:.1f} ms, idle (the "
+                f"host collectives' share) {last['idle']:.1%}; peak "
+                f"{rec['peak_gib']:.2f} GiB, run {rec['seconds']:.1f} s "
+                f"(saves {rec['save_s']:.1f} s), losses "
+                f"{[round(h['loss'], 6) for h in rec['log']]} [{gpu}]")
+            if rec["bf16_step"]:
+                log("parallel", f"{tag} rank {rank}: one bf16 grad step of "
+                    f"its model (dropout 0), after a warm-up: "
+                    f"{rec['bf16_step'][0]:.1f} ms, its activation "
+                    f"all-reduces {rec['bf16_step'][1]:.1f} ms [{gpu}]")
+        if records[0][tag]["log"] != records[1][tag]["log"]:
+            raise AssertionError(f"{tag}: the ranks logged different losses")
+
+    # (a) f32 data parallel against the 1-process replay of its batches
+    t0 = time.perf_counter()
+    dp = runs[0]
+    replay, ref_grads = parallel_reference(dp["argv"], root / "replay", True)
+    got = [h["loss"] for h in records[0]["dp_f32"]["log"]]
+    want = [h["loss"] for h in replay.log_history]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    dumped = [torch.load(f"{dp['dump']}_{i}.pt")
+              for i in range(PAR_F32_UPDATES)]
+    run_grads = [({k: v.to(dev) for k, v in d["grads"].items()},
+                  d["sample_size"]) for d in dumped]
+    params = named_params(load_checkpoint(str(
+        root / "rank0" / "exp_dp_f32" / "last-step.npz"),
+        load_opt=False)["params"], dev)
+    check = update_check(start, params, replay.params, run_grads, ref_grads,
+                         replay.optimizer)
+    fails = update_failures(check)
+    log("parallel", f"dp_f32 against the 1-process replay (B = "
+        f"{4 * PAR_RANKS} a step, TF32 off): losses {got} vs {want}, worst "
+        f"rel {loss_err:.3e} (bar {PAR_LOSS_RTOL:g}); after "
+        f"{PAR_F32_UPDATES} updates: {describe_update_check(check)}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (len(got) == len(want) == PAR_F32_UPDATES
+            and loss_err < PAR_LOSS_RTOL) or fails:
+        raise AssertionError(f"data parallel disagrees with the replay: "
+                             f"{fails}")
+    # planted faults, from this run's own data, that the check must fail:
+    # PAR_CONTROL_LEAF's gradient left at rank 0's own (its updates as a
+    # run that skipped its all-reduce takes them; judged with the
+    # gradients that run would dump, and with this run's), and Adam
+    # without its bias corrections
+    t0 = time.perf_counter()
+    unreduced = [({**g, PAR_CONTROL_LEAF: d["control"].to(dev)}, n)
+                 for (g, n), d in zip(run_grads, dumped)]
+    hyper = replay.optimizer
+    planted = {
+        f"{PAR_CONTROL_LEAF} unreduced": (
+            plain_adam(start, unreduced, hyper), unreduced),
+        f"{PAR_CONTROL_LEAF} unreduced, judged on the sound gradients": (
+            plain_adam(start, unreduced, hyper), run_grads),
+        "Adam without bias corrections": (
+            plain_adam(start, run_grads, hyper, corrected=False),
+            run_grads)}
+    for fault, (params, grads) in planted.items():
+        missed = update_failures(update_check(
+            start, params, replay.params, grads, ref_grads, hyper))
+        log("parallel", f"dp_f32 planted fault, {fault}: fails "
+            f"{missed}")
+        if not missed:
+            raise AssertionError(f"the update check passes a planted "
+                                 f"fault: {fault}")
+    log("parallel", f"planted faults checked, "
+        f"{time.perf_counter() - t0:.1f} s")
+    del replay, ref_grads, dumped, run_grads, unreduced, planted, params
+
+    # (b) f32 tensor parallel against the 1-process step
+    t0 = time.perf_counter()
+    tp = runs[2]
+    one, ref_grads = parallel_reference(tp["argv"], root / "one", False)
+    d = torch.load(f"{tp['dump']}_0.pt")
+    run_grads = [({k: v.to(dev) for k, v in d["grads"].items()},
+                  d["sample_size"])]
+    ckpt = root / "rank0" / "exp_tp_f32" / "last-step.npz"
+    params = named_params(load_checkpoint(str(ckpt), load_opt=False)
+                          ["params"], dev)
+    check = update_check(start, params, one.params, run_grads, ref_grads,
+                         one.optimizer)
+    fails = update_failures(check)
+    got = records[0]["tp_f32"]["log"][0]["loss"]
+    want = one.log_history[0]["loss"]
+    loss_err = abs(got - want) / abs(want)
+    log("parallel", f"tp_f32 (heads {records[0]['tp_f32']['local_heads'][0]}"
+        f" + {records[1]['tp_f32']['local_heads'][0]} a layer) against the "
+        f"1-process step: loss {got:.6f} vs {want:.6f}, rel {loss_err:.3e} "
+        f"(bar {PAR_LOSS_RTOL:g}); the gathered gradients and checkpoint "
+        f"after 1 update: {describe_update_check(check)}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if loss_err >= PAR_LOSS_RTOL or fails:
+        raise AssertionError(f"tensor parallel disagrees with the 1-process "
+                             f"step: {fails}")
+
+    # the TP checkpoint serves in a 1-process extractor as the 1-process
+    # step's parameters do
+    ext = MelHuBERTExtractor(str(ckpt), device=dev)
+    wavs = [np.random.default_rng(i).standard_normal(16000).astype(
+        np.float32) * 0.1 for i in range(2)]
+    out = ext.forward_packed(wavs)["last_hidden_state"]
+    named = dict(ext.model.named_parameters())
+    if set(named) != set(one.params):
+        raise AssertionError("the extractor's parameters are not the "
+                             "trainer's")
+    with torch.no_grad():
+        for k, v in named.items():
+            v.copy_(one.params[k])
+    ref = ext.forward_packed(wavs)["last_hidden_state"]
+    err = float((out - ref).abs().max() / ref.abs().mean())
+    log("parallel", f"the TP checkpoint served by MelHuBERTExtractor: "
+        f"{tuple(out.shape)}, against the 1-process step's parameters "
+        f"max|d|/mean|ref| {err:.3e} (bar {SLICE_BAR:g})")
+    if not (bool(out.isfinite().all()) and err < SLICE_BAR):
+        raise AssertionError("the TP checkpoint serves other values")
+    del ext, one, ref_grads, run_grads, params
+
+    paths = parallel_paths(records)
+    for tag in ("dp_f32", "dp_bf16", "tp_f32"):
+        if not all(sum(c.values()) for name, c in paths[f"parallel {tag}"]
+                   .items() if name.startswith("flash_attn")):
+            raise AssertionError(f"{tag} launched no attention kernel")
+    hub = paths["parallel hubert_dp_bf16"]
+    if not all(hub.get(n, {}).get("bf16") for n in
+               ("conv1d_fwd", "conv1d_dw", "conv1d_dx")):
+        raise AssertionError(f"HuBERT's DP run launched no conv kernel: {hub}")
+    log("parallel", f"launches, both ranks: {paths}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    return paths
+
+
 def attention_library_ms(dev, gpu: str, dtype):
     """F.scaled_dot_product_attention's times in ``dtype`` (f32 with TF32
     off), the flash kernels' library yardstick (timed here, never called by
@@ -5711,6 +6397,8 @@ def timed(name: str, fn, *args):
     finally:
         PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
                                + time.perf_counter() - t0)
+        log("clock", f"{name}: {time.perf_counter() - t0:.1f} s, "
+            f"{time.perf_counter() - T_START:.1f} s since torch's import")
 
 
 def main() -> None:
@@ -5718,11 +6406,17 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also profile forward_packed per path and the "
                         "grad step")
+    parser.add_argument("--child", default=None, metavar="SPEC",
+                        help="run as one rank of the parallel phase "
+                        "(parallel_child_command)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
+    if args.child:
+        child_main(args.child)
+        return
     from speech_ssl_compression_tpu_torch.ops import _kernels
 
     dev = torch.device("cuda", 0)
@@ -5789,7 +6483,13 @@ def main() -> None:
             timed("profile", phase_w2v2_profile, runner, cudnn_model, batch,
                   gpu)
         del runner, cudnn_model, batch
-        wave_prune = timed("wave prune", phase_wave_prune, dev, gpu, tmp)
+        with parallel_ranks(tmp) as ranks:
+            wave_prune = timed("wave prune", phase_wave_prune, dev, gpu,
+                               tmp)
+            gc.collect()
+            torch.cuda.empty_cache()  # the ranks share the card with us
+            parallel = timed("parallel", phase_parallel, dev, gpu, tmp,
+                             ranks)
 
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after
@@ -5803,7 +6503,8 @@ def main() -> None:
              "melhubert row-pruning": row_prune,
              "melhubert distillation": distill,
              "hubert serve": hubert_serve, "hubert train": hubert_train,
-             "wav2vec2 train": w2v2_train, **wave_prune, **long_counts}
+             "wav2vec2 train": w2v2_train, **wave_prune, **long_counts,
+             **parallel}
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         if not head_prune[name]["f32"]:
             raise AssertionError(f"no f32 {name} launch on head pruning")

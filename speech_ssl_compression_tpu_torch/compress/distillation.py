@@ -29,16 +29,18 @@ from ..models.melhubert import masked_cross_entropy
 
 
 def kd_soft_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
-                 select: torch.Tensor, temperature: float) -> torch.Tensor:
+                 select: torch.Tensor, temperature: float,
+                 total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """KLDiv (batchmean) over the selected frames: the mean over them of
     sum_c p_t * (log p_t - log p_s), on temperature-softened logits in f32
-    (JAX ``kd_soft_loss``)."""
+    (JAX ``kd_soft_loss``); divided by ``total`` where given (a
+    data-parallel rank's share of the global batch's mean)."""
     t = temperature
     logp_s = torch.log_softmax(student_logits.float() / t, dim=-1)
     logp_t = torch.log_softmax(teacher_logits.float() / t, dim=-1)
     p_t = torch.exp(logp_t)
     per_frame = torch.sum(p_t * (logp_t - logp_s), dim=-1)  # (B, T)
-    count = select.sum()
+    count = select.sum() if total is None else total
     return (torch.where(select, per_frame, torch.zeros_like(per_frame)).sum()
             / count.clamp_min(1))
 
@@ -46,11 +48,15 @@ def kd_soft_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
 def distillation_loss(student_out: dict, teacher_out: dict,
                       labels: torch.Tensor, pad_mask: torch.Tensor, *,
                       temperature: float, alpha: float,
-                      loss_type: str = "masked"):
+                      loss_type: str = "masked",
+                      totals: Optional[dict] = None):
     """Returns (total_loss, logs) with logs ``hard_loss``, ``soft_loss``
     and ``teacher_loss`` (JAX ``distillation_loss``). ``loss_type`` selects
     the student's masked or unmasked valid frames (reference
-    'masked'/'nomasked', :127-139)."""
+    'masked'/'nomasked', :127-139). ``totals`` ({"hard", "soft"}: the
+    global batch's counts of :func:`distill_selections`) are a
+    data-parallel rank's divisors."""
+    totals = totals or {}
     valid = pad_mask.to(torch.bool)
     mask_indices = student_out["mask_indices"]
     if loss_type == "masked":
@@ -60,14 +66,28 @@ def distillation_loss(student_out: dict, teacher_out: dict,
     else:
         raise NotImplementedError(loss_type)
     t_logits = teacher_out["logits"].detach()
-    hard_loss, _ = masked_cross_entropy(student_out["logits"], labels, select)
-    teacher_loss, _ = masked_cross_entropy(t_logits, labels, select)
+    hard_loss, _ = masked_cross_entropy(student_out["logits"], labels, select,
+                                        totals.get("hard"))
+    teacher_loss, _ = masked_cross_entropy(t_logits, labels, select,
+                                           totals.get("hard"))
     soft_loss = kd_soft_loss(student_out["logits"], t_logits, select,
-                             temperature)
+                             temperature, totals.get("soft"))
     total = hard_loss * (1.0 - alpha) + soft_loss * alpha
     logs = {"hard_loss": hard_loss, "soft_loss": soft_loss,
             "teacher_loss": teacher_loss}
     return total, logs
+
+
+def distill_selections(mask_indices: Optional[torch.Tensor],
+                       labels: torch.Tensor, pad_mask: torch.Tensor,
+                       loss_type: str = "masked") -> dict:
+    """The frames the KD loss's terms average over: {"hard": the selected
+    frames with a label, "soft": the selected frames}."""
+    valid = pad_mask.to(torch.bool)
+    mask = (torch.zeros_like(valid) if mask_indices is None
+            else mask_indices.to(torch.bool))
+    select = valid & mask if loss_type == "masked" else valid & ~mask
+    return {"hard": select & (labels != -100), "soft": select}
 
 
 def _copy_tree(tree):
@@ -130,7 +150,8 @@ def distill_forward(teacher, student, feat: torch.Tensor,
                     deterministic_student: bool = False,
                     attn_impl: str = "auto",
                     teacher_params: Optional[Dict[str, torch.Tensor]] = None,
-                    student_params: Optional[Dict[str, torch.Tensor]] = None):
+                    student_params: Optional[Dict[str, torch.Tensor]] = None,
+                    totals: Optional[dict] = None):
     """One teacher and student forward and the loss (JAX
     ``distill_forward``); differentiate with respect to the student's
     parameters only. ``mask_indices`` is the teacher's span mask (B, T),
@@ -139,7 +160,8 @@ def distill_forward(teacher, student, feat: torch.Tensor,
     distillation/pretrain_expert.py:28-34, :115-117). The student replays
     the teacher's mask. ``rng`` is the host generator of the student's
     dropout. ``teacher_params`` / ``student_params`` stand in for the
-    models' own parameters where given (``functional_call``)."""
+    models' own parameters where given (``functional_call``); ``totals``
+    as in :func:`distillation_loss`."""
     mask_or_not = loss_type == "masked"
     teacher_out = teacher_forward(teacher, feat, pad_mask, mask=mask_or_not,
                                   mask_indices=mask_indices,
@@ -149,4 +171,4 @@ def distill_forward(teacher, student, feat: torch.Tensor,
         rng=rng, deterministic=deterministic_student, attn_impl=attn_impl))
     return distillation_loss(student_out, teacher_out, labels, pad_mask,
                              temperature=temperature, alpha=alpha,
-                             loss_type=loss_type)
+                             loss_type=loss_type, totals=totals)

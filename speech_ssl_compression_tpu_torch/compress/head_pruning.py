@@ -75,7 +75,8 @@ def data_driven_scores_from_grads(contexts, context_grads):
 
 def context_scores(model, params: Dict[str, torch.Tensor], batch: dict,
                    mask_indices, rng: torch.Generator, *,
-                   deterministic: bool = False, attn_impl: str = "auto"):
+                   deterministic: bool = False, attn_impl: str = "auto",
+                   totals=None):
     """One scoring batch: the masked forward of ``model`` on ``params``
     (detached here; their dtype is the compute dtype) with its contexts,
     the pre-training loss, its gradient with respect to the contexts, and
@@ -83,7 +84,9 @@ def context_scores(model, params: Dict[str, torch.Tensor], batch: dict,
     ``feat``, ``label`` and ``pad_mask``; ``mask_indices`` is the (B, T)
     span mask drawn on the host; ``rng`` (a host generator) feeds the
     dropouts unless ``deterministic``. A layer LayerDrop skips scores 0.
-    Returns (loss, [(H_i,) f32 tensor per layer])."""
+    ``totals`` are the loss's divisors on a data-parallel rank
+    (``melhubert_pretrain_loss``). Returns (loss, [(H_i,) f32 tensor per
+    layer])."""
     cfg = model.cfg
     feat = batch["feat"].detach().requires_grad_()
     out = functional_call(
@@ -93,7 +96,7 @@ def context_scores(model, params: Dict[str, torch.Tensor], batch: dict,
              deterministic=deterministic, attn_impl=attn_impl,
              return_contexts=True))
     loss, _ = melhubert_pretrain_loss(out, batch["label"], batch["pad_mask"],
-                                      cfg)
+                                      cfg, totals)
     ran = [c for c in out["contexts"] if c is not None]
     # every layer skipped: nothing to differentiate, every head scores 0
     grads = iter(torch.autograd.grad(loss, ran) if ran else ())

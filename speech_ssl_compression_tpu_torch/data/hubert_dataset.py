@@ -1,7 +1,7 @@
 """HuBERT waveform batches: raw audio and frame labels, bucketed by size.
 
 The port's copy of ``speech_ssl_compression_tpu/data/hubert_dataset.py``
-(reference datasets/hubert_dataset.py:111-352), single process: a TSV
+(reference datasets/hubert_dataset.py:111-352): a TSV
 manifest (first line the root, then "rel_path\\tnum_samples"), per-frame
 label files read lazily at byte offsets, the audio/label duration check,
 buckets of ``batch_size`` utterances sorted by size, a random crop of every
@@ -95,7 +95,13 @@ class HubertWaveDataset:
         single_target: bool = False,
         pad_multiple: int = 2000,
         seed: int = 0,
+        process_index: Optional[int] = 0,
+        process_count: int = 1,
     ):
+        """``process_index`` of ``process_count`` data ranks, or None for
+        the replay: lockstep groups as ``bucket_dataset.MelFeatBuckets``
+        serves them (equal-size buckets only, each group padded to its
+        length from the manifest)."""
         self.root, self.names, inds, self.sizes, tot = load_manifest(
             manifest_path, max_keep_sample_size, min_keep_sample_size)
         self.sample_rate = sample_rate
@@ -109,7 +115,20 @@ class HubertWaveDataset:
         self.random_crop = random_crop
         self.single_target = single_target
         self.pad_multiple = pad_multiple
-        self.rng = np.random.default_rng(seed)
+        self.process_index = process_index
+        self.process_count = max(1, int(process_count))
+        self._multi = self.process_count > 1 or process_index is None
+        self._order_rng = None
+        if self._multi:
+            self._order_rng = np.random.default_rng(seed)
+            self.rng = np.random.default_rng(
+                seed + 1000003 * ((process_index or 0) + 1))
+            if process_index is None:
+                self._member_rngs = [
+                    np.random.default_rng(seed + 1000003 * (m + 1))
+                    for m in range(self.process_count)]
+        else:
+            self.rng = np.random.default_rng(seed)
         self.label_offsets = [load_label_offsets(p, inds, tot)
                               for p in label_paths]
         for p, r in zip(label_paths, self.label_rates):
@@ -120,9 +139,19 @@ class HubertWaveDataset:
         if batch_size > 1 and self.buckets and len(self.buckets[-1]) < 2:
             logger.info("dropping a trailing single-utterance bucket")
             self.buckets.pop()
+        if self._multi:  # lockstep groups need equal batch sizes
+            self.buckets = [b for b in self.buckets if len(b) == batch_size]
 
     def __len__(self):
-        return len(self.buckets)
+        return len(self.buckets) // self.process_count
+
+    def _bucket_tpad(self, bucket_idx: int) -> int:
+        """A bucket's padded source length from the manifest alone."""
+        szs = [self.sizes[j] for j in self.buckets[bucket_idx]]
+        target = max(szs) if self.pad_audio else min(szs)
+        if np.isfinite(self.max_sample_size):
+            target = min(target, int(self.max_sample_size))
+        return _round_up(int(target), self.pad_multiple)
 
     def _get_audio(self, index: int) -> np.ndarray:
         path = os.path.join(self.root, self.names[index])
@@ -144,10 +173,11 @@ class HubertWaveDataset:
             out.append(np.array(list(map(int, line.split()))))
         return out
 
-    def get_batch(self, bucket_idx: int) -> dict:
+    def get_batch(self, bucket_idx: int, pad_to: Optional[int] = None) -> dict:
         """{"source" (B, T_pad) f32, "length" (B,) int32, "target_lists":
         per label set, per utterance, the cropped frame labels, "starts",
-        "crop_size"}."""
+        "crop_size"}; T_pad is ``pad_to`` where given (a lockstep
+        group's)."""
         idxs = self.buckets[bucket_idx]
         wavs = [self._get_audio(i) for i in idxs]
         labels = [self._get_labels(i) for i in idxs]
@@ -163,6 +193,10 @@ class HubertWaveDataset:
             starts.append(start)
             cropped.append(w[start: start + target])
         t_pad = _round_up(target, self.pad_multiple)
+        if pad_to is not None:
+            assert pad_to >= t_pad, (
+                f"lockstep pad target {pad_to} < bucket length {t_pad}")
+            t_pad = pad_to
         source = np.zeros((len(idxs), t_pad), np.float32)
         lengths = np.zeros((len(idxs),), np.int32)
         for i, w in enumerate(cropped):
@@ -184,7 +218,31 @@ class HubertWaveDataset:
 
     def epoch(self, shuffle: bool = True) -> Iterator[dict]:
         order = np.arange(len(self.buckets))
+        if not self._multi:
+            if shuffle:
+                self.rng.shuffle(order)
+            for i in order:
+                yield self.get_batch(int(i))
+            return
         if shuffle:
-            self.rng.shuffle(order)
-        for i in order:
-            yield self.get_batch(int(i))
+            self._order_rng.shuffle(order)
+        pc = self.process_count
+        for s in range(len(self.buckets) // pc):
+            group = [int(i) for i in order[s * pc:(s + 1) * pc]]
+            tpad = max(self._bucket_tpad(g) for g in group)
+            if self.process_index is not None:
+                yield self.get_batch(group[self.process_index], pad_to=tpad)
+                continue
+            parts = []
+            for m, g in enumerate(group):
+                self.rng = self._member_rngs[m]
+                parts.append(self.get_batch(g, pad_to=tpad))
+            yield {
+                "source": np.concatenate([p["source"] for p in parts]),
+                "length": np.concatenate([p["length"] for p in parts]),
+                "target_lists": [
+                    sum((p["target_lists"][li] for p in parts), [])
+                    for li in range(len(parts[0]["target_lists"]))],
+                "starts": sum((list(p["starts"]) for p in parts), []),
+                "crop_size": max(p["crop_size"] for p in parts),
+            }

@@ -2,7 +2,7 @@
 
 The port's copy of ``speech_ssl_compression_tpu/data/wav2vec2_dataset.py``
 (reference datasets/wav2vec2_dataset.py, RawAudioDataset /
-FileAudioDataset), single process: a TSV manifest (first line the root,
+FileAudioDataset): a TSV manifest (first line the root,
 then "rel_path\\tnum_samples"), percentile length buckets
 (:func:`get_percentile_buckets`, reference fairseq_code/data_utils.py:
 313-331), batches of ``batch_size`` utterances sorted by bucketed size,
@@ -11,7 +11,11 @@ snapped down to a bucket bound, or with ``pad`` the batch maximum padded
 up) and cut to a multiple of ``crop_seq_to_multiple``, and, with
 ``precompute_mask_config``, a block mask per batch at the batch's frame
 count. The numpy generator calls are JAX's, so the same seed gives the
-same batches.
+same batches. ``process_index`` of ``process_count`` data ranks (or None,
+the replay) serves lockstep groups as ``bucket_dataset.MelFeatBuckets``
+does: equal-size batches only, each group padded to its length from the
+manifest, the block mask drawn at the padded frame count and cleared past
+the batch's own.
 """
 
 from __future__ import annotations
@@ -65,7 +69,20 @@ class Wav2Vec2AudioDataset:
         seed: int = 0,
         precompute_mask_config: Optional[dict] = None,
         frames_fn=None,
+        process_index: Optional[int] = 0,
+        process_count: int = 1,
     ):
+        self.process_index = process_index
+        self.process_count = max(1, int(process_count))
+        self._multi = self.process_count > 1 or process_index is None
+        self._order_rng = None
+        if self._multi:
+            self._order_rng = np.random.default_rng(seed)
+            if process_index is None:
+                self._member_rngs = [
+                    np.random.default_rng(seed + 1000003 * (m + 1))
+                    for m in range(self.process_count)]
+            seed = seed + 1000003 * ((process_index or 0) + 1)
         self.sample_rate = sample_rate
         self.max_sample_size = (int(max_sample_size)
                                 if max_sample_size is not None
@@ -123,9 +140,11 @@ class Wav2Vec2AudioDataset:
                         for i in range(0, len(order), batch_size)]
         if batch_size > 1 and self.batches and len(self.batches[-1]) < 2:
             self.batches.pop()  # a trailing singleton, as JAX drops it
+        if self._multi:  # lockstep groups need equal batch sizes
+            self.batches = [b for b in self.batches if len(b) == batch_size]
 
     def __len__(self):
-        return len(self.batches)
+        return len(self.batches) // self.process_count
 
     def _batch_target(self, batch_idx: int) -> int:
         """The batch's source length, from the manifest alone."""
@@ -152,12 +171,17 @@ class Wav2Vec2AudioDataset:
             wav = (wav - wav.mean()) / np.sqrt(wav.var() + 1e-5)
         return wav.astype(np.float32)
 
-    def get_batch(self, batch_idx: int) -> dict:
+    def get_batch(self, batch_idx: int, pad_to: Optional[int] = None) -> dict:
         idxs = self.batches[batch_idx]
         wavs = [self._get_audio(i) for i in idxs]
         target = self._batch_target(batch_idx)
+        t_total = target
+        if pad_to is not None:
+            assert pad_to >= target, (
+                f"lockstep pad target {pad_to} < batch target {target}")
+            t_total = pad_to
         b = len(idxs)
-        source = np.zeros((b, target), np.float32)
+        source = np.zeros((b, t_total), np.float32)
         lengths = np.zeros((b,), np.int32)
         for i, w in enumerate(wavs):
             if len(w) > target:
@@ -169,14 +193,34 @@ class Wav2Vec2AudioDataset:
         if self.precompute_mask_config is not None:
             from ..ops.block_masking import compute_block_mask_1d
 
-            batch["precomputed_mask"] = compute_block_mask_1d(
-                (b, int(self.frames_fn(target))), rng=self.rng,
+            mask = compute_block_mask_1d(
+                (b, int(self.frames_fn(t_total))), rng=self.rng,
                 **self.precompute_mask_config)
+            if t_total > target:  # frames past the batch's own: padding
+                mask[:, int(self.frames_fn(target)):] = False
+            batch["precomputed_mask"] = mask
         return batch
 
     def epoch(self, shuffle: bool = True) -> Iterator[dict]:
         order = np.arange(len(self.batches))
+        if not self._multi:
+            if shuffle:
+                self.rng.shuffle(order)
+            for i in order:
+                yield self.get_batch(int(i))
+            return
         if shuffle:
-            self.rng.shuffle(order)
-        for i in order:
-            yield self.get_batch(int(i))
+            self._order_rng.shuffle(order)
+        pc = self.process_count
+        for s in range(len(self.batches) // pc):
+            group = [int(i) for i in order[s * pc:(s + 1) * pc]]
+            tpad = max(self._batch_target(g) for g in group)
+            if self.process_index is not None:
+                yield self.get_batch(group[self.process_index], pad_to=tpad)
+                continue
+            parts = []
+            for m, g in enumerate(group):
+                self.rng = self._member_rngs[m]
+                parts.append(self.get_batch(g, pad_to=tpad))
+            yield {k: np.concatenate([p[k] for p in parts], axis=0)
+                   for k in parts[0]}

@@ -21,6 +21,14 @@ layer's input and recomputes the layer in the backward
 (:func:`checkpoint_layer`); ``remat=True`` does the same for any forward
 that records a graph (MelHuBERT's grad step, JAX's ``remat=``).
 
+Data and tensor parallel (``parallel/mesh.py::attach``): a rank's
+replica folds its data index into every dropout seed, and a layer split
+over the model group (``layer.tp``) runs this rank's heads and FFN units,
+all-reduces the partial sums of ``out_proj`` and ``fc2`` over the model
+group before their biases, and draws the attention keep bits and the
+activation dropout of its own heads and units with the model index folded
+in as well (:func:`~..ops.dropout.fold_seed`).
+
 ``layer_norm`` is PyTorch's: in bf16 it takes its statistics in f32 and
 rounds its output to bf16, where JAX's ``layer_norm`` rounds each step of
 its bf16 arithmetic. The two agree to bf16 rounding.
@@ -39,7 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import get_activation_fn
 from ..ops.attention import SelfAttention, multi_head_self_attention
-from ..ops.dropout import device_generator, draw_seed, dropout
+from ..ops.dropout import dropout, draw_seed, fold_seed, seeded_generator
+from ..parallel.mesh import CopyToModel, ReduceFromModel
 
 LN_EPS = 1e-5
 
@@ -152,34 +161,52 @@ def encoder_layer_forward(
     attention_seed: Optional[int] = None,
     deterministic: bool = True,
     attn_fn=None,
+    activation_generator: Optional[torch.Generator] = None,
 ):
     """Post-LN (default) or pre-LN BERT layer (reference module.py:82-133).
     With ``deterministic=False`` the residual and activation dropouts draw
-    from ``generator`` and attention dropout keys its bits on
-    ``attention_seed``. Returns (x, context).
+    from ``generator`` (the activation dropout from
+    ``activation_generator`` where given) and attention dropout keys its
+    bits on ``attention_seed``. A layer split over a model group
+    (``layer.tp``, a ``parallel.mesh.Mesh``) all-reduces its attention and
+    FFN outputs over it. Returns (x, context).
 
     ``attn_fn``, when given, replaces the built-in self-attention with a
     callable ``h -> (out, context)`` (the streaming KV-cache attention,
     ``streaming.py``); the residuals, norms and FFN stay the ones here."""
     attn = layer.self_attn
     act = get_activation_fn(activation_fn)
+    tp = getattr(layer, "tp", None)
+    group = None if tp is None else tp.model_group
 
-    def drop(h, p):
-        return dropout(h, p, generator, deterministic)
+    def drop(h, p, gen=generator):
+        return dropout(h, p, gen, deterministic)
 
     def self_attn(h):
         if attn_fn is not None:
             return attn_fn(h)
-        return multi_head_self_attention(
+        if tp is not None:
+            h = CopyToModel.apply(h, group)
+        out, context = multi_head_self_attention(
             h, attn, num_heads=attn.num_heads, head_dim=attn.head_dim,
             key_padding_mask=key_padding_mask, causal=causal,
             segment_ids=segment_ids, impl=attn_impl,
             dropout_p=0.0 if deterministic else attention_dropout,
-            dropout_seed=attention_seed,
+            dropout_seed=attention_seed, out_bias=tp is None,
         )
+        if tp is not None:
+            out = ReduceFromModel.apply(out, group) + attn.out_proj.bias
+        return out, context
 
     def ffn(h):
-        return layer.fc2(drop(act(layer.fc1(h)), activation_dropout))
+        if tp is not None:
+            h = CopyToModel.apply(h, group)
+        h = drop(act(layer.fc1(h)), activation_dropout,
+                 activation_generator or generator)
+        if tp is None:
+            return layer.fc2(h)
+        return (ReduceFromModel.apply(F.linear(h, layer.fc2.weight), group)
+                + layer.fc2.bias)
 
     if layer_norm_first:
         h, context = self_attn(layer_norm(x, layer.self_attn_layer_norm))
@@ -210,7 +237,7 @@ def _holding(module: nn.Module, tensors: dict):
 
 
 def checkpoint_layer(run, x: torch.Tensor, layer: nn.Module,
-                     generator: Optional[torch.Generator]):
+                     generator):
     """``run(x)`` under ``torch.utils.checkpoint`` (non-reentrant): the
     layer's activations are freed after the forward and recomputed in the
     backward, which must see what the forward saw. Two things are not
@@ -230,8 +257,11 @@ def checkpoint_layer(run, x: torch.Tensor, layer: nn.Module,
 
     Nothing in a layer draws from the default generators (the attention's
     keep bits are counter-based on a seed drawn before the layer), so none
-    is stashed."""
-    state = None if generator is None else generator.get_state()
+    is stashed. ``generator`` may be a tuple of generators (a split
+    layer's activation dropout has its own); each is restored."""
+    gens = [g for g in (generator if isinstance(generator, tuple)
+                        else (generator,)) if g is not None]
+    states = [g.get_state() for g in gens]
     held = dict(layer.named_parameters())
     calls = []
 
@@ -240,17 +270,28 @@ def checkpoint_layer(run, x: torch.Tensor, layer: nn.Module,
         if len(calls) == 1:
             return run(h)
         with _holding(layer, held):
-            if state is None:
-                return run(h)
-            now = generator.get_state()
-            generator.set_state(state)
+            now = [g.get_state() for g in gens]
+            for g, st in zip(gens, states):
+                g.set_state(st)
             try:
                 return run(h)
             finally:
-                generator.set_state(now)
+                for g, st in zip(gens, now):
+                    g.set_state(st)
 
     return checkpoint(wrapped, x, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def rank_coords(module) -> tuple:
+    """(data index, model index) a module folds into its dropout seeds:
+    (0, 0) off a grid; the model index only in a layer stack split over
+    the model group (``parallel/mesh.py::attach``)."""
+    mesh = getattr(module, "mesh", None)
+    if mesh is None:
+        return (0, 0)
+    split = getattr(module, "tp", None) is not None
+    return (mesh.data_index, mesh.model_index if split else 0)
 
 
 def encoder_prologue(
@@ -288,6 +329,7 @@ def encoder_layers_forward(
     deterministic: bool = True,
     contexts: Optional[list] = None,
     remat: bool = False,
+    activation_generator: Optional[torch.Generator] = None,
 ):
     """The layer stack + final (pre-LN) norm. Returns (x, layer_hiddens).
     A ``contexts`` list receives each layer's attention context (B, H_i,
@@ -305,13 +347,14 @@ def encoder_layers_forward(
     (JAX's ``jax.checkpoint`` per layer, encoder.py:396-397) every forward
     that records a graph does."""
     layer_hiddens = []
+    coords = rank_coords(enc)
     remat = ((remat or (getattr(cfg, "checkpoint_activations", False)
                         and not deterministic))
              and torch.is_grad_enabled())
     for i, layer in enumerate(enc.layers):
         seed = None
         if not deterministic:
-            seed = draw_seed(rng)
+            seed = fold_seed(draw_seed(rng), *coords)
             if cfg.encoder_layerdrop > 0.0 and float(
                     torch.rand((), generator=rng)) < cfg.encoder_layerdrop:
                 if get_hidden:
@@ -333,9 +376,11 @@ def encoder_layers_forward(
             generator=generator,
             attention_seed=seed,
             deterministic=deterministic,
+            activation_generator=activation_generator,
         )
-        x, context = (checkpoint_layer(run, x, layer, generator) if remat
-                      else run(x))
+        x, context = (checkpoint_layer(run, x, layer,
+                                       (generator, activation_generator))
+                      if remat else run(x))
         if get_hidden:
             layer_hiddens.append(x)
         if contexts is not None:
@@ -369,11 +414,16 @@ def encoder_forward(
     padded up to the next multiple, the padded tail is key-padding-masked
     through the layers, and the outputs are cut back to T (the contexts
     are not: the padded rows' context gradient is 0)."""
-    generator = None
+    generator = activation_generator = None
     if not deterministic:
         if rng is None:
             raise ValueError("training (deterministic=False) needs an rng")
-        generator = device_generator(rng, x.device)
+        seed = draw_seed(rng)
+        coords = rank_coords(enc)
+        generator = seeded_generator(fold_seed(seed, coords[0]), x.device)
+        if getattr(enc, "tp", None) is not None:
+            activation_generator = seeded_generator(
+                fold_seed(seed, *coords, 1), x.device)
     x = encoder_prologue(x, enc, cfg, padding_mask=padding_mask,
                          generator=generator, deterministic=deterministic)
     t = x.shape[1]
@@ -388,7 +438,7 @@ def encoder_forward(
         x, enc, cfg, padding_mask=padding_mask, causal=causal,
         get_hidden=get_hidden, attn_impl=attn_impl, rng=rng,
         generator=generator, deterministic=deterministic, contexts=contexts,
-        remat=remat,
+        remat=remat, activation_generator=activation_generator,
     )
     if pad:
         x = x[:, :t]

@@ -23,13 +23,14 @@ from torch import nn
 from ..configs import HuBERTConfig
 from ..ops.activations import at_least_f32
 from ..ops.dropout import device_generator, host_mask_rng
+from ..parallel.mesh import local_rows
 from ..ops.masking import channel_mask, compute_mask_indices_np
 from .conv_frontend import (
     ConvFeatureExtractor,
     conv_downsample_rate,
     wave_frontend_forward,
 )
-from .encoder import TransformerEncoder, encoder_forward
+from .encoder import TransformerEncoder, encoder_forward, rank_coords
 
 
 class HuBERTModel(nn.Module):
@@ -111,6 +112,7 @@ def encode_aligned_targets_np(labels_per_utt, t_frames: int, ratio: float,
     return arr, valid
 
 
+
 def span_mask(cfg: HuBERTConfig, lengths: np.ndarray, t: int,
               rng: np.random.Generator) -> np.ndarray:
     """(B, T) bool span mask for rows of ``lengths`` valid frames, with the
@@ -154,11 +156,13 @@ def hubert_forward(
     ``mask_prob > 0``). ``deterministic=False`` turns the dropouts on,
     drawing from ``rng``, a host ``torch.Generator``."""
     cfg = model.cfg
+    mesh = getattr(model, "mesh", None)
     generator = None
     if not deterministic:
         if rng is None:
             raise ValueError("training (deterministic=False) needs an rng")
-        generator = device_generator(rng, source.device)
+        generator = device_generator(rng, source.device,
+                                     fold=rank_coords(model)[:1])
     x, unmasked_features, frame_valid, out_len, features_pen = (
         wave_frontend_forward(model, cfg, source, wave_lengths,
                               generator=generator,
@@ -168,15 +172,17 @@ def hubert_forward(
     if mask and cfg.mask_prob > 0:
         host_rng = host_mask_rng(rng)
         if mask_indices is None:
-            mask_indices = torch.from_numpy(span_mask(cfg, out_len, t_frames,
-                                                      host_rng()))
+            mask_indices = torch.from_numpy(local_rows(
+                mesh, lambda lens: span_mask(cfg, lens, t_frames, host_rng()),
+                out_len))
         mask_indices = mask_indices.to(device=x.device, dtype=torch.bool)
         x = torch.where(mask_indices[:, :, None],
                         model.mask_emb.to(x.dtype)[None, None, :], x)
         if cfg.mask_channel_prob > 0:
             if mask_channel_indices is None:
-                mask_channel_indices = torch.from_numpy(channel_mask(
-                    cfg, b, x.shape[-1], host_rng()))
+                mask_channel_indices = torch.from_numpy(local_rows(
+                    mesh, lambda lens: channel_mask(
+                        cfg, len(lens), x.shape[-1], host_rng()), out_len))
             x = x.masked_fill(mask_channel_indices.to(
                 device=x.device, dtype=torch.bool)[:, None, :], 0.0)
     else:

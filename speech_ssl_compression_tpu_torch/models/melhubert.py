@@ -159,36 +159,60 @@ def masked_cross_entropy(
     logits: torch.Tensor,  # (B, T, C)
     labels: torch.Tensor,  # (B, T) int, -100 = ignore
     select: torch.Tensor,  # (B, T) bool: which frames to include
+    total: Optional[torch.Tensor] = None,
 ):
     """Mean cross entropy over the selected frames with ignore_index -100,
     log-softmax in f32 (reference pretrain_expert.py:25,114-119 gathers the
-    frames; JAX and the port mask them). Returns (loss, count)."""
+    frames; JAX and the port mask them). ``total`` replaces the count as
+    the divisor: the global batch's count, where a data-parallel rank
+    holds a part of it (the ranks' losses then sum to the global mean).
+    Returns (loss, count)."""
     valid = select & (labels != -100)
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     count = valid.sum()
-    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / count.clamp_min(1)
+    den = count if total is None else total
+    loss = (torch.where(valid, nll, torch.zeros_like(nll)).sum()
+            / den.clamp_min(1))
     return loss, count
 
 
+def loss_selections(mask_indices: Optional[torch.Tensor],
+                    labels: torch.Tensor, pad_mask: torch.Tensor) -> dict:
+    """The frames each term of :func:`melhubert_pretrain_loss` averages
+    over, {"masked": (B, T) bool, "nomask": ...} (a missing span mask masks
+    nothing)."""
+    valid = pad_mask.to(torch.bool) & (labels != -100)
+    if mask_indices is None:
+        mask_indices = torch.zeros_like(valid)
+    mask_indices = mask_indices.to(torch.bool)
+    return {"masked": valid & mask_indices, "nomask": valid & ~mask_indices}
+
+
 def melhubert_pretrain_loss(out: dict, labels: torch.Tensor,
-                            pad_mask: torch.Tensor, cfg: MelHuBERTConfig):
+                            pad_mask: torch.Tensor, cfg: MelHuBERTConfig,
+                            totals: Optional[dict] = None):
     """pred_masked_weight * CE(masked) + pred_nomask_weight * CE(unmasked)
-    (reference pretrain_expert.py:114-119). Returns (loss, logs)."""
+    (reference pretrain_expert.py:114-119). ``totals`` ({"masked",
+    "nomask"}: the global batch's counts of :func:`loss_selections`) are
+    the divisors of a data-parallel rank. Returns (loss, logs)."""
+    totals = totals or {}
     valid = pad_mask.to(torch.bool)
     mask_indices = out["mask_indices"]
     loss = 0.0
     logs = {}
     if not cfg.skip_masked and cfg.pred_masked_weight > 0:
         l_m, n_m = masked_cross_entropy(out["logits"], labels,
-                                        valid & mask_indices)
+                                        valid & mask_indices,
+                                        totals.get("masked"))
         loss = loss + cfg.pred_masked_weight * l_m
         logs["loss_masked"] = l_m
         logs["n_masked"] = n_m
     if not cfg.skip_nomask and cfg.pred_nomask_weight > 0:
         l_u, n_u = masked_cross_entropy(out["logits"], labels,
-                                        valid & ~mask_indices)
+                                        valid & ~mask_indices,
+                                        totals.get("nomask"))
         loss = loss + cfg.pred_nomask_weight * l_u
         logs["loss_nomask"] = l_u
         logs["n_nomask"] = n_u

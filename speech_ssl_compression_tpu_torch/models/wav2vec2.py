@@ -38,9 +38,10 @@ from torch import nn
 from ..configs import Wav2Vec2Config
 from ..ops.activations import at_least_f32
 from ..ops.dropout import device_generator, host_mask_rng
+from ..parallel.mesh import local_rows
 from ..ops.masking import channel_mask, compute_mask_indices_np
 from .conv_frontend import ConvFeatureExtractor, wave_frontend_forward
-from .encoder import TransformerEncoder, encoder_forward
+from .encoder import TransformerEncoder, encoder_forward, rank_coords
 from .gumbel_vq import (
     GumbelVectorQuantizer,
     gumbel_vq_forward,
@@ -97,6 +98,7 @@ class Wav2Vec2Model(nn.Module):
             out["loss"], out["sample_size"], out["logs"] = (
                 wav2vec2_pretrain_loss(out, self.cfg))
         return out
+
 
 
 def span_mask(cfg: Wav2Vec2Config, lengths, t: int,
@@ -244,9 +246,11 @@ def wav2vec2_forward(
     (parity checks hold the mask, the noise and the counts fixed)."""
     cfg = model.cfg
     dev = source.device
+    mesh = getattr(model, "mesh", None)
     generator = None
     if rng is not None:
-        generator = device_generator(rng, dev)
+        generator = device_generator(rng, dev,
+                                     fold=rank_coords(model)[:1])
     elif not deterministic:
         raise ValueError("training (deterministic=False) needs an rng")
     x, unmasked_features, frame_valid, out_len, features_pen = (
@@ -262,8 +266,9 @@ def wav2vec2_forward(
     def zero_channels(x):
         nonlocal mask_channel_indices
         if mask_channel_indices is None:
-            mask_channel_indices = torch.from_numpy(channel_mask(
-                cfg, b, x.shape[-1], host_rng()))
+            mask_channel_indices = torch.from_numpy(local_rows(
+                mesh, lambda lens: channel_mask(cfg, len(lens), x.shape[-1],
+                                                host_rng()), out_len))
         return x.masked_fill(mask_channel_indices.to(
             device=dev, dtype=torch.bool)[:, None, :], 0.0)
 
@@ -271,9 +276,10 @@ def wav2vec2_forward(
         x = zero_channels(x)
     if mask and cfg.mask_prob > 0:
         if mask_indices is None:
-            mask_indices = torch.from_numpy(span_mask(
-                cfg, out_len, t_frames, host_rng(),
-                shared_rounding=mask_shared_rounding))
+            mask_indices = torch.from_numpy(local_rows(
+                mesh, lambda lens: span_mask(
+                    cfg, lens, t_frames, host_rng(),
+                    shared_rounding=mask_shared_rounding), out_len))
         mask_indices = (mask_indices.to(device=dev, dtype=torch.bool)
                         & frame_valid)
         x = torch.where(mask_indices[:, :, None],

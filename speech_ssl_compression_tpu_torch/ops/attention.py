@@ -80,11 +80,13 @@ def project_to_heads(x: torch.Tensor, proj: nn.Linear, num_heads: int,
     return y.view(b, t, num_heads, head_dim).transpose(1, 2).contiguous()
 
 
-def output_projection(context: torch.Tensor, proj: nn.Linear) -> torch.Tensor:
-    """Merge heads and apply out_proj: (B, H, T, d) -> (B, T, D)."""
+def output_projection(context: torch.Tensor, proj: nn.Linear,
+                      bias: bool = True) -> torch.Tensor:
+    """Merge heads and apply out_proj: (B, H, T, d) -> (B, T, D); without
+    ``bias`` the product alone (a tensor-parallel rank's partial sum)."""
     b, h, t, d = context.shape
     flat = context.transpose(1, 2).reshape(b, t, h * d)
-    return F.linear(flat, proj.weight, proj.bias)
+    return F.linear(flat, proj.weight, proj.bias if bias else None)
 
 
 class SelfAttention(nn.Module):
@@ -114,12 +116,19 @@ def multi_head_self_attention(
     impl: str = "auto",
     dropout_p: float = 0.0,
     dropout_seed: Optional[int] = None,  # required when dropout_p > 0
+    out_bias: bool = True,
 ):
     """Port of ``multi_head_self_attention`` (JAX). Returns
     (out (B, T, D), context (B, H, T, d)); context is the pre-out-proj
-    per-head tensor that head scoring reads."""
+    per-head tensor that head scoring reads. ``out_bias=False`` leaves
+    out_proj's bias out (a tensor-parallel rank's partial sum, which may
+    hold no head at all: then out is zeros)."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if num_heads == 0:
+        b, t = x.shape[0], x.shape[1]
+        context = x.new_zeros((b, 0, t, head_dim))
+        return output_projection(context, attn.out_proj, out_bias), context
     q = project_to_heads(x, attn.q_proj, num_heads, head_dim)
     k = project_to_heads(x, attn.k_proj, num_heads, head_dim)
     v = project_to_heads(x, attn.v_proj, num_heads, head_dim)
@@ -127,4 +136,4 @@ def multi_head_self_attention(
     context = attend(q, k, v, key_padding_mask=key_padding_mask,
                      causal=causal, segment_ids=segment_ids,
                      dropout_p=dropout_p, dropout_seed=dropout_seed)
-    return output_projection(context, attn.out_proj), context
+    return output_projection(context, attn.out_proj, out_bias), context

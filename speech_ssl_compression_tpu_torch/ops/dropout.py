@@ -15,6 +15,14 @@ adjacent keys, and key col takes its word col mod 4. The CUDA kernels
 (``csrc/flash_common.cuh``) compute the same bits in-kernel, so the
 forward, the backward kernels, this plain version and ``dense_attention``
 all see one mask, whatever their tiles.
+
+Data- and tensor-parallel training (``parallel/mesh.py``) folds the rank
+into the seeds with :func:`fold_seed`: every rank draws the same seeds from
+the same host generator, so the ranks of one data index fold nothing into
+the dropouts of the replicated activations (their replicas must stay
+equal), the data index into everything (their rows differ), and the model
+index into the attention keep bits and the activation dropout of the
+heads and FFN units a rank holds.
 """
 
 from __future__ import annotations
@@ -60,13 +68,31 @@ def host_mask_rng(generator: Optional[torch.Generator]):
     return get
 
 
-def device_generator(generator: torch.Generator,
-                     device: torch.device) -> torch.Generator:
-    """A generator on ``device`` seeded from the host ``generator``: the
-    source of :func:`dropout`'s bits on that device."""
+_FOLD = (0x1E3779B1, 0x05EBCA6B, 0x42B2AE35)  # one odd step per coordinate
+
+
+def fold_seed(seed: int, *coords: int) -> int:
+    """``seed`` with grid coordinates folded in (data index, model index,
+    a stream tag): ``seed`` itself where all are 0, so one rank, or rank 0,
+    draws what a single process draws."""
+    for step, c in zip(_FOLD, coords):
+        seed = (seed + step * int(c)) % SEED_BOUND
+    return seed
+
+
+def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(draw_seed(generator))
+    gen.manual_seed(seed)
     return gen
+
+
+def device_generator(generator: torch.Generator, device: torch.device,
+                     fold=()) -> torch.Generator:
+    """A generator on ``device`` seeded from the host ``generator`` (with
+    ``fold``'s coordinates folded in, :func:`fold_seed`): the source of
+    :func:`dropout`'s bits on that device."""
+    return seeded_generator(fold_seed(draw_seed(generator), *fold), device)
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],

@@ -38,6 +38,17 @@ distillation:
 
 (``<dir>``: ``weight_pruning``, ``head_pruning/l1`` or ``row_pruning``.)
 
+Any of them on N ranks (data parallel; ``--model_parallel 2`` splits each
+encoder layer's heads and FFN units over pairs of ranks):
+
+    torchrun --nproc_per_node N -m speech_ssl_compression_tpu_torch.train \
+        ... --multi_host [--model_parallel 2] [--dist_backend gloo]
+
+``--multi_host`` joins the process group before anything is written
+(``parallel/multihost.py::initialize``: torchrun's env, NCCL where every
+rank has a card of its own; ranks that share one card, and ``--device
+cpu``, need gloo); only rank 0 writes the expdir.
+
 Port of the repository's ``train.py`` (the reference's flags), with
 ``--device`` in place of ``--backend``: ``-u melhubert`` goes to
 ``train/runner.py``, ``-u hubert`` and ``-u wav2vec2`` to
@@ -51,9 +62,10 @@ experiment directory for provenance. Ported: pre-training (``-m
 melhubert``), ``-m weight-pruning``, ``-m head-pruning`` and ``-m
 row-pruning`` of the three models (head pruning: l1 and data-driven,
 by_layer and by_whole on MelHuBERT; l1 on HuBERT and wav2vec 2.0, as in
-JAX) and ``-m distillation`` of MelHuBERT. ``-m distillation`` with ``-u
-hubert|wav2vec2`` and the parallel flags raise ``NotImplementedError``
-(JAX's WaveRunner trains plain pre-training under that mode's name).
+JAX) and ``-m distillation`` of MelHuBERT, each on one rank or a grid of
+them. ``-m distillation`` with ``-u hubert|wav2vec2`` and
+``--pipeline_parallel`` raise ``NotImplementedError`` (JAX's WaveRunner
+trains plain pre-training under that mode's name).
 """
 
 from __future__ import annotations
@@ -89,7 +101,13 @@ def get_args(argv=None):
                         help="torch device: cuda (default) or cpu")
     parser.add_argument("--model_parallel", type=int, default=1)
     parser.add_argument("--pipeline_parallel", type=int, default=1)
-    parser.add_argument("--multi_host", action="store_true")
+    parser.add_argument("--multi_host", action="store_true",
+                        help="join the process group of a multi-process "
+                        "launch (torchrun's env)")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process-group backend (default: nccl where "
+                        "every rank has a card, gloo on the CPU)")
     return parser.parse_args(argv)
 
 
@@ -98,6 +116,11 @@ def main(argv=None):
     from ..configs import read_yaml
 
     args = get_args(argv)
+    if args.multi_host:  # before anything is written (JAX train.py:82-93)
+        from ..parallel.multihost import initialize
+
+        initialize(backend=args.dist_backend,
+                   device_type=args.device.split(":")[0])
     runner_config = read_yaml(args.runner_config)
     upstream_config = read_yaml(args.upstream_config)
     if args.upstream == "melhubert":
@@ -105,11 +128,11 @@ def main(argv=None):
     else:  # the waveform models (train.py:108-116)
         from .wave_runner import WaveRunner as Runner
     runner = Runner(args, runner_config, upstream_config)
-    # config provenance copies (reference train.py:43-44)
-    shutil.copy(args.upstream_config,
-                os.path.join(args.expdir, "config_model.yaml"))
-    shutil.copy(args.runner_config,
-                os.path.join(args.expdir, "config_runner.yaml"))
+    if runner.primary:  # config provenance copies (reference train.py:43-44)
+        shutil.copy(args.upstream_config,
+                    os.path.join(args.expdir, "config_model.yaml"))
+        shutil.copy(args.runner_config,
+                    os.path.join(args.expdir, "config_runner.yaml"))
     runner.train()
     return runner
 

@@ -79,11 +79,19 @@ class OptimizerScheduleMixin:
         """The fused apply on the parameters and Adam state, in place;
         returns the grad norm (a device tensor)."""
         return fused_apply(self.optimizer, list(self.params.values()),
-                           self.opt_state, grads, sample_size)
+                           self.opt_state, grads, sample_size,
+                           sumsq=self._grad_sumsq(grads))
 
-    def _opt_leaves(self) -> list:
-        """The Adam state as checkpoint leaves, in JAX's order and layout."""
-        return opt_leaves_of(self.opt_state, list(self.params),
+    def _grad_sumsq(self, grads):
+        """The gradient's squared norm where the trainer takes it itself
+        (``parallel_mixin.py``), else None."""
+        return None
+
+    def _opt_leaves(self, opt_state=None) -> list:
+        """The Adam state (``opt_state``, the trainer's own by default) as
+        checkpoint leaves, in JAX's order and layout."""
+        return opt_leaves_of(self.opt_state if opt_state is None
+                             else opt_state, list(self.params),
                              self._tree_from_named)
 
     def _restore_opt_state(self, opt_leaves: list) -> None:

@@ -38,8 +38,12 @@ and the student forward and backward (``steps.make_distill_grad_step``).
 checkpoints hold the student, ``Config`` the student's and
 ``Upstream_Config`` the whole YAML.
 
-Not ported (each raises ``NotImplementedError``; ROADMAP.md Queue 1):
-meshes and pipeline parallelism. Remat is a grad-step option
+Data and tensor parallel (``--multi_host``, ``--model_parallel``;
+``train/parallel_mixin.py``): one process per rank of a ``(data, model)``
+grid, each data rank on its shard of the buckets, the gradients summed
+over the data group, the encoder layers split over the model group; only
+the primary writes. Pipeline parallelism raises ``NotImplementedError``
+(ROADMAP.md Queue 1). Remat is a grad-step option
 (``steps.make_melhubert_grad_step(remat=True)``), which JAX's Runner does
 not expose either.
 """
@@ -59,6 +63,8 @@ from ..compress.distillation import init_student_from_teacher
 from ..configs import MelHuBERTConfig
 from ..data.bucket_dataset import MelFeatBuckets, PrefetchIterator
 from ..extract import load_any_checkpoint, resolve_device
+from ..models.melhubert import loss_selections
+from ..parallel.mesh import all_reduce_tensors
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.tb import TBLogger
 from ..utils.torch_convert import (
@@ -75,9 +81,11 @@ from ..utils.weights import (
     named_masks,
 )
 from .optim_mixin import OptimizerScheduleMixin
+from .parallel_mixin import ParallelMixin
 from .prune_mixin import PruneMixin
 from .steps import (
     accumulate_grads,
+    global_totals,
     host_span_mask,
     make_distill_grad_step,
     make_melhubert_grad_step,
@@ -85,7 +93,6 @@ from .steps import (
 
 _PORTED_MODES = ("melhubert", "weight-pruning", "head-pruning",
                  "row-pruning", "distillation")
-_UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
 
 
 def _stack_buckets(batches: list) -> dict:
@@ -110,12 +117,12 @@ def _stack_buckets(batches: list) -> dict:
     }
 
 
-class Runner(OptimizerScheduleMixin, PruneMixin):
+class Runner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
     """``Runner(args, runner_config, upstream_config).train()``, as the JAX
     runner, for ``args.mode`` ``melhubert``, ``weight-pruning``,
     ``head-pruning``, ``row-pruning`` or ``distillation``.
     ``args.device`` names the torch device (``cuda`` when absent: the CPU
-    only when asked for)."""
+    only when asked for; ``cuda:LOCAL_RANK`` on a grid of ranks)."""
 
     _log_tag = "[Runner]"
     _strict_prune_schedule = True
@@ -125,17 +132,16 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
             raise NotImplementedError(
                 f"mode {args.mode!r} is not ported yet "
                 f"({' and '.join(_PORTED_MODES)} only)")
-        for name in _UNPORTED_ARGS:
-            if getattr(args, name, None) not in (None, False, 1):
-                raise NotImplementedError(f"--{name} is not ported")
         self.args = args
         self.runner_config = runner_config
         self.upstream_config = upstream_config
         self.mode = args.mode
         self.device = resolve_device(getattr(args, "device", "cuda"))
+        self._init_grid(args)
         self.expdir = args.expdir
-        os.makedirs(self.expdir, exist_ok=True)
-        self.logger = TBLogger(self.expdir)
+        if self.primary:  # the other ranks never touch the expdir
+            os.makedirs(self.expdir, exist_ok=True)
+        self.logger = TBLogger(self.expdir if self.primary else None)
 
         self.seed = int(getattr(args, "seed", 1337))
         self.rng = torch.Generator().manual_seed(self.seed)
@@ -171,6 +177,7 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
             print("[Runner] Loaded optimizer state from "
                   f"{args.initial_weight}")
             self._resync_schedule_offset()
+        self._shard_state()
 
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
         self._build_grad_step()
@@ -300,6 +307,7 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
             sets=datarc["sets"],
             max_timestep=int(datarc.get("max_timestep", 0)),
             seed=self.seed,
+            **self._data_shard(),
         )
 
     def _device_batch(self, batch: dict) -> dict:
@@ -316,7 +324,13 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
         """A checkpoint in the JAX package's format: params, masks, the
         Adam state's leaves [count, *mu, *nu] in JAX's leaf order and
         layout, and the meta (``TotalStep``, ``Pruned_heads`` and
-        ``Pruning`` where they apply)."""
+        ``Pruning`` where they apply). On a grid every rank calls it (a
+        tensor-parallel rank's slices are gathered) and the primary
+        writes."""
+        whole = self._whole_state(for_primary=True)
+        if whole is None:
+            return
+        params, masks, opt_state = whole
         meta = {
             "Step": global_step,
             "Args": dict(vars(self.args)),
@@ -332,9 +346,9 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
             meta["Pruning"] = self.wp_state.to_meta()
         path = os.path.join(self.expdir, name)
         save_checkpoint(
-            path, jax_tree_from_named(self.params),
-            opt_state=self._opt_leaves(),
-            masks=None if self.masks is None else masks_tree(self.masks),
+            path, jax_tree_from_named(params),
+            opt_state=self._opt_leaves(opt_state),
+            masks=None if masks is None else masks_tree(masks),
             meta=meta, opt_treedef=self._opt_treedef)
         print(f"[Runner] - Saved checkpoint to {path}")
 
@@ -351,10 +365,12 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
             scores = self._data_driven_head_scores()
         else:
             raise NotImplementedError(metric)
-        np.save(os.path.join(
-            self.expdir,
-            f"heads_and_score_{sum(self.cfg.encoder_attention_heads)}.npy"),
-            np.array([(l, h, s) for (l, h), s in scores], np.float64))
+        if self.primary:
+            np.save(os.path.join(
+                self.expdir,
+                f"heads_and_score_{sum(self.cfg.encoder_attention_heads)}"
+                ".npy"),
+                np.array([(l, h, s) for (l, h), s in scores], np.float64))
         group = hp.select_heads_to_prune(scores, self.num_heads_each_step,
                                          pc["target"], self.cfg.encoder_layers)
         print(f"[Head Pruning] - These heads are pruned: {group}")
@@ -369,8 +385,11 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
         reference's per-bucket loop), each a forward in f32 with dropout
         on and a span mask drawn on the host, then the per-head products
         (``compress/head_pruning.py::context_scores``), summed in float64
-        over the groups / their count, then ``normalize_by_layer``.
-        Returns [((layer, head), score), ...]."""
+        over the groups / their count, then ``normalize_by_layer``. On a
+        data-parallel grid each rank scores its rows of the global scoring
+        batches (the loss divided by the global counts) and the scores are
+        summed over the data group before ranking, so every rank makes the
+        same choice. Returns [((layer, head), score), ...]."""
         cfg = self.cfg
         pc = self.runner_config["prune"]
         data_ratio = pc["data_ratio"]
@@ -399,13 +418,19 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
             batch = _stack_buckets(pending) if len(pending) > 1 else pending[0]
             pending = []
             dev_batch = self._device_batch(batch)
+            mask = host_span_mask(cfg, dev_batch, self.rng, self.mesh)
             _, per_layer = hp.context_scores(
-                self.model, self.params, dev_batch,
-                host_span_mask(cfg, dev_batch, self.rng), self.rng)
+                self.model, self.params, dev_batch, mask, self.rng,
+                totals=global_totals(self.mesh, loss_selections(
+                    mask, dev_batch["label"], dev_batch["pad_mask"])))
             consumed += 1
             for i, s in enumerate(per_layer):
                 scores[i] += s.cpu().numpy().astype(np.float64) / n_groups
         assert consumed == n_groups, (consumed, n_groups)
+        if self.mesh.dp > 1:
+            scores = [s.numpy() for s in all_reduce_tensors(
+                [torch.from_numpy(s) for s in scores],
+                self.mesh.cpu_data_group)]
         norm_exp = pc.get("normalize_by_layer")
         if norm_exp is not None:
             scores = hp.normalize_scores_by_layer(scores, float(norm_exp))
@@ -421,7 +446,8 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
                              "and max_timestep leave no utterance pair)")
         accum = self.accum_steps
         print("[Runner] - Accumulated batch size:",
-              int(self.runner_config["datarc"]["train_batch_size"]) * accum)
+              int(self.runner_config["datarc"]["train_batch_size"]) * accum
+              * self.mesh.dp)
 
         n_epochs = runner.get("n_epochs", 0)
         if n_epochs > 0:
@@ -478,7 +504,8 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
                     loss, grads, _ = self.grad_step(
                         self.params, self._device_batch(batch), self.rng,
                         masks=self.masks)
-                except torch.cuda.OutOfMemoryError:
+                except torch.cuda.OutOfMemoryError as err:
+                    self._raise_if_grid(err)
                     # reference runner.py:379-386: drop the WHOLE window and
                     # rewind its counters, so the surviving windows divide
                     # by the right sample count
@@ -500,6 +527,9 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
                 if backward_steps % accum > 0:
                     continue
 
+                # the window's gradients and loss over the data group
+                grads_acc, (batch_loss,) = self._reduce_window(grads_acc,
+                                                               [batch_loss])
                 window_loss = window_loss + batch_loss
                 window_count += all_sample_size
                 if self.mode == "weight-pruning":
@@ -514,7 +544,8 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
                 last = pbar["n"] == pbar["total"] - 1
                 if global_step % log_step == 0 or last:
                     norm_loss = float(window_loss) / max(window_count, 1)
-                    self.logger.scalar(f"{prefix}loss", norm_loss, global_step)
+                    self.logger.scalar(f"{prefix}loss", norm_loss,
+                                       global_step)
                     self.logger.scalar(f"{prefix}gradient norm",
                                        float(grad_norm), global_step)
                     lr_now = self._applied_lr()
@@ -522,10 +553,11 @@ class Runner(OptimizerScheduleMixin, PruneMixin):
                         self.logger.scalar(f"{prefix}lr", lr_now, global_step)
                     steps_per_sec = global_step / (time.time() - t_start)
                     lr_text = "" if lr_now is None else f" lr={lr_now:.3e}"
-                    print(f"[Runner] step {global_step}/{pbar['total']} "
-                          f"loss={norm_loss:.4f} "
-                          f"gnorm={float(grad_norm):.3f}{lr_text} "
-                          f"({steps_per_sec:.2f} steps/s)", flush=True)
+                    if self.primary:
+                        print(f"[Runner] step {global_step}/{pbar['total']} "
+                              f"loss={norm_loss:.4f} "
+                              f"gnorm={float(grad_norm):.3f}{lr_text} "
+                              f"({steps_per_sec:.2f} steps/s)", flush=True)
                     self.log_history.append({"step": global_step,
                                              "loss": norm_loss,
                                              "grad_norm": float(grad_norm)})

@@ -37,9 +37,14 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..compress.distillation import distill_forward
-from ..models.melhubert import melhubert_pretrain_loss, span_mask
+from ..compress.distillation import distill_forward, distill_selections
+from ..models.melhubert import (
+    loss_selections,
+    melhubert_pretrain_loss,
+    span_mask,
+)
 from ..ops.dropout import draw_seed
+from ..parallel.mesh import all_reduce_tensors, local_rows
 
 _MAX_I32 = 2**31 - 1
 
@@ -173,7 +178,8 @@ def applied_lr(hyper: dict, opt_state: list) -> Optional[float]:
 
 @torch.no_grad()
 def fused_apply(hyper: dict, params: List[torch.Tensor], opt_state: list,
-                grads: List[torch.Tensor], sample_size) -> torch.Tensor:
+                grads: List[torch.Tensor], sample_size,
+                sumsq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One clip + Adam (+ coupled L2) update with the non-finite skip, port
     of JAX ``_fused_apply``. Updates ``params`` and ``opt_state`` IN PLACE
     and returns the grad norm (a 0-dim f32 tensor; nothing waits for the
@@ -182,7 +188,10 @@ def fused_apply(hyper: dict, params: List[torch.Tensor], opt_state: list,
     clipping and before the moments; the count increment saturating at the
     int32 maximum; bias corrections and the schedule on the incremented
     count; every write a ``where`` on the norm being finite, never a
-    multiply (0 * NaN would poison the parameters)."""
+    multiply (0 * NaN would poison the parameters). ``sumsq`` is the
+    gradient's squared norm where the caller takes it (a tensor-parallel
+    rank holds slices of some gradients: their squares are summed over the
+    model group)."""
     lr, b1, b2 = hyper["lr"], hyper["b1"], hyper["b2"]
     eps, wd, clip = hyper["eps"], hyper["weight_decay"], hyper["clip"]
     schedule = hyper.get("schedule")
@@ -192,7 +201,8 @@ def fused_apply(hyper: dict, params: List[torch.Tensor], opt_state: list,
                          f"{len(opt_state)} tensors")
     count, mu, nu = opt_state[0], opt_state[1:1 + n], opt_state[1 + n:]
 
-    sumsq = sum(torch.sum(torch.square(g.float())) for g in grads)
+    if sumsq is None:
+        sumsq = grad_sumsq(grads)
     grad_norm = torch.sqrt(sumsq) / sample_size
     ok = torch.isfinite(grad_norm)
     one = torch.ones((), device=grad_norm.device)
@@ -217,6 +227,23 @@ def fused_apply(hyper: dict, params: List[torch.Tensor], opt_state: list,
         v.copy_(torch.where(ok, v2, v))
     count.copy_(torch.where(ok, count_inc, count))
     return grad_norm
+
+
+def grad_sumsq(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of the squares of ``grads``' entries, in f32."""
+    return sum(torch.sum(torch.square(g.float())) for g in grads)
+
+
+def global_totals(mesh, selections: dict) -> Optional[dict]:
+    """The counts of ``selections`` (name -> (B, T) bool) over the data
+    group's global batch, or None off a data-parallel grid: one
+    all-reduce, before the forward, of the divisors a rank's loss takes."""
+    if mesh is None or mesh.dp == 1:
+        return None
+    names = list(selections)
+    counts = torch.stack([selections[k].sum() for k in names]).float()
+    return dict(zip(names, all_reduce_tensors([counts],
+                                              mesh.data_group)[0]))
 
 
 def cast_for_compute(params: Dict[str, torch.Tensor], dtype: torch.dtype):
@@ -254,15 +281,18 @@ def accumulate_grads(acc: Optional[List[torch.Tensor]],
     return acc
 
 
-def host_span_mask(cfg, batch: dict, rng: torch.Generator):
+def host_span_mask(cfg, batch: dict, rng: torch.Generator, mesh=None):
     """The (B, T) span mask of a batch, drawn on the host from the batch's
     ``length`` (numpy) and a seed drawn from ``rng``, on the device of
-    ``batch["feat"]``; None where the config masks nothing."""
+    ``batch["feat"]``; None where the config masks nothing. On a
+    data-parallel grid (``mesh``) the mask is drawn over the global batch
+    and this rank's rows are taken (``parallel/mesh.py::local_rows``)."""
     if cfg.mask_prob <= 0:
         return None
     feat = batch["feat"]
-    mask = span_mask(cfg, batch["length"], feat.shape[1],
-                     np.random.default_rng(draw_seed(rng)))
+    gen = np.random.default_rng(draw_seed(rng))
+    mask = local_rows(mesh, lambda lens: span_mask(cfg, lens, feat.shape[1],
+                                                   gen), batch["length"])
     return torch.from_numpy(mask).to(feat.device)
 
 
@@ -296,8 +326,11 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
     def grad_step(params: Dict[str, torch.Tensor], batch: dict,
                   rng: torch.Generator, mask_indices=None, masks=None):
         feat = batch["feat"]
+        mesh = getattr(model, "mesh", None)
         if mask_indices is None:
-            mask_indices = host_span_mask(cfg, batch, rng)
+            mask_indices = host_span_mask(cfg, batch, rng, mesh)
+        totals = global_totals(mesh, loss_selections(
+            mask_indices, batch["label"], batch["pad_mask"]))
         out = functional_call(
             model,
             cast_for_compute(mask_params(params, masks), compute_dtype),
@@ -307,7 +340,7 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
                  remat=remat),
         )
         loss, logs = melhubert_pretrain_loss(out, batch["label"],
-                                             batch["pad_mask"], cfg)
+                                             batch["pad_mask"], cfg, totals)
         loss = loss / accum_steps
         # detached: a log entry on the graph would keep its leaves, the
         # masters, alive until the next step (past a prune event's rebuild)
@@ -350,8 +383,12 @@ def make_distill_grad_step(teacher, student, *, temperature: float,
 
     def grad_step(params: Dict[str, torch.Tensor], batch: dict,
                   rng: torch.Generator, mask_indices=None, masks=None):
+        mesh = getattr(student, "mesh", None)
         if masked and mask_indices is None:
-            mask_indices = host_span_mask(teacher.cfg, batch, rng)
+            mask_indices = host_span_mask(teacher.cfg, batch, rng, mesh)
+        totals = global_totals(mesh, distill_selections(
+            mask_indices if masked else None, batch["label"],
+            batch["pad_mask"], loss_type))
         loss, logs = distill_forward(
             teacher, student, batch["feat"].to(compute_dtype),
             batch["pad_mask"], batch["label"], temperature=temperature,
@@ -359,7 +396,7 @@ def make_distill_grad_step(teacher, student, *, temperature: float,
             rng=rng, deterministic_student=deterministic,
             attn_impl=attn_impl, teacher_params=teacher_params,
             student_params=cast_for_compute(mask_params(params, masks),
-                                            compute_dtype))
+                                            compute_dtype), totals=totals)
         loss = loss / accum_steps
         return (loss.detach(), _grads(loss, params),
                 {k: v.detach() for k, v in logs.items()})

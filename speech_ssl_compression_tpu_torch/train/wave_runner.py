@@ -35,9 +35,16 @@ a fresh Adam state and the grad step for the new widths; a weight-pruned
 ``-i`` has its masks folded first. ``Pruning`` and ``Pruned_heads`` go
 into every checkpoint's meta.
 
-Not ported (each raises ``NotImplementedError``): multi-process data
-parallelism and meshes. ``-m distillation`` is refused: JAX's WaveRunner
-has no teacher and trains plain pre-training under that mode's name.
+Data and tensor parallel (``--multi_host``, ``--model_parallel``) as in
+the MelHuBERT runner (``train/parallel_mixin.py``): each data rank on its
+shard of the batches, its span and channel masks the rows of the global
+batch's, the window's gradients, losses and masked-frame counts summed
+over the data group; the encoder layers split over the model group; only
+the primary writes. Not ported (each raises ``NotImplementedError``):
+pipeline parallelism, and wav2vec 2.0's ``cross_sample_negatives`` on more
+than one data rank (they are drawn from the global batch, which no rank
+holds). ``-m distillation`` is refused: JAX's WaveRunner has no teacher and
+trains plain pre-training under that mode's name.
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ from ..utils.weights import (
     wave_tree_from_named,
 )
 from .optim_mixin import OptimizerScheduleMixin
+from .parallel_mixin import ParallelMixin
 from .prune_mixin import PruneMixin
 from .steps import (
     accumulate_grads,
@@ -83,11 +91,10 @@ from .steps import (
     make_wav2vec2_grad_step,
 )
 
-_UNPORTED_ARGS = ("model_parallel", "pipeline_parallel", "multi_host")
 _PRUNING_MODES = ("weight-pruning", "head-pruning", "row-pruning")
 
 
-class WaveRunner(OptimizerScheduleMixin, PruneMixin):
+class WaveRunner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
     """``WaveRunner(args, runner_config, upstream_config).train()``, as the
     JAX runner, for ``args.upstream`` "hubert" or "wav2vec2": pre-training
     (``args.mode == "melhubert"``, the mode ``train.py`` passes for it) or
@@ -108,18 +115,17 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
         if args.mode not in ("melhubert",) + _PRUNING_MODES:
             raise NotImplementedError(
                 f"mode {args.mode!r} on {args.upstream}")
-        for name in _UNPORTED_ARGS:
-            if getattr(args, name, None) not in (None, False, 1):
-                raise NotImplementedError(f"--{name} is not ported")
         self.args = args
         self.runner_config = runner_config
         self.upstream_config = upstream_config
         self.upstream = args.upstream
         self.mode = args.mode
         self.device = resolve_device(getattr(args, "device", "cuda"))
+        self._init_grid(args)
         self.expdir = args.expdir
-        os.makedirs(self.expdir, exist_ok=True)
-        self.logger = TBLogger(self.expdir)
+        if self.primary:  # the other ranks never touch the expdir
+            os.makedirs(self.expdir, exist_ok=True)
+        self.logger = TBLogger(self.expdir if self.primary else None)
 
         seed = int(getattr(args, "seed", 1337))
         self.rng = torch.Generator().manual_seed(seed)
@@ -131,6 +137,12 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
         )
 
         self._bind_upstream(runner_config.get("task", {}))
+        if (self.upstream == "wav2vec2" and self.mesh.dp > 1
+                and self.cfg.cross_sample_negatives > 0):
+            raise NotImplementedError(
+                "cross_sample_negatives > 0 on more than one data rank: the "
+                "negatives come from the global batch, which no rank holds "
+                "(ROADMAP.md, Queue 1, item 11)")
         self._tree_from_named = lambda named: wave_tree_from_named(
             named, self.upstream)
         self._named_from_tree = lambda tree: wave_params_to_state_dict(
@@ -154,6 +166,7 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
                       "weight requested but the checkpoint carries no "
                       "compatible optimizer state - starting with fresh "
                       "Adam moments")
+        self._shard_state()
         self.accum_steps = int(runner.get("gradient_accumulate_steps", 1))
         self._build_grad_step()
         # {"step", "loss", "grad_norm"} of every log line; each prune
@@ -318,6 +331,7 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
             seed=getattr(self.args, "seed", 1337),
             precompute_mask_config=task.precompute_mask_config,
             frames_fn=lambda n: conv_output_length(n, conv_layers),
+            **self._data_shard(),
         )
 
     def _hubert_dataset(self):
@@ -337,6 +351,7 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
             random_crop=task.random_crop,
             single_target=task.single_target,
             seed=getattr(self.args, "seed", 1337),
+            **self._data_shard(),
         )
 
     def _wav2vec2_collate(self, batch: dict) -> dict:
@@ -375,7 +390,12 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
         """A checkpoint in the JAX package's format: params, masks, the
         Adam state's leaves [count, *mu, *nu] in JAX's leaf order and
         layout, and the meta (``Pruning`` and ``Pruned_heads`` where they
-        apply; JAX's WaveRunner writes no ``TotalStep``)."""
+        apply; JAX's WaveRunner writes no ``TotalStep``). On a grid every
+        rank calls it and the primary writes."""
+        whole = self._whole_state(for_primary=True)
+        if whole is None:
+            return
+        params, masks, opt_state = whole
         meta = {
             "Step": global_step,
             "Args": dict(vars(self.args)),
@@ -389,9 +409,9 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
             meta["Pruned_heads"] = self.pruned_heads
         path = os.path.join(self.expdir, name)
         save_checkpoint(
-            path, self._tree_from_named(self.params),
-            opt_state=self._opt_leaves(),
-            masks=None if self.masks is None else masks_tree(self.masks),
+            path, self._tree_from_named(params),
+            opt_state=self._opt_leaves(opt_state),
+            masks=None if masks is None else masks_tree(masks),
             meta=meta, opt_treedef=self._opt_treedef)
         print(f"[WaveRunner] - Saved checkpoint to {name}")
 
@@ -443,7 +463,8 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
                     loss, sample_size, grads, logs = self.grad_step(
                         self.params, self._collate(batch), self.rng,
                         masks=self.masks, **self._step_args(step))
-                except torch.cuda.OutOfMemoryError:
+                except torch.cuda.OutOfMemoryError as err:
+                    self._raise_if_grid(err)
                     # reference runner.py:379-386: drop the whole window and
                     # rewind its counters, so the surviving windows divide
                     # by the right sample count
@@ -465,6 +486,10 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
                 if backward % accum:
                     continue
 
+                # the window's gradients, loss and masked frames over the
+                # data group
+                grads_acc, (accum_loss, sample_total) = self._reduce_window(
+                    grads_acc, [accum_loss, sample_total])
                 window_loss = window_loss + accum_loss
                 window_n += accum
                 st = torch.clamp_min(torch.as_tensor(
@@ -493,9 +518,11 @@ class WaveRunner(OptimizerScheduleMixin, PruneMixin):
                         self.logger.scalar(f"{prefix}lr", lr_now, step)
                     lr_text = "" if lr_now is None else f" lr={lr_now:.3e}"
                     rate = step / (time.time() - t0)
-                    print(f"[WaveRunner] step {step}/{pbar['total']} "
-                          f"loss={norm_loss:.4f} gnorm={float(grad_norm):.3f}"
-                          f"{lr_text} ({rate:.2f} steps/s)", flush=True)
+                    if self.primary:
+                        print(f"[WaveRunner] step {step}/{pbar['total']} "
+                              f"loss={norm_loss:.4f} "
+                              f"gnorm={float(grad_norm):.3f}{lr_text} "
+                              f"({rate:.2f} steps/s)", flush=True)
                     self.log_history.append({"step": step, "loss": norm_loss,
                                              "grad_norm": float(grad_norm)})
                     window_loss, window_n = 0.0, 0

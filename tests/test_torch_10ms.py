@@ -147,8 +147,10 @@ def _jax_span_mask(rng, lengths, max_len=None, *, shared_rounding=False,
         lengths)
 
 
-def _port_span_mask(cfg, batch, rng):
-    """In place of the port's host_span_mask: the same host function."""
+def _port_span_mask(cfg, batch, rng, mesh=None):
+    """In place of the port's host_span_mask: the same host function (one
+    process: ``mesh`` has one data rank)."""
+    assert mesh is None or mesh.dp == 1
     if cfg.mask_prob <= 0:
         return None
     feat = batch["feat"]

@@ -9,6 +9,7 @@ SASS); and the wave serve phase end to end at a tiny width."""
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -539,3 +540,202 @@ def test_long_phase_runs_on_the_cpu(monkeypatch, tmp_path):
         ("backward", "long_8192", shape, torch.bfloat16, False),
         ("backward", "long_distill_layer0", shape, torch.float32, True),
         ("backward", "long_distill_layer0", shape, torch.bfloat16, True)]
+
+
+def test_parallel_phase_runs_after_wave_prune_and_counts_as_a_main_path():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    # the ranks start before wave prune and wait for the phase's spec
+    assert (src.index("parallel_ranks(tmp) as ranks")
+            < src.index('"wave prune", phase_wave_prune')
+            < src.index('"parallel", phase_parallel'))
+    assert "**parallel}" in src
+    assert "child_main(args.child)" in src
+    # a child returns before anything is built or printed
+    assert src.index("child_main(args.child)") < src.index("_kernels.build()")
+
+
+def test_parallel_child_command_is_a_torchrun_rank(tmp_path):
+    argv, env = chip_smoke.parallel_child_command(tmp_path / "spec.json", 1,
+                                                  29123)
+    assert argv == [sys.executable, str(REPO / "chip_smoke.py"), "--child",
+                    str(tmp_path / "spec.json")]
+    assert {k: env[k] for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                                "WORLD_SIZE", "LOCAL_RANK",
+                                "LOCAL_WORLD_SIZE")} == {
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29123", "RANK": "1",
+        "WORLD_SIZE": str(chip_smoke.PAR_RANKS), "LOCAL_RANK": "1",
+        "LOCAL_WORLD_SIZE": str(chip_smoke.PAR_RANKS)}
+
+
+def test_parallel_runs_are_cli_argvs(tmp_path):
+    from speech_ssl_compression_tpu_torch.configs import read_yaml
+    from speech_ssl_compression_tpu_torch.train.__main__ import get_args
+
+    hubert = tmp_path / "hubert"
+    hubert.mkdir()
+    (hubert / "config_model.yaml").write_text("hubert: {}\n")
+    (hubert / "config_runner.yaml").write_text(
+        chip_smoke.HUBERT_RUNNER_YAML.format(
+            accum=chip_smoke.HUBERT_ACCUM, batch=4, data=tmp_path,
+            samples=245760))
+    starts = {"f32": "s32.npz", "bf16": "s16.npz"}
+    runs = chip_smoke.parallel_runs(tmp_path, starts, "train.csv", hubert)
+    assert [r["tag"] for r in runs] == ["dp_f32", "dp_bf16", "tp_f32",
+                                        "hubert_dp_bf16"]
+    want = {"dp_f32": (1, "s32.npz", chip_smoke.PAR_F32_UPDATES, False),
+            "dp_bf16": (1, "s16.npz", chip_smoke.PAR_BF16_UPDATES, True),
+            "tp_f32": (2, "s32.npz", 1, False),
+            "hubert_dp_bf16": (1, None, 1, True)}
+    for run in runs:
+        args = get_args(run["argv"])
+        tp, start, updates, bf16 = want[run["tag"]]
+        assert args.multi_host and args.dist_backend == "gloo"
+        assert args.device == "cuda" and args.seed == 0
+        assert args.model_parallel == tp and args.initial_weight == start
+        assert not pathlib.Path(args.expdir).is_absolute()  # the rank's cwd
+        assert run["updates"] == updates and not run["tf32"]
+        assert (run["dump"] is not None) == run["tag"].endswith("f32")
+        assert run["save"] == (["last-step.npz"] if run["dump"] else [])
+        assert run.get("bf16_step", False) == (run["tag"] == "tp_f32")
+        rc = read_yaml(args.runner_config)
+        assert rc["runner"]["total_steps"] == updates
+        assert rc["runner"]["gradient_accumulate_steps"] == 1
+        assert rc["runner"]["bf16"] is bf16
+        assert args.upstream == ("hubert" if "hubert" in run["tag"]
+                                 else "melhubert")
+
+
+def test_parallel_launches_sum_the_ranks_into_the_kernels_line():
+    rec = lambda n: {"counts": {"flash_attn_fwd": {"f32": n, "bf16": 0},
+                                "conv1d_fwd": {"f32": 0, "bf16": n}}}
+    records = [{"dp_f32": rec(12), "hubert_dp_bf16": rec(3)},
+               {"dp_f32": rec(12), "hubert_dp_bf16": rec(3)}]
+    paths = chip_smoke.parallel_paths(records)
+    assert paths["parallel dp_f32"]["flash_attn_fwd"] == {"f32": 24,
+                                                          "bf16": 0}
+    assert paths["parallel hubert_dp_bf16"]["conv1d_fwd"] == {"f32": 0,
+                                                              "bf16": 6}
+    fields = chip_smoke.launch_fields("flash_attn_fwd", {
+        "melhubert train": {"flash_attn_fwd": {"f32": 0, "bf16": 5}},
+        **paths})
+    assert fields["launches"] == 5 + 24 + 6
+    assert fields["launches_by_path"]["parallel dp_f32"] == {"f32": 24,
+                                                             "bf16": 0}
+    assert set(fields) == {"launches", "launches_by_dtype",
+                           "launches_by_path"}
+
+
+HYPER = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+             clip=10.0)
+LEAVES = {"encoder.layers.0.fc1.weight": (48, 16),
+          "encoder.layers.0.final_layer_norm.bias": (16,),
+          "encoder.layers.0.self_attn.k_proj.bias": (16,)}
+
+
+def _sound_runs(updates=3):
+    """start, and the gradients and parameters (each update through the
+    port's fused apply) of a 1-process run and of a parallel one whose
+    gradients differ by rounding: 1e-7 of each entry, and where the
+    1-process run's gradient is within rounding of 0 (one fc1 entry, the
+    k_proj bias, as softmax's shift invariance leaves it) of the other
+    sign."""
+    from speech_ssl_compression_tpu_torch.train.steps import fused_apply
+
+    gen = torch.Generator().manual_seed(0)
+    start = {k: 0.05 * torch.randn(shape, generator=gen)
+             for k, shape in LEAVES.items()}
+    grads = {"ref": [], "got": []}
+    for _ in range(updates):
+        g = {k: torch.randn(shape, generator=gen)
+             for k, shape in LEAVES.items()}
+        g["encoder.layers.0.self_attn.k_proj.bias"] *= 1e-6
+        g["encoder.layers.0.fc1.weight"][3, 5] = 1e-9
+        r = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+             for k, v in g.items()}
+        r["encoder.layers.0.fc1.weight"][3, 5] = -1e-9
+        r["encoder.layers.0.self_attn.k_proj.bias"] = (
+            1e-6 * torch.randn(16, generator=gen))
+        grads["ref"].append((g, 1.0))
+        grads["got"].append((r, 1.0))
+    runs = {}
+    for tag, seq in grads.items():
+        params = [v.clone() for v in start.values()]
+        state = ([torch.zeros((), dtype=torch.int32)]
+                 + [torch.zeros_like(v) for v in params]
+                 + [torch.zeros_like(v) for v in params])
+        for g, n in seq:
+            fused_apply(HYPER, params, state, [g[k] for k in LEAVES], n)
+        runs[tag] = dict(zip(LEAVES, params))
+    return start, runs, grads
+
+
+def test_plain_adam_is_the_fused_apply():
+    """The check's own Adam and the port's fused apply, clip and L2 on."""
+    from speech_ssl_compression_tpu_torch.train.steps import fused_apply
+
+    gen = torch.Generator().manual_seed(1)
+    start = {k: torch.randn(shape, generator=gen)
+             for k, shape in LEAVES.items()}
+    seq = [({k: 30 * torch.randn(shape, generator=gen)
+             for k, shape in LEAVES.items()}, 2.0) for _ in range(3)]
+    hyper = dict(HYPER, weight_decay=0.01)
+    params = [v.clone() for v in start.values()]
+    state = ([torch.zeros((), dtype=torch.int32)]
+             + [torch.zeros_like(v) for v in params]
+             + [torch.zeros_like(v) for v in params])
+    for g, n in seq:
+        norm = fused_apply(hyper, params, state, [g[k] for k in LEAVES], n)
+        assert float(norm) > hyper["clip"]  # the clip is on
+    plain = chip_smoke.plain_adam(start, seq, hyper)
+    for k, p in zip(LEAVES, params):
+        torch.testing.assert_close(plain[k], p, rtol=1e-6, atol=1e-9)
+
+
+def test_update_check_passes_rounding_and_counts_what_it_decides():
+    start, runs, grads = _sound_runs()
+    check = chip_smoke.update_check(start, runs["got"], runs["ref"],
+                                    grads["got"], grads["ref"], HYPER)
+    assert chip_smoke.update_failures(check) == []
+    assert check["n"] == 48 * 16 + 16 + 16
+    assert check["follow_got"] == check["follow_ref"] == 0
+    # the fc1 entry and k_proj bias entries step apart past JAX's bar,
+    # and rounding decides each of them
+    assert 2 <= check["past"] <= check["decided"] <= 1 + 16
+    assert check["unexplained"] == 0
+    assert check["grad_err"] < chip_smoke.GRAD_BAR
+    assert "rounding decides" in chip_smoke.describe_update_check(check)
+
+
+@pytest.mark.parametrize("fault", ["unreduced", "unreduced_sound_grads",
+                                   "uncorrected", "one_step_skipped"])
+def test_update_check_fails_planted_faults(fault):
+    """A LayerNorm bias left at one data rank's gradient (half the batch:
+    judged on the gradients such a run dumps, and on the sound ones), Adam
+    without its bias corrections, and one leaf's last update not applied."""
+    start, runs, grads = _sound_runs()
+    leaf = "encoder.layers.0.final_layer_norm.bias"
+    seq = grads["got"]
+    gen = torch.Generator().manual_seed(2)
+    if fault.startswith("unreduced"):
+        half = [({**g, leaf: 0.5 * g[leaf] + 0.5 * torch.randn(
+            16, generator=gen)}, n) for g, n in seq]
+        params = chip_smoke.plain_adam(start, half, HYPER)
+        if fault == "unreduced":
+            seq = half
+    elif fault == "uncorrected":
+        params = chip_smoke.plain_adam(start, seq, HYPER, corrected=False)
+    else:
+        params = dict(runs["got"])
+        params[leaf] = chip_smoke.plain_adam(start, seq[:-1], HYPER)[leaf]
+    check = chip_smoke.update_check(start, params, runs["ref"], seq,
+                                    grads["ref"], HYPER)
+    fails = chip_smoke.update_failures(check)
+    assert fails
+    if fault == "unreduced":
+        assert check["grad_at"][0] == leaf
+    else:
+        assert check["follow_got"] > 0 and check["unexplained"] > 0
+
+

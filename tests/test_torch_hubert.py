@@ -391,7 +391,9 @@ def test_hubert_refuses_what_is_not_ported(tmp_path):
     # channel masks and checkpoint_activations are ported now: the model
     # builds; what stays refused is -m distillation (JAX's WaveRunner
     # trains plain pre-training under that name), a head metric other
-    # than l1, --model_parallel and a set with no batch
+    # than l1, --pipeline_parallel and a set with no batch;
+    # --model_parallel 2 on one process is refused as JAX's make_mesh
+    # refuses it (two ranks: tests/test_torch_parallel.py)
     _, tcfg = _cfgs(mask_channel_prob=0.1, checkpoint_activations=True)
     model = thubert.HuBERTModel(tcfg, N_CLASSES)
     assert model.cfg.mask_channel_prob == 0.1
@@ -403,10 +405,13 @@ def test_hubert_refuses_what_is_not_ported(tmp_path):
             "--device", "cpu"]
     for extra in (["-m", "distillation", "-u", "hubert"],
                   ["-m", "distillation", "-u", "wav2vec2"],
-                  ["-m", "melhubert", "-u", "hubert", "--model_parallel",
+                  ["-m", "melhubert", "-u", "hubert", "--pipeline_parallel",
                    "2"]):
         with pytest.raises(NotImplementedError):
             train_main(base + extra)
+    with pytest.raises(ValueError, match="model_parallel=2"):
+        train_main(base + ["-m", "melhubert", "-u", "hubert",
+                           "--model_parallel", "2"])
     (tmp_path / "dd.yaml").write_text(
         RUNNER_YAML.format(data=data) + "prune:\n  metric: data-driven\n"
         "  target: by_whole\n  num_heads_each_step: 1\n  total_steps: 1\n"

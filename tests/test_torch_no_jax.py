@@ -285,6 +285,56 @@ def test_port_trains_hubert_without_jax_pandas_or_yaml():
     assert proc.stdout.strip().endswith("updates 2")
 
 
+# the --multi_host CLI path on two gloo ranks (torchrun's variables), data
+# parallel then tensor parallel in one process group, each rank in a
+# directory of its own: only rank 0 writes
+MULTI_HOST_SCRIPT = r"""
+import os, pathlib, sys
+for name in ("jax", "speech_ssl_compression_tpu", "pandas", "yaml"):
+    sys.modules[name] = None
+repo, rank, port = sys.argv[1:4]
+os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=rank,
+                  WORLD_SIZE="2", LOCAL_RANK=rank, LOCAL_WORLD_SIZE="2",
+                  OMP_NUM_THREADS="1")
+sys.path.insert(0, repo)
+""" + TRAIN_SCRIPT[TRAIN_SCRIPT.index("import numpy as np"):
+                   TRAIN_SCRIPT.index("runner = main(")].replace(
+    "d = pathlib.Path(tempfile.mkdtemp())\n",
+    "import tempfile\nfrom speech_ssl_compression_tpu_torch.train.__main__ "
+    "import main\nd = pathlib.Path(tempfile.mkdtemp())\n") + r"""
+for tp in ("1", "2"):
+    runner = main(["-m", "melhubert", "-g", str(d / "model.yaml"), "-c",
+                   str(d / "runner.yaml"), "-n", f"exp{tp}", "--device",
+                   "cpu", "--multi_host", "--model_parallel", tp])
+    assert runner.mesh.shape == {"data": 2 // int(tp), "model": int(tp)}
+    assert pathlib.Path(f"exp{tp}/last-step.npz").exists() == (rank == "0")
+assert sorted(os.listdir(".")) == (["exp1", "exp2"] if rank == "0" else [])
+assert all(sys.modules[n] is None
+           for n in ("jax", "speech_ssl_compression_tpu", "pandas", "yaml"))
+print("rank", rank, "updates", len(runner.log_history))
+"""
+
+
+def test_port_trains_on_two_ranks_without_jax_pandas_or_yaml(tmp_path):
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = []
+    for rank in ("0", "1"):
+        cwd = tmp_path / f"rank{rank}"
+        cwd.mkdir()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MULTI_HOST_SCRIPT, str(REPO), rank,
+             port], cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    for rank, p in enumerate(procs):
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-4000:]
+        assert out.strip().endswith(f"rank {rank} updates 2")
+
+
 def _import_roots(path):
     """The top-level package of every absolute import in a Python file."""
     import ast

@@ -576,8 +576,13 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
                         NotImplementedError),
                        (["-m", "distillation", "-u", "wav2vec2"],
                         NotImplementedError),
+                       (["-m", "melhubert", "--pipeline_parallel", "2"],
+                        NotImplementedError),
+                       # two ranks of tensor parallel need two processes
+                       # (tests/test_torch_parallel.py); one refuses it as
+                       # JAX's make_mesh does
                        (["-m", "melhubert", "--model_parallel", "2"],
-                        NotImplementedError)):
+                        ValueError)):
         with pytest.raises(exc):
             train_main(base + extra)
     if not torch.cuda.is_available():

@@ -243,12 +243,17 @@ def test_wav2vec2_refuses_what_is_not_ported(tmp_path):
     # the pruning modes, channel masks and checkpoint_activations are
     # ported now; what stays refused is -m distillation (JAX's WaveRunner
     # trains plain pre-training under that name), a head metric other
-    # than l1, --model_parallel and a set with no batch
+    # than l1, --pipeline_parallel and a set with no batch;
+    # --model_parallel 2 on one process is refused as JAX's make_mesh
+    # refuses it (two ranks: tests/test_torch_parallel.py)
     base = _write(tmp_path)
     with pytest.raises(NotImplementedError, match="distillation"):
         train_main(["-m", "distillation", "-u", "wav2vec2", "-n",
                     str(tmp_path / "e")] + base)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="pipeline_parallel"):
+        train_main(["-m", "melhubert", "-u", "wav2vec2", "-n",
+                    str(tmp_path / "e"), "--pipeline_parallel", "2"] + base)
+    with pytest.raises(ValueError, match="model_parallel=2"):
         train_main(["-m", "melhubert", "-u", "wav2vec2", "-n",
                     str(tmp_path / "e"), "--model_parallel", "2"] + base)
     (tmp_path / "dd.yaml").write_text(
