@@ -54,8 +54,9 @@ result line):
             F.scaled_dot_product_attention's forward and backward at the
             attention kernels' timed shapes, f32 and bf16 (one time of 5
             calls after a warm-up); the grad steps and updates of the
-            train phases against their yardsticks one time each in turns
-            after a warm-up (``alternate(..., reps=1)``);
+            train phases against their yardsticks one time each, the
+            yardstick first, each after a warm-up (``alternate(...,
+            reps=1, turns=1)``);
   wave serve  serving from waveforms on the slice phase's model: the
             card's featurize_batch at fp 20 and 10 (float and int16-exact
             audio, uploaded as int16) against the host fbank in float64
@@ -301,12 +302,15 @@ result line):
             bf16 grad step; wav2vec 2.0 row pruning: each event's rows
             against a host recompute of ffn_row_scores, the live bytes
             around each event;
-  parallel  data- and tensor-parallel training on the one card: two
-            ranks of the trainer CLI's entry point (this script with
-            --child, python -m speech_ssl_compression_tpu_torch.train's
-            main, --multi_host --dist_backend gloo, torchrun's variables;
-            NCCL refuses two ranks on one device), started before wave
-            prune (they wait for the phase's spec), each in a directory of
+  parallel  data-, tensor-, pipeline- and sequence-parallel work on
+            the one card: two ranks of the trainer CLI's entry point
+            (this script with --child, python -m
+            speech_ssl_compression_tpu_torch.train's main, --multi_host
+            --dist_backend gloo, torchrun's variables; NCCL refuses two
+            ranks on one device), started before w2v2
+            train (they wait for the phase's spec; every run but the
+            timed new ones, PAR_LATE, runs while w2v2 train and wave prune
+            run here, its times shared with them), each in a directory of
             its own, full-width MelHuBERT from the train phase's
             checkpoint (-i), B = 4 x T = 768 a rank: (a) data parallel
             f32 (TF32 off, dropout 0) for 3 updates, held to the
@@ -318,22 +322,46 @@ result line):
             counted), which must fail three planted faults made from the
             run's data (a LayerNorm bias left unreduced, Adam without bias
             corrections), then 2 bf16 updates with the shipped dropouts;
-            (b) --model_parallel 2, f32 for one update, its gathered
-            gradient and checkpoint held to the 1-process step by
+            (b) --model_parallel 2, f32 for 2 updates, its gathered
+            gradients and checkpoint held to a 1-process run by
             update_check, the checkpoint served by a 1-process
-            MelHuBERTExtractor against the step's parameters (SLICE_BAR),
+            MelHuBERTExtractor against that run's parameters (SLICE_BAR),
             then one bf16 grad step of its model timed; (c) HuBERT data
-            parallel, bf16, tc_pallas, one update; the ranks write only
-            the f32 runs' last-step.npz (the checkpoints the phase reads).
-            Per update and rank: its time,
+            parallel, bf16, tc_pallas, one update; (d)
+            --pipeline_parallel 2 --pp_microbatches 4 (6 layers a
+            stage), f32 for 2 updates held by update_check to the same
+            1-process run as (b), then 2 bf16 updates with the shipped
+            dropouts, whose model the ranks keep and time again in 2 more
+            updates with the card to themselves (pipeline_timing): each
+            stage's grad step, its time blocked in sends and receives and
+            in the sums over the world (its idle share: the bubble); (e)
+            sequence parallel (seqpar_rank): one
+            8192-frame 10 ms utterance through forward_seqpar, f32 and
+            bf16, held to the long phase's 1-process forward (SLICE_BAR,
+            BF16_SLICE_BAR), and T = 8192 distillation (12 -> 6 layers,
+            B = 1), one f32 step of each loss type held to the long
+            phase's 1-process steps (GRAD_BAR) and a bf16 step timed,
+            with the host gathers' share. A verifier process beside the
+            ranks (verify_main) computes the 1-process yardsticks and
+            holds the f32 runs to them while the parent runs w2v2 train
+            and wave prune; the ranks write only the f32 CLI runs'
+            last-step.npz (the checkpoints the verifier reads). Per update and rank: its time,
             its grad steps', its collectives' (gloo runs them on the host:
             the rank's idle share, at least), and per run the peak memory
             and the saves' seconds; only rank 0 writes; the ranks'
-            launches count as the main path's;
+            launches count as the main path's ("melhubert pipeline
+            train", "melhubert seqpar serve", "melhubert seqpar
+            distill", "parallel <run>");
   profile   (--profile only) device busy time, idle share and the largest
             device kernels of forward_packed from features, per path, and
             of the MelHuBERT, HuBERT and wav2vec 2.0 bf16 grad steps, the
             distill micro-step and its teacher forward.
+
+Checkpoint saves that no check reads are skipped for the script's time
+(unread_saves_skipped: the train phase's states-epoch-0, the l1 head
+pruning run's last states_prune, distill's but run A's last-step, the
+long phase's states-epoch-0, and in wave prune each pair's files but
+those WAVE_READS names).
 
 The conv kernels' bf16 check: kernel and plain version round only their
 outputs, so every entry must lie within one ulp and fewer than
@@ -588,6 +616,9 @@ TEN_MS_RUNNER_YAML = (ROOT / "configs" / "melhubert" /
                       "config_runner_10ms.yaml")
 DISTILL_10MS_YAML = DISTILL_DIR / "config_model_10ms.yaml"
 LONG_T, LONG_SAMPLES = 8192, 1_311_000
+# the sequence-parallel distillation of the parallel phase and its
+# 1-process yardstick in the long phase: both loss terms weigh in
+SEQPAR_TEMPERATURE, SEQPAR_ALPHA, SEQPAR_MASK_SEED = 2.0, 0.5, 4
 LONG_DISTILL_STEPS = 2
 HUBERT_YAML = ROOT / "configs" / "hubert" / "config_model.yaml"
 HUBERT_SERVE = (8, 491520)  # B x samples: bench.py's hubert extraction row
@@ -612,6 +643,12 @@ WAVE_EVENTS = {("hubert", "head-pruning"): 1,
                ("hubert", "weight-pruning"): 1,
                ("hubert", "row-pruning"): 1,
                ("wav2vec2", "head-pruning"): 1}
+# the checkpoints of each wave prune pair that its checks read (every
+# other save, ~1.1 GB, is skipped for the script's time)
+WAVE_READS = {("hubert", "head-pruning"): ("states_prune_", "last-step"),
+              ("wav2vec2", "weight-pruning"): ("before-pruning-",
+                                               "last-step"),
+              ("wav2vec2", "row-pruning"): ("states_prune_",)}
 # past GRAD_BAR of float64, a wav2vec 2.0 gradient may lie this many times
 # as far from it as the plain f32 route does (phase_w2v2_train says why)
 W2V2_CANCEL_FACTOR = 4.0
@@ -923,14 +960,18 @@ def explain_straddles(fa, q, k, v, got, ref, rows, masks):
     return all(b <= BF16_ULP_BAR for *_, b in found), report
 
 
-def alternate(run_kernel, run_plain, inner: int = 1, reps: int = 3):
+def alternate(run_kernel, run_plain, inner: int = 1, reps: int = 3,
+              turns: int = 2):
     """(kernel ms, plain ms), each the mean of two CUDA-event medians of
     ``reps`` taken in the order plain, kernel, kernel, plain, to share
     drift; each warmed up once, before its first median. The grad steps
-    and updates take ``reps=1``: a call of 0.1-0.8 s varies by less than
-    its two turns do."""
+    and updates of the train phases take ``reps=1`` (a call of 0.1-0.8 s
+    varies by less than its two turns do) and, for the script's time, one
+    turn (``turns=1``: plain, kernel)."""
     p1 = cuda_ms(run_plain, reps, inner)
     k1 = cuda_ms(run_kernel, reps, inner)
+    if turns == 1:
+        return k1, p1
     k2 = cuda_ms(run_kernel, reps, inner, warm=False)
     p2 = cuda_ms(run_plain, reps, inner, warm=False)
     return (k1 + k2) / 2, (p1 + p2) / 2
@@ -1417,7 +1458,8 @@ def phase_train_timing(runner, batch, gpu: str):
         def run(impl):
             return lambda: steps[impl](runner.params, batch, runner.rng)
 
-        kernel_ms, dense_ms = alternate(run("auto"), run("dense"), reps=1)
+        kernel_ms, dense_ms = alternate(run("auto"), run("dense"), reps=1,
+                                        turns=1)
         log("timing", f"grad step B=4 T=768 {dtype}: kernels {kernel_ms:.2f} "
             f"ms, impl='dense' {dense_ms:.2f} ms ({frames} frames; "
             f"{frames / kernel_ms * 1e3:.0f} and {frames / dense_ms * 1e3:.0f} "
@@ -1797,7 +1839,8 @@ def phase_weight_prune(dev, gpu: str, tmp: str):
             runner.apply(acc, float(accum))
         return run
 
-    masked, plain = alternate(update(runner.masks), update(None), reps=1)
+    masked, plain = alternate(update(runner.masks), update(None), reps=1,
+                              turns=1)
     b, t = batch["feat"].shape[:2]
     log("timing", f"one weight-pruning update ({accum} micro-batches + "
         f"apply, {runner.compute_dtype}, B={b} T={t}): with masks "
@@ -2559,13 +2602,14 @@ def phase_distill(dev, gpu: str, tmp: str, one_head: pathlib.Path,
         apply(acc)
 
     distill_ms, pretrain_ms = alternate(distill_micro, pretrain_micro,
-                                        reps=1)
+                                        reps=1, turns=1)
     update_ms, pretrain_update_ms = alternate(
         lambda: update(distill_micro, lambda acc: runner.apply(
             acc, float(runner.accum_steps))),
         lambda: update(pretrain_micro, lambda acc: fused_apply(
             runner.optimizer, list(pretrain_params.values()),
-            pretrain_state, acc, float(runner.accum_steps))), reps=1)
+            pretrain_state, acc, float(runner.accum_steps))), reps=1,
+        turns=1)
     del pretrain, pretrain_step, pretrain_params, pretrain_state
     t_params = {k: v.detach().to(dtype)
                 for k, v in runner.teacher.named_parameters()}
@@ -2789,14 +2833,18 @@ def long_10ms_train(dev, gpu: str, tmp: str, root: pathlib.Path):
     return runner, counts, long_counts
 
 
-def long_serve(dev, gpu: str, ckpt: str):
+def long_serve(dev, gpu: str, ckpt: str, refs: dict):
     """T = LONG_T extraction from the 10 ms checkpoint ``ckpt``: one
     utterance through MelHuBERTExtractor.forward in f32 (host featurizer)
     and bf16, and in f32 with featurizer="device", and the fp = 10 serve
     batch (bench.py's 16 utterances) through forward_packed, f32; then the
     kernel route against impl="dense" at full T, bf16 against f32, the
-    device featurizer against the host's, and the rates. Returns (launch
-    counts per dtype, those past the stream threshold)."""
+    device featurizer against the host's, and the rates. The f32
+    device-featurizer output goes to ``refs["serve"]`` (on the host), the
+    1-process yardstick of the parallel phase's sequence-parallel serving,
+    and the f32 extractor's model (the checkpoint's) to
+    ``refs["teacher"]``. Returns (launch counts per dtype, those past the
+    stream threshold)."""
     from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
     from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
 
@@ -2869,6 +2917,10 @@ def long_serve(dev, gpu: str, ckpt: str):
     if not (err < SLICE_BAR and err_bf16 < BF16_SLICE_BAR
             and err_dev < WAVE_BAR and err_packed < SLICE_BAR):
         raise AssertionError("long serving disagrees")
+    refs["serve"] = out_dev["last_hidden_state"].float().cpu()
+    # the checkpoint's model, the teacher of the yardstick distill steps
+    # (the 10 ms run's own model has taken a timed update since it wrote)
+    refs["teacher"] = ext.model
     del ref, ref_packed, out, out_dev, out_bf16, packed
 
     # the first and last layers' attention calls of the f32 and bf16
@@ -2947,32 +2999,23 @@ def long_kernels(dev, gpu: str, heads: int, record: dict) -> None:
         f"timed, {time.perf_counter() - t0:.2f} s")
 
 
-def long_distill(dev, gpu: str, teacher):
-    """T = LONG_T distillation, B = 1, nomasked, dropouts 0 (bench.py's
-    long-form row): ``teacher`` (the 10 ms run's model, 12 layers) into
-    the 10 ms recipe's 6-layer student, LONG_DISTILL_STEPS updates through
-    make_distill_grad_step and the fused apply in f32 and in bf16; then
-    each captured student attention call against the plain backward, the
-    whole f32 step against impl="dense", the times and the peak memory.
-    Returns (launch counts per dtype, those past the stream threshold)."""
+def long_distill_inputs(tcfg, dev):
+    """The T = LONG_T distillation's student (the 10 ms recipe's 6 layers,
+    dropouts 0, seeded), batch (B = 1, seeded) and a span mask of the
+    teacher's config (seeded): what long_distill and the parallel phase's
+    sequence-parallel distillation, on its ranks, both build."""
     from speech_ssl_compression_tpu_torch.configs import (
         MelHuBERTConfig, read_yaml,
     )
-    from speech_ssl_compression_tpu_torch.extract import matmul_precision
-    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
-    from speech_ssl_compression_tpu_torch.train.steps import (
-        fused_apply, init_opt_state, make_distill_grad_step, make_optimizer,
-    )
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
     from speech_ssl_compression_tpu_torch.utils.weights import (
         init_params_np, load_model,
     )
 
-    t0 = time.perf_counter()
     scfg = MelHuBERTConfig.from_dict(dict(
         read_yaml(DISTILL_10MS_YAML)["student"], dropout=0.0,
         attention_dropout=0.0, activation_dropout=0.0))
     student = load_model(init_params_np(scfg, 1), scfg).to(dev)
-    tcfg = teacher.cfg
     rng = np.random.default_rng(3)
     batch = {"feat": torch.from_numpy(rng.standard_normal(
         (1, LONG_T, scfg.feat_emb_dim)).astype(np.float32)).to(dev),
@@ -2980,6 +3023,55 @@ def long_distill(dev, gpu: str, teacher):
             0, tcfg.num_cluster, (1, LONG_T))).to(dev),
         "pad_mask": torch.ones((1, LONG_T), device=dev),
         "length": np.array([LONG_T])}
+    mask = torch.from_numpy(span_mask(tcfg, batch["length"], LONG_T,
+                                      np.random.default_rng(SEQPAR_MASK_SEED)
+                                      )).to(dev)
+    return student, batch, mask
+
+
+def long_distill(dev, gpu: str, teacher, refs: dict):
+    """T = LONG_T distillation, B = 1, nomasked, dropouts 0 (bench.py's
+    long-form row): ``teacher`` (the 10 ms run's model, 12 layers) into
+    the 10 ms recipe's 6-layer student, LONG_DISTILL_STEPS updates through
+    make_distill_grad_step and the fused apply in f32 and in bf16; then
+    each captured student attention call against the plain backward, the
+    whole f32 step against impl="dense", the times and the peak memory.
+    Before the updates, the 1-process f32 grad step of each loss type on
+    the seeded student with the checkpoint's model as the teacher
+    (``refs.pop("teacher")``; SEQPAR_TEMPERATURE, SEQPAR_ALPHA, the seeded
+    span mask, TF32 off) goes to ``refs["distill"]``: the yardstick of the
+    parallel phase's sequence-parallel step. Returns (launch counts per
+    dtype, those past the stream threshold)."""
+    from speech_ssl_compression_tpu_torch.extract import matmul_precision
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        fused_apply, init_opt_state, make_distill_grad_step, make_optimizer,
+    )
+
+    t0 = time.perf_counter()
+    tcfg = teacher.cfg
+    student, batch, mask = long_distill_inputs(tcfg, dev)
+    scfg = student.cfg
+    refs["distill"] = {}
+    params = dict(student.named_parameters())
+    ckpt_teacher = refs.pop("teacher")
+    for loss_type in ("nomasked", "masked"):
+        step = make_distill_grad_step(
+            ckpt_teacher, student, temperature=SEQPAR_TEMPERATURE,
+            alpha=SEQPAR_ALPHA, loss_type=loss_type, deterministic=True)
+        with matmul_precision("highest"):
+            loss, grads, logs = step(params, batch, torch.Generator(),
+                                     mask_indices=(mask if loss_type ==
+                                                   "masked" else None))
+        refs["distill"][loss_type] = (
+            float(loss), {k: float(v) for k, v in logs.items()},
+            {k: g.detach().float().cpu() for k, g in zip(params, grads)})
+        del step, grads
+    del ckpt_teacher
+    log("long", f"the 1-process f32 distill grad steps at T = {LONG_T} "
+        f"(nomasked, masked; T {SEQPAR_TEMPERATURE:g}, alpha "
+        f"{SEQPAR_ALPHA:g}, {int(mask.sum())} masked frames) kept for the "
+        f"sequence-parallel step, {time.perf_counter() - t0:.2f} s")
     hyper = make_optimizer(lr=1e-4)
     dtypes = (torch.float32, torch.bfloat16)
     steps = {dtype: make_distill_grad_step(
@@ -3121,8 +3213,9 @@ def phase_long(dev, gpu: str, tmp: str, record: dict):
     """The long-sequence paths at full width: the 10 ms recipe, T = LONG_T
     extraction and distillation, and the attention kernels at their
     shape. Returns ({path: launch counts per dtype}, {path: those past the
-    stream threshold}); fails unless the forward, dQ and dK/dV kernels
-    each launched past it on these paths."""
+    stream threshold}, the parallel phase's sequence-parallel references:
+    {"ckpt": the 10 ms checkpoint, "serve", "distill"}); fails unless the
+    forward, dQ and dK/dV kernels each launched past it on these paths."""
     t_phase = time.perf_counter()
     root = pathlib.Path(tmp) / "long"
     root.mkdir()
@@ -3133,15 +3226,17 @@ def phase_long(dev, gpu: str, tmp: str, record: dict):
     heads = runner.cfg.encoder_attention_heads[0]
     del runner
     gc.collect()
-    counts = long_serve(dev, gpu, str(root / "exp" / "last-step.npz"))
+    refs = {"ckpt": str(root / "exp" / "last-step.npz")}
+    counts = long_serve(dev, gpu, refs["ckpt"], refs)
     paths["melhubert long serve"], long_paths["melhubert long serve"] = counts
     long_kernels(dev, gpu, heads, record)
-    counts = long_distill(dev, gpu, teacher)
+    counts = long_distill(dev, gpu, teacher, refs)
     paths["melhubert long distill"], long_paths["melhubert long distill"] = (
         counts)
     del teacher
     for path in root.glob("*/*.npz"):
-        path.unlink()
+        if str(path) != refs["ckpt"]:  # the parallel phase serves it
+            path.unlink()
     past = {name: sum(c[name][tag] for c in long_paths.values()
                       for tag in ("f32", "bf16"))
             for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
@@ -3151,7 +3246,7 @@ def phase_long(dev, gpu: str, tmp: str, record: dict):
     if not all(past.values()):
         raise AssertionError(f"a kernel launched nothing past T = 4096 on "
                              f"the long paths: {past}")
-    return paths, long_paths
+    return paths, long_paths, refs
 
 
 def tones_and_noise(rng, samples: int) -> np.ndarray:
@@ -4557,9 +4652,9 @@ def phase_hubert_train_timing(runner, cudnn_model, batch, gpu: str):
 
         with matmul_precision("highest"):
             k_ms, c_ms = alternate(grad("conv kernels"), grad("cuDNN"),
-                                   reps=1)
+                                   reps=1, turns=1)
             ku_ms, cu_ms = alternate(update("conv kernels"), update("cuDNN"),
-                                     reps=1)
+                                     reps=1, turns=1)
         log("timing", f"HuBERT grad step B={b} x {t_wave} samples {dtype}: "
             f"conv kernels {k_ms:.2f} ms, cuDNN {c_ms:.2f} ms; one update "
             f"({HUBERT_ACCUM} grad steps + apply): conv kernels {ku_ms:.2f} ms"
@@ -5031,9 +5126,10 @@ def phase_w2v2_train_timing(runner, cudnn_model, batch, gpu: str):
                 torch.cuda.synchronize()
                 peaks[name] = (torch.cuda.max_memory_allocated() - before) / 1e9
             k_ms, c_ms = alternate(grad("kernels"), grad("cuDNN + dense"),
-                                   reps=1)
+                                   reps=1, turns=1)
             ku_ms, cu_ms = alternate(update("kernels"),
-                                     update("cuDNN + dense"), reps=1)
+                                     update("cuDNN + dense"), reps=1,
+                                     turns=1)
         log("timing", f"wav2vec 2.0 grad step B={b} x {t_wave} samples "
             f"{dtype}: kernels {k_ms:.2f} ms ({frames / k_ms * 1e3:.0f} "
             f"frames/s, peak {peaks['kernels']:.2f} GB above the live "
@@ -5479,9 +5575,12 @@ def phase_wave_prune(dev, gpu: str, tmp: str):
     paths = {}
     for (upstream, mode), events in WAVE_EVENTS.items():
         cfg = wave_prune_config(upstream, mode, data, events)
-        runner, counts, layers, seconds = run_wave_trainer(
-            upstream, mode, model_yamls[upstream], cfg, root,
-            starts[upstream])
+        reads = WAVE_READS.get((upstream, mode), ())
+        with unread_saves_skipped("wave prune", lambda p: any(
+                p.split("/")[-1].startswith(r) for r in reads)):
+            runner, counts, layers, seconds = run_wave_trainer(
+                upstream, mode, model_yamls[upstream], cfg, root,
+                starts[upstream])
         check_wave_run(upstream, mode, runner, counts, layers, seconds,
                        events, gpu)
         paths[f"{upstream} {mode}"] = counts
@@ -5532,6 +5631,10 @@ def phase_wave_prune(dev, gpu: str, tmp: str):
 PAR_RANKS = 2          # ranks of the parallel phase, sharing the one card
 PAR_F32_UPDATES = 3    # the f32 data-parallel run, held to the replay
 PAR_BF16_UPDATES = 2   # the bf16 data-parallel run, dropout on, timed
+PAR_ONE_UPDATES = 2    # the f32 tensor- and pipeline-parallel runs and the
+                       # 1-process run they are held to; the bf16 pipeline
+PAR_PP_MICROBATCHES = 4  # the pipeline's M (GPipe: (S - 1) / (M + S - 1)
+                         # of a stage's time idle in the fill and drain)
 PAR_TIMEOUT = 300      # seconds the ranks may take once they have the spec
 PAR_WAIT = 900         # seconds a rank waits for the spec
 PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-4, 1e-6  # JAX's bars
@@ -5555,20 +5658,26 @@ def parallel_child_command(spec: pathlib.Path, rank: int, port: int):
 
 
 def parallel_runs(root: pathlib.Path, starts: dict, csv: str,
-                  hubert: pathlib.Path) -> list:
+                  hubert: pathlib.Path, seqpar_ckpt: str) -> list:
     """The phase's runs, each a CLI argv (every one with --multi_host
     --dist_backend gloo) and what the child records: (a) data parallel f32
     (TF32 off, dropout 0) for PAR_F32_UPDATES updates, each update's
     gradient dumped, then bf16 with the shipped dropouts; (b) tensor
-    parallel (--model_parallel 2) f32 for one update, its gradient
-    gathered and dumped, then (``bf16_step``) one bf16 grad step of its
-    model timed; (c) HuBERT data parallel, bf16, tc_pallas, one update. A
-    MelHuBERT run starts from the checkpoint
-    of its dtype in ``starts`` (-i: the model config is the checkpoint's,
-    f32 without dropout); each rank reads 4 utterances a micro-batch.
-    A run writes only the checkpoints in its ``save``: the f32 runs' final
-    last-step.npz, which the phase reads (not the trainer's states-epoch-0
-    at step 0, nor the bf16 runs', which nothing reads)."""
+    parallel (--model_parallel 2) f32 for PAR_ONE_UPDATES updates, its
+    gradients gathered and dumped, then (``bf16_step``) one bf16 grad step
+    of its model timed; (c) HuBERT data parallel, bf16, tc_pallas, one
+    update; (d) pipeline parallel (--pipeline_parallel 2, 6 layers a
+    stage, PAR_PP_MICROBATCHES microbatches) f32 for PAR_ONE_UPDATES
+    updates, its gradients gathered from the stages and dumped, then bf16
+    with the shipped dropouts, timed; (e) ``kind`` "seqpar": no CLI run,
+    but sequence-parallel serving of one LONG_T utterance and T = LONG_T
+    distillation from the long phase's 10 ms checkpoint (seqpar_rank). A
+    MelHuBERT run starts from the checkpoint of its dtype in ``starts``
+    (-i: the model config is the checkpoint's, f32 without dropout); each
+    rank reads 4 utterances a micro-batch. A run writes only the
+    checkpoints in its ``save``: the f32 runs' final last-step.npz, which
+    the phase reads (not the trainer's states-epoch-0 at step 0, nor the
+    bf16 runs', which nothing reads)."""
     from speech_ssl_compression_tpu_torch.configs import read_yaml
 
     base = root / "runner_base.yaml"
@@ -5579,7 +5688,7 @@ def parallel_runs(root: pathlib.Path, starts: dict, csv: str,
     files = {}
     for name, updates, bf16 in (("f32_3", PAR_F32_UPDATES, False),
                                 ("bf16_2", PAR_BF16_UPDATES, True),
-                                ("f32_1", 1, False)):
+                                ("f32_2", PAR_ONE_UPDATES, False)):
         tree = copy.deepcopy(runner)
         tree["runner"].update(total_steps=updates, bf16=bf16)
         files[name] = root / f"runner_{name}.yaml"
@@ -5591,26 +5700,40 @@ def parallel_runs(root: pathlib.Path, starts: dict, csv: str,
         .replace(f"gradient_accumulate_steps: {HUBERT_ACCUM}",
                  "gradient_accumulate_steps: 1"))
 
-    def mel(tag, dtype, runner_file, tp, updates, dump):
+    def mel(tag, dtype, runner_file, updates, dump, grid=()):
         return dict(tag=tag, updates=updates, tf32=False,
                     save=["last-step.npz"] if dump else [],
                     dump=str(root / f"grads_{tag}") if dump else None,
                     argv=["-m", "melhubert", "-g", str(CONFIG_YAML),
                           "-c", str(files[runner_file]), "-n", f"exp_{tag}",
                           "-i", starts[dtype], "--device", "cuda", "--seed",
-                          "0", "--model_parallel", str(tp)])
+                          "0", *grid])
 
-    runs = [mel("dp_f32", "f32", "f32_3", 1, PAR_F32_UPDATES, True),
-            mel("dp_bf16", "bf16", "bf16_2", 1, PAR_BF16_UPDATES, False),
-            dict(mel("tp_f32", "f32", "f32_1", 2, 1, True), bf16_step=True),
+    tp, pp = ("--model_parallel", "2"), (
+        "--pipeline_parallel", str(PAR_RANKS), "--pp_microbatches",
+        str(PAR_PP_MICROBATCHES))
+    runs = [dict(mel("dp_f32", "f32", "f32_3", PAR_F32_UPDATES, True),
+                 control=True),
+            mel("dp_bf16", "bf16", "bf16_2", PAR_BF16_UPDATES, False),
+            dict(mel("tp_f32", "f32", "f32_2", PAR_ONE_UPDATES, True, tp),
+                 bf16_step=True),
             dict(tag="hubert_dp_bf16", updates=1, tf32=False, dump=None,
                  save=[],
                  argv=["-m", "melhubert", "-u", "hubert", "-g",
                        str(hubert / "config_model.yaml"), "-c",
                        str(files["hubert"]), "-n", "exp_hubert",
-                       "--device", "cuda", "--seed", "0"])]
+                       "--device", "cuda", "--seed", "0"]),
+            mel("pp_f32", "f32", "f32_2", PAR_ONE_UPDATES, True, pp),
+            dict(mel("pp_bf16", "bf16", "bf16_2", PAR_BF16_UPDATES, False,
+                     pp), keep=True)]
     for run in runs:
         run["argv"] += ["--multi_host", "--dist_backend", "gloo"]
+    runs += [dict(tag="seqpar", kind="seqpar", mode="parity",
+                  ckpt=seqpar_ckpt, out=str(root / "seqpar.pt")),
+             dict(tag="seqpar_timing", kind="seqpar", mode="timing",
+                  ckpt=seqpar_ckpt),
+             dict(tag="pp_timing", kind="timing", of="pp_bf16",
+                  updates=PAR_BF16_UPDATES)]
     return runs
 
 
@@ -5632,25 +5755,17 @@ def child_main(spec_path: str) -> None:
     seconds are not the update's. A run writes only the checkpoints its
     ``save`` names. Where it asks for ``bf16_step``, one bf16 grad step of
     the run's model is timed after the run (its launches are not the
-    run's).
-    Writes its record to ``<spec>.<rank>.json``; prints no result line."""
-    from speech_ssl_compression_tpu_torch.parallel import mesh
+    run's); a run of kind "seqpar" is seqpar_rank's. The spec may name a
+    ``next`` spec, which the rank waits for once its runs are done.
+    Writes each spec's records to ``<spec>.<rank>.json``; prints no result
+    line."""
+    from speech_ssl_compression_tpu_torch.parallel import mesh, pipeline
     from speech_ssl_compression_tpu_torch.train import optim_mixin
     from speech_ssl_compression_tpu_torch.train import parallel_mixin
-    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
     from speech_ssl_compression_tpu_torch.train.runner import Runner
-    from speech_ssl_compression_tpu_torch.train.steps import (
-        make_melhubert_grad_step,
-    )
     from speech_ssl_compression_tpu_torch.train.wave_runner import WaveRunner
 
     torch.zeros((), device="cuda")  # the CUDA context, while the parent works
-    deadline = time.perf_counter() + PAR_WAIT
-    while not pathlib.Path(spec_path).exists():
-        if time.perf_counter() > deadline:
-            raise SystemExit(f"no spec at {spec_path} in {PAR_WAIT} s")
-        time.sleep(0.2)
-    spec = json.loads(pathlib.Path(spec_path).read_text())
     rank = int(os.environ["RANK"])
     state = {}
 
@@ -5685,11 +5800,18 @@ def child_main(spec_path: str) -> None:
         cls.save = save
 
     mesh._all_reduce_f32 = timed("collective_ms", mesh._all_reduce_f32)
+    # the pipeline's sums over the world and the data group, and its
+    # point-to-point sends and receives (a stage blocked in one does no
+    # work: its share of the step is the stage's idle share, the bubble)
+    pipeline.all_reduce_tensors = timed("collective_ms",
+                                        pipeline.all_reduce_tensors)
+    pipeline.send = timed("p2p_ms", pipeline.send)
+    pipeline.recv = timed("p2p_ms", pipeline.recv)
     reduce_window = timed("reduce_ms",
                           parallel_mixin.ParallelMixin._reduce_window)
 
     def reduce_hooked(self, grads, scalars):
-        if state["dump"] and not self._sharded:
+        if state["control_leaf"]:
             own = dict(zip(self.params, grads))[PAR_CONTROL_LEAF]
             state["control"] = own.detach().float().cpu()
         return reduce_window(self, grads, scalars)
@@ -5703,6 +5825,9 @@ def child_main(spec_path: str) -> None:
             named = dict(zip(self.params, grads))
             if self._sharded:
                 named = mesh.gather_named([named], self.cfg, self.mesh)[0]
+            elif self.mesh.pp > 1:
+                named = (pipeline.gather_stages([named], self.cfg, self.mesh,
+                                                to_primary=True) or [None])[0]
             if self.primary:
                 torch.save(dict(
                     grads={k: v.detach().float().cpu()
@@ -5716,52 +5841,235 @@ def child_main(spec_path: str) -> None:
         state["updates"].append(dict(
             update_ms=wall, step_ms=state["step_ms"],
             reduce_ms=state["reduce_ms"],
-            collective_ms=state["collective_ms"],
-            idle=(state["reduce_ms"] + state["collective_ms"]) / wall))
+            collective_ms=state["collective_ms"], p2p_ms=state["p2p_ms"],
+            idle=(state["reduce_ms"] + state["collective_ms"]
+                  + state["p2p_ms"]) / wall))
         state.update(t_update=None, step_ms=0.0, reduce_ms=0.0,
-                     collective_ms=0.0)
+                     collective_ms=0.0, p2p_ms=0.0)
         return out
 
     optim_mixin.OptimizerScheduleMixin.apply = apply_hooked
-    records = []
-    for run in spec["runs"]:
-        state.update(updates=[], dump=run["dump"], save=run["save"],
-                     control=None, t_update=None, step_ms=0.0,
-                     reduce_ms=0.0, collective_ms=0.0, save_ms=0.0,
-                     bf16_step=None)
-        torch.backends.cuda.matmul.allow_tf32 = run["tf32"]
-        torch.backends.cudnn.allow_tf32 = run["tf32"]
+    while spec_path:
+        spec = json.loads(wait_for(spec_path, "spec").read_text())
+        records = []
+        for run in spec["runs"]:
+            recs = child_run(run, state, now)
+            # each run's records as soon as it ends (the verifier waits)
+            pathlib.Path(f"{spec_path}.{rank}.{run['tag']}.json").write_text(
+                json.dumps(recs))
+            records += recs
+        pathlib.Path(f"{spec_path}.{rank}.json").write_text(
+            json.dumps(records))
+        spec_path = spec.get("next")
+
+
+def child_run(run: dict, state: dict, now) -> list:
+    """One run of a rank of the parallel phase (child_main): its records."""
+    from speech_ssl_compression_tpu_torch.train.__main__ import main as train
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+
+    if run.get("kind") == "seqpar":
+        return seqpar_rank(run, now, state)
+    if run.get("kind") == "timing":
+        return pipeline_timing(run, state, now)
+    state.update(updates=[], dump=run["dump"], save=run["save"],
+                 control=None, control_leaf=run.get("control", False),
+                 t_update=None, step_ms=0.0, reduce_ms=0.0,
+                 collective_ms=0.0, p2p_ms=0.0, save_ms=0.0,
+                 bf16_step=None)
+    torch.backends.cuda.matmul.allow_tf32 = run["tf32"]
+    torch.backends.cudnn.allow_tf32 = run["tf32"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    runner = train(run["argv"])
+    torch.cuda.synchronize()
+    counts, long_counts = dtype_launch_counts(), long_launch_counts()
+    if run.get("bf16_step"):
+        # one bf16 grad step of the run's model on its first batch,
+        # timed after a warm-up (all ranks in step: it all-reduces)
+        batch = runner._device_batch(
+            runner._get_dataloader().get_batch(0))
+        step = make_melhubert_grad_step(runner.model,
+                                        compute_dtype=torch.bfloat16)
+        for _ in range(2):
+            state["collective_ms"] = 0.0
+            t1 = now()
+            step(runner.params, batch, runner.rng)
+            bf16_ms = 1e3 * (now() - t1)
+        state["bf16_step"] = (bf16_ms, state["collective_ms"])
+    record = dict(
+        tag=run["tag"], counts=counts, long_counts=long_counts,
+        log=runner.log_history, updates=state["updates"],
+        bf16_step=state["bf16_step"],
+        save_s=state["save_ms"] / 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        seconds=time.perf_counter() - t0, grid=runner.mesh.shape,
+        local_heads=list(runner.model.cfg.encoder_attention_heads))
+    if run.get("keep"):  # a later run of this rank times it again
+        state.setdefault("kept", {})[run["tag"]] = runner
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [record]
+
+
+def pipeline_timing(run: dict, state: dict, now) -> list:
+    """``run["updates"]`` more updates (grad step, the window's reduce,
+    apply) of the run ``run["of"]`` kept by this rank (child_run's
+    ``keep``), on its first batch, with the per-update breakdown of
+    child_main's hooks: the timed pipeline, run with the card to the
+    ranks (its CLI run shared it with this process's other phases). The
+    first update warms; its launches are not counted."""
+    runner = state["kept"].pop(run["of"])
+    state.update(updates=[], dump=None, save=[], control=None,
+                 control_leaf=False, t_update=None, step_ms=0.0,
+                 reduce_ms=0.0, collective_ms=0.0, p2p_ms=0.0, save_ms=0.0,
+                 bf16_step=None)
+    torch.cuda.reset_peak_memory_stats()
+    batch = runner._device_batch(runner._get_dataloader().get_batch(0))
+    for _ in range(run["updates"]):
+        loss, grads, _ = runner.grad_step(runner.params, batch, runner.rng)
+        grads, _ = runner._reduce_window(grads, [loss])
+        runner.apply(grads, 1.0)
+    record = dict(tag=run["tag"], kind="timing", of=run["of"],
+                  updates=state["updates"],
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del runner, batch, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [record]
+
+
+def seqpar_rank(run: dict, now, state: dict) -> list:
+    """One rank's sequence-parallel work of the parallel phase (the time
+    axis sharded over the data group of both ranks, parallel/seqpar.py),
+    from the long phase's 10 ms checkpoint ``run["ckpt"]``:
+
+      serve    one LONG_T utterance (long_wav(1)) through
+               MelHuBERTExtractor.forward_seqpar with the device
+               featurizer, f32 (TF32 off) and bf16;
+      distill  T = LONG_T, B = 1: the checkpoint's 12-layer model teaches
+               the 10 ms recipe's seeded 6-layer student
+               (long_distill_inputs), one f32 grad step of each loss type
+               and one bf16 masked step (SEQPAR_TEMPERATURE,
+               SEQPAR_ALPHA, the seeded span mask).
+
+    ``run["mode"]`` "parity" runs each with the launch counts set to 0
+    just before it and read just after, and rank 0 writes the outputs
+    (hidden states; f32 losses, logs and gradients) to ``run["out"]``;
+    "timing" times each again once warm (CUDA-synchronized wall time: the
+    gathers run on the host), the serving in both dtypes and the bf16
+    distill step, with the share of that time in the host collectives
+    (the K/V gathers, their gradients' reduce-scatter, the pad and output
+    gathers); it reuses the parity run's models and inputs, which stay in
+    ``state["seqpar"]`` in between. Returns the records ("seqpar_serve"
+    and "seqpar_distill", or "seqpar_timing")."""
+    from speech_ssl_compression_tpu_torch.extract import (
+        MelHuBERTExtractor, matmul_precision,
+    )
+    from speech_ssl_compression_tpu_torch.parallel import mesh as pmesh
+    from speech_ssl_compression_tpu_torch.parallel import seqpar
+    from speech_ssl_compression_tpu_torch.parallel.multihost import (
+        initialize,
+    )
+
+    initialize(backend="gloo", device_type="cuda")  # a no-op after a run
+    dev = torch.device("cuda", torch.cuda.current_device())
+    coll = {"ms": 0.0}
+
+    def timed_coll(fn):
+        def run_(*args, **kwargs):
+            t0 = now()
+            out = fn(*args, **kwargs)
+            coll["ms"] += 1e3 * (now() - t0)
+            return out
+        return run_
+
+    timing_mode = run["mode"] == "timing"
+    if timing_mode:
+        pmesh.gather_parts = seqpar.gather_parts = timed_coll(
+            pmesh.gather_parts)
+        pmesh._sum_over_data = timed_coll(pmesh._sum_over_data)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
+    if "seqpar" not in state:
+        ext = MelHuBERTExtractor(run["ckpt"], fp=10,
+                                 mean_std_npy_path=str(MEAN_STD),
+                                 matmul_precision="highest", device=dev)
+        ext16 = copy.copy(ext)
+        ext16.model = copy.deepcopy(ext.model).to(torch.bfloat16)
+        ext16.dtype = torch.bfloat16
+        student, batch, mask = long_distill_inputs(ext.model.cfg, dev)
+        state["seqpar"] = dict(
+            mesh=pmesh.make_mesh(), exts={"f32": ext, "bf16": ext16},
+            student=student, batch=batch, mask=mask)
+    mesh, exts, student, batch, mask = (state["seqpar"][k] for k in (
+        "mesh", "exts", "student", "batch", "mask"))
+    wav = long_wav(1)
+    params = dict(student.named_parameters())
+    keys = [("nomasked", torch.float32), ("masked", torch.float32),
+            ("masked", torch.bfloat16)][2 if timing_mode else 0:]
+    steps = {key: seqpar.make_melhubert_seqpar_distill_step(
+        exts["f32"].model, student, mesh, temperature=SEQPAR_TEMPERATURE,
+        alpha=SEQPAR_ALPHA, loss_type=key[0], compute_dtype=key[1])
+        for key in keys}
+
+    def serve(e):
+        return e.forward_seqpar(wav, mesh, featurizer="device")
+
+    def step(key):
+        with matmul_precision("highest"):
+            return steps[key](params, batch, None, mask_indices=(
+                mask if key[0] == "masked" else None))
+
+    def timing(fn):
+        fn()  # warm
+        coll["ms"] = 0.0
+        t0 = now()
+        fn()
+        ms = 1e3 * (now() - t0)
+        return ms, coll["ms"] / ms
+
+    if timing_mode:
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        reset_launch_counts()
-        runner = train(run["argv"])
-        torch.cuda.synchronize()
-        counts = dtype_launch_counts()
-        if run.get("bf16_step"):
-            # one bf16 grad step of the run's model on its first batch,
-            # timed after a warm-up (all ranks in step: it all-reduces)
-            batch = runner._device_batch(
-                runner._get_dataloader().get_batch(0))
-            step = make_melhubert_grad_step(runner.model,
-                                            compute_dtype=torch.bfloat16)
-            for _ in range(2):
-                state["collective_ms"] = 0.0
-                t1 = now()
-                step(runner.params, batch, runner.rng)
-                bf16_ms = 1e3 * (now() - t1)
-            state["bf16_step"] = (bf16_ms, state["collective_ms"])
-        records.append(dict(
-            tag=run["tag"], counts=counts,
-            log=runner.log_history, updates=state["updates"],
-            bf16_step=state["bf16_step"],
-            save_s=state["save_ms"] / 1e3,
-            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-            seconds=time.perf_counter() - t0, grid=runner.mesh.shape,
-            local_heads=list(runner.model.cfg.encoder_attention_heads)))
-        del runner
-        gc.collect()
-        torch.cuda.empty_cache()
-    pathlib.Path(f"{spec_path}.{rank}.json").write_text(json.dumps(records))
+        times = {tag: timing(lambda e=e: serve(e))
+                 for tag, e in exts.items()}
+        times["distill bf16"] = timing(lambda: step(keys[0]))
+        return [dict(tag="seqpar_timing", kind="seqpar", times=times,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     seconds=time.perf_counter() - t_run)]
+
+    out, records = {}, []
+    reset_launch_counts()
+    out["serve"] = {tag: serve(e)["last_hidden_state"].float().cpu()
+                    for tag, e in exts.items()}
+    torch.cuda.synchronize()
+    records.append(dict(tag="seqpar_serve", kind="seqpar",
+                        counts=dtype_launch_counts(),
+                        long_counts=long_launch_counts(),
+                        seconds=time.perf_counter() - t_run))
+    t_run = time.perf_counter()
+    reset_launch_counts()
+    out["distill"] = {}
+    for key in keys:
+        loss, grads, logs = step(key)
+        if key[1] == torch.float32:
+            out["distill"][key[0]] = (
+                float(loss), {k: float(v) for k, v in logs.items()},
+                {k: g.float().cpu() for k, g in zip(params, grads)})
+        del grads
+    torch.cuda.synchronize()
+    records.append(dict(tag="seqpar_distill", kind="seqpar",
+                        counts=dtype_launch_counts(),
+                        long_counts=long_launch_counts(),
+                        seconds=time.perf_counter() - t_run))
+    if mesh.rank == 0:
+        torch.save(out, run["out"])
+    return records
 
 
 def parallel_reference(argv, expdir: pathlib.Path, replay: bool):
@@ -5942,27 +6250,41 @@ def describe_update_check(check: dict) -> str:
             f"{check['decided']}, the rest {check['unexplained']}")
 
 
-def parallel_paths(records: list) -> dict:
-    """{"parallel <tag>": {kernel: {"f32": n, "bf16": n}}} of the ranks'
-    records ([{tag: record}] per rank), every rank's launches summed."""
-    paths = {}
+PAR_PATHS = {"pp_f32": "melhubert pipeline train",
+             "pp_bf16": "melhubert pipeline train",
+             "seqpar_serve": "melhubert seqpar serve",
+             "seqpar_distill": "melhubert seqpar distill"}
+
+
+def parallel_paths(records: list) -> tuple:
+    """({path: {kernel: {"f32": n, "bf16": n}}}, {path: the attention
+    kernels' launches past the stream threshold}) of the ranks' records
+    ([{tag: record}] per rank), every rank's launches summed: a run's path
+    is "parallel <tag>", but the pipeline's two runs and the sequence
+    parallel work (PAR_PATHS)."""
+    paths, long_paths = {}, {}
     for tag in records[0]:
-        counts = {}
-        for rec in (r[tag] for r in records):
-            for name, by in rec["counts"].items():
-                for k, n in by.items():
-                    counts.setdefault(name, {"f32": 0, "bf16": 0})[k] += n
-        paths[f"parallel {tag}"] = counts
-    return paths
+        if "counts" not in records[0][tag]:
+            continue  # seqpar_timing: times only
+        path = PAR_PATHS.get(tag, f"parallel {tag}")
+        for key, into in (("counts", paths), ("long_counts", long_paths)):
+            counts = into.setdefault(path, {})
+            for rec in (r[tag] for r in records):
+                for name, by in rec[key].items():
+                    for k, n in by.items():
+                        counts.setdefault(name, {"f32": 0, "bf16": 0})[k] += n
+    return paths, long_paths
 
 
 @contextlib.contextmanager
 def parallel_ranks(tmp: str):
-    """The PAR_RANKS ranks of the parallel phase, started now (their imports
-    and CUDA contexts overlap the phases before it), each in
-    ``<tmp>/parallel/rank<r>``, its output in ``rank<r>.log``; they wait
-    for ``spec.json``, which phase_parallel writes. Yields {"root", "spec",
-    "procs"}; every rank still running on exit is killed."""
+    """The PAR_RANKS ranks of the parallel phase and its verifier
+    (verify_main), started now (their imports and CUDA contexts overlap
+    the phases before it), each rank in ``<tmp>/parallel/rank<r>``, the
+    verifier in ``<tmp>/parallel``, their outputs in ``rank<r>.log`` and
+    ``verifier.log``; they wait for ``spec.json``, which start_parallel
+    writes. Yields {"root", "spec", "procs" (the ranks), "verifier"};
+    every process still running on exit is killed."""
     root = pathlib.Path(tmp) / "parallel"
     root.mkdir()
     spec = root / "spec.json"
@@ -5979,7 +6301,13 @@ def parallel_ranks(tmp: str):
             procs.append(subprocess.Popen(argv, env=env, cwd=cwd,
                                           stdout=logs[-1],
                                           stderr=subprocess.STDOUT))
-        yield dict(root=root, spec=spec, procs=procs)
+        logs.append(open(root / "verifier.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--verify",
+             str(spec)], cwd=root, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+        yield dict(root=root, spec=spec, procs=procs[:PAR_RANKS],
+                   verifier=procs[-1])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5989,19 +6317,25 @@ def parallel_ranks(tmp: str):
             f.close()
 
 
-def phase_parallel(dev, gpu: str, tmp: str, ranks: dict):
-    """Data- and tensor-parallel training on the one card: PAR_RANKS ranks
-    of the trainer's CLI (--multi_host, gloo, torchrun's variables) sharing
-    it, through the flash kernels (and the conv kernels in HuBERT's run),
-    from the train phase's checkpoint at full width; the f32 runs held to
-    the 1-process runs of this process. Returns {path: launch counts per
-    kernel and dtype}, both ranks summed."""
-    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+# the runs after wave prune, timed with the card to the ranks
+PAR_LATE = ("seqpar_timing", "pp_timing")
+
+
+def start_parallel(tmp: str, ranks: dict) -> dict:
+    """The first half of the parallel phase, run before the w2v2 train
+    phase: the f32 and bf16 start checkpoints from the train phase's, and
+    the spec of the runs that the ranks run while w2v2 train and wave prune
+    run in this process (their times share the card with those phases:
+    the data- and tensor-parallel runs, the pipeline's f32 and bf16 runs
+    and the sequence-parallel parity run), naming the spec of the rest
+    (PAR_LATE, the timings of the new paths), which phase_parallel writes
+    once wave prune is done, so that they have the card to the ranks. The
+    verifier reads the spec's ``train_ckpt``. Returns what phase_parallel
+    needs."""
     from speech_ssl_compression_tpu_torch.utils.checkpoint import (
         load_checkpoint, save_checkpoint,
     )
 
-    t_phase = time.perf_counter()
     root = ranks["root"]
     train_root = pathlib.Path(tmp) / "train"
     state = load_checkpoint(str(train_root / "exp" / "last-step.npz"),
@@ -6015,49 +6349,268 @@ def phase_parallel(dev, gpu: str, tmp: str, ranks: dict):
         starts[dtype] = str(root / f"start_{dtype}.npz")
         save_checkpoint(starts[dtype], state["params"],
                         meta={"Upstream_Config": up, "Step": 0})
-    start = named_params(state["params"], dev)
     del state
     csv = str(train_root / "data" / "train.csv")
-    runs = parallel_runs(root, starts, csv, pathlib.Path(tmp) / "hubert")
-    spec, procs = ranks["spec"], ranks["procs"]
-    spec.with_suffix(".tmp").write_text(json.dumps({"runs": runs}))
+    # the long phase's 10 ms checkpoint, which seqpar_rank serves
+    runs = parallel_runs(root, starts, csv, pathlib.Path(tmp) / "hubert",
+                         str(pathlib.Path(tmp) / "long" / "exp" /
+                             "last-step.npz"))
+    spec, late = ranks["spec"], ranks["root"] / "spec_late.json"
+    early = [r for r in runs if r["tag"] not in PAR_LATE]
+    spec.with_suffix(".tmp").write_text(json.dumps(
+        {"runs": early, "next": str(late),
+         "train_ckpt": str(train_root / "exp" / "last-step.npz")}))
     spec.with_suffix(".tmp").rename(spec)  # the ranks poll for it
     log("parallel", f"{PAR_RANKS} ranks sharing cuda:0, backend gloo "
         "(NCCL refuses two ranks on one device), torchrun's variables, "
-        f"each from its own directory, started before the wave prune phase: "
-        f"{len(runs)} runs ({', '.join(r['tag'] for r in runs)}) through "
-        f"the CLI's main, e.g. {' '.join(runs[0]['argv'])}")
+        f"each from its own directory, started before the w2v2 train phase: "
+        f"{len(early)} runs ({', '.join(r['tag'] for r in early)}) while "
+        f"w2v2 train and wave prune run, the other "
+        f"{len(runs) - len(early)} after them; all "
+        f"but seqpar through the CLI's main, e.g. "
+        f"{' '.join(runs[0]['argv'])}")
+    return dict(runs=runs, late=late, t0=time.perf_counter())
+
+
+def wait_for(path, what: str) -> pathlib.Path:
+    """``path`` once it exists (within PAR_WAIT s)."""
+    path = pathlib.Path(path)
+    deadline = time.perf_counter() + PAR_WAIT
+    while not path.exists():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"no {what} at {path} in {PAR_WAIT} s")
+        time.sleep(0.2)
+    return path
+
+
+def verify_main(spec_path: str) -> None:
+    """The parallel phase's verifier, a process of its own beside the
+    ranks (not one of them), started with them: once the first spec is
+    written it computes the 1-process yardsticks (the data-parallel replay
+    of PAR_F32_UPDATES updates of the global batches, and one run of
+    PAR_ONE_UPDATES updates that the tensor- and pipeline-parallel runs
+    are both held to), then holds each f32 run to them as soon as both
+    ranks have written its records: update_check, the planted faults of
+    the data-parallel run, the TP checkpoint served by a 1-process
+    extractor. All of it while this script's parent runs w2v2 train and
+    wave prune, so that none of it waits in line after them. Writes
+    ``<spec>.verify.json``: {"lines": its log lines, "error": the first
+    failed check or None}; prints no result line."""
+    from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.zeros((), device=dev)  # the CUDA context, while the parent works
+    lines, error = [], None
+    try:
+        spec = json.loads(wait_for(spec_path, "spec").read_text())
+        root = pathlib.Path(spec_path).parent
+        by_tag = {r["tag"]: r for r in spec["runs"]}
+        start = named_params(load_checkpoint(
+            spec["train_ckpt"], load_opt=False)["params"], dev)
+
+        def records(tag):
+            return [json.loads(wait_for(f"{spec_path}.{rank}.{tag}.json",
+                                        f"{tag} records").read_text())[0]
+                    for rank in range(PAR_RANKS)]
+
+        def dumps(run, n):
+            dumped = [torch.load(f"{run['dump']}_{i}.pt") for i in range(n)]
+            return dumped, [({k: v.to(dev) for k, v in d["grads"].items()},
+                             d["sample_size"]) for d in dumped]
+
+        def params_of(tag):
+            return named_params(load_checkpoint(str(
+                root / "rank0" / f"exp_{tag}" / "last-step.npz"),
+                load_opt=False)["params"], dev)
+
+        t0 = time.perf_counter()
+        replay, replay_grads = parallel_reference(by_tag["dp_f32"]["argv"],
+                                                  root / "replay", True)
+        one, one_grads = parallel_reference(by_tag["tp_f32"]["argv"],
+                                            root / "one", False)
+        lines.append(f"the 1-process yardsticks (the DP replay, "
+                     f"{PAR_F32_UPDATES} updates of B = {4 * PAR_RANKS}; one "
+                     f"run of {PAR_ONE_UPDATES} updates of B = 4 for TP and "
+                     f"the pipeline), in the verifier while the ranks run, "
+                     f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) f32 data parallel against the 1-process replay of its batches
+        dp = by_tag["dp_f32"]
+        recs = records("dp_f32")
+        t0 = time.perf_counter()
+        got = [h["loss"] for h in recs[0]["log"]]
+        want = [h["loss"] for h in replay.log_history]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        dumped, run_grads = dumps(dp, PAR_F32_UPDATES)
+        params = params_of("dp_f32")
+        check = update_check(start, params, replay.params, run_grads,
+                             replay_grads, replay.optimizer)
+        fails = update_failures(check)
+        lines.append(
+            f"dp_f32 against the 1-process replay (B = {4 * PAR_RANKS} a "
+            f"step, TF32 off): losses {got} vs {want}, worst rel "
+            f"{loss_err:.3e} (bar {PAR_LOSS_RTOL:g}); after "
+            f"{PAR_F32_UPDATES} updates: {describe_update_check(check)}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (len(got) == len(want) == PAR_F32_UPDATES
+                and loss_err < PAR_LOSS_RTOL) or fails:
+            raise AssertionError(f"data parallel disagrees with the replay: "
+                                 f"{fails}")
+        # planted faults, from this run's own data, that the check must
+        # fail: PAR_CONTROL_LEAF's gradient left at rank 0's own (its
+        # updates as a run that skipped its all-reduce takes them; judged
+        # with the gradients that run would dump, and with this run's),
+        # and Adam without its bias corrections
+        t0 = time.perf_counter()
+        unreduced = [({**g, PAR_CONTROL_LEAF: d["control"].to(dev)}, n)
+                     for (g, n), d in zip(run_grads, dumped)]
+        hyper = replay.optimizer
+        planted = {
+            f"{PAR_CONTROL_LEAF} unreduced": (
+                plain_adam(start, unreduced, hyper), unreduced),
+            f"{PAR_CONTROL_LEAF} unreduced, judged on the sound gradients": (
+                plain_adam(start, unreduced, hyper), run_grads),
+            "Adam without bias corrections": (
+                plain_adam(start, run_grads, hyper, corrected=False),
+                run_grads)}
+        for fault, (params, grads) in planted.items():
+            missed = update_failures(update_check(
+                start, params, replay.params, grads, replay_grads, hyper))
+            lines.append(f"dp_f32 planted fault, {fault}: fails {missed}")
+            if not missed:
+                raise AssertionError(f"the update check passes a planted "
+                                     f"fault: {fault}")
+        lines.append(f"planted faults checked, "
+                     f"{time.perf_counter() - t0:.1f} s")
+        del replay, replay_grads, dumped, run_grads, unreduced, planted
+        del params
+
+        # (b) f32 tensor and (d) pipeline parallel against the 1-process
+        # run
+        for tag, grid in (("tp_f32", "heads {} + {} a layer"),
+                          ("pp_f32", "layers {} + {} a stage")):
+            recs = records(tag)
+            t0 = time.perf_counter()
+            _, run_grads = dumps(by_tag[tag], PAR_ONE_UPDATES)
+            params = params_of(tag)
+            check = update_check(start, params, one.params, run_grads,
+                                 one_grads, one.optimizer)
+            fails = update_failures(check)
+            got = [h["loss"] for h in recs[0]["log"]]
+            want = [h["loss"] for h in one.log_history]
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            split = ((recs[0]["local_heads"][0], recs[1]["local_heads"][0])
+                     if tag == "tp_f32" else
+                     (one.cfg.encoder_layers // PAR_RANKS,) * 2)
+            lines.append(
+                f"{tag} ({grid.format(*split)}) against the 1-process run: "
+                f"losses {got} vs {want}, worst rel {loss_err:.3e} (bar "
+                f"{PAR_LOSS_RTOL:g}); the gathered gradients and checkpoint "
+                f"after {PAR_ONE_UPDATES} updates: "
+                f"{describe_update_check(check)}, "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not (len(got) == len(want) == PAR_ONE_UPDATES
+                    and loss_err < PAR_LOSS_RTOL) or fails:
+                raise AssertionError(f"{tag} disagrees with the 1-process "
+                                     f"run: {fails}")
+            del run_grads, params
+
+        # the TP checkpoint serves in a 1-process extractor as the
+        # 1-process run's parameters do
+        ckpt = root / "rank0" / "exp_tp_f32" / "last-step.npz"
+        ext = MelHuBERTExtractor(str(ckpt), device=dev)
+        wavs = [np.random.default_rng(i).standard_normal(16000).astype(
+            np.float32) * 0.1 for i in range(2)]
+        out = ext.forward_packed(wavs)["last_hidden_state"]
+        named = dict(ext.model.named_parameters())
+        if set(named) != set(one.params):
+            raise AssertionError("the extractor's parameters are not the "
+                                 "trainer's")
+        with torch.no_grad():
+            for k, v in named.items():
+                v.copy_(one.params[k])
+        ref = ext.forward_packed(wavs)["last_hidden_state"]
+        err = float((out - ref).abs().max() / ref.abs().mean())
+        lines.append(f"the TP checkpoint served by MelHuBERTExtractor: "
+                     f"{tuple(out.shape)}, against the 1-process run's "
+                     f"parameters max|d|/mean|ref| {err:.3e} (bar "
+                     f"{SLICE_BAR:g})")
+        if not (bool(out.isfinite().all()) and err < SLICE_BAR):
+            raise AssertionError("the TP checkpoint serves other values")
+    except AssertionError as e:
+        error = str(e)
+    pathlib.Path(f"{spec_path}.verify.json").write_text(json.dumps(
+        {"lines": lines, "error": error}))
+
+
+def phase_parallel(dev, gpu: str, tmp: str, ranks: dict, refs: dict,
+                   started: dict):
+    """Data-, tensor-, pipeline- and sequence-parallel work on the one card:
+    PAR_RANKS ranks of the trainer's CLI (--multi_host, gloo, torchrun's
+    variables) sharing it, through the flash kernels (and the conv kernels
+    in HuBERT's run), from the train phase's checkpoint at full width,
+    and the ranks' sequence-parallel serving and distillation from the
+    long phase's 10 ms checkpoint (seqpar_rank). ``started``:
+    start_parallel's, whose runs the ranks ran during w2v2 train and wave
+    prune while the verifier (verify_main) held the f32 runs to their
+    1-process yardsticks; now the ranks run PAR_LATE, with the card to
+    themselves, and the sequence-parallel outputs are held to the long
+    phase's 1-process forward and grad steps (``refs``). Returns {path:
+    launch counts per kernel and dtype}, both ranks summed, and {path:
+    those past the stream threshold}."""
+    t_phase = time.perf_counter()
+    root = ranks["root"]
+    runs, procs = started["runs"], ranks["procs"]
+    by_tag = {r["tag"]: r for r in runs}
+    if refs["ckpt"] != by_tag["seqpar"]["ckpt"]:
+        raise AssertionError(f"seqpar serves {by_tag['seqpar']['ckpt']}, the "
+                             f"long phase wrote {refs['ckpt']}")
+    late = started["late"]
+    late.with_suffix(".tmp").write_text(json.dumps(
+        {"runs": [r for r in runs if r["tag"] in PAR_LATE]}))
+    late.with_suffix(".tmp").rename(late)
+
     t0 = time.perf_counter()
     deadline = t0 + PAR_TIMEOUT
-    for p in procs:
+    for p in procs + [ranks["verifier"]]:
         p.wait(timeout=max(1.0, deadline - time.perf_counter()))
-    for rank, p in enumerate(procs):
+    for name, p in [(f"rank{r}", p) for r, p in enumerate(procs)] + [
+            ("verifier", ranks["verifier"])]:
         if p.returncode != 0:
-            tail = (root / f"rank{rank}.log").read_text()[-6000:]
-            raise AssertionError(f"rank {rank} exited {p.returncode}:\n{tail}")
-    ranks_s = time.perf_counter() - t0
-    records = [{r["tag"]: r for r in json.loads(
-        pathlib.Path(f"{spec}.{rank}.json").read_text())}
-        for rank in range(PAR_RANKS)]
+            tail = (root / f"{name}.log").read_text()[-6000:]
+            raise AssertionError(f"{name} exited {p.returncode}:\n{tail}")
+    ranks_s = time.perf_counter() - started["t0"]
+    records = [{r["tag"]: r for spec in (ranks["spec"], late)
+                for r in json.loads(pathlib.Path(
+                    f"{spec}.{rank}.json").read_text())}
+               for rank in range(PAR_RANKS)]
     wrote = sorted(os.listdir(root / "rank0"))
-    if os.listdir(root / "rank1") or len(wrote) != len(runs):
+    cli_runs = [r for r in runs if "argv" in r]
+    if os.listdir(root / "rank1") or len(wrote) != len(cli_runs):
         raise AssertionError(f"rank 1 wrote {os.listdir(root / 'rank1')}, "
                              f"rank 0 {wrote}")
-    log("parallel", f"ranks done in {ranks_s:.1f} s; only rank 0 wrote: "
-        f"{wrote}, rank 1's directory empty")
+    log("parallel", f"ranks done {ranks_s:.1f} s after the first spec, "
+        f"{time.perf_counter() - t0:.1f} s after the second; only "
+        f"rank 0 wrote: {wrote}, rank 1's directory empty")
     for tag in records[0]:
+        if records[0][tag].get("kind"):
+            continue
         for rank, rec in enumerate(r[tag] for r in records):
             last = rec["updates"][-1]
             log("parallel", f"{tag} rank {rank} grid {rec['grid']} local "
                 f"heads {rec['local_heads'][0]}: updates "
                 f"{[round(u['update_ms'], 1) for u in rec['updates']]} ms; "
                 f"the last: grad steps {last['step_ms']:.1f} ms (activation "
-                f"all-reduces in them {last['collective_ms']:.1f} ms), "
-                f"gradient all-reduce {last['reduce_ms']:.1f} ms, idle (the "
-                f"host collectives' share) {last['idle']:.1%}; peak "
-                f"{rec['peak_gib']:.2f} GiB, run {rec['seconds']:.1f} s "
-                f"(saves {rec['save_s']:.1f} s), losses "
-                f"{[round(h['loss'], 6) for h in rec['log']]} [{gpu}]")
+                f"all-reduces or the pipeline's sums in them "
+                f"{last['collective_ms']:.1f} ms, its sends and receives "
+                f"{last['p2p_ms']:.1f} ms), gradient all-reduce "
+                f"{last['reduce_ms']:.1f} ms, idle (the host collectives' "
+                f"share) {last['idle']:.1%}; peak {rec['peak_gib']:.2f} GiB, "
+                f"run {rec['seconds']:.1f} s (saves {rec['save_s']:.1f} s), "
+                f"losses {[round(h['loss'], 6) for h in rec['log']]} [{gpu}]")
             if rec["bf16_step"]:
                 log("parallel", f"{tag} rank {rank}: one bf16 grad step of "
                     f"its model (dropout 0), after a warm-up: "
@@ -6065,111 +6618,32 @@ def phase_parallel(dev, gpu: str, tmp: str, ranks: dict):
                     f"all-reduces {rec['bf16_step'][1]:.1f} ms [{gpu}]")
         if records[0][tag]["log"] != records[1][tag]["log"]:
             raise AssertionError(f"{tag}: the ranks logged different losses")
+    for rank in range(PAR_RANKS):
+        updates = records[rank]["pp_timing"]["updates"]
+        last = updates[-1]
+        log("parallel", f"pipeline bf16 (dropout on, S = {PAR_RANKS}, M = "
+            f"{PAR_PP_MICROBATCHES}, B = 4 x T = 768) stage {rank}, the card "
+            f"to the ranks: updates {[round(u['update_ms'], 1) for u in updates]}"
+            f" ms; the last: its grad step {last['step_ms']:.1f} ms, blocked "
+            f"in sends and receives {last['p2p_ms']:.1f} ms, in the sums over "
+            f"the world {last['collective_ms']:.1f} ms: idle "
+            f"{last['idle']:.1%} of the update (GPipe's fill and drain "
+            f"alone: "
+            f"{(PAR_RANKS - 1) / (PAR_PP_MICROBATCHES + PAR_RANKS - 1):.0%})"
+            f" [{gpu}]")
 
-    # (a) f32 data parallel against the 1-process replay of its batches
-    t0 = time.perf_counter()
-    dp = runs[0]
-    replay, ref_grads = parallel_reference(dp["argv"], root / "replay", True)
-    got = [h["loss"] for h in records[0]["dp_f32"]["log"]]
-    want = [h["loss"] for h in replay.log_history]
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    dumped = [torch.load(f"{dp['dump']}_{i}.pt")
-              for i in range(PAR_F32_UPDATES)]
-    run_grads = [({k: v.to(dev) for k, v in d["grads"].items()},
-                  d["sample_size"]) for d in dumped]
-    params = named_params(load_checkpoint(str(
-        root / "rank0" / "exp_dp_f32" / "last-step.npz"),
-        load_opt=False)["params"], dev)
-    check = update_check(start, params, replay.params, run_grads, ref_grads,
-                         replay.optimizer)
-    fails = update_failures(check)
-    log("parallel", f"dp_f32 against the 1-process replay (B = "
-        f"{4 * PAR_RANKS} a step, TF32 off): losses {got} vs {want}, worst "
-        f"rel {loss_err:.3e} (bar {PAR_LOSS_RTOL:g}); after "
-        f"{PAR_F32_UPDATES} updates: {describe_update_check(check)}, "
-        f"{time.perf_counter() - t0:.1f} s")
-    if not (len(got) == len(want) == PAR_F32_UPDATES
-            and loss_err < PAR_LOSS_RTOL) or fails:
-        raise AssertionError(f"data parallel disagrees with the replay: "
-                             f"{fails}")
-    # planted faults, from this run's own data, that the check must fail:
-    # PAR_CONTROL_LEAF's gradient left at rank 0's own (its updates as a
-    # run that skipped its all-reduce takes them; judged with the
-    # gradients that run would dump, and with this run's), and Adam
-    # without its bias corrections
-    t0 = time.perf_counter()
-    unreduced = [({**g, PAR_CONTROL_LEAF: d["control"].to(dev)}, n)
-                 for (g, n), d in zip(run_grads, dumped)]
-    hyper = replay.optimizer
-    planted = {
-        f"{PAR_CONTROL_LEAF} unreduced": (
-            plain_adam(start, unreduced, hyper), unreduced),
-        f"{PAR_CONTROL_LEAF} unreduced, judged on the sound gradients": (
-            plain_adam(start, unreduced, hyper), run_grads),
-        "Adam without bias corrections": (
-            plain_adam(start, run_grads, hyper, corrected=False),
-            run_grads)}
-    for fault, (params, grads) in planted.items():
-        missed = update_failures(update_check(
-            start, params, replay.params, grads, ref_grads, hyper))
-        log("parallel", f"dp_f32 planted fault, {fault}: fails "
-            f"{missed}")
-        if not missed:
-            raise AssertionError(f"the update check passes a planted "
-                                 f"fault: {fault}")
-    log("parallel", f"planted faults checked, "
-        f"{time.perf_counter() - t0:.1f} s")
-    del replay, ref_grads, dumped, run_grads, unreduced, planted, params
+    # (a), (b), (d): the verifier's checks of the f32 runs
+    verified = json.loads(pathlib.Path(f"{ranks['spec']}.verify.json")
+                          .read_text())
+    for line in verified["lines"]:
+        log("parallel", line)
+    if verified["error"]:
+        raise AssertionError(verified["error"])
 
-    # (b) f32 tensor parallel against the 1-process step
-    t0 = time.perf_counter()
-    tp = runs[2]
-    one, ref_grads = parallel_reference(tp["argv"], root / "one", False)
-    d = torch.load(f"{tp['dump']}_0.pt")
-    run_grads = [({k: v.to(dev) for k, v in d["grads"].items()},
-                  d["sample_size"])]
-    ckpt = root / "rank0" / "exp_tp_f32" / "last-step.npz"
-    params = named_params(load_checkpoint(str(ckpt), load_opt=False)
-                          ["params"], dev)
-    check = update_check(start, params, one.params, run_grads, ref_grads,
-                         one.optimizer)
-    fails = update_failures(check)
-    got = records[0]["tp_f32"]["log"][0]["loss"]
-    want = one.log_history[0]["loss"]
-    loss_err = abs(got - want) / abs(want)
-    log("parallel", f"tp_f32 (heads {records[0]['tp_f32']['local_heads'][0]}"
-        f" + {records[1]['tp_f32']['local_heads'][0]} a layer) against the "
-        f"1-process step: loss {got:.6f} vs {want:.6f}, rel {loss_err:.3e} "
-        f"(bar {PAR_LOSS_RTOL:g}); the gathered gradients and checkpoint "
-        f"after 1 update: {describe_update_check(check)}, "
-        f"{time.perf_counter() - t0:.1f} s")
-    if loss_err >= PAR_LOSS_RTOL or fails:
-        raise AssertionError(f"tensor parallel disagrees with the 1-process "
-                             f"step: {fails}")
+    # (e) sequence parallel against the long phase's 1-process steps
+    check_seqpar(dev, gpu, records, by_tag["seqpar"]["out"], refs)
 
-    # the TP checkpoint serves in a 1-process extractor as the 1-process
-    # step's parameters do
-    ext = MelHuBERTExtractor(str(ckpt), device=dev)
-    wavs = [np.random.default_rng(i).standard_normal(16000).astype(
-        np.float32) * 0.1 for i in range(2)]
-    out = ext.forward_packed(wavs)["last_hidden_state"]
-    named = dict(ext.model.named_parameters())
-    if set(named) != set(one.params):
-        raise AssertionError("the extractor's parameters are not the "
-                             "trainer's")
-    with torch.no_grad():
-        for k, v in named.items():
-            v.copy_(one.params[k])
-    ref = ext.forward_packed(wavs)["last_hidden_state"]
-    err = float((out - ref).abs().max() / ref.abs().mean())
-    log("parallel", f"the TP checkpoint served by MelHuBERTExtractor: "
-        f"{tuple(out.shape)}, against the 1-process step's parameters "
-        f"max|d|/mean|ref| {err:.3e} (bar {SLICE_BAR:g})")
-    if not (bool(out.isfinite().all()) and err < SLICE_BAR):
-        raise AssertionError("the TP checkpoint serves other values")
-    del ext, one, ref_grads, run_grads, params
-
-    paths = parallel_paths(records)
+    paths, long_paths = parallel_paths(records)
     for tag in ("dp_f32", "dp_bf16", "tp_f32"):
         if not all(sum(c.values()) for name, c in paths[f"parallel {tag}"]
                    .items() if name.startswith("flash_attn")):
@@ -6178,9 +6652,76 @@ def phase_parallel(dev, gpu: str, tmp: str, ranks: dict):
     if not all(hub.get(n, {}).get("bf16") for n in
                ("conv1d_fwd", "conv1d_dw", "conv1d_dx")):
         raise AssertionError(f"HuBERT's DP run launched no conv kernel: {hub}")
-    log("parallel", f"launches, both ranks: {paths}; phase "
+    for path, dtypes, long in (
+            ("melhubert pipeline train", ("f32", "bf16"), False),
+            ("melhubert seqpar serve", ("f32", "bf16"), True),
+            ("melhubert seqpar distill", ("f32", "bf16"), True)):
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_attn_bwd_dkv"):
+            if name != "flash_attn_fwd" and path.endswith("serve"):
+                continue
+            got = (long_paths if long else paths)[path][name]
+            if not all(got[d] for d in dtypes):
+                raise AssertionError(f"{path}: {name} launches {got}")
+    seq = {k: v for k, v in long_paths.items() if "seqpar" in k}
+    log("parallel", f"launches, both ranks: {paths}; the sequence-parallel "
+        f"paths' past T = 4096: {seq}; phase "
         f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
-    return paths
+    return paths, long_paths
+
+
+def check_seqpar(dev, gpu: str, records: list, out_path: str,
+                 refs: dict) -> None:
+    """The ranks' sequence-parallel serving against the long phase's
+    1-process f32 forward of the same utterance and checkpoint (f32
+    max|d|/mean|ref| < SLICE_BAR, bf16 rel. L2 < BF16_SLICE_BAR), and its
+    f32 distill grad steps against the long phase's 1-process steps
+    (loss and logs rel < GRAD_BAR, every gradient rel. L2 < GRAD_BAR,
+    grad_errors); the times."""
+    t0 = time.perf_counter()
+    got = torch.load(out_path)
+    ref = refs["serve"].to(dev)
+    valid = torch.ones(ref.shape[:2], dtype=torch.bool, device=dev)
+    err = rel_err(got["serve"]["f32"].to(dev), ref, valid)
+    err16 = rel_l2(got["serve"]["bf16"].to(dev), ref, valid)
+    timing = [r["seqpar_timing"] for r in records]
+    log("parallel", f"seqpar serve, one {LONG_T}-frame 10 ms utterance on "
+        f"{PAR_RANKS} ranks ({LONG_T // PAR_RANKS} query rows a rank "
+        f"against all {LONG_T} keys): f32 against the 1-process forward "
+        f"max|d|/mean|ref| {err:.3e} (bar {SLICE_BAR:g}), bf16 rel L2 "
+        f"{err16:.3e} (bar {BF16_SLICE_BAR:g}); warm, the card to the "
+        "ranks: " + "; ".join(f"rank {i}: " + ", ".join(
+            f"{tag} {ms:.1f} ms ({LONG_T / ms * 1e3:.0f} frames/s, "
+            f"{LONG_SAMPLES / 16000 / ms * 1e3:.1f}x realtime), host "
+            f"gathers {share:.1%}" for tag, (ms, share) in r["times"].items()
+            if tag in ("f32", "bf16")) for i, r in enumerate(timing))
+        + f" [{gpu}]")
+    if not (err < SLICE_BAR and err16 < BF16_SLICE_BAR):
+        raise AssertionError("sequence-parallel serving disagrees")
+    worst = {}
+    for loss_type, (ref_loss, ref_logs, ref_grads) in refs["distill"].items():
+        loss, logs, grads = got["distill"][loss_type]
+        names = list(ref_grads)
+        errs = grad_errors(names, [grads[k].to(dev) for k in names],
+                           [ref_grads[k].to(dev) for k in names])
+        i = int(np.argmax(errs))
+        rels = [abs(loss - ref_loss) / abs(ref_loss)] + [
+            abs(logs[k] - ref_logs[k]) / max(abs(ref_logs[k]), 1e-30)
+            for k in ("hard_loss", "soft_loss")]
+        worst[loss_type] = (max(rels), errs[i], names[i])
+        if not (max(rels) < GRAD_BAR and errs[i] < GRAD_BAR):
+            raise AssertionError(f"seqpar distill {loss_type}: loss/logs rel "
+                                 f"{rels}, gradient {names[i]} {errs[i]:.3e}")
+    log("parallel", f"seqpar distill at T = {LONG_T}, B = 1, 12 -> 6 layers "
+        f"on {PAR_RANKS} ranks, f32 against the 1-process steps (TF32 off): "
+        + ", ".join(f"{k}: loss and logs worst rel {a:.3e}, gradients worst "
+                    f"rel L2 {b:.3e} ({c})" for k, (a, b, c) in worst.items())
+        + f" (bar {GRAD_BAR:g}); the bf16 masked step warm, the card to the "
+        "ranks: " + "; ".join(
+            f"rank {i} {r['times']['distill bf16'][0]:.1f} ms (host "
+            f"collectives {r['times']['distill bf16'][1]:.1%}), peak "
+            f"{r['peak_gib']:.2f} GiB" for i, r in enumerate(timing))
+        + f"; {time.perf_counter() - t0:.1f} s [{gpu}]")
 
 
 def attention_library_ms(dev, gpu: str, dtype):
@@ -6401,6 +6942,38 @@ def timed(name: str, fn, *args):
             f"{time.perf_counter() - T_START:.1f} s since torch's import")
 
 
+@contextlib.contextmanager
+def unread_saves_skipped(phase: str, keep):
+    """The trainers' checkpoint saves skipped for the duration where
+    ``keep("<expdir name>/<file>")`` is false: writes of ~0.6-1.1 GB that
+    no check of ``phase`` reads, cut for the script's time. The
+    skips are logged."""
+    from speech_ssl_compression_tpu_torch.train.runner import Runner
+    from speech_ssl_compression_tpu_torch.train.wave_runner import WaveRunner
+
+    saves = {cls: cls.save for cls in (Runner, WaveRunner)}
+    skipped = []
+
+    def make(orig):
+        def save(self, step, name, *args, **kwargs):
+            path = f"{os.path.basename(str(self.expdir))}/{name}"
+            if keep(path):
+                return orig(self, step, name, *args, **kwargs)
+            skipped.append(path)
+        return save
+
+    for cls, orig in saves.items():
+        cls.save = make(orig)
+    try:
+        yield skipped
+    finally:
+        for cls, orig in saves.items():
+            cls.save = orig
+        if skipped:
+            log(phase, f"skipped {len(skipped)} checkpoint saves that no "
+                f"check reads: {skipped}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -6409,6 +6982,9 @@ def main() -> None:
     parser.add_argument("--child", default=None, metavar="SPEC",
                         help="run as one rank of the parallel phase "
                         "(parallel_child_command)")
+    parser.add_argument("--verify", default=None, metavar="SPEC",
+                        help="run as the parallel phase's verifier "
+                        "(verify_main)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -6416,6 +6992,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     if args.child:
         child_main(args.child)
+        return
+    if args.verify:
+        verify_main(args.verify)
         return
     from speech_ssl_compression_tpu_torch.ops import _kernels
 
@@ -6440,7 +7019,8 @@ def main() -> None:
     conv = timed("conv", phase_conv, dev, gpu)
     library = {dtype: timed("library", attention_library_ms, dev, gpu, dtype)
                for dtype in (torch.float32, torch.bfloat16)}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as stack:
         serve, extractors, wavs = timed("slice", phase_slice, dev, gpu, tmp)
         timed("slice", phase_timing, extractors, wavs, gpu)
         if args.profile:
@@ -6449,8 +7029,10 @@ def main() -> None:
                                         gpu, tmp, extractors)
         del extractors
         stream, causal_serve = timed("stream", phase_stream, dev, gpu)
-        runner, batch, train, snapshot = timed("train", phase_train, dev,
-                                               gpu, tmp)
+        with unread_saves_skipped("train", lambda p: not p.endswith(
+                "states-epoch-0.npz")):
+            runner, batch, train, snapshot = timed("train", phase_train, dev,
+                                                   gpu, tmp)
         merge(record, timed("train", phase_train_timing, runner, batch, gpu))
         if args.profile:
             timed("profile", phase_train_profile, runner, batch, gpu)
@@ -6458,14 +7040,19 @@ def main() -> None:
         del runner, batch, snapshot
         weight_prune = timed("weight prune", phase_weight_prune, dev, gpu,
                              tmp)
-        head_prune, one_head = timed("head prune", phase_head_prune, dev,
-                                     gpu, tmp)
+        with unread_saves_skipped("head prune", lambda p: p != (
+                f"l1/states_prune_{12 * (12 - HP_L1_EVENTS)}.npz")):
+            head_prune, one_head = timed("head prune", phase_head_prune,
+                                         dev, gpu, tmp)
         row_prune = timed("row prune", phase_row_prune, dev, gpu, tmp,
                           one_head)
-        distill = timed("distill", phase_distill, dev, gpu, tmp, one_head,
-                        args.profile)
-        long_counts, long_paths = timed("long", phase_long, dev, gpu, tmp,
-                                        record)
+        with unread_saves_skipped("distill",
+                                  lambda p: p == "a/last-step.npz"):
+            distill = timed("distill", phase_distill, dev, gpu, tmp,
+                            one_head, args.profile)
+        with unread_saves_skipped("long", lambda p: p == "exp/last-step.npz"):
+            long_counts, long_paths, seqpar_refs = timed(
+                "long", phase_long, dev, gpu, tmp, record)
         hubert_serve = timed("hubert serve", phase_hubert_serve, dev, gpu)
         runner, hubert_train, cudnn_model, batch = timed(
             "hubert train", phase_hubert_train, dev, gpu, tmp)
@@ -6475,6 +7062,8 @@ def main() -> None:
             timed("profile", phase_hubert_profile, runner, cudnn_model,
                   batch, gpu)
         del runner, cudnn_model, batch
+        ranks = stack.enter_context(parallel_ranks(tmp))
+        started = timed("parallel", start_parallel, tmp, ranks)
         runner, w2v2_train, cudnn_model, batch = timed(
             "w2v2 train", phase_w2v2_train, dev, gpu, tmp)
         timed("w2v2 train", phase_w2v2_train_timing, runner, cudnn_model,
@@ -6483,13 +7072,14 @@ def main() -> None:
             timed("profile", phase_w2v2_profile, runner, cudnn_model, batch,
                   gpu)
         del runner, cudnn_model, batch
-        with parallel_ranks(tmp) as ranks:
-            wave_prune = timed("wave prune", phase_wave_prune, dev, gpu,
-                               tmp)
-            gc.collect()
-            torch.cuda.empty_cache()  # the ranks share the card with us
-            parallel = timed("parallel", phase_parallel, dev, gpu, tmp,
-                             ranks)
+        wave_prune = timed("wave prune", phase_wave_prune, dev, gpu, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()  # the ranks share the card with us
+        parallel, parallel_long = timed("parallel", phase_parallel, dev,
+                                        gpu, tmp, ranks, seqpar_refs,
+                                        started)
+        stack.close()  # every rank still running is killed
+        long_paths.update(parallel_long)
 
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after

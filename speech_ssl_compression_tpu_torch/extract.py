@@ -8,8 +8,9 @@ JAX package's npz or a reference ``.ckpt``), featurize waveforms on the host
 :meth:`MelHuBERTExtractor.forward_packed`, which packs utterances into
 fixed-capacity rows with segment-masked attention, and
 :meth:`MelHuBERTExtractor.forward_stream`, which pipelines it over batches.
-
-Not ported yet: ``forward_seqpar``.
+:meth:`MelHuBERTExtractor.forward_seqpar` serves one long utterance with
+its time axis sharded over the ranks of a process group
+(``parallel/seqpar.py``).
 """
 
 from __future__ import annotations
@@ -242,6 +243,29 @@ class MelHuBERTExtractor:
             "last_hidden_state": out["hidden"],
             "lengths": lengths,
         }
+
+    def forward_seqpar(self, wav: np.ndarray, mesh=None,
+                       featurizer: str = "host") -> dict:
+        """Port of ``MelHuBERTExtractor.forward_seqpar``: sequence-parallel
+        extraction of ONE utterance, its time axis sharded over the data
+        group of ``mesh`` (``parallel/mesh.py::make_mesh()`` over the
+        process group when None: every rank of it calls this with the same
+        ``wav``). Each rank featurizes the whole utterance and runs its
+        shard; ``last_hidden_state`` (1, T, D) and ``lengths`` come back on
+        every rank and match :meth:`forward`'s."""
+        from .parallel.mesh import make_mesh
+        from .parallel.seqpar import melhubert_extract_seqpar
+
+        if mesh is None:
+            if getattr(self, "_seqpar_mesh", None) is None:
+                self._seqpar_mesh = make_mesh()
+            mesh = self._seqpar_mesh
+        feat, pad_mask, lengths = self._featurize([wav], featurizer)
+        feat, pad_mask = self._to_device(feat, pad_mask)
+        with matmul_precision(self.matmul_precision), torch.inference_mode():
+            hidden = melhubert_extract_seqpar(
+                self.model, feat, pad_mask, mesh, attn_impl=self.attn_impl)
+        return {"last_hidden_state": hidden, "lengths": lengths}
 
     def forward_files(self, paths: Sequence[str],
                       featurizer: str = "host") -> dict:

@@ -33,6 +33,7 @@ from torch import nn
 from ..ops.activations import at_least_f32, gelu
 from ..ops.conv1d import conv1d_strided
 from ..ops.dropout import dropout
+from ..parallel.mesh import sum_over_data
 
 NORM_EPS = 1e-5
 FRONTEND_IMPLS = ("auto", "tc_conv", "tc_pallas", "tc_fold", "tc_matmul",
@@ -194,7 +195,15 @@ def wave_frontend_forward(
         features = features.detach()
     elif cfg.feature_grad_mult != 1.0:
         features = _GradMultiply.apply(features, float(cfg.feature_grad_mult))
-    features_pen = torch.mean(at_least_f32(features) ** 2)
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.dp == 1:
+        features_pen = torch.mean(at_least_f32(features) ** 2)
+    else:  # data ranks: the global batch's mean, as JAX takes it
+        total = sum_over_data(torch.stack([
+            torch.sum(at_least_f32(features) ** 2),
+            torch.tensor(float(features.numel()), device=features.device)]),
+            mesh)
+        features_pen = total[0] / total[1]
 
     x = F.layer_norm(features, model.layer_norm.normalized_shape,
                      model.layer_norm.weight.to(features.dtype),

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.activations import at_least_f32, gelu
+from ..parallel.mesh import sum_over_data
 
 
 class GumbelVectorQuantizer(nn.Module):
@@ -88,21 +89,34 @@ def gumbel_vq_forward(
     generator: Optional[torch.Generator] = None,  # on x's device
     uniform: Optional[torch.Tensor] = None,  # (B * T * G, V) in [0, 1)
     produce_targets: bool = False,
+    mesh=None,
 ) -> dict:
     """Port of JAX ``gumbel_vq_forward``. Returns {"x" (B, T, vq_dim),
     "num_vars" (V * G), "code_perplexity", "prob_perplexity", "temp",
     "targets" ((B, T, G) code ids, or None)}. Training draws the Gumbel
-    noise's uniforms from ``generator`` unless ``uniform`` is given."""
+    noise's uniforms from ``generator`` unless ``uniform`` is given. On a
+    data-parallel grid (``mesh``) the perplexities average over the data
+    group's global batch (``parallel/mesh.py::sum_over_data``)."""
     b, t, _ = x.shape
     logits = _weight_proj(vq.weight_proj, x.reshape(b * t, -1))
     logits = logits.reshape(b * t * groups, num_vars)
 
     lf = at_least_f32(logits)  # the f32 islands (float64 stays float64)
     hard_x = F.one_hot(logits.argmax(-1), num_vars).to(logits.dtype)
-    hard_probs = hard_x.reshape(b * t, groups, num_vars).to(lf.dtype).mean(0)
+    hard = hard_x.reshape(b * t, groups, num_vars).to(lf.dtype)
+    soft = torch.softmax(lf.reshape(b * t, groups, num_vars), -1)
+    if mesh is None or mesh.dp == 1:
+        hard_probs, avg_probs = hard.mean(0), soft.mean(0)
+    else:  # data ranks: the global batch's averages, as JAX takes them
+        sums = sum_over_data(torch.cat([
+            hard.detach().sum(0).reshape(-1), soft.sum(0).reshape(-1),
+            torch.tensor([float(b * t)], dtype=lf.dtype,
+                         device=lf.device)]), mesh)
+        n = groups * num_vars
+        hard_probs = (sums[:n] / sums[-1]).view(groups, num_vars)
+        avg_probs = (sums[n:2 * n] / sums[-1]).view(groups, num_vars)
     code_perplexity = torch.exp(
         -(hard_probs * torch.log(hard_probs + 1e-7)).sum(-1)).sum()
-    avg_probs = torch.softmax(lf.reshape(b * t, groups, num_vars), -1).mean(0)
     prob_perplexity = torch.exp(
         -(avg_probs * torch.log(avg_probs + 1e-7)).sum(-1)).sum()
 

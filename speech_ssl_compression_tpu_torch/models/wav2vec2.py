@@ -37,8 +37,13 @@ from torch import nn
 
 from ..configs import Wav2Vec2Config
 from ..ops.activations import at_least_f32
-from ..ops.dropout import device_generator, host_mask_rng
-from ..parallel.mesh import local_rows
+from ..ops.dropout import (
+    draw_seed,
+    fold_seed,
+    host_mask_rng,
+    seeded_generator,
+)
+from ..parallel.mesh import all_gather_seq, gather_parts, local_rows
 from ..ops.masking import channel_mask, compute_mask_indices_np
 from .conv_frontend import ConvFeatureExtractor, wave_frontend_forward
 from .encoder import TransformerEncoder, encoder_forward, rank_coords
@@ -247,10 +252,11 @@ def wav2vec2_forward(
     cfg = model.cfg
     dev = source.device
     mesh = getattr(model, "mesh", None)
-    generator = None
+    generator = seed = None
     if rng is not None:
-        generator = device_generator(rng, dev,
-                                     fold=rank_coords(model)[:1])
+        seed = draw_seed(rng)
+        generator = seeded_generator(fold_seed(seed, rank_coords(model)[0]),
+                                     dev)
     elif not deterministic:
         raise ValueError("training (deterministic=False) needs an rng")
     x, unmasked_features, frame_valid, out_len, features_pen = (
@@ -310,7 +316,7 @@ def wav2vec2_forward(
             temperature=(cfg.latent_temp[0] if gumbel_temp is None
                          else gumbel_temp),
             training=not deterministic, generator=generator,
-            uniform=gumbel_uniform, produce_targets=True)
+            uniform=gumbel_uniform, produce_targets=True, mesh=mesh)
         y, targets = q["x"], q["targets"]
         for key in ("prob_perplexity", "code_perplexity", "num_vars", "temp"):
             out[key] = q[key]
@@ -336,13 +342,28 @@ def wav2vec2_forward(
         return out
 
     if n_cross > 0 or n_codebook > 0:
-        neg_idx = sample_negative_indices(generator, neg_mask,
-                                          cfg.num_negatives)
+        d = y.shape[-1]
+        if n_cross > 0 and mesh is not None and mesh.dp > 1:
+            # on data ranks every rank draws the global batch's negatives
+            # from one generator state (the seed the 1-process run's
+            # negatives start from) and takes its rows; the targets are
+            # gathered over the data group, their gradients sent home by
+            # the gather's backward
+            rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+            glob = torch.cat(gather_parts(neg_mask, mesh))
+            neg_gen = seeded_generator(0 if seed is None else seed, dev)
+            neg_idx = sample_negative_indices(neg_gen, glob,
+                                              cfg.num_negatives)[rows]
+            cross = all_gather_seq(y, 0, mesh).reshape(-1, d)[
+                sample_cross_negative_indices(neg_gen, glob, n_cross)[rows]]
+        else:
+            neg_idx = sample_negative_indices(generator, neg_mask,
+                                              cfg.num_negatives)
+            cross = (y.reshape(-1, d)[sample_cross_negative_indices(
+                generator, neg_mask, n_cross)] if n_cross > 0 else None)
         parts = [_gather_frames(y, neg_idx)]
-        if n_cross > 0:
-            flat_idx = sample_cross_negative_indices(generator, neg_mask,
-                                                     n_cross)
-            parts.append(y.reshape(-1, y.shape[-1])[flat_idx])
+        if cross is not None:
+            parts.append(cross)
         if n_codebook > 0:
             cb = sample_from_codebook(
                 model.quantizer, generator, b * t_frames, n_codebook,

@@ -39,10 +39,13 @@ distillation:
 (``<dir>``: ``weight_pruning``, ``head_pruning/l1`` or ``row_pruning``.)
 
 Any of them on N ranks (data parallel; ``--model_parallel 2`` splits each
-encoder layer's heads and FFN units over pairs of ranks):
+encoder layer's heads and FFN units over pairs of ranks; MelHuBERT
+pre-training also takes ``--pipeline_parallel S``, the encoder stack cut
+into S stages, M = ``--pp_microbatches`` microbatches a step):
 
     torchrun --nproc_per_node N -m speech_ssl_compression_tpu_torch.train \
-        ... --multi_host [--model_parallel 2] [--dist_backend gloo]
+        ... --multi_host [--model_parallel 2 | --pipeline_parallel 2] \
+        [--dist_backend gloo]
 
 ``--multi_host`` joins the process group before anything is written
 (``parallel/multihost.py::initialize``: torchrun's env, NCCL where every
@@ -63,9 +66,10 @@ melhubert``), ``-m weight-pruning``, ``-m head-pruning`` and ``-m
 row-pruning`` of the three models (head pruning: l1 and data-driven,
 by_layer and by_whole on MelHuBERT; l1 on HuBERT and wav2vec 2.0, as in
 JAX) and ``-m distillation`` of MelHuBERT, each on one rank or a grid of
-them. ``-m distillation`` with ``-u hubert|wav2vec2`` and
-``--pipeline_parallel`` raise ``NotImplementedError`` (JAX's WaveRunner
-trains plain pre-training under that mode's name).
+them. ``-m distillation`` with ``-u hubert|wav2vec2`` raises
+``NotImplementedError`` (JAX's WaveRunner trains plain pre-training under
+that mode's name), as ``--pipeline_parallel`` does with them (JAX's
+WaveRunner has no pipeline) and with any mode but ``-m melhubert``.
 """
 
 from __future__ import annotations
@@ -100,7 +104,15 @@ def get_args(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
     parser.add_argument("--model_parallel", type=int, default=1)
-    parser.add_argument("--pipeline_parallel", type=int, default=1)
+    parser.add_argument(
+        "--pipeline_parallel", type=int, default=1,
+        help="cut the encoder stack into N pipeline stages, one rank each "
+        "(GPipe, parallel/pipeline.py); -m melhubert only; resume with the "
+        "same value (the Adam state is stored over the stage-split tree)")
+    parser.add_argument(
+        "--pp_microbatches", type=int, default=0,
+        help="microbatches per pipeline step (0 = 2 x pipeline_parallel); "
+        "train_batch_size must be a multiple of it")
     parser.add_argument("--multi_host", action="store_true",
                         help="join the process group of a multi-process "
                         "launch (torchrun's env)")

@@ -87,11 +87,13 @@ class OptimizerScheduleMixin:
         (``parallel_mixin.py``), else None."""
         return None
 
-    def _opt_leaves(self, opt_state=None) -> list:
-        """The Adam state (``opt_state``, the trainer's own by default) as
-        checkpoint leaves, in JAX's order and layout."""
+    def _opt_leaves(self, opt_state=None, names=None) -> list:
+        """The Adam state (``opt_state``, the trainer's own by default;
+        its moments in the order of ``names``, the trainer's parameters by
+        default) as checkpoint leaves, in JAX's order and layout."""
         return opt_leaves_of(self.opt_state if opt_state is None
-                             else opt_state, list(self.params),
+                             else opt_state,
+                             list(self.params) if names is None else names,
                              self._tree_from_named)
 
     def _restore_opt_state(self, opt_leaves: list) -> None:

@@ -1,4 +1,5 @@
-"""Data- and tensor-parallel training, shared by Runner and WaveRunner.
+"""Data-, tensor- and pipeline-parallel training, shared by Runner and
+WaveRunner (pipeline parallel: MelHuBERT pre-training only).
 
 Port of what JAX's two runners do on their ``(data, model)`` mesh
 (``speech_ssl_compression_tpu/train/runner.py:86-100,215-248`` and
@@ -19,7 +20,16 @@ Port of what JAX's two runners do on their ``(data, model)`` mesh
     slicing) gathers it (:meth:`_whole_state`, :meth:`_whole`), and after
     a prune event every rank slices anew;
   * only the primary (rank 0) writes: the expdir, TensorBoard, the
-    checkpoints, the log lines.
+    checkpoints, the log lines;
+  * under ``--pipeline_parallel S`` (JAX ``Runner._init_pipeline_mesh``,
+    ``runner.py:159-213``) the grid is ``(data, pipe)``: every rank builds
+    the whole model and Adam state, then keeps the replicated leaves and
+    its stage's layers (``parallel/pipeline.py::stage_model``); the grad
+    step sums its own gradients (:meth:`_reduce_window` passes them on),
+    the clip adds the stages' squares over the pipe group, and a
+    checkpoint gathers the stages into the standard per-layer tree, its
+    Adam state in JAX's stage-split layout (so an optimizer resume needs
+    the same S, as in JAX).
 
 Host attributes the mixin relies on: ``args``, ``cfg`` (the whole
 model's), ``params``, ``masks``, ``opt_state``, ``model``, ``device``,
@@ -42,21 +52,41 @@ from ..parallel.mesh import (
     shard_spec,
 )
 from ..parallel.multihost import process_info, rank_device
+from ..parallel.pipeline import (
+    check_pipeline,
+    gather_stages,
+    layer_of,
+    split_pipeline_params,
+    stage_model,
+)
+from ..utils.torch_convert import merge_pipeline_tree, split_pipeline_tree
 from .steps import grad_sumsq
 
 
 class ParallelMixin:
+    # whether the trainer runs --pipeline_parallel (JAX's WaveRunner has
+    # no pipeline)
+    _pipeline = False
+
     def _init_grid(self, args) -> None:
-        """The rank grid of ``--model_parallel`` over the process group
-        (one rank without one), this rank's device and whether it is the
-        primary. ``--pipeline_parallel`` is refused."""
+        """The rank grid of ``--model_parallel`` or ``--pipeline_parallel``
+        over the process group (one rank without one), this rank's device
+        and whether it is the primary. The pipeline takes MelHuBERT
+        pre-training alone, never with ``--model_parallel`` (JAX's
+        refusals, ``runner.py:171-181``)."""
         pp = int(getattr(args, "pipeline_parallel", 1) or 1)
+        tp = int(getattr(args, "model_parallel", 1) or 1)
         if pp > 1:
-            raise NotImplementedError(
-                "--pipeline_parallel is not ported (ROADMAP.md, Queue 1, "
-                "item 11: parallel/pipeline.py waits for a machine with two "
-                "cards)")
-        self.mesh = make_mesh(int(getattr(args, "model_parallel", 1) or 1))
+            if not self._pipeline:
+                raise NotImplementedError(
+                    "--pipeline_parallel: JAX's WaveRunner has no pipeline; "
+                    "the waveform models train on the data/tensor axes")
+            if args.mode != "melhubert":
+                raise NotImplementedError(
+                    "--pipeline_parallel supports the melhubert pre-train "
+                    f"mode only (got {args.mode}); compression runs use "
+                    "data/tensor parallelism")
+        self.mesh = make_mesh(tp, pp)
         self.proc_id, self.proc_count = process_info()
         self.primary = self.proc_id == 0
         self.device = rank_device(self.device)
@@ -73,12 +103,60 @@ class ParallelMixin:
 
     # ------------------------------------------------------- shard / gather
 
+    def _init_pipeline(self) -> None:
+        """After the model is built: the pipeline's limits that need it
+        (JAX ``_init_pipeline_mesh``: no weight-pruning masks, a stack
+        that splits, a batch of whole microbatches) and the checkpoints'
+        Adam layout, JAX's stage-split tree."""
+        if self.mesh.pp == 1:
+            return
+        if self.masks is not None:
+            raise NotImplementedError(
+                "pipeline-parallel training from a weight-pruned checkpoint "
+                "is unsupported (fold the masks into the weights first)")
+        check_pipeline(self.cfg, self.mesh.pp)
+        m = int(getattr(self.args, "pp_microbatches", 0) or 0)
+        self.pp_microbatches = m if m > 0 else 2 * self.mesh.pp
+        b = int(self.runner_config["datarc"]["train_batch_size"])
+        if b % self.pp_microbatches:
+            raise ValueError(
+                f"train_batch_size={b} (a data rank's batch) must be a "
+                f"multiple of pp_microbatches={self.pp_microbatches}")
+        tree_from_named, named_from_tree = (self._tree_from_named,
+                                            self._named_from_tree)
+        n = self.mesh.pp
+        self._tree_from_named = lambda named: split_pipeline_tree(
+            tree_from_named(named), n)
+        self._named_from_tree = lambda tree: named_from_tree(
+            merge_pipeline_tree(tree))
+        if self.primary:
+            print(f"{self._log_tag} - Pipeline grid {self.mesh.shape}, "
+                  f"{self.pp_microbatches} microbatches")
+
     def _shard_state(self) -> None:
         """The whole model, masks and Adam state -> this rank's: slices of
         the split leaves on a tensor-parallel grid, a model built on the
-        local widths, the mesh attached to it."""
+        local widths, the mesh attached to it; on a pipeline grid the
+        replicated leaves and this stage's layers."""
         mesh = self.mesh
         if mesh.world == 1:
+            return
+        if mesh.pp > 1:
+            names = list(self.params)
+            n = len(names)
+            parts = [split_pipeline_params(dict(zip(names, leaves)), mesh.pp)
+                     for leaves in (list(self.params.values()),
+                                    self.opt_state[1:1 + n],
+                                    self.opt_state[1 + n:])]
+            mine = [{**p["rep"], **p["stages"][mesh.pipe_index]}
+                    for p in parts]
+            self.model = stage_model(mine[0], self.cfg, mesh.pipe_index,
+                                     mesh.pp)
+            self.params = dict(self.model.named_parameters())
+            self.opt_state = ([self.opt_state[0]]
+                              + [mine[1][k] for k in self.params]
+                              + [mine[2][k] for k in self.params])
+            attach(self.model, mesh)
             return
         if mesh.tp > 1:
             names = list(self.params)
@@ -105,8 +183,11 @@ class ParallelMixin:
         checkpoint): gathered to the primary alone, by its model group
         only; None elsewhere."""
         if for_primary and not self.primary and (
-                not self._sharded or self.mesh.data_index != 0):
+                not (self._sharded or self.mesh.pp > 1)
+                or self.mesh.data_index != 0):
             return None
+        if self.mesh.pp > 1:
+            return self._gather_stages(for_primary)
         if not self._sharded:
             return self.params, self.masks, self.opt_state
         names = list(self.params)
@@ -123,6 +204,22 @@ class ParallelMixin:
                      + [whole[2][k] for k in names])
         masks = whole[3] if self.masks is not None else None
         return whole[0], masks, opt_state
+
+    def _gather_stages(self, for_primary: bool):
+        """The whole model's parameters and Adam state from the stages of
+        this rank's pipe group (``pipeline.gather_stages``), in the whole
+        model's order; None on a rank that receives nothing."""
+        names = list(self.params)
+        n = len(names)
+        whole = gather_stages(
+            [self.params] + [dict(zip(names, part)) for part in (
+                self.opt_state[1:1 + n], self.opt_state[1 + n:])],
+            self.cfg, self.mesh, to_primary=for_primary)
+        if whole is None:
+            return None
+        params, mu, nu = whole
+        return (params, None,
+                [self.opt_state[0]] + list(mu.values()) + list(nu.values()))
 
     @contextlib.contextmanager
     def _whole(self):
@@ -157,7 +254,8 @@ class ParallelMixin:
         every model rank computes the same values, but a kernel that adds
         with atomics (cuDNN's weight gradients) may round them apart, and
         replicas that step apart drift."""
-        if self.mesh.world == 1:
+        if self.mesh.world == 1 or self.mesh.pp > 1:
+            # the pipeline's grad step returns them summed
             return grads, scalars
         grads = list(grads)
         scalars = [torch.as_tensor(s, dtype=torch.float32,
@@ -179,7 +277,17 @@ class ParallelMixin:
     def _grad_sumsq(self, grads):
         """The squared norm of the whole gradient on a tensor-parallel
         grid: the split leaves' squares summed over the model group, the
-        replicated ones' once. None elsewhere (the apply takes its own)."""
+        replicated ones' once; on a pipeline grid the stages' squares
+        summed over the pipe group, the replicated leaves' once. None
+        elsewhere (the apply takes its own)."""
+        if self.mesh.pp > 1:
+            own = [g for name, g in zip(self.params, grads)
+                   if layer_of(name) is not None]
+            rep = [g for name, g in zip(self.params, grads)
+                   if layer_of(name) is None]
+            total = all_reduce_tensors([grad_sumsq(own)],
+                                       self.mesh.pipe_group)[0]
+            return total + grad_sumsq(rep)
         if not self._sharded:
             return None
         split, whole = [], []
@@ -196,3 +304,4 @@ class ParallelMixin:
         window one rank dropped alone would put the ranks out of step."""
         if self.mesh.world > 1:
             raise err
+

@@ -38,12 +38,14 @@ and the student forward and backward (``steps.make_distill_grad_step``).
 checkpoints hold the student, ``Config`` the student's and
 ``Upstream_Config`` the whole YAML.
 
-Data and tensor parallel (``--multi_host``, ``--model_parallel``;
+Data, tensor and pipeline parallel (``--multi_host``,
+``--model_parallel``, ``--pipeline_parallel`` with ``--pp_microbatches``;
 ``train/parallel_mixin.py``): one process per rank of a ``(data, model)``
-grid, each data rank on its shard of the buckets, the gradients summed
-over the data group, the encoder layers split over the model group; only
-the primary writes. Pipeline parallelism raises ``NotImplementedError``
-(ROADMAP.md Queue 1). Remat is a grad-step option
+or ``(data, pipe)`` grid, each data rank on its shard of the buckets, the
+gradients summed over the data group, the encoder layers split over the
+model group, or the stack cut into stages over the pipe group (MelHuBERT
+pre-training only, ``parallel/pipeline.py``); only the primary writes.
+Remat is a grad-step option
 (``steps.make_melhubert_grad_step(remat=True)``), which JAX's Runner does
 not expose either.
 """
@@ -65,6 +67,7 @@ from ..data.bucket_dataset import MelFeatBuckets, PrefetchIterator
 from ..extract import load_any_checkpoint, resolve_device
 from ..models.melhubert import loss_selections
 from ..parallel.mesh import all_reduce_tensors
+from ..parallel.pipeline import make_melhubert_pipeline_grad_step
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.tb import TBLogger
 from ..utils.torch_convert import (
@@ -126,6 +129,7 @@ class Runner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
 
     _log_tag = "[Runner]"
     _strict_prune_schedule = True
+    _pipeline = True
 
     def __init__(self, args, runner_config: dict, upstream_config: dict):
         if args.mode not in _PORTED_MODES:
@@ -168,6 +172,7 @@ class Runner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
         expect = {20: 80, 10: 40}[fp]
         assert self.cfg.feat_emb_dim == expect, (
             f"feat_emb_dim should be {expect} at frame period {fp}")
+        self._init_pipeline()
 
         self._init_mode_schedules()
         self._init_optimizer_state()
@@ -267,7 +272,12 @@ class Runner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
         print(f"[Runner] - Number of parameters: {n} (student)")
 
     def _build_grad_step(self):
-        if self.mode == "distillation":
+        if self.mesh.pp > 1:
+            self.grad_step = make_melhubert_pipeline_grad_step(
+                self.model, self.mesh, n_microbatches=self.pp_microbatches,
+                accum_steps=self.accum_steps,
+                compute_dtype=self.compute_dtype)
+        elif self.mode == "distillation":
             self.grad_step = make_distill_grad_step(
                 self.teacher, self.model, temperature=self.loss_temp,
                 alpha=self.loss_alpha, loss_type=self.loss_type,
@@ -347,7 +357,7 @@ class Runner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
         path = os.path.join(self.expdir, name)
         save_checkpoint(
             path, jax_tree_from_named(params),
-            opt_state=self._opt_leaves(opt_state),
+            opt_state=self._opt_leaves(opt_state, list(params)),
             masks=None if masks is None else masks_tree(masks),
             meta=meta, opt_treedef=self._opt_treedef)
         print(f"[Runner] - Saved checkpoint to {path}")

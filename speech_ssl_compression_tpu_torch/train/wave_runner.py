@@ -40,11 +40,12 @@ the MelHuBERT runner (``train/parallel_mixin.py``): each data rank on its
 shard of the batches, its span and channel masks the rows of the global
 batch's, the window's gradients, losses and masked-frame counts summed
 over the data group; the encoder layers split over the model group; only
-the primary writes. Not ported (each raises ``NotImplementedError``):
-pipeline parallelism, and wav2vec 2.0's ``cross_sample_negatives`` on more
-than one data rank (they are drawn from the global batch, which no rank
-holds). ``-m distillation`` is refused: JAX's WaveRunner has no teacher and
-trains plain pre-training under that mode's name.
+the primary writes; wav2vec 2.0's ``cross_sample_negatives`` are drawn
+from the global batch on every data rank and the targets gathered over
+the data group (``models/wav2vec2.py``). Pipeline parallelism raises
+``NotImplementedError``: JAX's WaveRunner has none. ``-m distillation`` is
+refused: JAX's WaveRunner has no teacher and trains plain pre-training
+under that mode's name.
 """
 
 from __future__ import annotations
@@ -137,12 +138,6 @@ class WaveRunner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
         )
 
         self._bind_upstream(runner_config.get("task", {}))
-        if (self.upstream == "wav2vec2" and self.mesh.dp > 1
-                and self.cfg.cross_sample_negatives > 0):
-            raise NotImplementedError(
-                "cross_sample_negatives > 0 on more than one data rank: the "
-                "negatives come from the global batch, which no rank holds "
-                "(ROADMAP.md, Queue 1, item 11)")
         self._tree_from_named = lambda named: wave_tree_from_named(
             named, self.upstream)
         self._named_from_tree = lambda tree: wave_params_to_state_dict(

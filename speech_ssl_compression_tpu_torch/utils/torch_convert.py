@@ -10,7 +10,10 @@ both ways (``wave_state_dict_to_params``, ``wave_params_to_state_dict``;
 wav2vec 2.0's ``quantizer.vars``, depth-1 and deep ``weight_proj`` and
 ``project_q`` included), their ``-i`` loaders
 (``load_wave_initial_weight``, ``load_wave_reference_checkpoint``) and
-``infer_pruned_dims``. Linear
+``infer_pruned_dims``, and the pipeline's stage-split tree
+(``split_pipeline_tree``, ``merge_pipeline_tree``: JAX's
+``parallel/pipeline.py::split_pipeline_params`` and
+``merge_pipeline_params`` on numpy trees). Linear
 kernels are (in, out) in the trees and (out, in) in the state dicts;
 weight-pruned state dicts hold ``weight_orig``/``weight_mask`` pairs.
 Everything goes out as numpy.
@@ -445,3 +448,49 @@ def infer_pruned_dims(params: dict, head_dim: int):
                   for l in layers)
     ffns = tuple(int(l["fc1"]["kernel"].shape[1]) for l in layers)
     return heads, ffns
+
+
+def _map_tree(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def split_pipeline_tree(params: dict, n_stages: int) -> dict:
+    """A JAX-layout MelHuBERT tree -> JAX's pipeline tree ``{"rep": ...,
+    "stages": ...}`` (``split_pipeline_params``): the encoder layers
+    stacked into (S, L/S, ...) leaves, everything else under "rep"."""
+    layers = params["encoder"]["layers"]
+    if n_stages < 1 or len(layers) % n_stages != 0:
+        raise ValueError(f"{len(layers)} encoder layers do not split into "
+                         f"{n_stages} stages")
+    per = len(layers) // n_stages
+    stages = _map_tree(lambda *xs: np.stack([np.asarray(x) for x in xs])
+                       .reshape((n_stages, per) + np.shape(xs[0])), *layers)
+    rep = {k: v for k, v in params.items() if k != "encoder"}
+    rep["encoder"] = {k: v for k, v in params["encoder"].items()
+                      if k != "layers"}
+    return {"rep": rep, "stages": stages}
+
+
+def merge_pipeline_tree(pp: dict) -> dict:
+    """Inverse of :func:`split_pipeline_tree` (JAX's
+    ``merge_pipeline_params``)."""
+    stages = pp["stages"]
+    lead = next(iter(_leaves(stages))).shape
+    n_layers = lead[0] * lead[1]
+    flat = _map_tree(lambda a: np.asarray(a).reshape(
+        (n_layers,) + np.shape(a)[2:]), stages)
+    layers = [_map_tree(lambda a, i=i: a[i], flat) for i in range(n_layers)]
+    params = {k: v for k, v in pp["rep"].items() if k != "encoder"}
+    params["encoder"] = dict(pp["rep"]["encoder"], layers=layers)
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -498,10 +498,20 @@ def test_long_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        paths, long_paths = chip_smoke.phase_long(
+        paths, long_paths, refs = chip_smoke.phase_long(
             torch.device("cpu"), "cpu", str(tmp_path), record)
     finally:
         torch.set_num_threads(threads)
+    # the parallel phase's sequence-parallel yardsticks: the 10 ms
+    # checkpoint kept, the served utterance's f32 output, and the student's
+    # 1-process f32 grad steps of both loss types
+    assert pathlib.Path(refs["ckpt"]).exists()
+    assert tuple(refs["serve"].shape) == (1, 4224, 64)
+    assert set(refs["distill"]) == {"nomasked", "masked"}
+    for loss, logs, grads in refs["distill"].values():
+        assert np.isfinite(loss) and {"hard_loss", "soft_loss"} <= set(logs)
+        assert all(bool(g.isfinite().all()) for g in grads.values())
+    assert refs["distill"]["masked"][0] != refs["distill"]["nomasked"][0]
     assert set(paths) == set(long_paths) == {
         "melhubert 10ms train", "melhubert long serve",
         "melhubert long distill"}
@@ -546,8 +556,11 @@ def test_parallel_phase_runs_after_wave_prune_and_counts_as_a_main_path():
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    # the ranks start before wave prune and wait for the phase's spec
-    assert (src.index("parallel_ranks(tmp) as ranks")
+    # the ranks start before the w2v2 train phase and run the first spec
+    # while it and wave prune run; the rest after wave prune
+    assert (src.index("parallel_ranks(tmp)")
+            < src.index('"parallel", start_parallel')
+            < src.index('"w2v2 train", phase_w2v2_train')
             < src.index('"wave prune", phase_wave_prune')
             < src.index('"parallel", phase_parallel'))
     assert "**parallel}" in src
@@ -581,19 +594,44 @@ def test_parallel_runs_are_cli_argvs(tmp_path):
             accum=chip_smoke.HUBERT_ACCUM, batch=4, data=tmp_path,
             samples=245760))
     starts = {"f32": "s32.npz", "bf16": "s16.npz"}
-    runs = chip_smoke.parallel_runs(tmp_path, starts, "train.csv", hubert)
+    runs = chip_smoke.parallel_runs(tmp_path, starts, "train.csv", hubert,
+                                    "ten_ms.npz")
     assert [r["tag"] for r in runs] == ["dp_f32", "dp_bf16", "tp_f32",
-                                        "hubert_dp_bf16"]
-    want = {"dp_f32": (1, "s32.npz", chip_smoke.PAR_F32_UPDATES, False),
-            "dp_bf16": (1, "s16.npz", chip_smoke.PAR_BF16_UPDATES, True),
-            "tp_f32": (2, "s32.npz", 1, False),
-            "hubert_dp_bf16": (1, None, 1, True)}
+                                        "hubert_dp_bf16", "pp_f32", "pp_bf16",
+                                        "seqpar", "seqpar_timing",
+                                        "pp_timing"]
+    # the runs timed with the card to the ranks come after wave prune
+    assert [r["tag"] for r in runs if r["tag"] in chip_smoke.PAR_LATE] == [
+        "seqpar_timing", "pp_timing"]
+    # the sequence-parallel work and the timing of the bf16 pipeline run
+    # (kept by its rank) run no CLI: the long phase's checkpoint
+    assert runs.pop() == dict(tag="pp_timing", kind="timing", of="pp_bf16",
+                              updates=chip_smoke.PAR_BF16_UPDATES)
+    assert runs.pop() == dict(tag="seqpar_timing", kind="seqpar",
+                              mode="timing", ckpt="ten_ms.npz")
+    assert runs.pop() == dict(tag="seqpar", kind="seqpar", mode="parity",
+                              ckpt="ten_ms.npz",
+                              out=str(tmp_path / "seqpar.pt"))
+    assert [r.get("keep", False) for r in runs] == [False] * 5 + [True]
+    one = chip_smoke.PAR_ONE_UPDATES
+    want = {"dp_f32": (1, 1, "s32.npz", chip_smoke.PAR_F32_UPDATES, False),
+            "dp_bf16": (1, 1, "s16.npz", chip_smoke.PAR_BF16_UPDATES, True),
+            "tp_f32": (2, 1, "s32.npz", one, False),
+            "hubert_dp_bf16": (1, 1, None, 1, True),
+            "pp_f32": (1, 2, "s32.npz", one, False),
+            "pp_bf16": (1, 2, "s16.npz", chip_smoke.PAR_BF16_UPDATES, True)}
     for run in runs:
         args = get_args(run["argv"])
-        tp, start, updates, bf16 = want[run["tag"]]
+        tp, pp, start, updates, bf16 = want[run["tag"]]
         assert args.multi_host and args.dist_backend == "gloo"
         assert args.device == "cuda" and args.seed == 0
         assert args.model_parallel == tp and args.initial_weight == start
+        assert args.pipeline_parallel == pp
+        if pp > 1:
+            assert args.pp_microbatches == chip_smoke.PAR_PP_MICROBATCHES
+        # only the data-parallel f32 run dumps the control leaf's own
+        # gradient (a pipeline stage may not hold it)
+        assert run.get("control", False) == (run["tag"] == "dp_f32")
         assert not pathlib.Path(args.expdir).is_absolute()  # the rank's cwd
         assert run["updates"] == updates and not run["tf32"]
         assert (run["dump"] is not None) == run["tag"].endswith("f32")
@@ -608,23 +646,41 @@ def test_parallel_runs_are_cli_argvs(tmp_path):
 
 
 def test_parallel_launches_sum_the_ranks_into_the_kernels_line():
-    rec = lambda n: {"counts": {"flash_attn_fwd": {"f32": n, "bf16": 0},
-                                "conv1d_fwd": {"f32": 0, "bf16": n}}}
-    records = [{"dp_f32": rec(12), "hubert_dp_bf16": rec(3)},
-               {"dp_f32": rec(12), "hubert_dp_bf16": rec(3)}]
-    paths = chip_smoke.parallel_paths(records)
+    rec = lambda n, past=0, tag="f32": {
+        "counts": {"flash_attn_fwd": {"f32": n, "bf16": 0},
+                   "conv1d_fwd": {"f32": 0, "bf16": n}},
+        "long_counts": {"flash_attn_fwd": {"f32": 0, "bf16": 0,
+                                           tag: past}}}
+    records = [{"dp_f32": rec(12), "hubert_dp_bf16": rec(3),
+                "pp_f32": rec(2), "pp_bf16": rec(1),
+                "seqpar_serve": rec(4, 4), "seqpar_distill": rec(5, 5,
+                                                                 "bf16"),
+                "seqpar_timing": {"times": {}}}  # no launches counted
+               for _ in range(2)]
+    paths, long_paths = chip_smoke.parallel_paths(records)
     assert paths["parallel dp_f32"]["flash_attn_fwd"] == {"f32": 24,
                                                           "bf16": 0}
     assert paths["parallel hubert_dp_bf16"]["conv1d_fwd"] == {"f32": 0,
                                                               "bf16": 6}
+    # the pipeline's two runs are one path; the sequence-parallel work two
+    assert set(paths) == set(long_paths) == {
+        "parallel dp_f32", "parallel hubert_dp_bf16",
+        "melhubert pipeline train", "melhubert seqpar serve",
+        "melhubert seqpar distill"}
+    assert paths["melhubert pipeline train"]["flash_attn_fwd"] == {
+        "f32": 6, "bf16": 0}
+    assert long_paths["melhubert seqpar distill"]["flash_attn_fwd"] == {
+        "f32": 0, "bf16": 10}
     fields = chip_smoke.launch_fields("flash_attn_fwd", {
         "melhubert train": {"flash_attn_fwd": {"f32": 0, "bf16": 5}},
-        **paths})
-    assert fields["launches"] == 5 + 24 + 6
+        **paths}, long_paths)
+    assert fields["launches"] == 5 + 24 + 6 + 6 + 8 + 10
     assert fields["launches_by_path"]["parallel dp_f32"] == {"f32": 24,
                                                              "bf16": 0}
+    assert fields["launches_past_4096"] == {"f32": 8, "bf16": 10}
     assert set(fields) == {"launches", "launches_by_dtype",
-                           "launches_by_path"}
+                           "launches_by_path", "launches_past_4096",
+                           "launches_past_4096_by_path"}
 
 
 HYPER = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,

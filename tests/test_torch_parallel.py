@@ -709,26 +709,115 @@ def test_tensor_parallel_grad_step_matches_jax_mesh(tmp_path, monkeypatch):
     _assert_within_rel_l2(got["params"], jax.tree.map(np.asarray, grads))
 
 
-def test_wav2vec2_cross_sample_negatives_refused_on_data_ranks(
-        tmp_path, monkeypatch):
-    """wav2vec 2.0's cross-sample negatives come from the global batch,
-    which no data rank holds: refused on a grid of 2 data ranks (before any
-    collective), taken on one rank and on a tensor-parallel pair."""
-    from speech_ssl_compression_tpu_torch.train import parallel_mixin
+W2V_WORKER = r'''
+import os, sys
+repo, rank, world, port, spec, out = sys.argv[1:7]
+os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=rank,
+                  WORLD_SIZE=world, LOCAL_RANK=rank, LOCAL_WORLD_SIZE=world)
+sys.path.insert(0, repo)
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from speech_ssl_compression_tpu_torch.configs import Wav2Vec2Config
+from speech_ssl_compression_tpu_torch.parallel.mesh import (
+    all_reduce_tensors, attach, make_mesh)
+from speech_ssl_compression_tpu_torch.parallel.multihost import initialize
+from speech_ssl_compression_tpu_torch.train.steps import (
+    make_wav2vec2_grad_step)
+from speech_ssl_compression_tpu_torch.utils.checkpoint import load_checkpoint
+from speech_ssl_compression_tpu_torch.utils.weights import load_wave_model
+
+initialize(backend="gloo", device_type="cpu")
+mesh = make_mesh()
+state = load_checkpoint(spec, load_opt=False)
+cfg = Wav2Vec2Config.from_dict(state["meta"]["cfg"])
+model = attach(load_wave_model(state["params"], cfg, "wav2vec2"), mesh)
+data = dict(np.load(spec.replace(".npz", "_data.npz")))
+b = len(data["length"]) // mesh.dp
+rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+per_row = len(data["uniform"]) // len(data["length"])
+params = dict(model.named_parameters())
+loss, n, grads, _ = make_wav2vec2_grad_step(model)(
+    params, {"source": torch.from_numpy(data["source"][rows]),
+             "length": data["length"][rows]},
+    torch.Generator().manual_seed(5), 2.0,
+    mask_indices=torch.from_numpy(data["mask"][rows]),
+    gumbel_uniform=torch.from_numpy(data["uniform"][
+        rows.start * per_row:rows.stop * per_row]))
+summed = all_reduce_tensors(grads + [torch.stack([loss, n.float()])],
+                            mesh.data_group)
+if rank == "0":
+    np.savez(out, loss=summed[-1][0].numpy(), n=summed[-1][1].numpy(),
+             **{k: g.numpy() for k, g in zip(params, summed[:-1])})
+'''
+
+
+def test_wav2vec2_cross_sample_negatives_on_data_ranks(tmp_path):
+    """wav2vec 2.0 with cross_sample_negatives = 3 on 2 data ranks: each
+    rank draws the global batch's negatives and gathers the targets over
+    the data group, so the ranks' summed loss and gradients equal the
+    1-process grad step on the global batch (the span mask and the Gumbel
+    uniforms injected, dropout off; JAX gets the same from GSPMD,
+    tests/test_runner_mesh.py:116-165), the perplexity and feature
+    penalty taken over the global batch: loss rel 1e-5, every gradient
+    rel. L2 1e-4."""
+    from speech_ssl_compression_tpu_torch.configs import Wav2Vec2Config
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import (
+        init_wav2vec2_params_np,
+        load_wave_model,
+    )
     from tests.test_torch_wav2vec2 import TINY
 
-    data = make_w2v_dataset(tmp_path / "wav", n_utts=4)
-    rc = {"runner": {"total_steps": 1, "bf16": False},
-          "optimizer": {"lr": 0.0005}, "datarc": {"train_batch_size": 2},
-          "task": {"data": data, "max_sample_size": 4000,
-                   "min_sample_size": 1000}}
-    up = {"wav2vec2": dict(TINY, cross_sample_negatives=2)}
-    args = _args(tmp_path / "e", upstream="wav2vec2")
-    assert WaveRunner(args, rc, up).cfg.cross_sample_negatives == 2
-    monkeypatch.setattr(parallel_mixin, "make_mesh",
-                        lambda tp: tmesh.Mesh(world=2, tp=tp, rank=0))
-    with pytest.raises(NotImplementedError, match="cross_sample_negatives"):
-        WaveRunner(_args(tmp_path / "e2", upstream="wav2vec2"), rc, up)
+    # the shipped 320 codewords a group: with TINY's 8 many frames share
+    # their codes, and the exact-equality exclusion of a negative equal to
+    # the positive then follows each batch size's matmul rounding
+    up = dict(TINY, cross_sample_negatives=3, latent_vars=320,
+              dropout_input=0.0, dropout_features=0.0, encoder_layerdrop=0.0)
+    cfg = Wav2Vec2Config.from_dict(up)
+    params = init_wav2vec2_params_np(cfg, 0)
+    spec = str(tmp_path / "w2v.npz")
+    save_checkpoint(spec, params, meta={"cfg": up})
+    rng = np.random.default_rng(0)
+    lengths = np.array([2400, 1930, 2400, 2100])
+    source = rng.uniform(-0.3, 0.3, (4, 2400)).astype(np.float32)
+    for i, n in enumerate(lengths):
+        source[i, n:] = 0.0
+    model = load_wave_model(params, cfg, "wav2vec2")
+    t = 119  # frames of 2400 samples through the frontend
+    mask = rng.random((4, t)) < 0.5
+    uniform = rng.random((4 * t * cfg.latent_groups,
+                          cfg.latent_vars)).astype(np.float32)
+    np.savez(spec.replace(".npz", "_data.npz"), source=source,
+             length=lengths, mask=mask, uniform=uniform)
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", W2V_WORKER, str(REPO), str(r), "2", port,
+         spec, str(tmp_path / "ranks.npz")], cwd=tmp_path,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env()) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-4000:]
+    got = dict(np.load(tmp_path / "ranks.npz"))
+
+    tparams = dict(model.named_parameters())
+    loss, n, grads, _ = tsteps.make_wav2vec2_grad_step(model)(
+        tparams, {"source": torch.from_numpy(source), "length": lengths},
+        torch.Generator().manual_seed(5), 2.0,
+        mask_indices=torch.from_numpy(mask),
+        gumbel_uniform=torch.from_numpy(uniform))
+    assert int(got["n"]) == int(n) > 0
+    assert abs(float(got["loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
+    total = np.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in grads))
+    for name, g in zip(tparams, grads):
+        ref = g.double().numpy()
+        den = (total if name.endswith("k_proj.bias") or not ref.any()
+               else np.linalg.norm(ref))
+        err = np.linalg.norm(got[name] - ref) / den
+        assert err < GRAD_BAR, (name, err)
 
 
 def test_tensor_parallel_resumes_a_one_process_checkpoint(tmp_path):

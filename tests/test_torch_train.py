@@ -572,18 +572,23 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
             "--device", "cpu"]
     # the waveform models' pruning modes are ported
     # (tests/test_torch_wave_pruning.py); their distillation stays refused
-    for extra, exc in ((["-m", "distillation", "-u", "hubert"],
-                        NotImplementedError),
-                       (["-m", "distillation", "-u", "wav2vec2"],
-                        NotImplementedError),
-                       (["-m", "melhubert", "--pipeline_parallel", "2"],
-                        NotImplementedError),
-                       # two ranks of tensor parallel need two processes
-                       # (tests/test_torch_parallel.py); one refuses it as
-                       # JAX's make_mesh does
-                       (["-m", "melhubert", "--model_parallel", "2"],
-                        ValueError)):
-        with pytest.raises(exc):
+    for extra, exc, match in (
+            (["-m", "distillation", "-u", "hubert"], NotImplementedError,
+             None),
+            (["-m", "distillation", "-u", "wav2vec2"], NotImplementedError,
+             None),
+            # two pipeline stages or two ranks of tensor parallel need two
+            # processes (tests/test_torch_pipeline.py,
+            # tests/test_torch_parallel.py); one refuses them as JAX's
+            # pipeline_mesh and make_mesh do
+            (["-m", "melhubert", "--pipeline_parallel", "2"], ValueError,
+             "needs 2 ranks"),
+            (["-m", "melhubert", "--model_parallel", "2"], ValueError,
+             None),
+            # JAX's runner takes the pipeline for pre-training alone
+            (["-m", "head-pruning", "--pipeline_parallel", "2"],
+             NotImplementedError, "melhubert pre-train mode only")):
+        with pytest.raises(exc, match=match):
             train_main(base + extra)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
