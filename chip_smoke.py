@@ -92,8 +92,19 @@ result line):
             aggregate realtime factor, the idle share of 3 steps under
             the profiler and the step's FLOP bound (attention at the
             cache's full capacity; f32 at 67 TFLOP/s, TF32 off);
+  preprocess  the offline data path: the train phase's 32 synthetic
+            utterances written as a 960 h Kaldi release (an FM ark and a
+            CM ark, the scp with each matrix's offset, the mean-var
+            accumulator, label text and scp per frame period, the 20 ms
+            labels nested under split200/) in a tarball, then python -m
+            speech_ssl_compression_tpu_torch.preprocess --tar in a
+            subprocess: split200 flattened, mean-std.npy the
+            accumulator's, the features the utterances normalized
+            (bitwise from FM, within the CM quantisation step), the labels
+            the release's, the CSVs in scp order;
   train     MelHuBERT-20ms pre-training at full width on a synthetic
-            dataset, through the trainer's entry point (python -m
+            dataset, from the preprocess phase's 20 ms CSV, through the
+            trainer's entry point (python -m
             speech_ssl_compression_tpu_torch.train): 3 updates of 8
             micro-batches (B = 4, T = 768), bf16, dropout 0.1; launch
             counts per micro-batch; the checkpoint read back; loss and every
@@ -110,6 +121,27 @@ result line):
             train phase's runner, its state as it was when it wrote the
             file, and from the resumed one gives bitwise-equal params and
             Adam state (cuDNN deterministic);
+  fairseq dump  the same utterances as a fairseq feature dump (one .npy,
+            .len, .km, mean-std) through FairseqDumpBuckets (20 ms, crops
+            of 750, B = 4); one batch through the train phase's bf16 grad
+            step: finite loss and gradients, each attention kernel once a
+            layer;
+  device masks  ops/masking.py::compute_span_mask on the card at B = 4,
+            T = 768, mask_prob 0.8, length 10 (melhubert_forward's draw),
+            200 draws: nothing past a row's length, the mean masked
+            fraction within 5 sigma of as many host draws
+            (compute_mask_indices_np), one seed one mask;
+            melhubert_forward(mask=True) with no mask on the card (the
+            train phase's model, f32); one draw timed against the host
+            draw and its upload;
+  deep pos-conv  MelHuBERT-20ms at full width with pos_conv_depth 5 and
+            conv_pos 95 (k = 19, data2vec 2.0's audio encoder), seeded
+            weights through the npz bridge: the slice phase's 16
+            utterances through forward_packed, f32 against impl="dense"
+            (SLICE_BAR) and bf16 against it (BF16_SLICE_BAR); one f32 grad
+            step with the kernels against impl="dense" (TF32 off, dropout
+            off, a fixed span mask; GRAD_BAR); launches; the forward's
+            times from features, both dtypes, kernel and dense;
   weight prune  -m weight-pruning through the trainer's entry point from
             that checkpoint, full width, bf16, B = 4, T = 768, 8
             micro-batches: configs/weight_pruning/config_runner_20ms.yaml's
@@ -249,6 +281,10 @@ result line):
             cuDNN + impl="dense" run in float64 and in f32; the grad step
             and one update at the bench recipe with and without the conv
             kernels, f32 and bf16;
+  wave_bench  one bf16 grad step of HuBERT and of wav2vec 2.0 through
+            train/wave_bench.py::make_wave_bench_grad_step at the recipe's
+            B = 4 x 245,760 samples (seeded weights): finite gradients,
+            each attention kernel once a layer;
   w2v2 train  wav2vec 2.0 base pre-training through the trainer's entry
             point (-u wav2vec2) on a synthetic manifest of WAVs of at least
             250,000 samples, configs/wav2vec2/config_{model,runner}.yaml as
@@ -534,9 +570,6 @@ STREAM_ATOL, STREAM_RTOL = 2e-5, 1e-5
 # with a window), its reused slot's stream, and the range of the other
 # slots' lengths, in stacked frames
 RING_LONG, RING_REUSED, RING_LENGTHS = 2000, 400, (300, 1400)
-# the stream steps' products: f32 with TF32 off on the CUDA cores (67
-# TFLOP/s, the H100 SXM data sheet), bf16 on the tensor cores
-STREAM_PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the wave serve phase: forward_stream over WAVE_BATCHES batches of 16
 # utterances at SERVE_LENGTHS (synthetic_wavs(seed=i), the first the slice
 # phase's own); the device fbank within FBANK_BAR (max |d| / max |ref|) of
@@ -652,18 +685,21 @@ WAVE_READS = {("hubert", "head-pruning"): ("states_prune_", "last-step"),
 # past GRAD_BAR of float64, a wav2vec 2.0 gradient may lie this many times
 # as far from it as the plain f32 route does (phase_w2v2_train says why)
 W2V2_CANCEL_FACTOR = 4.0
-# peaks of one H100 SXM (NVIDIA data sheet): f32-accurate products on the
-# tensor cores in split TF32, three TF32 products each (495 / 3 TFLOP/s;
-# the CUDA cores' 67 would read below the f32 backward kernels' times),
-# bf16 on the tensor cores, HBM bandwidth
-PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
-PEAK_BYTES = 3.35e12
+def bound(flops: float, n_bytes: float, dtype,
+          cuda_cores: bool = False) -> tuple:
+    """(least ms the current card could take, "operations" or "bytes"): the
+    larger of the FLOPs over the dtype's peak and the bytes over HBM
+    bandwidth, both from speech_ssl_compression_tpu_torch/utils/flops.py
+    (NVIDIA's data sheets; an unknown card raises). f32-accurate products
+    run on the tensor cores in split TF32, three TF32 products each (495 /
+    3 TFLOP/s on an H100 SXM; the CUDA cores' 67 would read below the f32
+    backward kernels' times), or with ``cuda_cores`` on the CUDA cores."""
+    from speech_ssl_compression_tpu_torch.utils.flops import (
+        peak_bytes, peak_flops,
+    )
 
-
-def bound(flops: float, n_bytes: float, dtype) -> tuple:
-    """(least ms the card could take, "operations" or "bytes"): the larger
-    of the FLOPs over the dtype's peak and the bytes over HBM bandwidth."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES
+    t_ops = flops / peak_flops(dtype, cuda_cores=cuda_cores)
+    t_bytes = n_bytes / peak_bytes()
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1254,28 +1290,174 @@ def check_determinism(dev):
                 f"the kernels' dropout is not a function of the seed ({dtype})")
 
 
-def write_dataset(root: pathlib.Path, n_utts: int = 32, seed: int = 0) -> str:
-    """A synthetic pre-training set: 40-d 10 ms features and k-means-like
-    labels < 512 that hold for runs of 4-19 frames, each feature a label
-    embedding plus noise (so a fixed batch can be learned). Every utterance
-    has 1,500-1,699 frames: 750+ stacked 20 ms frames, cropped to
-    sequence_length 750. Returns the CSV path."""
+def synthetic_utterances(n_utts: int = 32, seed: int = 0):
+    """The synthetic pre-training set's utterances, [(feat (n, 40) float32,
+    labels (n,) int64)]: 40-d 10 ms features and k-means-like labels < 512
+    that hold for runs of 4-19 frames, each feature a label embedding plus
+    noise (so a fixed batch can be learned). Every utterance has
+    1,500-1,699 frames: 750+ stacked 20 ms frames, cropped to
+    sequence_length 750."""
     rng = np.random.default_rng(seed)
     emb = rng.standard_normal((512, 40)).astype(np.float32)
-    root.mkdir(parents=True, exist_ok=True)
-    rows = ["file_path,label_path,length"]
-    for i in range(n_utts):
+    out = []
+    for _ in range(n_utts):
         n = int(rng.integers(1500, 1700))
         runs = rng.integers(4, 20, n)
         labels = np.repeat(rng.integers(0, 512, n), runs)[:n]
         feat = emb[labels] + 0.5 * rng.standard_normal((n, 40))
+        out.append((feat.astype(np.float32), labels.astype(np.int64)))
+    return out
+
+
+def write_dataset(root: pathlib.Path, n_utts: int = 32, seed: int = 0) -> str:
+    """:func:`synthetic_utterances` as .npy pairs and the CSV manifest the
+    bucket dataset reads. Returns the CSV path."""
+    root.mkdir(parents=True, exist_ok=True)
+    rows = ["file_path,label_path,length"]
+    for i, (feat, labels) in enumerate(synthetic_utterances(n_utts, seed)):
         fp, lp = root / f"feat_{i}.npy", root / f"label_{i}.npy"
-        np.save(fp, feat.astype(np.float32))
-        np.save(lp, labels.astype(np.int64))
-        rows.append(f"{fp},{lp},{n}")
+        np.save(fp, feat)
+        np.save(lp, labels)
+        rows.append(f"{fp},{lp},{len(feat)}")
     csv = root / "train.csv"
     csv.write_text("\n".join(rows) + "\n")
     return str(csv)
+
+
+# the 960 h release's tarball nests its 20 ms cluster split one level
+# deeper; the CLI's --tar flattens it (preprocess.py::unpack_release)
+RELEASE_NESTED = {"stage2-cluster-20ms": "stage2-cluster-20ms/split200"}
+PRE_CM_UTTS = 4  # the last utterances of the release go in one CM ark
+
+
+def write_kaldi_release(root: pathlib.Path, utts, hours: int = 960,
+                        n_cm: int = PRE_CM_UTTS) -> list:
+    """``utts`` ([(feat (n, D), 10 ms labels (n,))]) as a Kaldi release of
+    ``hours``' layout under ``root``: an ``FM`` ark of the first and a
+    ``CM`` (compressed) ark of the last ``n_cm`` utterances, the feature
+    scp with each matrix's byte offset, the mean-var accumulator of the
+    features (sums, sums of squares, frame count; written exactly), and per
+    frame period a label text file (one line of labels an utterance: every
+    frame's at 10 ms, every other frame's at 20 ms) and its label scp; the
+    960 h release nests the 20 ms labels under split200/. The paths are
+    the CLI's (preprocess.py::LAYOUTS). Returns the utterance keys in scp
+    order."""
+    from speech_ssl_compression_tpu_torch.data.kaldi_io import (
+        write_feat_matrix,
+    )
+    from speech_ssl_compression_tpu_torch.preprocess import LAYOUTS
+
+    layout = LAYOUTS[hours]
+    feat_scp = root / layout["feat_scp"]
+    fdir, stem = feat_scp.parent, feat_scp.stem
+    fdir.mkdir(parents=True, exist_ok=True)
+    keys = [f"utt{i:03d}" for i in range(len(utts))]
+    scp, arks = [], {}
+    for i, (key, (feat, _)) in enumerate(zip(keys, utts)):
+        compress = i >= len(utts) - n_cm
+        ark = fdir / f"raw_fbank_{stem}.{2 if compress else 1}.ark"
+        if ark not in arks:
+            arks[ark] = open(ark, "wb")
+        f = arks[ark]
+        f.write(key.encode() + b" ")
+        scp.append(f"{key} {ark}:{f.tell()}")
+        write_feat_matrix(f, np.asarray(feat, np.float64), compress=compress)
+    for f in arks.values():
+        f.close()
+    feat_scp.write_text("\n".join(scp) + "\n")
+    allf = np.concatenate([np.asarray(f, np.float64) for f, _ in utts])
+    row = lambda v: "[" + ",".join(repr(float(x)) for x in v) + "]"
+    (root / layout["mean_var"]).write_text(
+        f"{row(allf.sum(0))}\n{row((allf ** 2).sum(0))}\n{len(allf)}\n")
+    for fp, rel in layout["cluster_dirs"].items():
+        ldir = root / RELEASE_NESTED.get(rel, rel)
+        ldir.mkdir(parents=True, exist_ok=True)
+        text, lines = ldir / f"labels.{fp}.txt", []
+        with open(text, "w") as f:
+            for key, (_, labels) in zip(keys, utts):
+                lines.append(f"{key} {text}:{f.tell()}")
+                step = 2 if fp == "20ms" else 1
+                f.write(" ".join(map(str, labels[::step])) + "\n")
+        (ldir / layout["label_scp_name"]).write_text("\n".join(lines)
+                                                      + "\n")
+    return keys
+
+
+def phase_preprocess(dev, gpu: str, tmp: str) -> str:
+    """The offline data path: the train phase's 32 utterances written as a
+    960 h Kaldi release (FM arks, one CM ark, nested split200) in a
+    tarball, and the port's preprocess CLI run on it in a subprocess
+    (--tar, which unpacks and flattens split200). Its features must equal
+    the utterances normalized by the release's accumulator: bitwise from
+    the FM ark (float32 -> float64 exactly), within each column's CM
+    quantisation step (1/63 of its range, plus the header's 1/65535 of the
+    global range) from the CM ark; its labels the release's, its CSVs in
+    scp order. Returns the 20 ms CSV, the train phase's set."""
+    from speech_ssl_compression_tpu_torch.data.kaldi_io import read_mean_var
+    from speech_ssl_compression_tpu_torch.preprocess import LAYOUTS
+
+    layout = LAYOUTS[960]
+    t0 = time.perf_counter()
+    root = pathlib.Path(tmp) / "preprocess"
+    utts = synthetic_utterances()
+    staging = root / "release"
+    keys = write_kaldi_release(staging, utts)
+    tar = root / "release.tar"
+    subprocess.run(["tar", "-cf", str(tar), "-C", str(staging), "."],
+                   check=True)
+    t_write = time.perf_counter() - t0
+    data_dir, out = root / "kaldi", root / "out"
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-m",
+                    "speech_ssl_compression_tpu_torch.preprocess",
+                    str(data_dir), str(out), "--hours", "960", "--tar",
+                    str(tar)], check=True, cwd=str(ROOT), env=env,
+                   timeout=300, stdout=subprocess.DEVNULL)
+    t_cli = time.perf_counter() - t0
+    if (data_dir / RELEASE_NESTED["stage2-cluster-20ms"]).exists():
+        raise AssertionError("split200 was not flattened")
+    mean, std = read_mean_var(str(staging / layout["mean_var"]))
+    stats = np.load(out / "mean-std.npy")
+    if not (np.array_equal(stats[0], mean) and np.array_equal(stats[1], std)):
+        raise AssertionError("mean-std.npy is not the accumulator's")
+    csvs = {}
+    for fp in ("10ms", "20ms"):
+        lines = (out / f"{layout['csv_prefix']}-{fp}.csv").read_text(
+        ).splitlines()
+        csvs[fp] = [line.split(",") for line in lines[1:]]
+        if lines[0] != "file_path,label_path,length" or [
+                pathlib.Path(r[0]).stem for r in csvs[fp]] != keys:
+            raise AssertionError(f"the {fp} CSV is not in scp order")
+    worst_fm, worst_cm = 0.0, 0.0
+    for (feat, labels), (fpath, lpath, n) in zip(utts, csvs["20ms"]):
+        got = np.load(fpath)
+        want = (np.asarray(feat, np.float64) - mean) / std
+        if got.dtype != np.float64 or got.shape != want.shape or int(
+                n) != len(feat):
+            raise AssertionError(f"{fpath}: {got.dtype} {got.shape}")
+        d = np.abs(got - want)
+        if pathlib.Path(fpath).stem in keys[-PRE_CM_UTTS:]:
+            # CM: a column's codes step by at most 1/63 of its range, the
+            # percentile header by 1/65535 of the matrix's (normalized)
+            span = feat.max(0) - feat.min(0)
+            step = (span / 63 + (feat.max() - feat.min()) / 65535) / std
+            worst_cm = max(worst_cm, float((d / step).max()))
+            if not (d <= step).all():
+                raise AssertionError(f"{fpath}: past the CM step")
+        else:
+            worst_fm = max(worst_fm, float(d.max()))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{fpath}: not the FM matrix")
+        if not np.array_equal(np.load(lpath), labels[::2]):
+            raise AssertionError(f"{lpath}: not the release's labels")
+    log("preprocess", f"{len(keys)} utterances as a 960 h Kaldi release "
+        f"({len(keys) - PRE_CM_UTTS} FM, {PRE_CM_UTTS} CM, nested "
+        f"split200) and its tarball {t_write:.2f} s; the CLI (--tar) "
+        f"{t_cli:.2f} s; features: FM max |d| {worst_fm:g} (bitwise), CM "
+        f"at most {worst_cm:.3f} of its step; labels and scp order exact "
+        f"[{gpu}]")
+    return str(out / f"{layout['csv_prefix']}-20ms.csv")
 
 
 RUNNER_YAML = """runner:
@@ -1314,9 +1496,11 @@ def grad_errors(names, got, ref):
             for n, g, r in zip(names, got, ref)]
 
 
-def phase_train(dev, gpu: str, tmp: str):
-    """Pre-training through the trainer's entry point, then the checks on
-    its model. Returns (runner, fixed batch, launch counts of the training
+def phase_train(dev, gpu: str, tmp: str, csv: str):
+    """Pre-training through the trainer's entry point from ``csv`` (the
+    preprocess phase's: the offline data path's output), then the checks
+    on its model. The same utterances as .npy pairs (write_dataset) are
+    the set of the later phases. Returns (runner, fixed batch, launch counts of the training
     run per dtype, (params, Adam state) as the trainer wrote them)."""
     from speech_ssl_compression_tpu_torch.extract import (
         load_any_checkpoint, matmul_precision,
@@ -1330,12 +1514,13 @@ def phase_train(dev, gpu: str, tmp: str):
 
     t0 = time.perf_counter()
     root = pathlib.Path(tmp) / "train"
-    csv = write_dataset(root / "data")
+    write_dataset(root / "data")
     runner_yaml = root / "config_runner.yaml"
     runner_yaml.write_text(RUNNER_YAML.format(csv=csv))
     expdir = root / "exp"
     log("train", f"synthetic set written (32 utterances, 40-d, labels < "
-        f"512), {time.perf_counter() - t0:.2f} s")
+        f"512), {time.perf_counter() - t0:.2f} s; the trainer reads the "
+        f"preprocess CLI's {pathlib.Path(csv).name}")
 
     # the main path: counts from exactly one run of the trainer
     t0 = time.perf_counter()
@@ -1436,6 +1621,365 @@ def phase_train(dev, gpu: str, tmp: str):
     if not (np.isfinite(losses).all() and last < first):
         raise AssertionError("the loss does not fall on a fixed batch")
     return runner, batch, by_dtype, snapshot
+
+
+def write_fairseq_dump(root: pathlib.Path, utts) -> str:
+    """``utts`` as a fairseq feature dump: ``train.npy`` (every utterance's
+    10 ms features, concatenated), ``train.len``, ``train.km`` (one line of
+    10 ms labels an utterance) and the corpus's ``mean-std.npy``. Returns
+    the mean-std path."""
+    root.mkdir(parents=True, exist_ok=True)
+    feats = np.concatenate([f for f, _ in utts])
+    np.save(root / "train.npy", feats)
+    (root / "train.len").write_text(
+        "".join(f"{len(f)}\n" for f, _ in utts))
+    (root / "train.km").write_text(
+        "".join(" ".join(map(str, lab)) + "\n" for _, lab in utts))
+    ms = root / "mean-std.npy"
+    np.save(ms, np.stack([feats.mean(0), feats.std(0)]))
+    return str(ms)
+
+
+def phase_fairseq_dump(dev, gpu: str, tmp: str, runner):
+    """The train phase's utterances as a fairseq dump, read by
+    FairseqDumpBuckets (20 ms, crops of sequence_length 750, B = 4); one of
+    its batches through the train phase's grad step (bf16, dropout on, the
+    span mask drawn on the host) on the card: a finite loss, each
+    attention kernel launched once a layer. Returns the launches per
+    dtype."""
+    from speech_ssl_compression_tpu_torch.data.fairseq_dump import (
+        FairseqDumpBuckets,
+    )
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+
+    t0 = time.perf_counter()
+    root = pathlib.Path(tmp) / "fairseq_dump"
+    ms = write_fairseq_dump(root, synthetic_utterances())
+    ds = FairseqDumpBuckets(frame_period=20, sequence_length=750,
+                            bucket_size=4, feat_dir=str(root),
+                            label_dir=str(root), split="train",
+                            mean_std_pth=ms, seed=0)
+    batch = runner._device_batch(ds.get_batch(0))
+    t_data = time.perf_counter() - t0
+    step = make_melhubert_grad_step(runner.model,
+                                    compute_dtype=runner.compute_dtype)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    loss, grads, _ = step(runner.params, batch, runner.rng)
+    torch.cuda.synchronize()
+    by_dtype = dtype_launch_counts()
+    layers = runner.cfg.encoder_layers
+    counts = {k: v["f32"] + v["bf16"] for k, v in by_dtype.items()
+              if k.startswith("flash")}
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    log("fairseq dump", f"{len(ds)} buckets of the 32-utterance dump, batch "
+        f"{tuple(batch['feat'].shape)} ({t_data:.2f} s); one "
+        f"{runner.compute_dtype} grad step: loss {float(loss):.6f}, finite "
+        f"loss and gradients {finite}, launches {counts} (expected {layers} "
+        f"each), {time.perf_counter() - t0:.2f} s [{gpu}]")
+    if tuple(batch["feat"].shape) != (4, 768, 80) or not finite:
+        raise AssertionError("the dump's batch does not train")
+    if set(counts.values()) != {layers}:
+        raise AssertionError(f"launches {counts}, want {layers} each")
+    return by_dtype
+
+
+DEEP_POS_CONV = dict(pos_conv_depth=5, conv_pos=95)  # data2vec 2.0 audio
+
+
+def phase_deep_pos_conv(dev, gpu: str, tmp: str, batch):
+    """MelHuBERT-20ms at full width with the deep positional conv
+    (DEEP_POS_CONV: 5 blocks of k = 19, data2vec 2.0's audio encoder),
+    seeded weights through the npz bridge: the slice phase's 16 utterances
+    through forward_packed in f32 (against impl="dense", SLICE_BAR) and
+    bf16 (against the f32 dense path, BF16_SLICE_BAR), one f32 grad step
+    (TF32 off, dropout off, a fixed span mask) with the kernels against
+    impl="dense" (GRAD_BAR), and the forward from features timed in both
+    dtypes. The npz is loaded once, by the f32 extractor: the bf16 one
+    serves a bf16 copy of its model (the cast the extractor makes), and
+    the grad step differentiates its weights.
+    Returns the launches of the two forwards and of the grad step, per
+    dtype."""
+    from speech_ssl_compression_tpu_torch.configs import (
+        MelHuBERTConfig, melhubert_config_from_yaml,
+    )
+    from speech_ssl_compression_tpu_torch.extract import (
+        MelHuBERTExtractor, matmul_precision,
+    )
+    from speech_ssl_compression_tpu_torch.models.melhubert import span_mask
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import (
+        save_checkpoint,
+    )
+    from speech_ssl_compression_tpu_torch.utils.weights import init_params_np
+
+    t0 = time.perf_counter()
+    cfg = MelHuBERTConfig.from_dict(dict(
+        melhubert_config_from_yaml(CONFIG_YAML).to_dict(), **DEEP_POS_CONV))
+    params = init_params_np(cfg, seed=0)
+    ckpt = str(pathlib.Path(tmp) / "melhubert_deep_pos_conv.npz")
+    save_checkpoint(ckpt, params, meta={
+        "Upstream_Config": {"melhubert": cfg.to_dict()}, "Step": 0})
+
+    # one extractor a dtype; impl="dense" is its attn_impl switched
+    f32 = MelHuBERTExtractor(ckpt, fp=20, mean_std_npy_path=str(MEAN_STD),
+                             matmul_precision="highest", device=dev)
+    bf16 = copy.copy(f32)
+    bf16.dtype = torch.bfloat16
+    bf16.model = copy.deepcopy(f32.model).to(torch.bfloat16)
+    exts = {"f32": f32, "bf16": bf16}
+
+    def serve(tag, impl):
+        exts[tag].attn_impl = impl
+        return exts[tag].forward_packed(wavs)
+
+    blocks = exts["f32"].model.encoder.pos_conv
+    k = blocks[0][0].kernel_size[0]
+    same = all(torch.equal(b[0].weight.cpu(), torch.from_numpy(p["weight"]))
+               for b, p in zip(blocks, params["encoder"]["pos_conv"][
+                   "layers"]))
+    if not (len(blocks) == 5 and k == 19 and same):
+        raise AssertionError(f"deep stack {len(blocks)} x k = {k} did not "
+                             "come through the npz bridge")
+    wavs = synthetic_wavs(seed=0)
+    log("deep pos-conv", f"MelHuBERT-20ms {cfg.encoder_layers}L/"
+        f"{cfg.encoder_embed_dim}, pos_conv_depth {cfg.pos_conv_depth} x "
+        f"k = {k}, seeded weights through the npz bridge (bitwise), "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+
+    # the main path: both forwards, counted from 0 just before them
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = {tag: serve(tag, "auto") for tag in ("f32", "bf16")}
+    torch.cuda.synchronize()
+    served = dtype_launch_counts()
+    fa.reset_launch_counts()
+    ref = serve("f32", "dense")
+    torch.cuda.synchronize()
+    if fa.launch_counts["flash_attn_fwd"]:
+        raise AssertionError("impl='dense' launched the kernel")
+    lengths = torch.tensor(ref["lengths"], device=dev)
+    t = ref["last_hidden_state"].shape[1]
+    valid = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    states = lambda o: o["hidden_states"] + [o["last_hidden_state"]]
+    err = max(rel_err(a, b, valid) for a, b in zip(states(out["f32"]),
+                                                   states(ref)))
+    err_bf16 = max(rel_l2(a, b, valid) for a, b in zip(states(out["bf16"]),
+                                                       states(ref)))
+    finite = all(bool(torch.isfinite(s.float()[valid]).all())
+                 for o in out.values() for s in states(o))
+    fwd = {tag: served["flash_attn_fwd"][tag] for tag in ("f32", "bf16")}
+    log("deep pos-conv", f"forward_packed, kernel vs impl='dense' (f32, "
+        f"TF32 off), all hidden states: max|d|/mean|ref| {err:.3e} (bar "
+        f"{SLICE_BAR:g}); bf16 vs f32 dense |d|_2/|ref|_2 {err_bf16:.3e} "
+        f"(bar {BF16_SLICE_BAR:g}); finite {finite}; flash_attn_fwd "
+        f"launches {fwd} (expected {cfg.encoder_layers} each), "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    if not (err < SLICE_BAR and err_bf16 < BF16_SLICE_BAR and finite):
+        raise AssertionError("the deep pos-conv model's serving disagrees")
+    if set(fwd.values()) != {cfg.encoder_layers}:
+        raise AssertionError(f"launches {fwd}")
+
+    t0 = time.perf_counter()
+    model = f32.model
+    named = {n: p.detach().requires_grad_()
+             for n, p in model.named_parameters()}
+    mask = torch.from_numpy(span_mask(cfg, batch["length"],
+                                      batch["feat"].shape[1],
+                                      np.random.default_rng(0))).to(dev)
+    results = {}
+    for impl in ("auto", "dense"):
+        step = make_melhubert_grad_step(model, attn_impl=impl,
+                                        deterministic=True)
+        reset_launch_counts()
+        with matmul_precision("highest"):
+            loss, grads, _ = step(named, batch, torch.Generator(),
+                                  mask_indices=mask)
+        torch.cuda.synchronize()
+        results[impl] = (loss, grads, dtype_launch_counts())
+    (loss_k, grads_k, train), (loss_d, grads_d, _) = (results["auto"],
+                                                      results["dense"])
+    loss_rel = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
+    errs = grad_errors(list(named), grads_k, grads_d)
+    worst = int(np.argmax(errs))
+    pos_worst = max(e for n, e in zip(named, errs) if "pos_conv" in n)
+    launched = {n: c["f32"] for n, c in train.items()
+                if n.startswith("flash")}
+    log("deep pos-conv", f"f32 grad step, kernels vs impl='dense' (TF32 "
+        f"off, dropout off, fixed span mask): loss rel {loss_rel:.3e}; worst "
+        f"of {len(errs)} gradients rel L2 {errs[worst]:.3e} "
+        f"({list(named)[worst]}), of the deep stack's {pos_worst:.3e}, bar "
+        f"{GRAD_BAR:g}; launches {launched}, "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    if not (loss_rel < GRAD_BAR and max(errs) < GRAD_BAR):
+        raise AssertionError("the deep pos-conv gradients disagree")
+    if set(launched.values()) != {cfg.encoder_layers}:
+        raise AssertionError(f"launches {launched}")
+    del model, named, results, grads_k, grads_d
+
+    # the model's time: forward_packed from features (from waveforms the
+    # host fbank takes most of it)
+    frames = sum(SERVE_LENGTHS)
+    for tag, ext in exts.items():
+        feat, pad_mask, lengths = ext.featurize(wavs)
+        ext.attn_impl = "auto"
+        ms = cuda_ms(lambda: ext._pack_and_dispatch(feat, pad_mask, lengths))
+        log("deep pos-conv", f"forward_packed {tag}: {ms:.2f} ms, "
+            f"{frames / ms * 1e3:.0f} frames/s from features [{gpu}]")
+    return served, train
+
+
+DEVICE_MASK = dict(mask_prob=0.8, mask_length=10, min_masks=2,
+                   require_same_masks=False)  # melhubert_forward's draw
+DEVICE_MASK_DRAWS = 200
+MASK_SIGMAS = 5.0  # the two samplers' mean fractions within 5 sigma
+
+
+def phase_device_masks(dev, gpu: str, runner, batch):
+    """The device span-mask sampler (ops/masking.py::compute_span_mask) on
+    the card at B = 4, T = 768 (TRAIN_LENGTHS), MelHuBERT's draw
+    (DEVICE_MASK): DEVICE_MASK_DRAWS draws, no True past a row's length,
+    their mean masked fraction within MASK_SIGMAS binomial sigmas of as
+    many host draws (compute_mask_indices_np; a sigma over the draws' spans,
+    mask_length frames each, which move together), one seed giving one
+    mask twice; melhubert_forward(mask=True) with no mask on the card (the
+    train phase's model and batch, f32); one draw timed against the host
+    draw and its upload. Returns that forward's launches per dtype."""
+    from speech_ssl_compression_tpu_torch.models.melhubert import (
+        melhubert_forward,
+    )
+    from speech_ssl_compression_tpu_torch.ops.masking import (
+        compute_mask_indices_np, compute_span_mask,
+    )
+
+    t0 = time.perf_counter()
+    b, _, t, _ = TRAIN_SHAPE
+    lengths_np = np.array(TRAIN_LENGTHS)
+    lengths = torch.tensor(TRAIN_LENGTHS, device=dev)
+
+    def draw(gen):
+        return compute_span_mask(gen, lengths, t, **DEVICE_MASK)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masks = torch.stack([draw(gen) for _ in range(DEVICE_MASK_DRAWS)])
+    past = int(masks[:, torch.arange(t, device=dev)[None, :]
+                     >= lengths[:, None]].sum())
+    rng = np.random.default_rng(0)
+    host = np.stack([compute_mask_indices_np(
+        (b, t), lengths_np, rng=rng, **DEVICE_MASK)
+        for _ in range(DEVICE_MASK_DRAWS)])
+    frames = DEVICE_MASK_DRAWS * int(lengths_np.sum())
+    p_dev = float(masks.sum()) / frames
+    p_host = float(host.sum()) / frames
+    spans = frames / DEVICE_MASK["mask_length"]
+    sigma = np.sqrt(2 * p_host * (1 - p_host) / spans)
+    again = draw(torch.Generator(device=dev).manual_seed(0))
+    twice = torch.equal(again, masks[0])
+    log("device masks", f"{DEVICE_MASK_DRAWS} draws at B = {b}, T = {t} "
+        f"(lengths {TRAIN_LENGTHS}), {DEVICE_MASK}: masked fraction "
+        f"{p_dev:.5f} on the card, {p_host:.5f} on the host, |d| "
+        f"{abs(p_dev - p_host) / sigma:.2f} sigma (bar {MASK_SIGMAS:g}); "
+        f"True past a row's length: {past}; one seed one mask: {twice}, "
+        f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    if not (past == 0 and twice
+            and abs(p_dev - p_host) < MASK_SIGMAS * sigma):
+        raise AssertionError("the device sampler's masks are wrong")
+
+    model = runner.model
+    cfg = model.cfg
+    pad = batch["pad_mask"]
+    named = {k: v.detach() for k, v in runner.params.items()}
+    reset_launch_counts()
+    with torch.no_grad():
+        out = torch.func.functional_call(
+            model, named, (batch["feat"], pad),
+            dict(mask=True, rng=torch.Generator().manual_seed(0)))
+    torch.cuda.synchronize()
+    launches = dtype_launch_counts()
+    got = out["mask_indices"]
+    n_valid = pad.sum(dim=1)
+    inside = not bool((got & (pad == 0)).any())
+    finite = bool(torch.isfinite(out["logits"].float()[pad > 0]).all())
+    log("device masks", f"melhubert_forward(mask=True), no mask given, on "
+        f"the card: mask {tuple(got.shape)} on {got.device}, masked "
+        f"fraction {float(got.sum()) / float(n_valid.sum()):.4f}, inside "
+        f"the rows {inside}, finite logits {finite}, flash_attn_fwd "
+        f"launches {launches['flash_attn_fwd']}")
+    if not (got.device == pad.device and inside and finite
+            and got.any()):
+        raise AssertionError("melhubert_forward's device mask")
+    if launches["flash_attn_fwd"]["f32"] != cfg.encoder_layers:
+        raise AssertionError(f"launches {launches['flash_attn_fwd']}")
+
+    dev_ms = cuda_ms(lambda: draw(gen), reps=5)
+
+    def host_draw():
+        m = compute_mask_indices_np((b, t), lengths_np, rng=rng,
+                                    **DEVICE_MASK)
+        return torch.from_numpy(m).to(dev)
+
+    host_draw()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        host_draw()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    log("device masks", f"one draw: {dev_ms:.3f} ms on the card (CUDA "
+        f"events), {statistics.median(walls):.3f} ms on the host with its "
+        f"upload (wall, median of 5) [{gpu}]")
+    return launches
+
+
+WAVE_BENCH = (4, 245760)  # B x samples, train/wave_bench.py's defaults
+
+
+def phase_wave_bench(dev, gpu: str):
+    """One bf16 grad step of each model through
+    train/wave_bench.py::make_wave_bench_grad_step at the recipe's shape
+    (WAVE_BENCH, seeded weights, dropouts and the span mask on): finite
+    gradients and every attention kernel once a layer. Returns {path:
+    launches per dtype}."""
+    from speech_ssl_compression_tpu_torch.train.wave_bench import (
+        make_wave_bench_grad_step, wave_bench_setup,
+    )
+
+    b, t_wave = WAVE_BENCH
+    paths = {}
+    for name in ("hubert", "wav2vec2"):
+        t0 = time.perf_counter()
+        setup = wave_bench_setup(name, b=b, t_wave=t_wave, device=dev)
+        step = make_wave_bench_grad_step(name, setup, torch.bfloat16)
+        params = dict(setup["model"].named_parameters())
+        t_setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        grads = step(params, torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        counts = dtype_launch_counts()
+        wall = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        layers = setup["cfg"].encoder_layers
+        attn = {k: v["bf16"] for k, v in counts.items()
+                if k.startswith("flash")}
+        log("wave_bench", f"{name}: B = {b} x {t_wave} samples "
+            f"({setup['t_frames']} frames), setup {t_setup:.2f} s; one bf16 "
+            f"grad step {wall:.2f} s (its first), finite gradients {finite}, "
+            f"attention launches {attn} (expected {layers} each) [{gpu}]")
+        if not finite or set(attn.values()) != {layers}:
+            raise AssertionError(f"the {name} bench step")
+        paths[f"{name} wave bench"] = counts
+        del setup, step, params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
 
 
 def phase_train_timing(runner, batch, gpu: str):
@@ -3394,22 +3938,23 @@ def device_busy_us(events) -> float:
 
 def profile_calls(label: str, fn, gpu: str, calls: int = 3,
                   warm: int = 2, host: bool = True) -> tuple:
-    """torch.profiler over ``calls`` calls of ``fn`` (after ``warm``
-    warm-ups): device busy time per call, idle share against the
-    CUDA-event wall time, the largest device kernels, and the port's own
-    kernels with their share of the busy time; ``host=False`` traces the
-    device alone (a trace of thousands of host ops takes seconds to read).
+    """torch.profiler through utils/profiling.py::trace (no trace file)
+    over ``calls`` calls of ``fn`` (after ``warm`` warm-ups): device busy
+    time per call, idle share against the CUDA-event wall time, the
+    largest device kernels, and the port's own kernels with their share of
+    the busy time; ``host=False`` traces the device alone (a trace of
+    thousands of host ops takes seconds to read).
     Returns (the idle share, the device busy ms per call)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from speech_ssl_compression_tpu_torch.utils.profiling import trace
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU] * host
-                 + [ProfilerActivity.CUDA]) as prof:
+    with trace(None, host=host) as prof:
         start.record()
         for _ in range(calls):
             fn()
@@ -3938,6 +4483,8 @@ def stream_timing(sb, tag: str, gpu: str, rng) -> None:
     from features; the host's window assembly, the copies to and from the
     card and the step), after 2 warm-ups, and the idle share of 3 steps
     under the profiler; the realtime factor and the FLOP bound."""
+    from speech_ssl_compression_tpu_torch.utils.flops import peak_flops
+
     cfg, b, c = sb.cfg, sb.batch, sb.chunk
     block = rng.standard_normal((c, cfg.feat_emb_dim)).astype(np.float32)
     right = cfg.conv_pos - 1 - cfg.conv_pos // 2
@@ -3971,16 +4518,16 @@ def stream_timing(sb, tag: str, gpu: str, rng) -> None:
     idle, _ = profile_calls(f"stream {tag} lockstep step B={b}", step, gpu)
     ms = statistics.median(times)
     flops, n_bytes = stream_work(cfg, b, c, sb._cap, sb.dtype)
-    t_ops = flops / STREAM_PEAK_FLOPS[sb.dtype] * 1e3
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    # f32 with TF32 off runs on the CUDA cores, bf16 on the tensor cores
+    cuda_cores = sb.dtype == torch.float32
+    bound_ms, by = bound(flops, n_bytes, sb.dtype, cuda_cores)
     log("stream", f"{tag} B = {b}, chunk {c} ({c * 0.02:.2f} s), capacity "
         f"{sb._cap}: step {ms:.3f} ms median of {STREAM_STEPS} (min "
         f"{min(times):.3f}, max {max(times):.3f}), realtime "
         f"{b * c * 0.02 / ms * 1e3:.1f}x aggregate, idle {idle:.1%} of 3 "
-        f"steps; bound {max(t_ops, t_bytes):.3f} ms by "
-        f"{'operations' if t_ops >= t_bytes else 'bytes'} "
-        f"({flops / 1e12:.3f} TFLOP at "
-        f"{STREAM_PEAK_FLOPS[sb.dtype] / 1e12:g} TFLOP/s, "
+        f"steps; bound {bound_ms:.3f} ms by {by} ({flops / 1e12:.3f} TFLOP "
+        f"at {peak_flops(sb.dtype, cuda_cores=cuda_cores) / 1e12:g} "
+        f"TFLOP/s, "
         f"{n_bytes / 1e9:.3f} GB) [{gpu}]")
 
 
@@ -4248,6 +4795,7 @@ def conv_timing(shape, x, w, dy, tag, record, gpu: str):
     from torch.nn.grad import conv1d_input, conv1d_weight
     import torch.nn.functional as F
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
+    from speech_ssl_compression_tpu_torch.utils.flops import peak_flops
 
     b, t, c, k, o, s = shape
     x_nct = x.transpose(1, 2).contiguous()
@@ -4287,7 +4835,7 @@ def conv_timing(shape, x, w, dy, tag, record, gpu: str):
         rec["plain_ms" + sfx] += plain_ms
         rec["library_ms" + sfx] += library_ms
         rec["bound_ms" + sfx] += bound_ms
-        rec["ops_ms" + sfx] += work[name][0] / PEAK_FLOPS[x.dtype] * 1e3
+        rec["ops_ms" + sfx] += work[name][0] / peak_flops(x.dtype) * 1e3
 
 
 def launch_counts():
@@ -7001,6 +7549,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gpu = gpu_name_and_power()
     print(f"gpu: {gpu}", flush=True)
+    bound(0, 0, torch.float32)  # the card's peaks are known, or it raises
 
     t0 = time.perf_counter()
     lib = _kernels.build()
@@ -7029,14 +7578,21 @@ def main() -> None:
                                         gpu, tmp, extractors)
         del extractors
         stream, causal_serve = timed("stream", phase_stream, dev, gpu)
+        csv = timed("preprocess", phase_preprocess, dev, gpu, tmp)
         with unread_saves_skipped("train", lambda p: not p.endswith(
                 "states-epoch-0.npz")):
             runner, batch, train, snapshot = timed("train", phase_train, dev,
-                                                   gpu, tmp)
+                                                   gpu, tmp, csv)
         merge(record, timed("train", phase_train_timing, runner, batch, gpu))
         if args.profile:
             timed("profile", phase_train_profile, runner, batch, gpu)
         timed("resume", phase_resume, dev, gpu, tmp, runner, snapshot, batch)
+        fairseq = timed("fairseq dump", phase_fairseq_dump, dev, gpu, tmp,
+                        runner)
+        device_masks = timed("device masks", phase_device_masks, dev, gpu,
+                             runner, batch)
+        deep_serve, deep_train = timed("deep pos-conv", phase_deep_pos_conv,
+                                       dev, gpu, tmp, batch)
         del runner, batch, snapshot
         weight_prune = timed("weight prune", phase_weight_prune, dev, gpu,
                              tmp)
@@ -7062,6 +7618,7 @@ def main() -> None:
             timed("profile", phase_hubert_profile, runner, cudnn_model,
                   batch, gpu)
         del runner, cudnn_model, batch
+        wave_bench = timed("wave_bench", phase_wave_bench, dev, gpu)
         ranks = stack.enter_context(parallel_ranks(tmp))
         started = timed("parallel", start_parallel, tmp, ranks)
         runner, w2v2_train, cudnn_model, batch = timed(
@@ -7088,13 +7645,17 @@ def main() -> None:
              "melhubert wave stream": wave_stream,
              "melhubert causal serve": causal_serve,
              "melhubert train": train,
+             "melhubert fairseq dump train": fairseq,
+             "melhubert device-mask forward": device_masks,
+             "melhubert deep pos-conv serve": deep_serve,
+             "melhubert deep pos-conv train": deep_train,
              "melhubert weight-pruning": weight_prune,
              "melhubert head-pruning": head_prune,
              "melhubert row-pruning": row_prune,
              "melhubert distillation": distill,
              "hubert serve": hubert_serve, "hubert train": hubert_train,
-             "wav2vec2 train": w2v2_train, **wave_prune, **long_counts,
-             **parallel}
+             "wav2vec2 train": w2v2_train, **wave_bench, **wave_prune,
+             **long_counts, **parallel}
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         if not head_prune[name]["f32"]:
             raise AssertionError(f"no f32 {name} launch on head pruning")

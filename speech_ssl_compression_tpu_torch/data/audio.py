@@ -1,9 +1,9 @@
 """Audio reading: native FLAC (and Ogg Vorbis) decoding through ctypes, WAV
 through scipy, and zip-slice manifest paths.
 
-The port's copy of the reading half of
-``speech_ssl_compression_tpu/data/audio.py`` (``read_audio`` and what it
-calls). The decoder is the repository's C++ library built from
+The port's copy of ``speech_ssl_compression_tpu/data/audio.py``
+(``read_audio`` and what it calls, ``read_ogg``, ``write_ogg`` and
+``is_sf_audio_data``). The decoder is the repository's C++ library built from
 ``native/audio/`` with ``make`` at first use, as the JAX package builds it;
 decoded FLAC PCM is checked against the STREAMINFO MD5.
 """
@@ -58,12 +58,20 @@ def _ensure_lib():
                                        pcm_out, ctypes.POINTER(_FlacInfo)]
     lib.flac_free.argtypes = [ctypes.POINTER(ctypes.c_int32)]
     lib.sslc_ogg_available.restype = ctypes.c_int
+    lib.sslc_ogg_encode_available.restype = ctypes.c_int
     lib.sslc_ogg_decode.restype = ctypes.c_int
     lib.sslc_ogg_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t,
         ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.sslc_ogg_encode.restype = ctypes.c_int
+    lib.sslc_ogg_encode.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_float,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.POINTER(ctypes.c_size_t),
     ]
     lib.sslc_ogg_free.argtypes = [ctypes.c_void_p]
     _lib = lib
@@ -89,6 +97,35 @@ def read_ogg_bytes(data: bytes,
     wav = np.ctypeslib.as_array(pcm, shape=(c * n,)).copy().reshape(c, n)
     lib.sslc_ogg_free(pcm)
     return wav, int(rate.value)
+
+
+def read_ogg(path: str) -> Tuple[np.ndarray, int]:
+    """An Ogg Vorbis file -> (float32 (C, T), sr)."""
+    with open(path, "rb") as f:
+        return read_ogg_bytes(f.read(), origin=path)
+
+
+def write_ogg(path: str, wav: np.ndarray, sample_rate: int,
+              quality: float = 0.4) -> None:
+    """(C, T) or (T,) float32 in [-1, 1] -> an Ogg Vorbis file
+    (libvorbisenc VBR at ``quality``), for tests and fixtures."""
+    lib = _ensure_lib()
+    if not lib.sslc_ogg_encode_available():
+        raise IOError("libvorbis/libvorbisenc not available on this system")
+    wav = np.asarray(wav, np.float32)
+    wav = np.ascontiguousarray(wav[None, :] if wav.ndim == 1 else wav)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    rc = lib.sslc_ogg_encode(
+        wav.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), wav.shape[1],
+        wav.shape[0], int(sample_rate), ctypes.c_float(quality),
+        ctypes.byref(out), ctypes.byref(out_len))
+    if rc != 0:
+        raise IOError(f"Ogg Vorbis encode failed ({rc}): {path}")
+    data = ctypes.string_at(out, out_len.value)
+    lib.sslc_ogg_free(out)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _finish_flac(rc, out, info, origin, verify_md5):
@@ -176,6 +213,12 @@ def read_from_stored_zip(zip_path: str, offset: int, length: int) -> bytes:
             return m[offset:offset + length]
 
 
+def is_sf_audio_data(data: bytes) -> bool:
+    """True when the bytes start with a wav, flac or ogg magic (reference
+    audio_utils.py:40-44)."""
+    return len(data) >= 3 and data[:3] in (b"RIF", b"fLa", b"Ogg")
+
+
 def read_audio_bytes(data: bytes,
                      origin: str = "<bytes>") -> Tuple[np.ndarray, int]:
     if data[:3] == b"fLa":
@@ -193,7 +236,7 @@ def read_audio(path: str) -> Tuple[np.ndarray, int]:
     file_path, slice_ptr = parse_path(path)
     if slice_ptr:
         data = read_from_stored_zip(file_path, *slice_ptr)
-        if data[:3] not in (b"RIF", b"fLa", b"Ogg"):
+        if not is_sf_audio_data(data):
             raise ValueError(f"zip slice is not audio data: {path}")
         return read_audio_bytes(data, origin=path)
     p = file_path.lower()
@@ -205,6 +248,5 @@ def read_audio(path: str) -> Tuple[np.ndarray, int]:
         raise ValueError(f"{path} is a feature dump, not audio — load it "
                          "with np.load")
     if p.endswith(".ogg"):
-        with open(file_path, "rb") as f:
-            return read_ogg_bytes(f.read(), origin=file_path)
+        return read_ogg(file_path)
     raise ValueError(f"unsupported audio format: {path}")

@@ -2,8 +2,9 @@
 
 The port's copy of ``speech_ssl_compression_tpu/data/dictionary.py``: a
 minimal fairseq-style Dictionary (file format "symbol count" per line;
-indices <s>=0, <pad>=1, </s>=2, <unk>=3, then the file's symbols in order)
-and the raw-cluster-id lookup table the collate step encodes with.
+indices <s>=0, <pad>=1, </s>=2, <unk>=3, then the file's symbols in order),
+``LabelEncoder`` and the raw-cluster-id lookup table the collate step
+encodes with.
 """
 
 from __future__ import annotations
@@ -47,6 +48,18 @@ class Dictionary:
         if append_eos:
             ids.append(self.eos())
         return np.array(ids, np.int64)
+
+
+class LabelEncoder:
+    """A label line -> dictionary indices, no eos, unknown symbols <unk>
+    (JAX ``LabelEncoder``; reference runner.py:25-34)."""
+
+    def __init__(self, dictionary: Dictionary):
+        self.dictionary = dictionary
+
+    def __call__(self, label: str) -> np.ndarray:
+        return self.dictionary.encode_line(
+            label, append_eos=False, add_if_not_exist=False)
 
 
 def build_label_lookup(dictionary: Dictionary) -> np.ndarray:

@@ -6,7 +6,10 @@ HuBERT (both configs carry the encoder's fields). Parameters live in
 self_attn.q_proj.weight``, ``encoder.pos_conv.0.weight_v``, ...); the
 forward is the plain functions below, each named after its JAX
 counterpart. Per-layer head counts and FFN widths come from the config's
-per-layer tuples, so head- and row-pruned checkpoints load.
+per-layer tuples, so head- and row-pruned checkpoints load. With
+``pos_conv_depth > 1`` the positional embedding is the deep stack of
+grouped convs (``encoder.pos_conv.{i}.0.weight``; JAX
+``pos_conv_embed_deep``).
 
 Training (``deterministic=False``) adds the input dropout after the
 prologue, the residual, activation and attention dropouts of every layer,
@@ -82,7 +85,12 @@ class EncoderLayer(nn.Module):
 
 
 class TransformerEncoder(nn.Module):
-    """Encoder parameters: ``pos_conv.0``, ``layer_norm``, ``layers.{i}``."""
+    """Encoder parameters: ``pos_conv``, ``layer_norm``, ``layers.{i}``.
+    ``pos_conv`` is ``[PosConv]`` (``pos_conv.0.weight_g``, ...), or with
+    ``pos_conv_depth > 1`` the deep stack, ``depth`` blocks that each hold
+    one grouped ``Conv1d`` (``pos_conv.{i}.0.weight``, ``.bias``; the
+    reference's ``nn.Sequential`` names) with torch's default init, which
+    is what JAX ``init_pos_conv_deep`` draws."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -94,11 +102,16 @@ class TransformerEncoder(nn.Module):
             raise NotImplementedError(
                 f"unsupported layer_type {cfg.layer_type!r} (only 'transformer')"
             )
-        _check_ported(cfg)
         d = cfg.encoder_embed_dim
-        self.pos_conv = nn.ModuleList(
-            [PosConv(d, cfg.conv_pos, cfg.conv_pos_groups)]
-        )
+        depth = getattr(cfg, "pos_conv_depth", 1)
+        if depth > 1:
+            k = pos_conv_kernel_size(cfg.conv_pos, depth)
+            self.pos_conv = nn.ModuleList(
+                nn.ModuleList([nn.Conv1d(d, d, k, groups=cfg.conv_pos_groups)])
+                for _ in range(depth))
+        else:
+            self.pos_conv = nn.ModuleList(
+                [PosConv(d, cfg.conv_pos, cfg.conv_pos_groups)])
         self.layer_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.layers = nn.ModuleList(
             EncoderLayer(d, cfg.encoder_ffn_embed_dim[i],
@@ -107,11 +120,10 @@ class TransformerEncoder(nn.Module):
         )
 
 
-def _check_ported(cfg) -> None:
-    if getattr(cfg, "pos_conv_depth", 1) > 1:
-        raise NotImplementedError(
-            "pos_conv_depth > 1 (pos_conv_embed_deep) is not ported yet"
-        )
+def pos_conv_kernel_size(conv_pos: int, depth: int) -> int:
+    """Per-layer kernel size of the deep positional-conv stack (JAX
+    ``pos_conv_kernel_size``, reference module.py:148-149)."""
+    return max(3, conv_pos // depth)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -142,6 +154,28 @@ def pos_conv_embed(x: torch.Tensor, p: PosConv) -> torch.Tensor:
     out = _grouped_conv_samepad(x, pos_conv_weight(p), p.bias, p.groups,
                                 p.kernel_size)
     return get_activation_fn("gelu")(out)
+
+
+def pos_conv_embed_deep(x: torch.Tensor, blocks: nn.ModuleList) -> torch.Tensor:
+    """The deep positional conv (JAX ``pos_conv_embed_deep``, reference
+    module.py:147-173): each block is a grouped Conv1d + SamePad crop
+    (even K) + LayerNorm over D without affine + GELU. x: (B, T, D)."""
+    gelu = get_activation_fn("gelu")
+    for block in blocks:
+        conv = block[0]
+        out = _grouped_conv_samepad(x, conv.weight, conv.bias, conv.groups,
+                                    conv.kernel_size[0])
+        x = gelu(F.layer_norm(out, out.shape[-1:], eps=LN_EPS))
+    return x
+
+
+def positional_embedding(x: torch.Tensor, enc: TransformerEncoder,
+                         cfg) -> torch.Tensor:
+    """The conv positional embedding the prologue adds: the weight-normed
+    conv, or the deep stack with ``pos_conv_depth > 1``."""
+    if getattr(cfg, "pos_conv_depth", 1) > 1:
+        return pos_conv_embed_deep(x, enc.pos_conv)
+    return pos_conv_embed(x, enc.pos_conv[0])
 
 
 def encoder_layer_forward(
@@ -304,11 +338,11 @@ def encoder_prologue(
     deterministic: bool = True,
 ):
     """Everything before the layers: zero padded frames, add the conv
-    positional embedding, the encoder LayerNorm (post-LN), then the input
-    dropout. Split out so packed extraction can run it per utterance."""
+    positional embedding (the deep stack with ``pos_conv_depth > 1``), the
+    encoder LayerNorm (post-LN), then the input dropout. Split out so packed extraction can run it per utterance."""
     if padding_mask is not None:
         x = x.masked_fill(padding_mask[:, :, None], 0.0)
-    x = x + pos_conv_embed(x, enc.pos_conv[0])
+    x = x + positional_embedding(x, enc, cfg)
     if not cfg.layer_norm_first:
         x = layer_norm(x, enc.layer_norm)
     return dropout(x, cfg.dropout, generator, deterministic)

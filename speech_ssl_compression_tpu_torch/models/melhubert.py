@@ -3,12 +3,14 @@
 Port of ``speech_ssl_compression_tpu/models/melhubert.py``:
 ``melhubert_forward`` (``pre_extract_proj`` -> span mask -> encoder ->
 ``final_proj``, with ``no_pred``, ``get_hidden`` and the training forward),
-``masked_cross_entropy`` and ``melhubert_pretrain_loss``. Span masks are
-drawn on the host by :func:`span_mask`
+``masked_cross_entropy`` and ``melhubert_pretrain_loss``. The trainers'
+span masks are drawn on the host by :func:`span_mask`
 (``ops/masking.py::compute_mask_indices_np``, with the arguments JAX passes
 its device sampler) and handed to the forward as
 ``teacher_mask_indices``; the grad step does so from the batch's host
-lengths. JAX's on-device sampler is not ported.
+lengths, so its batches and resumes stay bitwise JAX's. A forward with
+``mask=True`` and no mask draws one on the device, as JAX's does
+(``ops/masking.py::compute_span_mask``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from torch import nn
 from ..configs import MelHuBERTConfig
 
 from ..ops.activations import gelu
-from ..ops.masking import compute_mask_indices_np
+from ..ops.dropout import draw_seed, seeded_generator
+from ..ops.masking import compute_mask_indices_np, compute_span_mask
 from .encoder import TransformerEncoder, encoder_forward
 
 
@@ -104,7 +107,10 @@ def melhubert_forward(
                      ``return_contexts`` (head scoring); else empty
 
     ``mask=True`` masks the spans of ``teacher_mask_indices`` (drawn with
-    :func:`span_mask`). ``deterministic=False`` turns the dropouts on,
+    :func:`span_mask`), or without them spans drawn on the device by
+    ``compute_span_mask`` from a generator seeded by ``rng`` (JAX's
+    arguments: ``min_masks=2``, ``require_same_masks=False``).
+    ``deterministic=False`` turns the dropouts on,
     drawing from ``rng``, a host ``torch.Generator``. ``remat=True``
     recomputes each encoder layer in the backward instead of keeping its
     activations (``models/encoder.py::checkpoint_layer``; JAX's
@@ -113,11 +119,23 @@ def melhubert_forward(
     valid = pad_mask.to(torch.bool)
     mask_indices = torch.zeros_like(valid)
     if mask and cfg.mask_prob > 0:
-        if teacher_mask_indices is None:
-            raise ValueError(
-                "span masking needs teacher_mask_indices: draw them on the "
-                "host with span_mask (a device sampler is not ported)")
-        mask_indices = teacher_mask_indices.to(torch.bool)
+        if teacher_mask_indices is not None:
+            mask_indices = teacher_mask_indices.to(torch.bool)
+        else:
+            if rng is None:
+                raise ValueError("masking requires an rng (or pass "
+                                 "teacher_mask_indices)")
+            mask_indices = compute_span_mask(
+                seeded_generator(draw_seed(rng), feat.device),
+                valid.sum(dim=-1, dtype=torch.int32), valid.shape[1],
+                mask_prob=cfg.mask_prob, mask_length=cfg.mask_length,
+                mask_selection=cfg.mask_selection,
+                mask_other=cfg.mask_other, min_masks=2,
+                no_overlap=cfg.no_mask_overlap,
+                min_space=cfg.mask_min_space,
+                # the reference MelHuBERT passes this explicitly
+                # (model.py:76): each row keeps its own mask count
+                require_same_masks=False)
 
     x = feat
     if mask and cfg.mask_before_proj:

@@ -82,3 +82,9 @@ def build_pack_arrays(
         seg.astype(np.int32),
         unpack.astype(np.int32),
     )
+
+
+def pack_rows_needed(lengths: Sequence[int], capacity: int) -> int:
+    """Mirror of ``ops/packing.py::pack_rows_needed``: the rows
+    :func:`plan_packing` fills."""
+    return len(plan_packing(lengths, capacity))

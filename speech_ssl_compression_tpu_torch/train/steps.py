@@ -114,16 +114,22 @@ def parse_betas(betas):
 def make_optimizer(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
                    gradient_clipping=10.0, lr_schedule=None) -> dict:
     """torch.optim.Adam's update with the runner's trigger-style clip and
-    coupled L2 (JAX ``make_optimizer``, fused path), as the hyperparameter
-    dict that :func:`fused_apply` takes (JAX's ``optimizer.hyper``).
-    ``lr_schedule`` is a ``f(num_updates) -> lr`` evaluated on the Adam
-    count."""
-    if callable(lr):
-        raise NotImplementedError(
-            "a callable lr (JAX's generic optax path) is not ported; pass a "
-            "float lr and lr_schedule= (see ROADMAP.md, Queue 1 item 4)")
+    coupled L2 (JAX ``make_optimizer``), as the hyperparameter dict that
+    :func:`fused_apply` takes (JAX's ``optimizer.hyper``).
+    ``lr_schedule`` is a ``f(num_updates) -> lr`` evaluated on the
+    incremented Adam count (JAX's fused path). A callable ``lr`` (JAX's
+    generic path, ``optax.adam(lr)``) is evaluated per update on the count
+    before the increment, 0 at the first update, as optax's
+    ``scale_by_schedule`` reads its own count; the state keeps the fused
+    path's [count, mu*, nu*] (optax's extra schedule count moves in
+    lockstep with Adam's). Both together raise, as in JAX."""
+    if callable(lr) and lr_schedule is not None:
+        raise ValueError(
+            "pass either a callable lr (generic optax path) or a float lr "
+            "+ lr_schedule (fused path), not both")
     return dict(
-        lr=float(lr), b1=float(betas[0]), b2=float(betas[1]), eps=float(eps),
+        lr=lr if callable(lr) else float(lr), b1=float(betas[0]),
+        b2=float(betas[1]), eps=float(eps),
         weight_decay=float(weight_decay),
         clip=float(gradient_clipping or 0.0), schedule=lr_schedule,
     )
@@ -187,7 +193,7 @@ def fused_apply(hyper: dict, params: List[torch.Tensor], opt_state: list,
     sample_size; the clip scale only when norm >= clip; L2 added after
     clipping and before the moments; the count increment saturating at the
     int32 maximum; bias corrections and the schedule on the incremented
-    count; every write a ``where`` on the norm being finite, never a
+    count (a callable lr on the count before it); every write a ``where`` on the norm being finite, never a
     multiply (0 * NaN would poison the parameters). ``sumsq`` is the
     gradient's squared norm where the caller takes it (a tensor-parallel
     rank holds slices of some gradients: their squares are summed over the
@@ -215,6 +221,8 @@ def fused_apply(hyper: dict, params: List[torch.Tensor], opt_state: list,
     c2 = 1.0 - torch.pow(b2, count_inc.float())
     if schedule is not None:
         lr = schedule(count_inc)
+    elif callable(lr):
+        lr = lr(count)
     for p, m, v, g in zip(params, mu, nu, grads):
         ge = g.float() * eff
         if wd > 0:

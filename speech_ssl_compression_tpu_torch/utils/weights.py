@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..configs import HuBERTConfig, MelHuBERTConfig, Wav2Vec2Config
+from ..models.encoder import pos_conv_kernel_size
 from .torch_convert import (
     infer_pruned_dims,
     kernel_from_weight,
@@ -186,18 +187,23 @@ def load_model(params: dict, cfg: MelHuBERTConfig,
                masks: Optional[dict] = None):
     """A float32 CPU ``MelHuBERTModel`` for ``cfg`` holding ``params`` (a
     JAX-layout tree; ``cfg`` must carry its per-layer heads and FFN widths).
-    Every parameter must be matched: the load is strict."""
+    The model is built on the meta device and takes the converted tensors
+    themselves, so nothing is initialised only to be overwritten. Every
+    parameter must be matched: the load is strict."""
     from ..models.melhubert import MelHuBERTModel
 
-    model = MelHuBERTModel(cfg)
-    model.load_state_dict(state_dict_from_jax_params(params, masks))
+    with torch.device("meta"):
+        model = MelHuBERTModel(cfg)
+    model.load_state_dict(state_dict_from_jax_params(params, masks),
+                          assign=True)
     return model
 
 
 def _encoder_params_np(cfg, rng: np.random.Generator) -> dict:
     """Random encoder params in the JAX layout, drawn from the
     distributions of the JAX ``init_encoder`` (BERT-normal linears, zero
-    biases, unit LayerNorms, the weight-normed pos-conv)."""
+    biases, unit LayerNorms, the weight-normed pos-conv or, with
+    ``pos_conv_depth > 1``, the deep stack's torch-default convs)."""
     f32 = np.float32
     d = cfg.encoder_embed_dim
 
@@ -210,9 +216,28 @@ def _encoder_params_np(cfg, rng: np.random.Generator) -> dict:
     def ln():
         return {"scale": np.ones((d,), f32), "bias": np.zeros((d,), f32)}
 
-    k = cfg.conv_pos
-    std = np.sqrt(4.0 / (k * d))
-    w = (std * rng.standard_normal((d, d // cfg.conv_pos_groups, k))).astype(f32)
+    depth = getattr(cfg, "pos_conv_depth", 1)
+    if depth > 1:
+        # torch's default Conv1d init, JAX init_pos_conv_deep's
+        # distribution: uniform, bound 1/sqrt(fan_in)
+        k = pos_conv_kernel_size(cfg.conv_pos, depth)
+        bound = 1.0 / np.sqrt((d // cfg.conv_pos_groups) * k)
+        pos_conv = {"layers": [
+            {"weight": rng.uniform(-bound, bound, (
+                d, d // cfg.conv_pos_groups, k)).astype(f32),
+             "bias": rng.uniform(-bound, bound, (d,)).astype(f32)}
+            for _ in range(depth)]}
+    else:
+        k = cfg.conv_pos
+        std = np.sqrt(4.0 / (k * d))
+        w = (std * rng.standard_normal(
+            (d, d // cfg.conv_pos_groups, k))).astype(f32)
+        pos_conv = {
+            "weight_g": np.sqrt((w.astype(np.float64) ** 2).sum(
+                axis=(0, 1), keepdims=True)).astype(f32),
+            "weight_v": w,
+            "bias": np.zeros((d,), f32),
+        }
     layers = []
     for i in range(cfg.encoder_layers):
         proj = cfg.encoder_attention_heads[i] * cfg.head_dim
@@ -228,12 +253,7 @@ def _encoder_params_np(cfg, rng: np.random.Generator) -> dict:
             "final_layer_norm": ln(),
         })
     return {
-        "pos_conv": {
-            "weight_g": np.sqrt((w.astype(np.float64) ** 2).sum(
-                axis=(0, 1), keepdims=True)).astype(f32),
-            "weight_v": w,
-            "bias": np.zeros((d,), f32),
-        },
+        "pos_conv": pos_conv,
         "layer_norm": ln(),
         "layers": layers,
     }
@@ -374,20 +394,21 @@ def load_wave_model(params: dict, cfg, upstream: str,
     "wav2vec2": a ``Wav2Vec2Model``) for ``cfg``, holding the JAX package's
     ``params`` (a JAX-layout tree of numpy arrays), through
     ``torch_convert.wave_params_to_state_dict``: the function that carries
-    weights across. Weight-pruning masks are folded in first. The load is
-    strict."""
-    if upstream == "hubert":
-        from ..models.hubert import HuBERTModel
+    weights across. Weight-pruning masks are folded in first. Built on the
+    meta device, as :func:`load_model`. The load is strict."""
+    with torch.device("meta"):
+        if upstream == "hubert":
+            from ..models.hubert import HuBERTModel
 
-        n_classes = int(np.shape(params["label_embs_concat"])[0])
-        model = HuBERTModel(cfg, (n_classes,))
-    else:
-        from ..models.wav2vec2 import Wav2Vec2Model
+            n_classes = int(np.shape(params["label_embs_concat"])[0])
+            model = HuBERTModel(cfg, (n_classes,))
+        else:
+            from ..models.wav2vec2 import Wav2Vec2Model
 
-        model = Wav2Vec2Model(cfg)
+            model = Wav2Vec2Model(cfg)
     sd = wave_params_to_state_dict(apply_masks(params, masks), upstream)
     model.load_state_dict({k: torch.tensor(np.asarray(v), dtype=torch.float32)
-                           for k, v in sd.items()})
+                           for k, v in sd.items()}, assign=True)
     return model
 
 

@@ -17,14 +17,25 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
+from speech_ssl_compression_tpu_torch.utils.flops import (  # noqa: E402
+    peak_bytes, peak_flops,
+)
 
 KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+@pytest.fixture(autouse=True)
+def an_h100(monkeypatch):
+    # the bounds read the current card's peaks from utils/flops.py: here
+    # the card is an H100 SXM
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *args: "NVIDIA H100 80GB HBM3")
 
 
 @pytest.mark.parametrize("dtype,size,peak", [(torch.float32, 4, 495e12 / 3),
                                              (torch.bfloat16, 2, 989e12)])
 def test_attention_bounds_per_dtype(dtype, size, peak):
-    assert chip_smoke.PEAK_FLOPS[dtype] == peak
+    assert peak_flops(dtype) == peak
     b, h, t, d = chip_smoke.TRAIN_SHAPE
     pairs = float(t * sum(chip_smoke.TRAIN_LENGTHS))
     work = chip_smoke.attention_work(chip_smoke.TRAIN_SHAPE, t, pairs, dtype)
@@ -40,7 +51,7 @@ def test_attention_bounds_per_dtype(dtype, size, peak):
     bounds = chip_smoke.attention_bounds(dtype)
     for name in KERNELS:
         flops, n_bytes = work[name]
-        want = max(flops / peak, n_bytes / chip_smoke.PEAK_BYTES) * 1e3
+        want = max(flops / peak, n_bytes / peak_bytes()) * 1e3
         ms, by = bounds[name, "training_dropout"]
         assert ms == pytest.approx(want, rel=1e-12)
         assert by == "operations"  # 64 dims: above the ridge in both dtypes
@@ -317,9 +328,15 @@ def test_stream_step_work_counts_attention_at_the_cache_capacity(
     flops, n_bytes = chip_smoke.stream_work(cfg, shape["batch"],
                                             shape["chunk_frames"], cap, dtype)
     assert flops / 1e12 == pytest.approx(tflop, rel=1e-3)
-    ops_ms = flops / chip_smoke.STREAM_PEAK_FLOPS[dtype] * 1e3
+    peak = 67e12 if dtype == torch.float32 else 989e12
+    ops_ms = flops / peak * 1e3
     assert ops_ms == pytest.approx(bound_ms, rel=1e-3)
-    assert ops_ms > n_bytes / chip_smoke.PEAK_BYTES * 1e3  # operations bound
+    assert ops_ms > n_bytes / peak_bytes() * 1e3  # operations bound
+    # the stream phase's bound: f32 on the CUDA cores, bf16 on the tensor
+    # cores
+    assert chip_smoke.bound(flops, n_bytes, dtype,
+                            cuda_cores=dtype == torch.float32) == (
+        pytest.approx(ops_ms, rel=1e-12), "operations")
     # the caches dominate the bytes: 2 x 12 layers x B x 768 x cap x size
     size = 4 if which == "f32" else 2
     assert n_bytes > 24 * shape["batch"] * 768 * cap * size

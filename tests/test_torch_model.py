@@ -102,8 +102,11 @@ def test_zero_layer_model_is_gelu_of_projection():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="pos_conv_depth"):
-        MelHuBERTModel(PortConfig.from_dict(dict(TINY, pos_conv_depth=2)))
+    # the deep pos-conv is ported (tests/test_torch_deep_pos_conv.py);
+    # another positional embedding is refused, as JAX refuses it
+    with pytest.raises(NotImplementedError, match="pos_emb_type"):
+        MelHuBERTModel(PortConfig.from_dict(dict(TINY, pos_emb_type="abs")))
+    MelHuBERTModel(PortConfig.from_dict(dict(TINY, pos_conv_depth=2)))
     # span masking is ported; without a mask or an rng to draw one it raises
     model = MelHuBERTModel(PortConfig.from_dict(TINY))
     with pytest.raises(ValueError, match="masking"):

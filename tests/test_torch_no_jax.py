@@ -47,7 +47,10 @@ dev = ext.forward_packed([rng.standard_normal(n).astype(np.float32) * 0.1
                           for n in (8000, 3000)], featurizer="device")
 assert bool(dev["last_hidden_state"].isfinite().all())
 for new in ("cluster", "ops.kmeans", "s3prl.expert", "s3prl.hubconf",
-            "parallel.seqpar", "parallel.pipeline"):
+            "parallel.seqpar", "parallel.pipeline", "preprocess",
+            "data.kaldi_io", "data.preprocess", "data.fairseq_dump",
+            "data.text_compressor", "utils.flops", "utils.profiling",
+            "train.wave_bench"):
     assert "speech_ssl_compression_tpu_torch." + new in names, new
 from speech_ssl_compression_tpu_torch.ops.kmeans import kmeans_fit
 centers, _ = kmeans_fit(0, [h[0].numpy()], 4, device="cpu")

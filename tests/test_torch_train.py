@@ -407,8 +407,9 @@ def test_lr_schedule_from_runner_config():
     assert not opt["schedule"].needs_total
     assert tsteps.parse_betas("(0.9,0.98)") == (0.9, 0.98)
     assert tsteps.parse_betas([0.9, 0.999]) == (0.9, 0.999)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_optimizer(lr=lambda n: 1e-3)
+    # a callable lr is JAX's generic path; with a schedule too it raises
+    with pytest.raises(ValueError, match="not both"):
+        tsteps.make_optimizer(lr=lambda n: 1e-3, lr_schedule=sched)
 
 
 # ------------------------------------------------------------- YAML reader
