@@ -388,6 +388,34 @@ result line):
             launches count as the main path's ("melhubert pipeline
             train", "melhubert seqpar serve", "melhubert seqpar
             distill", "parallel <run>");
+  journey   journey.py's run_journey, the staged compression journey, at
+            full width (12 layers of 768, FFN 3072, 12 heads, K = 512, 64
+            crops of B = 4 x T = 768, the trainers in f32 as JAX's journey
+            runs them) in a process of its own (this script with
+            --journey, journey_main), its imports and CUDA context during
+            long, its stages started after long: its stages, checks and
+            curve share the card with hubert serve ... wave prune, as the
+            parallel ranks do, and its timed serving waits
+            until the parallel phase has ended (journey_ready before it,
+            phase_journey_join after it). journey_schedule, a cut in depth:
+            3 pretrain updates; the weight-pruning ladder [0.3, 0.5, 0.7]
+            under always at steps 1-3 of 4; 2 data-driven head events of
+            12 heads and 2 row events of 512 rows, the first of each before
+            any update; 2 distill updates into the 6-layer student; 5
+            serving repeats. Checks (JourneyChecks): each stage's held-out
+            CE finite and within GRAD_BAR of impl="dense" on its checkpoint
+            (f32, TF32 off, the saved span mask); each rung's artifact
+            exactly round(amount n) of the n prunable entries masked; the
+            head-prune run's first parameters bitwise stage 2's folded
+            weights, no live masks; each head and row event a host
+            recompute from the artifact before it; row pruning on stage
+            3's ragged heads; a 6-layer student whose teacher is bitwise
+            stage 1; journey_curve over every checkpoint (more points than
+            stages, finite CEs); the four served models against
+            impl="dense" (SLICE_BAR); each stage's launches, all f32,
+            exactly as many as it must make ("journey <stage>" in
+            launches_by_path); the four serving frames/s (CUDA events,
+            median of 5, the card to itself);
   profile   (--profile only) device busy time, idle share and the largest
             device kernels of forward_packed from features, per path, and
             of the MelHuBERT, HuBERT and wav2vec 2.0 bf16 grad steps, the
@@ -474,6 +502,7 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -7272,6 +7301,437 @@ def check_seqpar(dev, gpu: str, records: list, out_path: str,
         + f"; {time.perf_counter() - t0:.1f} s [{gpu}]")
 
 
+# the journey phase's JourneySettings; None: the defaults, full width (12
+# layers of 768, FFN 3072, 12 heads, K = 512, 64 crops of B = 4 x T = 768,
+# 20 ms)
+JOURNEY_SETTINGS = None
+
+
+def journey_schedule():
+    """The journey phase's schedule: journey.py's FULL prune sections with
+    their events moved to consecutive updates from the first (weight
+    pruning under ``always``, the ladder's three rungs at steps 1-3 of 4;
+    two head events of 12 heads and two row events of 512 rows, the first
+    before any update), 3 pretrain and 2 distill updates, 5 serving
+    repeats: a cut in depth for the script's time."""
+    from speech_ssl_compression_tpu_torch.journey import FULL
+
+    return dataclasses.replace(
+        FULL, pretrain_steps=3, distill_steps=2,
+        wp_prune=dict(FULL.wp_prune, pruning_condition="always", warnup=1,
+                      period=1),
+        wp_total=4, hp_prune=dict(FULL.hp_prune, warm_up=0, interval=1),
+        hp_total=2, rp_prune=dict(FULL.rp_prune, warm_up=0, interval=1),
+        rp_total=2, serve_reps=5)
+
+
+def journey_launches(stage: str, layers: int, schedule, heads_scored: int,
+                     student: int) -> dict:
+    """The attention launches (all f32) one journey stage makes: each
+    update a forward per layer (the teacher's too, in distillation) and a
+    dQ and dK/dV per trained layer; each data-driven scoring pass a
+    forward per layer and a dQ and dK/dV for all but the first layer (its
+    context lies past its attention); the held-out evaluation a forward
+    per layer of the stage's model; serving, per model, a forward per
+    layer for the warm call and each repeat."""
+    updates = {"pretrain": schedule.pretrain_steps,
+               "weight-prune": schedule.wp_total,
+               "head-prune": schedule.hp_total,
+               "row-prune": schedule.rp_total,
+               "distill-6L": schedule.distill_steps}
+    if stage == "serve":
+        fwd, bwd = (1 + schedule.serve_reps) * (3 * layers + student), 0
+    elif stage == "distill-6L":
+        u = updates[stage]
+        fwd, bwd = u * (layers + student) + student, u * student
+    else:
+        u = updates[stage]
+        fwd, bwd = u * layers + layers, u * layers
+        if stage == "head-prune":
+            fwd += heads_scored * layers
+            bwd += heads_scored * (layers - 1)
+    return {"flash_attn_fwd": {"f32": fwd, "bf16": 0},
+            "flash_attn_bwd_dq": {"f32": bwd, "bf16": 0},
+            "flash_attn_bwd_dkv": {"f32": bwd, "bf16": 0}}
+
+
+def same_leaves(a: dict, b: dict) -> bool:
+    """Two JAX-layout trees equal bit for bit, leaf by leaf."""
+    from speech_ssl_compression_tpu_torch.utils.checkpoint import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and np.array_equal(x, y) for x, y in zip(la, lb))
+
+
+class JourneyChecks:
+    """journey.py's ``hook`` in the journey phase: the launch counts of
+    each stage (counted from 0 once its trainer is built, read once its
+    held-out CE is recorded) and the checks of each stage's artifacts,
+    which launch nothing that is counted."""
+
+    def __init__(self, dev, gpu: str, workdir: pathlib.Path, settings,
+                 schedule, go=None):
+        self.dev, self.gpu, self.workdir = dev, gpu, workdir
+        self.settings, self.schedule = settings, schedule
+        self.go = go
+        self.paths: dict = {}   # {"journey <stage>": per-dtype counts}
+        self.rows: dict = {}    # {stage: summary row}
+        self.t0 = time.perf_counter()
+
+    def __call__(self, stage: str, when: str, runner, row) -> None:
+        if when == "built":
+            getattr(self, f"built_{stage.split('-')[0]}", lambda r: None)(
+                runner)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            self.t0 = time.perf_counter()
+            return
+        torch.cuda.synchronize()
+        counts = dtype_launch_counts()
+        self.paths[f"journey {stage}"] = counts
+        seconds = time.perf_counter() - self.t0
+        log("journey", f"{stage}: {seconds:.2f} s counted (a trainer's "
+            f"build to its held-out CE; the timed serving); f32 launches "
+            + ", ".join(f"{k} {v['f32']}" for k, v in counts.items()
+                        if k.startswith("flash")) + f" [{self.gpu}]")
+        if stage != "serve":
+            self.rows[stage] = row
+            self.check_ce(stage, row)
+        getattr(self, f"done_{stage.split('-')[0]}", lambda r, w: None)(
+            runner, row)
+        want = journey_launches(
+            stage, self.settings.layers, self.schedule, self.scoring_passes(),
+            self.rows.get("distill-6L", {}).get("layers", 0))
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"journey {stage}: launches {counts}, want "
+                                 f"{want}")
+
+    def scoring_passes(self) -> int:
+        """The head-prune run's scoring forwards: per event, data_ratio of
+        the epoch's buckets (N_UTTS / BATCH of equal length) stacked into
+        groups of >= 32 rows (Runner._data_driven_head_scores)."""
+        pc = self.schedule.hp_prune
+        buckets = max(1, int(self.settings.n_utts // self.settings.batch
+                             * pc["data_ratio"]))
+        group = min(-(-32 // self.settings.batch), buckets)
+        return pc["total_steps"] * -(-buckets // group)
+
+    def eval_batch(self) -> dict:
+        from speech_ssl_compression_tpu_torch.journey import load_eval_batch
+
+        return load_eval_batch(self.workdir)
+
+    def check_ce(self, stage: str, row: dict) -> None:
+        """The stage's CE finite, and the kernels' CE within GRAD_BAR of
+        impl="dense" on its checkpoint (f32, TF32 off, the saved mask)."""
+        from speech_ssl_compression_tpu_torch.journey import eval_ckpt
+
+        t0 = time.perf_counter()
+        got = row["heldout_masked_ce_unrounded"]
+        dense, _, _ = eval_ckpt(row["ckpt"], self.eval_batch(),
+                                device=self.dev, attn_impl="dense")
+        rel = abs(got - dense) / abs(dense)
+        log("journey", f"{stage}: held-out masked CE {got:.6f} (kernels) vs "
+            f"{dense:.6f} (impl='dense'), rel {rel:.3e} (bar {GRAD_BAR:g}); "
+            f"{row['params_m']} M params, heads {row['heads']}, FFN "
+            f"{row['ffn']}, {row['layers']} layers; "
+            f"{time.perf_counter() - t0:.2f} s")
+        if not (np.isfinite(got) and rel < GRAD_BAR):
+            raise AssertionError(f"journey {stage}: CE {got} vs dense {dense}")
+
+    def done_weight(self, runner, row) -> None:
+        """Each rung's masks in its artifact: exactly round(amount n) of
+        the n prunable entries masked."""
+        expdir = pathlib.Path(runner.expdir)
+        ladder = runner.wp_state.sparsity
+        seen = []
+        for path in sorted(expdir.glob("*.npz")):
+            with np.load(path, allow_pickle=False) as data:
+                meta = json.loads(data["meta_json"].tobytes().decode())
+                masks = [data[k] for k in data.files
+                         if k.startswith("masks/")]
+            k = meta["Pruning"]["pruning_times"]
+            n = sum(m.size for m in masks)
+            masked = n - sum(int(np.count_nonzero(m)) for m in masks)
+            want = round(ladder[k - 1] * n) if k else 0
+            seen.append(k)
+            log("journey", f"weight-prune {path.name}: {k} rungs, {masked} "
+                f"of {n} prunable entries masked (round(amount n) = {want})")
+            if masked != want:
+                raise AssertionError(f"{path.name}: {masked} masked, want "
+                                     f"{want}")
+        if not (sorted(seen) == list(range(len(ladder) + 1))
+                and row["prune_events_fired"] == len(ladder)):
+            raise AssertionError(f"the ladder's rungs {seen}, {row}")
+
+    def built_head(self, runner) -> None:
+        """The head-prune run starts from stage 2's weights with its masks
+        folded, bit for bit, and no live masks."""
+        from speech_ssl_compression_tpu_torch.extract import (
+            load_any_checkpoint,
+        )
+        from speech_ssl_compression_tpu_torch.utils.weights import (
+            jax_tree_from_named,
+        )
+
+        params, _, _ = load_any_checkpoint(self.rows["weight-prune"]["ckpt"])
+        same = same_leaves(jax_tree_from_named(runner.params), params)
+        log("journey", f"head-prune: its first parameters bitwise stage 2's "
+            f"folded weights: {same}; live masks {runner.masks is not None}")
+        if not same or runner.masks is not None:
+            raise AssertionError("head pruning did not start from stage 2's "
+                                 "folded weights")
+
+    def done_head(self, runner, row) -> None:
+        """Each event's heads: a host recompute of select_heads_to_prune on
+        the scores it wrote."""
+        from speech_ssl_compression_tpu_torch.compress import (
+            head_pruning as hp,
+        )
+
+        pc = self.schedule.hp_prune
+        layers = runner.cfg.encoder_layers
+        left = sum(self.rows["weight-prune"]["heads"])
+        for i, group in enumerate(runner.pruned_heads):
+            rows = np.load(pathlib.Path(runner.expdir)
+                           / f"heads_and_score_{left}.npy")
+            scores = [((int(l), int(h)), float(s)) for l, h, s in rows]
+            again = hp.select_heads_to_prune(
+                scores, pc["num_heads_each_step"], pc["target"], layers)
+            if again != group:
+                raise AssertionError(f"head event {i + 1}: {group}, "
+                                     f"recomputed {again}")
+            left -= pc["num_heads_each_step"]
+        log("journey", f"head-prune: the {len(runner.pruned_heads)} events' "
+            f"heads equal to a host recompute on heads_and_score_*.npy; heads "
+            f"a layer {row['heads']} (ragged: {len(set(row['heads'])) > 1})")
+        if (len(runner.pruned_heads) != pc["total_steps"]
+                or sum(row["heads"]) != left):
+            raise AssertionError(f"head pruning left heads {row['heads']}")
+
+    def done_row(self, runner, row) -> None:
+        """Each event's rows: a host recompute of ffn_row_scores on the
+        artifact before it; the heads as stage 3 left them."""
+        from speech_ssl_compression_tpu_torch.compress import (
+            row_pruning as rp,
+        )
+
+        step = self.schedule.rp_prune["num_rows_each_step"]
+        left = min(self.rows["head-prune"]["ffn"])
+        for i, e in enumerate(runner.prune_event_log):
+            layers = read_layers(pathlib.Path(runner.expdir)
+                                 / f"states_prune_{left}.npz",
+                                 ("fc1", "fc2"))["encoder"]["layers"]
+            again = [rp.rows_to_keep(rp.ffn_row_scores(l), step)
+                     for l in layers]
+            if not all(np.array_equal(a, k) for a, k in zip(again,
+                                                            e["kept"])):
+                raise AssertionError(f"row event {i + 1} kept other rows "
+                                     "than the host recompute")
+            left -= step
+        log("journey", f"row-prune: the {len(runner.prune_event_log)} "
+            f"events' rows equal to a host recompute on the artifact before "
+            f"each; FFN {row['ffn']}, heads {row['heads']}")
+        if (row["ffn"] != [left] * row["layers"]
+                or row["heads"] != self.rows["head-prune"]["heads"]):
+            raise AssertionError(f"row pruning: {row}")
+
+    def built_distill(self, runner) -> None:
+        """A 6-layer student; the teacher bitwise stage 1's weights."""
+        from speech_ssl_compression_tpu_torch.extract import (
+            load_any_checkpoint,
+        )
+        from speech_ssl_compression_tpu_torch.utils.weights import (
+            jax_tree_from_named,
+        )
+
+        params, _, _ = load_any_checkpoint(self.rows["pretrain"]["ckpt"])
+        same = same_leaves(jax_tree_from_named(dict(
+            runner.teacher.named_parameters())), params)
+        want = self.rows["pretrain"]["layers"] // 2
+        log("journey", f"distill: student {runner.cfg.encoder_layers} "
+            f"layers, teacher {runner.teacher_cfg.encoder_layers} layers "
+            f"bitwise stage 1: {same}")
+        if not same or runner.cfg.encoder_layers != want:
+            raise AssertionError("distillation's teacher or student is wrong")
+
+    def built_serve(self, runner) -> None:
+        """Before the timed serving: the quality curve over every
+        checkpoint (journey_curve.curve, its launches counted as "journey
+        curve"), then each served model's forward with the kernels
+        against impl="dense" (f32, TF32 off, every hidden state):
+        SLICE_BAR. With ``go`` (the journey in a process of its own, beside
+        the parent's phases), ``<go>.ready`` is written and the serving
+        waits for ``go``: the parent writes it once the card is its."""
+        self.check_curve()
+        self.check_serving()
+        if self.go is not None:
+            torch.cuda.empty_cache()
+            pathlib.Path(f"{self.go}.ready").touch()
+            wait_for(self.go, "go for the journey's timed serving")
+
+    def check_curve(self) -> None:
+        from speech_ssl_compression_tpu_torch import journey, journey_curve
+
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        points = journey_curve.curve(self.workdir, device=self.dev)
+        torch.cuda.synchronize()
+        self.paths["journey curve"] = dtype_launch_counts()
+        ces = [p["heldout_masked_ce"] for p in points]
+        log("journey", f"quality curve: {len(points)} checkpoints, CE "
+            f"{min(ces)}-{max(ces)}, {time.perf_counter() - t0:.2f} s "
+            f"[{self.gpu}]")
+        if not (len(points) > len(self.rows) and np.isfinite(ces).all()
+                and {p["stage"] for p in points} == {
+                    s for s, _ in journey.STAGE_DIRS}):
+            raise AssertionError(f"the quality curve: {points}")
+
+    def check_serving(self) -> None:
+        from speech_ssl_compression_tpu_torch.extract import MelHuBERTExtractor
+        from speech_ssl_compression_tpu_torch.journey import serve_forward
+
+        batch = self.eval_batch()
+        feat, pad = (torch.from_numpy(batch[k]).to(self.dev)
+                     for k in ("feat", "pad_mask"))
+        valid = pad.bool()
+        errs = {}
+        for stage in ("pretrain", "weight-prune", "row-prune", "distill-6L"):
+            ext = MelHuBERTExtractor(self.rows[stage]["ckpt"],
+                                     fp=self.settings.frame_period,
+                                     device=self.dev)
+            got = serve_forward(ext, feat, pad)
+            ext.attn_impl = "dense"
+            errs[stage] = rel_err(got, serve_forward(ext, feat, pad), valid)
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{stage} serves non-finite features")
+            del ext
+        log("journey", "serving, kernels vs impl='dense' (f32, TF32 off), "
+            "max|d|/mean|ref|: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (bar {SLICE_BAR:g})")
+        if not max(errs.values()) < SLICE_BAR:
+            raise AssertionError("a served journey model disagrees with "
+                                 "impl='dense'")
+
+
+def phase_journey(dev, gpu: str, tmp: str, go=None) -> dict:
+    """journey.py's run_journey at full width (JourneySettings: 12 layers
+    of 768, FFN 3072, 12 heads, K = 512, B = 4 x T = 768, f32) with
+    journey_schedule, every stage checked by JourneyChecks, the quality
+    curve over every checkpoint before the timed serving (which waits for
+    ``go`` where given). Returns the launch counts per stage, {"journey
+    <stage>": per-dtype counts}."""
+    from speech_ssl_compression_tpu_torch import journey
+
+    t0 = time.perf_counter()
+    workdir = pathlib.Path(tmp) / "journey"
+    settings = JOURNEY_SETTINGS or journey.JourneySettings()
+    schedule = journey_schedule()
+    checks = JourneyChecks(dev, gpu, workdir, settings, schedule, go)
+    summary = journey.run_journey(workdir, settings, schedule, device=dev,
+                                  hook=checks)
+    stages = summary["stages"]
+    log("journey", "stages: " + "; ".join(
+        f"{r['stage']} CE {r['heldout_masked_ce_unrounded']:.6f}, "
+        f"{r['params_m']} M params, {r['wall_sec']} s"
+        + (f", sparsity {r['sparsity']}" if "sparsity" in r else "")
+        for r in stages) + f"; k-means {summary['data']['kmeans_sec']} s "
+        f"(inertia/row {summary['data']['kmeans_inertia_per_row']:.4f}), "
+        f"data {summary['data']['wall_sec']} s; serving frames/s "
+        f"{summary['serving_frames_per_sec']} ({summary['serving_clock']}, "
+        f"the card to itself); workdir {summary['workdir_bytes']} bytes "
+        f"[{gpu}]")
+    shutil.rmtree(workdir)
+    log("journey", f"phase {time.perf_counter() - t0:.2f} s")
+    return checks.paths
+
+
+JOURNEY_WAIT = 600  # seconds the parent waits for the journey's process
+
+
+@contextlib.contextmanager
+def journey_process(tmp: str):
+    """The journey phase in a process of its own (this script with
+    --journey, journey_main), started now: its imports and CUDA context
+    overlap the phase running meanwhile, and it waits for
+    journey_start. Its stages, checks and curve then share the card with
+    the phases that follow, as the parallel ranks do, and its timed
+    serving waits for ``go``, which phase_journey_join writes once the
+    card is the journey's. Output in ``journey.log``. Yields {"root",
+    "proc", "go"}; the process is killed on exit if it still runs."""
+    root = pathlib.Path(tmp) / "journey_process"
+    root.mkdir()
+    go = root / "go"
+    with open(root / "journey.log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--journey",
+             str(go)], cwd=root, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            yield dict(root=root, proc=proc, go=go)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def journey_main(go: str) -> None:
+    """The journey phase's process: its imports and CUDA context, then,
+    once ``<go>.start`` exists, phase_journey in ``go``'s directory, its
+    launch counts per stage written to ``<go>.json``."""
+    from speech_ssl_compression_tpu_torch import journey  # noqa: F401
+    from speech_ssl_compression_tpu_torch.train import runner  # noqa: F401
+
+    dev = torch.device("cuda", 0)
+    torch.zeros((), device=dev)
+    gpu = gpu_name_and_power()
+    go = pathlib.Path(go)
+    wait_for(f"{go}.start", "start for the journey")
+    paths = phase_journey(dev, gpu, str(go.parent), go=go)
+    pathlib.Path(f"{go}.json").write_text(json.dumps(paths))
+
+
+def journey_wait(run: dict, path: pathlib.Path, what: str) -> None:
+    """``path`` once it exists; fails with the tail of the journey's log
+    if its process ends first or JOURNEY_WAIT s pass."""
+    deadline = time.perf_counter() + JOURNEY_WAIT
+    while not path.exists():
+        if run["proc"].poll() is not None or time.perf_counter() > deadline:
+            tail = (run["root"] / "journey.log").read_text()[-4000:]
+            raise AssertionError(f"the journey's process gave no {what} "
+                                 f"(exit {run['proc'].poll()}):\n{tail}")
+        time.sleep(0.2)
+
+
+def journey_start(run: dict) -> None:
+    """Lets the journey's process start its stages."""
+    pathlib.Path(f"{run['go']}.start").touch()
+
+
+def journey_ready(run: dict) -> None:
+    """Waits until the journey's process has done all but its timed
+    serving (before the phases that time with the card to themselves)."""
+    journey_wait(run, pathlib.Path(f"{run['go']}.ready"), "ready signal")
+
+
+def phase_journey_join(run: dict) -> dict:
+    """Gives the journey's process the card for its timed serving, waits
+    for it to end, prints its journey lines and returns its launch counts
+    per stage."""
+    journey_ready(run)
+    run["go"].touch()
+    journey_wait(run, pathlib.Path(f"{run['go']}.json"), "result")
+    run["proc"].wait(timeout=JOURNEY_WAIT)
+    for line in (run["root"] / "journey.log").read_text().splitlines():
+        if line.startswith(("[journey]", "[curve]", "|")):
+            print(line, flush=True)
+    if run["proc"].returncode != 0:
+        raise AssertionError(f"the journey's process exited "
+                             f"{run['proc'].returncode}")
+    return json.loads(pathlib.Path(f"{run['go']}.json").read_text())
+
+
 def attention_library_ms(dev, gpu: str, dtype):
     """F.scaled_dot_product_attention's times in ``dtype`` (f32 with TF32
     off), the flash kernels' library yardstick (timed here, never called by
@@ -7533,6 +7993,9 @@ def main() -> None:
     parser.add_argument("--verify", default=None, metavar="SPEC",
                         help="run as the parallel phase's verifier "
                         "(verify_main)")
+    parser.add_argument("--journey", default=None, metavar="GO",
+                        help="run the journey phase in this process "
+                        "(journey_main)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -7543,6 +8006,9 @@ def main() -> None:
         return
     if args.verify:
         verify_main(args.verify)
+        return
+    if args.journey:
+        journey_main(args.journey)
         return
     from speech_ssl_compression_tpu_torch.ops import _kernels
 
@@ -7569,6 +8035,7 @@ def main() -> None:
     library = {dtype: timed("library", attention_library_ms, dev, gpu, dtype)
                for dtype in (torch.float32, torch.bfloat16)}
     with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as journey_stack, \
             contextlib.ExitStack() as stack:
         serve, extractors, wavs = timed("slice", phase_slice, dev, gpu, tmp)
         timed("slice", phase_timing, extractors, wavs, gpu)
@@ -7606,9 +8073,11 @@ def main() -> None:
                                   lambda p: p == "a/last-step.npz"):
             distill = timed("distill", phase_distill, dev, gpu, tmp,
                             one_head, args.profile)
+        journey_run = journey_stack.enter_context(journey_process(tmp))
         with unread_saves_skipped("long", lambda p: p == "exp/last-step.npz"):
             long_counts, long_paths, seqpar_refs = timed(
                 "long", phase_long, dev, gpu, tmp, record)
+        journey_start(journey_run)
         hubert_serve = timed("hubert serve", phase_hubert_serve, dev, gpu)
         runner, hubert_train, cudnn_model, batch = timed(
             "hubert train", phase_hubert_train, dev, gpu, tmp)
@@ -7632,11 +8101,13 @@ def main() -> None:
         wave_prune = timed("wave prune", phase_wave_prune, dev, gpu, tmp)
         gc.collect()
         torch.cuda.empty_cache()  # the ranks share the card with us
+        timed("journey", journey_ready, journey_run)
         parallel, parallel_long = timed("parallel", phase_parallel, dev,
                                         gpu, tmp, ranks, seqpar_refs,
                                         started)
         stack.close()  # every rank still running is killed
         long_paths.update(parallel_long)
+        journey = timed("journey", phase_journey_join, journey_run)
 
     # launches of each kernel on each main path per dtype, counted from 0
     # just before the path ran and read just after
@@ -7656,6 +8127,7 @@ def main() -> None:
              "hubert serve": hubert_serve, "hubert train": hubert_train,
              "wav2vec2 train": w2v2_train, **wave_bench, **wave_prune,
              **long_counts, **parallel}
+    paths.update(journey)
     for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
         if not head_prune[name]["f32"]:
             raise AssertionError(f"no f32 {name} launch on head pruning")

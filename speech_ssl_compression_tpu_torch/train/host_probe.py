@@ -21,7 +21,6 @@ from __future__ import annotations
 import gc
 import os
 import pathlib
-import subprocess
 import tempfile
 import time
 import zlib
@@ -33,6 +32,7 @@ from ..configs import HuBERTConfig, read_yaml
 from ..models.conv_frontend import conv_output_length
 from ..ops import _kernels
 from ..utils.checkpoint import save_checkpoint
+from ..utils.device import card_label
 from ..utils.weights import (
     init_hubert_params_np, load_wave_model, wave_tree_from_named)
 from .steps import make_hubert_grad_step
@@ -122,10 +122,7 @@ def main() -> None:
                   f"{t7 - t6:.3f} s", flush=True)
             os.remove(path)
             os.remove(os.path.join(tmp, "raw.bin"))
-    print("gpu:", subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip())
+    print("gpu:", card_label(dev))
 
 
 if __name__ == "__main__":

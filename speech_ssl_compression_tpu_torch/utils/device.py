@@ -10,6 +10,7 @@ is not handed out again before the copy has completed.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import numpy as np
 import torch
@@ -27,6 +28,24 @@ def resolve_device(device) -> torch.device:
             "(pass device='cpu' to run on the CPU)"
         )
     return dev
+
+
+def card_label(device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (the
+    power limit paces a loaded card, so it goes beside every time), or
+    ``cpu``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else 0
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True)
+        return out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name(index)}, power limit unknown"
 
 
 @contextlib.contextmanager

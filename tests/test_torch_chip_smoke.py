@@ -812,3 +812,114 @@ def test_update_check_fails_planted_faults(fault):
         assert check["follow_got"] > 0 and check["unexplained"] > 0
 
 
+
+
+def test_journey_phase_runs_on_the_cpu(monkeypatch, tmp_path):
+    # the journey phase end to end at journey.py's TINY settings (2 layers
+    # of 64, 4 heads, FFN 128, K = 16, 12 crops of T = 96): the phase's
+    # smoke schedule with 2 heads and 32 rows an event (the 12 and 512 of
+    # full width would empty the tiny model), the plain attention counted
+    # as the kernels' launches, the CUDA synchronisation stubbed. Every
+    # stage's checks and launch counts, and the quality curve
+    import dataclasses
+
+    from speech_ssl_compression_tpu_torch import journey
+    from speech_ssl_compression_tpu_torch.ops import flash_attention as fa
+
+    plain_fwd, plain_bwd = fa._reference_fwd, fa.reference_bwd
+
+    def counted_fwd(q, k, v, *args, **kwargs):
+        fa._count("flash_attn_fwd", q, k.shape[2])
+        return plain_fwd(q, k, v, *args, **kwargs)
+
+    def counted_bwd(q, k, *args):
+        for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+            fa._count(name, q, k.shape[2])
+        return plain_bwd(q, k, *args)
+
+    monkeypatch.setattr(fa, "_reference_fwd", counted_fwd)
+    monkeypatch.setattr(fa, "reference_bwd", counted_bwd)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    settings = journey.settings_for(tiny=True)
+    smoke = chip_smoke.journey_schedule()
+    assert (smoke.pretrain_steps, smoke.wp_total, smoke.hp_total,
+            smoke.rp_total, smoke.distill_steps, smoke.serve_reps) == (
+        3, 4, 2, 2, 2, 5)
+    assert smoke.wp_prune["sparsity"] == [0.3, 0.5, 0.7]
+    tiny = dataclasses.replace(
+        smoke, hp_prune=dict(smoke.hp_prune, num_heads_each_step=2),
+        rp_prune=dict(smoke.rp_prune, num_rows_each_step=32))
+    monkeypatch.setattr(chip_smoke, "JOURNEY_SETTINGS", settings)
+    monkeypatch.setattr(chip_smoke, "journey_schedule", lambda: tiny)
+    # as the journey's own process runs it: the parent's go given already
+    go = tmp_path / "go"
+    go.touch()
+    # one thread: the tiny model's ops are small, and the suite's workers
+    # share the machine's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        paths = chip_smoke.phase_journey(torch.device("cpu"), "cpu",
+                                         str(tmp_path), go=go)
+    finally:
+        torch.set_num_threads(threads)
+    assert (tmp_path / "go.ready").exists()
+    stages = ("pretrain", "weight-prune", "head-prune", "row-prune",
+              "distill-6L", "serve", "curve")
+    assert set(paths) == {f"journey {s}" for s in stages}
+    # every launch f32 (the journey's trainers run f32, as JAX's); 3
+    # updates + the held-out forward at 2 layers
+    assert paths["journey pretrain"]["flash_attn_fwd"] == {"f32": 8,
+                                                           "bf16": 0}
+    assert paths["journey pretrain"]["flash_attn_bwd_dq"] == {"f32": 6,
+                                                              "bf16": 0}
+    # 2 updates and 2 scoring passes (the first layer's context lies past
+    # its attention: one backward each) + the held-out forward
+    assert paths["journey head-prune"]["flash_attn_bwd_dkv"] == {"f32": 6,
+                                                                 "bf16": 0}
+    # 2 updates of a 2-layer teacher and a 1-layer student + the student's
+    # held-out forward
+    assert paths["journey distill-6L"]["flash_attn_fwd"] == {"f32": 7,
+                                                             "bf16": 0}
+    # 4 models (2, 2, 2, 1 layers), a warm call and 5 repeats each
+    assert paths["journey serve"]["flash_attn_fwd"] == {"f32": 42,
+                                                        "bf16": 0}
+    assert not (tmp_path / "journey").exists()
+
+
+def test_journey_process_shares_the_card_but_serves_alone():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    # the journey's process starts before the long phase (the last to add
+    # to the kernels line's timed cases) and its stages after it, before
+    # hubert serve; the parent waits for its stages before the parallel
+    # phase times with the card to the ranks, and gives it the card after
+    # the ranks end
+    assert (src.index("journey_process(tmp)")
+            < src.index('"long", phase_long')
+            < src.index("journey_start(journey_run)")
+            < src.index('"hubert serve", phase_hubert_serve')
+            < src.index('"wave prune", phase_wave_prune')
+            < src.index('"journey", journey_ready')
+            < src.index('"parallel", phase_parallel')
+            < src.index("stack.close()")
+            < src.index('"journey", phase_journey_join')
+            < src.index("paths.update(journey)")
+            < src.index("launch_fields("))
+    assert src.index("journey_main(args.journey)") < src.index(
+        "_kernels.build()")
+    argv = inspect.getsource(chip_smoke.journey_process)
+    assert '"--journey"' in argv
+
+
+def test_journey_launches_count_every_stage_at_full_width():
+    smoke = chip_smoke.journey_schedule()
+    want = {"pretrain": (48, 36), "weight-prune": (60, 48),
+            "head-prune": (60, 46), "row-prune": (36, 24),
+            "distill-6L": (42, 12), "serve": (252, 0)}
+    for stage, (fwd, bwd) in want.items():
+        got = chip_smoke.journey_launches(stage, 12, smoke, 2, 6)
+        assert got["flash_attn_fwd"] == {"f32": fwd, "bf16": 0}, stage
+        assert got["flash_attn_bwd_dq"] == got["flash_attn_bwd_dkv"] == {
+            "f32": bwd, "bf16": 0}, stage

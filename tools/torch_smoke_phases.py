@@ -1,9 +1,9 @@
 """Build the kernels and run chip_smoke.py's preprocess, train, fairseq
 dump, device masks, deep pos-conv and wave_bench phases alone, on one
-card, with their launch counts and each phase's seconds. Run from the
-repository's root:
+card, with their launch counts and each phase's seconds; with
+``--journey``, the journey phase alone. Run from the repository's root:
 
-    python3 tools/torch_smoke_phases.py
+    python3 tools/torch_smoke_phases.py [--journey]
 """
 import json
 import pathlib
@@ -23,6 +23,12 @@ t0 = time.perf_counter()
 _kernels.build()
 _kernels.load()
 print("build", time.perf_counter() - t0, flush=True)
+if "--journey" in sys.argv[1:]:
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = cs.timed("journey", cs.phase_journey, dev, gpu, tmp)
+    print(json.dumps(paths))
+    print({k: round(v, 1) for k, v in cs.PHASE_SECONDS.items()})
+    sys.exit(0)
 with tempfile.TemporaryDirectory() as tmp:
     csv = cs.timed("preprocess", cs.phase_preprocess, dev, gpu, tmp)
     with cs.unread_saves_skipped("train", lambda p: not p.endswith(
