@@ -268,6 +268,20 @@ result line):
             past the last input row an output reaches; CUDA-event times of
             each kernel, its plain version and cuDNN's call for the same
             function (F.conv1d, conv1d_weight, conv1d_input);
+  grouped conv  the grouped pos-conv (ops/grouped_conv.py, JAX's
+            grouped_conv1d: f32 sums of bf16 products, dX by the conv
+            transpose, dW tap by tap) at GC_CASES (the K = 128 pos-conv at
+            B = 4 x T = 768, the deep stack's K = 19, the f32 stream
+            step's VALID window, T = 8192) against its plain version in
+            float64: f32 (TF32 off) forward, dX and dW within GC_BAR rel.
+            L2; bf16 inputs' f32 forward and f32 dW sums within GC_BAR,
+            dX within one ulp; planted controls (one tap dropped, the
+            bf16-summed forward) that must fail; CUDA-event times of the
+            forward and of forward and backward, module against the
+            F.conv1d autograd route it replaced (cudnn_grouped), f32 and
+            bf16, with their bounds; after the timing phase the f32 serve
+            batch, and after train timing the bf16 grad step, once on
+            each route (cudnn_pos_conv);
   hubert serve  HuBERT-base at full width (configs/hubert/config_model.yaml,
             seeded random weights) through hubert_forward(features_only=True)
             on 8 x 491,520 samples: launch counts, the conv kernels
@@ -645,6 +659,20 @@ CONV_REPLACES = {
 # f32 conv kernels against the plain version run in float64: forward and dX
 # max |d| / mean |ref|, dW rel. L2 (its sums run over up to ~10^5 rows)
 CONV_F32_BAR = 1e-5
+# the grouped pos-conv (ops/grouped_conv.py, JAX's grouped_conv1d) at the
+# shapes the model paths give it, (B, T in, C, G, K, pad): MelHuBERT's,
+# HuBERT's and wav2vec 2.0's K = 128 SamePad at the training batch; the deep
+# stack's K = 19; the f32 lockstep stream step's VALID window (B = 16, 128
+# frames out of 128 + K - 1); one 8192-frame utterance
+GC_CASES = (("pos_conv", (4, 768, 768, 16, 128, (64, 64))),
+            ("deep", (4, 768, 768, 16, 19, (9, 9))),
+            ("stream", (16, 255, 768, 16, 128, (0, 0))),
+            ("long", (1, 8192, 768, 16, 128, (64, 64))))
+# rel. L2 against the float64 sums of the same operands: f32 (TF32 off)
+# forward, dX and dW; bf16 inputs' f32 forward and f32 dW sums. bf16 dX
+# (rounded from f32) within BF16_ULP_BAR of its float64 value
+GC_BAR = 1e-5
+GC_REPLACES = "speech_ssl_compression_tpu/ops/grouped_conv.py:45"
 WP_MODEL_YAML = ROOT / "configs" / "weight_pruning" / "config_model_20ms.yaml"
 WP_RUNNER_YAML = ROOT / "configs" / "weight_pruning" / "config_runner_20ms.yaml"
 # the prune: keys the weight prune phase shortens (one event at step 1,
@@ -4867,6 +4895,263 @@ def conv_timing(shape, x, w, dy, tag, record, gpu: str):
         rec["ops_ms" + sfx] += work[name][0] / peak_flops(x.dtype) * 1e3
 
 
+def cudnn_grouped(x, w, groups: int, pad: tuple, bias=None):
+    """The route every grouped pos-conv took before ops/grouped_conv.py:
+    F.conv1d in x's dtype on the (K, C/G, O) weight, pad (lo, lo) (its
+    bf16 sums rounded to bf16), and autograd's cuDNN backward. The grouped
+    conv phase times the module against it and takes its bf16 forward as
+    a control; no path of the port calls it."""
+    import torch.nn.functional as F
+
+    return F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), bias,
+                    padding=pad[0], groups=groups).transpose(1, 2)
+
+
+def cudnn_samepad(x, w, bias, groups: int, kernel_size: int):
+    """models/encoder.py::_grouped_conv_samepad as it was on cudnn_grouped:
+    the torch (D, D/g, K) weight, the bias inside the conv, the SamePad
+    crop."""
+    half = kernel_size // 2
+    out = cudnn_grouped(x, w.to(x.dtype).permute(2, 1, 0), groups,
+                        (half, half), bias.to(x.dtype))
+    return out[:, :-1] if kernel_size % 2 == 0 else out
+
+
+@contextlib.contextmanager
+def cudnn_pos_conv():
+    """Every grouped pos-conv of the encoder on cudnn_samepad for the
+    duration. Yields the list its calls append to."""
+    from speech_ssl_compression_tpu_torch.models import encoder
+
+    calls = []
+
+    def route(*args):
+        calls.append(1)
+        return cudnn_samepad(*args)
+
+    saved = encoder._grouped_conv_samepad
+    encoder._grouped_conv_samepad = route
+    try:
+        yield calls
+    finally:
+        encoder._grouped_conv_samepad = saved
+
+
+def grouped_conv_taps(x, w, dy, groups: int, pad: tuple):
+    """The grouped conv's plain version, (forward, dX, dW) of x (B, T, C),
+    w (K, C/G, O) and dy (B, T_out, O), one einsum per tap, in x's dtype
+    (the phase runs it in float64)."""
+    import torch.nn.functional as F
+
+    b, t, c = x.shape
+    k, cg, o = w.shape
+    og = o // groups
+    xp = F.pad(x, (0, 0, *pad)).reshape(b, -1, groups, cg)
+    t_out = xp.shape[1] - k + 1
+    wg = w.reshape(k, cg, groups, og)
+    dyg = dy.reshape(b, t_out, groups, og)
+    y = xp.new_zeros((b, t_out, groups, og))
+    dxp = torch.zeros_like(xp)
+    dw = xp.new_empty((k, cg, groups, og))
+    for j in range(k):
+        xs = xp[:, j:j + t_out]
+        y += torch.einsum("btgi,igo->btgo", xs, wg[j])
+        dxp[:, j:j + t_out] += torch.einsum("btgo,igo->btgi", dyg, wg[j])
+        dw[j] = torch.einsum("btgi,btgo->igo", xs, dyg)
+    dx = dxp[:, pad[0]:pad[0] + t].reshape(b, t, c)
+    return y.reshape(b, t_out, o), dx, dw.reshape(k, cg, o)
+
+
+def check_grouped_conv(name, shape, dtype, gen):
+    """One case of ops/grouped_conv.py against its plain version run in
+    float64 on the same operands (TF32 off around the call). f32:
+    forward, dX and dW within GC_BAR. bf16 inputs: the f32 forward and
+    the f32 dW sums (grouped_conv1d_dw, whose cast autograd's dW is, bit
+    for bit) within GC_BAR, dX within BF16_ULP_BAR ulps, f32 out and the
+    gradients in bf16.
+    Planted controls must fail the forward's bar: one tap dropped, and for
+    bf16 the old route's forward (its sums rounded to bf16). dy is any f32,
+    as a bf16 input's f32 output may get. Raises where a bar fails or a
+    control passes; returns (x, w, dy) and {"errors": ..., "controls": ...},
+    each rel. L2 by name."""
+    from speech_ssl_compression_tpu_torch.ops.grouped_conv import (
+        grouped_conv1d, grouped_conv1d_dw,
+    )
+    from speech_ssl_compression_tpu_torch.utils.device import matmul_precision
+
+    b, t, c, g, k, pad = shape
+    t0 = time.perf_counter()
+    x = torch.randn((b, t, c), generator=gen, device=gen.device).to(dtype)
+    w = (torch.randn((k, c // g, c), generator=gen, device=gen.device)
+         / (k * c // g) ** 0.5).to(dtype)
+    dy = torch.randn((b, t + pad[0] + pad[1] - k + 1, c), generator=gen,
+                     device=gen.device)
+    bf16 = dtype == torch.bfloat16
+    with matmul_precision("highest"), torch.enable_grad():
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = grouped_conv1d(xx, ww, g, pad)
+        dx, dw = torch.autograd.grad(y, (xx, ww), dy)
+    with matmul_precision("highest"):
+        sums = grouped_conv1d_dw(x, dy, k, g, pad)
+        w_drop = w.clone()
+        w_drop[k // 2] = 0
+        controls = {"one tap dropped": grouped_conv1d(x, w_drop, g, pad)}
+        if bf16:
+            controls["bf16 sums"] = cudnn_grouped(x, w, g, pad)
+    y = y.detach()
+    ref_y, ref_dx, ref_dw = grouped_conv_taps(x.double(), w.double(),
+                                              dy.double(), g, pad)
+    errs = {"fwd": rel_l2(y, ref_y, ...),
+            "dW": rel_l2(sums if bf16 else dw, ref_dw, ...)}
+    ok = all(torch.isfinite(a.float()).all() for a in (y, dx, dw))
+    if bf16:
+        ulps = float(((dx.double() - ref_dx).abs() / bf16_ulp(ref_dx)).max())
+        cast = torch.equal(dw, sums.to(dtype))
+        ok &= (ulps <= BF16_ULP_BAR and cast and y.dtype == torch.float32
+               and dx.dtype == dw.dtype == dtype)
+        extra = (f", dX max {ulps:.3f} ulp (bar {BF16_ULP_BAR:g}), dW the "
+                 f"f32 sums' cast: {cast}, out {y.dtype}")
+    else:
+        errs["dX"] = rel_l2(dx, ref_dx, ...)
+        ok &= y.dtype == dx.dtype == dw.dtype == dtype
+        extra = ""
+    ok &= all(e < GC_BAR for e in errs.values())
+    ctl = {n: rel_l2(v, ref_y, ...) for n, v in controls.items()}
+    tag = "bf16" if bf16 else "f32"
+    log("grouped conv", f"{name} {tag} x{(b, t, c)} G={g} K={k} pad={pad}: "
+        f"module vs float64, rel. L2 "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (bar {GC_BAR:g}){extra}; controls "
+        + ", ".join(f"{n} {e:.3e}" for n, e in ctl.items())
+        + f" (must fail the bar), {time.perf_counter() - t0:.2f} s")
+    if any(e < GC_BAR for e in ctl.values()):
+        raise AssertionError(f"grouped conv check at {name} {tag} passes "
+                             f"a planted control: {ctl}")
+    if not ok:
+        raise AssertionError(f"grouped conv disagrees at {name} {tag}")
+    return (x, w, dy), dict(errors=errs, controls=ctl)
+
+
+def grouped_conv_timing(name, shape, x, w, dy, gpu: str) -> dict:
+    """CUDA-event times at one shape, the module against cudnn_grouped in
+    turns (medians of 3, TF32 off): the
+    forward, and the forward and backward (dX and dW), with the bound of
+    each, 2 B T_out C (C/G) K FLOPs a pass at the dtype's peak (or its
+    bytes over HBM bandwidth, where larger)."""
+    from speech_ssl_compression_tpu_torch.ops.grouped_conv import (
+        grouped_conv1d,
+    )
+    from speech_ssl_compression_tpu_torch.utils.device import matmul_precision
+
+    b, t, c, g, k, pad = shape
+    t_out = dy.shape[1]
+    flops = 2.0 * b * t_out * c * (c // g) * k
+    size, out_size = x.element_size(), dy.element_size()
+    io = {"x": x.numel() * size, "w": w.numel() * size,
+          "y": dy.numel() * out_size}
+    fwd_bytes = io["x"] + io["w"] + io["y"]
+    dys = {grouped_conv1d: dy, cudnn_grouped: dy.to(x.dtype)}
+
+    def fwd(route):
+        return lambda: route(x, w, g, pad)
+
+    def fwd_bwd(route):
+        def run():
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_()
+                ww = w.detach().requires_grad_()
+                torch.autograd.grad(route(xx, ww, g, pad), (xx, ww),
+                                    dys[route])
+        return run
+
+    tag = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    rec = {}
+    with matmul_precision("highest"):
+        for what, make, passes, n_bytes in (
+                ("fwd", fwd, 1, fwd_bytes),
+                # the backward reads dy, x and w and writes dX and dW
+                ("fwd+bwd", fwd_bwd, 3,
+                 2 * fwd_bytes + io["x"] + io["w"])):
+            mod_ms, old_ms = alternate(make(grouped_conv1d),
+                                       make(cudnn_grouped))
+            bound_ms, by = bound(passes * flops, n_bytes, x.dtype)
+            rec[what] = dict(ms=mod_ms, cudnn_ms=old_ms, bound_ms=bound_ms,
+                             bound_by=by)
+            log("timing", f"grouped conv {what} {name} {tag} x{(b, t, c)} "
+                f"G={g} K={k}: module {mod_ms:.3f} ms, F.conv1d autograd "
+                f"route {old_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}; "
+                f"{passes * flops / 1e9:.1f} GFLOP) [{gpu}]")
+    return rec
+
+
+def phase_grouped_conv(dev, gpu: str) -> dict:
+    """ops/grouped_conv.py at GC_CASES, f32 and bf16: each case checked
+    against float64 with its planted controls (check_grouped_conv), then
+    timed against the F.conv1d route (grouped_conv_timing). Returns
+    {(case, dtype tag): times, the check's errors and controls}."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    record = {}
+    for name, shape in GC_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, check = check_grouped_conv(name, shape, dtype, gen)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            record[name, tag] = dict(check, **grouped_conv_timing(
+                name, shape, *args, gpu))
+            del args
+    return record
+
+
+def grouped_conv_serve(extractors, wavs, gpu: str) -> None:
+    """The f32 serve batch from features (phase_timing's encoder call) on
+    the module and on cudnn_pos_conv, one CUDA-event median of 3 each."""
+    ext = extractors["f32", "kernel"]
+    feat, pad_mask, lengths = ext.featurize(wavs)
+
+    def run():
+        return ext._pack_and_dispatch(feat, pad_mask, lengths)
+
+    def cudnn():
+        with cudnn_pos_conv():
+            return run()
+
+    with cudnn_pos_conv() as calls:
+        run()
+    if not calls:
+        raise AssertionError("the serve batch took no grouped pos-conv")
+    mod_ms, old_ms = alternate(run, cudnn, turns=1)
+    frames = sum(SERVE_LENGTHS)
+    log("timing", f"grouped conv: f32 serve batch from features, pos-conv "
+        f"module {mod_ms:.2f} ms ({frames / mod_ms * 1e3:.0f} frames/s), "
+        f"F.conv1d route {old_ms:.2f} ms ({frames / old_ms * 1e3:.0f} "
+        f"frames/s) [{gpu}]")
+
+
+def grouped_conv_grad_step(runner, batch, gpu: str) -> None:
+    """The bf16 MelHuBERT grad step (B = 4, T = 768) on the module and on
+    cudnn_pos_conv, one time each after a warm-up (the train phase's
+    yardstick order)."""
+    from speech_ssl_compression_tpu_torch.train.steps import (
+        make_melhubert_grad_step,
+    )
+
+    step = make_melhubert_grad_step(runner.model,
+                                    accum_steps=runner.accum_steps,
+                                    compute_dtype=torch.bfloat16)
+
+    def run():
+        return step(runner.params, batch, runner.rng)
+
+    def cudnn():
+        with cudnn_pos_conv() as calls:
+            run()
+        if not calls:
+            raise AssertionError("the grad step took no grouped pos-conv")
+
+    mod_ms, old_ms = alternate(run, cudnn, reps=1, turns=1)
+    log("timing", f"grouped conv: bf16 grad step B=4 T=768, pos-conv module "
+        f"{mod_ms:.2f} ms, F.conv1d route {old_ms:.2f} ms [{gpu}]")
+
+
 def launch_counts():
     """Every kernel's launch count, attention and conv."""
     from speech_ssl_compression_tpu_torch.ops import conv1d as tc
@@ -8032,6 +8317,7 @@ def main() -> None:
     record = timed("kernels", phase_kernels, dev, gpu)
     merge(record, timed("backward", phase_backward, dev, gpu))
     conv = timed("conv", phase_conv, dev, gpu)
+    timed("grouped conv", phase_grouped_conv, dev, gpu)
     library = {dtype: timed("library", attention_library_ms, dev, gpu, dtype)
                for dtype in (torch.float32, torch.bfloat16)}
     with tempfile.TemporaryDirectory() as tmp, \
@@ -8039,6 +8325,7 @@ def main() -> None:
             contextlib.ExitStack() as stack:
         serve, extractors, wavs = timed("slice", phase_slice, dev, gpu, tmp)
         timed("slice", phase_timing, extractors, wavs, gpu)
+        timed("grouped conv", grouped_conv_serve, extractors, wavs, gpu)
         if args.profile:
             timed("profile", phase_profile, extractors, wavs, gpu)
         wave_serve, wave_stream = timed("wave serve", phase_wave_serve, dev,
@@ -8051,6 +8338,7 @@ def main() -> None:
             runner, batch, train, snapshot = timed("train", phase_train, dev,
                                                    gpu, tmp, csv)
         merge(record, timed("train", phase_train_timing, runner, batch, gpu))
+        timed("grouped conv", grouped_conv_grad_step, runner, batch, gpu)
         if args.profile:
             timed("profile", phase_train_profile, runner, batch, gpu)
         timed("resume", phase_resume, dev, gpu, tmp, runner, snapshot, batch)

@@ -9,7 +9,9 @@ counterpart. Per-layer head counts and FFN widths come from the config's
 per-layer tuples, so head- and row-pruned checkpoints load. With
 ``pos_conv_depth > 1`` the positional embedding is the deep stack of
 grouped convs (``encoder.pos_conv.{i}.0.weight``; JAX
-``pos_conv_embed_deep``).
+``pos_conv_embed_deep``). Every grouped pos-conv goes through
+``ops/grouped_conv.py`` (JAX's ``grouped_conv1d``: f32 sums in bf16, and
+JAX's backward).
 
 Training (``deterministic=False``) adds the input dropout after the
 prologue, the residual, activation and attention dropouts of every layer,
@@ -51,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.activations import get_activation_fn
 from ..ops.attention import SelfAttention, multi_head_self_attention
 from ..ops.dropout import dropout, draw_seed, fold_seed, seeded_generator
+from ..ops.grouped_conv import grouped_conv1d
 from ..parallel.mesh import CopyToModel, ReduceFromModel
 
 LN_EPS = 1e-5
@@ -140,10 +143,15 @@ def pos_conv_weight(p: PosConv) -> torch.Tensor:
 
 def _grouped_conv_samepad(x, w, bias, groups: int, kernel_size: int):
     """Grouped Conv1d over (B, T, D) with K // 2 padding on each side and the
-    SamePad crop of one frame for an even K. ``w`` is in the torch layout
-    (D, D // g, K), which ``F.conv1d`` takes as is."""
-    out = F.conv1d(x.transpose(1, 2), w.to(x.dtype), bias.to(x.dtype),
-                   padding=kernel_size // 2, groups=groups).transpose(1, 2)
+    SamePad crop of one frame for an even K, shared by the shallow and deep
+    pos-convs (JAX ``_grouped_conv_samepad``). ``w`` is in the torch layout
+    (D, D // g, K), taken to (K, D // g, D) for
+    :func:`~..ops.grouped_conv.grouped_conv1d` (f32 sums in bf16); its
+    result is cast to x's dtype before the bias is added, as in JAX."""
+    half = kernel_size // 2
+    out = grouped_conv1d(x, w.to(x.dtype).permute(2, 1, 0), groups,
+                         (half, half))
+    out = out.to(x.dtype) + bias.to(x.dtype)
     if kernel_size % 2 == 0:
         out = out[:, :-1, :]
     return out

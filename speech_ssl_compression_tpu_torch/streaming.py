@@ -12,7 +12,8 @@ steps against per-layer K/V caches of a fixed capacity.
     newest frame by K - 1 - K // 2 frames (63 at K = 128, 1.26 s at the
     20 ms frame period), and each chunk's conv runs VALID over a
     (C + K - 1)-frame window, which reproduces the full forward's SamePad
-    conv, its zero padding at both stream ends included;
+    conv, its zero padding at both stream ends included (the encoder's
+    grouped conv, ``ops/grouped_conv.py``, with pad (0, 0));
   * the host featurizer streams the Kaldi fbank: its ops are per frame
     (the chunked frames lie within one float32 ulp of the whole
     utterance's, where the mel product's blocking differs), and the 20 ms
@@ -40,7 +41,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .configs import MelHuBERTConfig
 from .extract import (
@@ -61,6 +61,7 @@ from .ops.fbank import (
     stack_frame_pairs_np,
 )
 from .ops.flash_attention import NEG_INF
+from .ops.grouped_conv import grouped_conv1d
 from .utils.weights import load_model
 
 
@@ -139,8 +140,8 @@ def _stream_step(model, cfg, window, feat_win, valid_win, caches, n: int,
     # VALID conv over the window = the full forward's SamePad output for
     # exactly these C frames (the even-K crop included: output t reads
     # inputs [t - K // 2, t + K - 1 - K // 2], the window's whole extent)
-    pos = F.conv1d(x.transpose(1, 2), pos_conv_weight(pc).to(x.dtype),
-                   groups=cfg.conv_pos_groups).transpose(1, 2)
+    pos = grouped_conv1d(x, pos_conv_weight(pc).to(x.dtype).permute(2, 1, 0),
+                         cfg.conv_pos_groups, (0, 0)).to(x.dtype)
     pos = gelu(pos + pc.bias)
 
     pre_feat = x[:, left:left + c]

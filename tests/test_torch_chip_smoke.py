@@ -923,3 +923,92 @@ def test_journey_launches_count_every_stage_at_full_width():
         assert got["flash_attn_fwd"] == {"f32": fwd, "bf16": 0}, stage
         assert got["flash_attn_bwd_dq"] == got["flash_attn_bwd_dkv"] == {
             "f32": bwd, "bf16": 0}, stage
+
+
+# the grouped conv phase at a tiny width: SamePad at an even K, the
+# stream's VALID window
+GC_TINY = (("pos_conv", (2, 40, 32, 4, 8, (4, 4))),
+           ("stream", (2, 23, 32, 4, 8, (0, 0))))
+
+
+@pytest.fixture()
+def tiny_grouped_conv(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "GC_CASES", GC_TINY)
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda fn, *args, **kwargs: (fn(), 1.0)[1])
+
+
+def test_grouped_conv_phase_runs_on_the_cpu(tiny_grouped_conv):
+    record = chip_smoke.phase_grouped_conv(torch.device("cpu"), "cpu")
+    assert set(record) == {(n, t) for n, _ in GC_TINY for t in ("f32",
+                                                                "bf16")}
+    for (name, tag), rec in record.items():
+        assert set(rec["errors"]) == ({"fwd", "dW", "dX"} if tag == "f32"
+                                      else {"fwd", "dW"})
+        assert max(rec["errors"].values()) < chip_smoke.GC_BAR
+        # every planted control fails the bar it would have to pass
+        assert set(rec["controls"]) == ({"one tap dropped"} if tag == "f32"
+                                        else {"one tap dropped",
+                                              "bf16 sums"})
+        assert min(rec["controls"].values()) > chip_smoke.GC_BAR
+        for what in ("fwd", "fwd+bwd"):
+            assert 0 < rec[what]["bound_ms"] < rec[what]["ms"]
+    # the bounds: a pass is 2 B T_out C (C/G) K FLOPs, fwd+bwd three; at
+    # this width the bytes bound them
+    b, t, c, g, k, _ = GC_TINY[0][1]
+    flops = 2.0 * b * (t + 1) * c * (c // g) * k
+    for what, passes in (("fwd", 1), ("fwd+bwd", 3)):
+        rec = record["pos_conv", "bf16"][what]
+        assert rec["bound_by"] == "bytes"
+        assert rec["bound_ms"] > passes * flops / peak_flops(
+            torch.bfloat16) * 1e3
+
+
+def _drop_last_tap(dw_fn):
+    def dw(x, dy, k, groups, pad, *args):
+        out = dw_fn(x, dy, k, groups, pad, *args).clone()
+        out[-1] = 0
+        return out
+    return dw
+
+
+@pytest.mark.parametrize("fault", ["dW tap dropped", "control passes"])
+def test_grouped_conv_phase_fails_a_planted_fault(tiny_grouped_conv,
+                                                  monkeypatch, fault):
+    from speech_ssl_compression_tpu_torch.ops import grouped_conv as gc
+
+    if fault == "dW tap dropped":
+        monkeypatch.setattr(gc, "grouped_conv1d_dw",
+                            _drop_last_tap(gc.grouped_conv1d_dw))
+        match = "disagrees"
+    else:  # a bf16 control that sums in f32 would pass: the check says so
+        monkeypatch.setattr(chip_smoke, "cudnn_grouped",
+                            lambda x, w, g, pad: gc.grouped_conv1d(x, w, g,
+                                                                   pad))
+        match = "passes a planted control"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.phase_grouped_conv(torch.device("cpu"), "cpu")
+
+
+def test_cudnn_pos_conv_swaps_the_route_of_every_pos_conv():
+    """The stand-ins' old route: pos_conv_embed goes through
+    cudnn_samepad inside the context (its calls counted), and through the
+    module again after it; f32 agree."""
+    from speech_ssl_compression_tpu_torch.models import encoder
+
+    torch.manual_seed(0)
+    p = encoder.PosConv(32, 8, 4)
+    with torch.no_grad():
+        p.weight_v.normal_()
+        p.bias.normal_()
+    x = torch.randn(2, 40, 32)
+    with torch.no_grad():
+        got = encoder.pos_conv_embed(x, p)
+        with chip_smoke.cudnn_pos_conv() as calls:
+            old = encoder.pos_conv_embed(x, p)
+        again = encoder.pos_conv_embed(x, p)
+    assert len(calls) == 1
+    assert encoder._grouped_conv_samepad is not None and torch.equal(got,
+                                                                     again)
+    assert got.shape == old.shape == (2, 40, 32)
+    assert torch.allclose(got, old, rtol=1e-5, atol=1e-5)

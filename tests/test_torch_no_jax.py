@@ -50,7 +50,8 @@ for new in ("cluster", "ops.kmeans", "s3prl.expert", "s3prl.hubconf",
             "parallel.seqpar", "parallel.pipeline", "preprocess",
             "data.kaldi_io", "data.preprocess", "data.fairseq_dump",
             "data.text_compressor", "utils.flops", "utils.profiling",
-            "train.wave_bench", "journey", "journey_curve"):
+            "train.wave_bench", "journey", "journey_curve",
+            "ops.grouped_conv"):
     assert "speech_ssl_compression_tpu_torch." + new in names, new
 from speech_ssl_compression_tpu_torch.ops.kmeans import kmeans_fit
 centers, _ = kmeans_fit(0, [h[0].numpy()], 4, device="cpu")

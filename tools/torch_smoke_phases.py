@@ -1,9 +1,11 @@
 """Build the kernels and run chip_smoke.py's preprocess, train, fairseq
 dump, device masks, deep pos-conv and wave_bench phases alone, on one
 card, with their launch counts and each phase's seconds; with
-``--journey``, the journey phase alone. Run from the repository's root:
+``--journey``, the journey phase alone; with ``--grouped-conv``, the
+grouped conv phase alone (it needs no kernel built). Run from the
+repository's root:
 
-    python3 tools/torch_smoke_phases.py [--journey]
+    python3 tools/torch_smoke_phases.py [--journey | --grouped-conv]
 """
 import json
 import pathlib
@@ -19,6 +21,9 @@ from speech_ssl_compression_tpu_torch.ops import _kernels
 dev = torch.device("cuda", 0)
 gpu = cs.gpu_name_and_power()
 print("gpu:", gpu, flush=True)
+if "--grouped-conv" in sys.argv[1:]:
+    cs.timed("grouped conv", cs.phase_grouped_conv, dev, gpu)
+    sys.exit(0)
 t0 = time.perf_counter()
 _kernels.build()
 _kernels.load()
