@@ -3998,13 +3998,17 @@ def profile_calls(label: str, fn, gpu: str, calls: int = 3,
     """torch.profiler through utils/profiling.py::trace (no trace file)
     over ``calls`` calls of ``fn`` (after ``warm`` warm-ups): device busy
     time per call, idle share against the CUDA-event wall time, the
-    largest device kernels, and the port's own kernels with their share of
-    the busy time; ``host=False`` traces the device alone (a trace of
-    thousands of host ops takes seconds to read).
+    largest device kernels, the port's own kernels with their share of
+    the busy time, and the device time each of the port's ``sslc.*``
+    spans launched (host traced only); ``host=False`` traces the device
+    alone (a trace of thousands of host ops takes seconds to read).
     Returns (the idle share, the device busy ms per call)."""
     from torch.autograd import DeviceType
 
-    from speech_ssl_compression_tpu_torch.utils.profiling import trace
+    from speech_ssl_compression_tpu_torch.utils.profiling import (
+        span_device_seconds,
+        trace,
+    )
 
     for _ in range(warm):
         fn()
@@ -4031,10 +4035,13 @@ def profile_calls(label: str, fn, gpu: str, calls: int = 3,
         f"{next(k for k in KERNEL_SYMBOLS if k in name)} {ms:.2f} ms "
         f"({ms / busy:.1%})" for name, ms in per_name.most_common()
         if any(k in name for k in KERNEL_SYMBOLS))
+    spans = "; ".join(f"{name} {1e3 * s / calls:.2f} ms" for name, s in
+                      sorted(span_device_seconds(prof).items()))
     log("profile", f"{label}: wall {wall:.2f} ms/call (profiler on), device "
         f"busy {busy:.2f} ms/call, idle {1 - busy / wall:.1%}; largest "
         f"device kernels per call: {top}; the port's kernels: "
-        f"{ours or 'none'} [{gpu}]")
+        f"{ours or 'none'}; the port's spans' device time per call: "
+        f"{spans or 'none'} [{gpu}]")
     return 1 - busy / wall, busy
 
 

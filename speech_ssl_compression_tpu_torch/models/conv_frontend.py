@@ -34,6 +34,7 @@ from ..ops.activations import at_least_f32, gelu
 from ..ops.conv1d import conv1d_strided
 from ..ops.dropout import dropout
 from ..parallel.mesh import sum_over_data
+from ..utils.profiling import span
 
 NORM_EPS = 1e-5
 FRONTEND_IMPLS = ("auto", "tc_conv", "tc_pallas", "tc_fold", "tc_matmul",
@@ -109,29 +110,32 @@ def conv_frontend_forward_tc(fe: ConvFeatureExtractor, conv_layers,
                              impl: str = "auto") -> torch.Tensor:
     """source (B, T_wave) -> features (B, T_frames, C), port of JAX
     ``conv_frontend_forward_tc``: conv (+ bias), the f32 norm, GELU per
-    layer. ``impl`` is a ``conv_frontend_impl`` value (module docstring)."""
+    layer. ``impl`` is a ``conv_frontend_impl`` value (module docstring).
+    A profile's trace names the forward ``sslc.conv_frontend``."""
     if impl not in FRONTEND_IMPLS:
         raise ValueError(f"unknown conv_frontend_impl {impl!r}")
-    x = source[:, :, None]
-    for i, (block, (dim, k, stride)) in enumerate(zip(fe.conv_layers,
-                                                      conv_layers)):
-        conv, norm = block[0], block[2]
-        w = conv.weight  # (O, I, K)
-        if i == 0:
-            x = _im2col_matmul(x, w, k, stride)
-        elif impl == "tc_pallas" and x.shape[-1] % 128 == 0 and dim % 128 == 0:
-            x = conv1d_strided(x, w.permute(2, 1, 0).contiguous().to(x.dtype),
-                               stride)
-        else:
-            x = _cudnn_conv(x, w, stride)
-        if conv.bias is not None:
-            x = x + conv.bias.to(x.dtype)
-        if isinstance(norm, nn.GroupNorm):
-            x = _instance_norm_f32(x, norm)
-        elif isinstance(norm, nn.Sequential):
-            x = _channel_layer_norm_f32(x, norm[1])
-        x = gelu(x)
-    return x
+    with span("sslc.conv_frontend"):
+        x = source[:, :, None]
+        for i, (block, (dim, k, stride)) in enumerate(zip(fe.conv_layers,
+                                                          conv_layers)):
+            conv, norm = block[0], block[2]
+            w = conv.weight  # (O, I, K)
+            if i == 0:
+                x = _im2col_matmul(x, w, k, stride)
+            elif (impl == "tc_pallas" and x.shape[-1] % 128 == 0
+                  and dim % 128 == 0):
+                x = conv1d_strided(
+                    x, w.permute(2, 1, 0).contiguous().to(x.dtype), stride)
+            else:
+                x = _cudnn_conv(x, w, stride)
+            if conv.bias is not None:
+                x = x + conv.bias.to(x.dtype)
+            if isinstance(norm, nn.GroupNorm):
+                x = _instance_norm_f32(x, norm)
+            elif isinstance(norm, nn.Sequential):
+                x = _channel_layer_norm_f32(x, norm[1])
+            x = gelu(x)
+        return x
 
 
 def conv_output_length(n_samples: int, conv_layers) -> int:

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import matmul_precision
+from ..utils.profiling import span
 
 MEL_LOW_HZ = 20.0
 EPSILON_F32 = 1.1920928955078125e-07  # float32 machine eps, Kaldi's log floor
@@ -166,41 +167,45 @@ def featurize_batch(
     Returns (feats (B, T_out, D) f32, n_valid (B,) int32) with rows past
     n_valid zero; T_out = ceil(max_frames / 2) and D = 2 * num_mel_bins
     when ``stack``, else max_frames and num_mel_bins. The Mel product runs
-    with TF32 off whatever the caller's matmul precision."""
-    window_size, window_shift, padded = 400, 160, 512
-    dev = waveforms.device
-    window, bank = _device_constants(dev, num_mel_bins)
-    w = waveforms.to(torch.float32)
-    need = (max_frames - 1) * window_shift + window_size
-    if w.shape[1] < need:
-        # rows reaching past the buffer are past n_valid and zeroed below
-        w = F.pad(w, (0, need - w.shape[1]))
-    frames = w.unfold(1, window_size, window_shift)[:, :max_frames]
-    frames = frames - frames.mean(dim=2, keepdim=True)
-    offset = torch.cat([frames[..., :1], frames[..., :-1]], dim=2)
-    frames = (frames - 0.97 * offset) * window
-    spec = torch.fft.rfft(frames, n=padded, dim=2)
-    power = spec.real ** 2 + spec.imag ** 2
-    with matmul_precision("highest"):
-        mel = power @ bank
-    feats = torch.log(torch.clamp_min(mel, EPSILON_F32))
+    with TF32 off whatever the caller's matmul precision. A profile's
+    trace names the call ``sslc.fbank``."""
+    with span("sslc.fbank"):
+        window_size, window_shift, padded = 400, 160, 512
+        dev = waveforms.device
+        window, bank = _device_constants(dev, num_mel_bins)
+        w = waveforms.to(torch.float32)
+        need = (max_frames - 1) * window_shift + window_size
+        if w.shape[1] < need:
+            # rows reaching past the buffer are past n_valid and zeroed below
+            w = F.pad(w, (0, need - w.shape[1]))
+        frames = w.unfold(1, window_size, window_shift)[:, :max_frames]
+        frames = frames - frames.mean(dim=2, keepdim=True)
+        offset = torch.cat([frames[..., :1], frames[..., :-1]], dim=2)
+        frames = (frames - 0.97 * offset) * window
+        spec = torch.fft.rfft(frames, n=padded, dim=2)
+        power = spec.real ** 2 + spec.imag ** 2
+        with matmul_precision("highest"):
+            mel = power @ bank
+        feats = torch.log(torch.clamp_min(mel, EPSILON_F32))
 
-    n = num_samples.to(dev, torch.int64)
-    n_valid = torch.clamp(
-        torch.div(n - window_size, window_shift, rounding_mode="floor") + 1,
-        0, max_frames)
-    valid = torch.arange(max_frames, device=dev)[None, :] < n_valid[:, None]
-    feats = torch.where(valid[..., None], normalize_fbank(feats, mean, std),
-                        0.0)
-    if stack:
-        if max_frames % 2:
-            feats = F.pad(feats, (0, 0, 0, 1))
-        feats = torch.cat([feats[:, 0::2], feats[:, 1::2]], dim=2)
-        n_valid = (n_valid + 1) // 2
-        valid = (torch.arange(feats.shape[1], device=dev)[None, :]
+        n = num_samples.to(dev, torch.int64)
+        n_valid = torch.clamp(
+            torch.div(n - window_size, window_shift,
+                      rounding_mode="floor") + 1,
+            0, max_frames)
+        valid = (torch.arange(max_frames, device=dev)[None, :]
                  < n_valid[:, None])
-        feats = torch.where(valid[..., None], feats, 0.0)
-    return feats, n_valid.to(torch.int32)
+        feats = torch.where(valid[..., None],
+                            normalize_fbank(feats, mean, std), 0.0)
+        if stack:
+            if max_frames % 2:
+                feats = F.pad(feats, (0, 0, 0, 1))
+            feats = torch.cat([feats[:, 0::2], feats[:, 1::2]], dim=2)
+            n_valid = (n_valid + 1) // 2
+            valid = (torch.arange(feats.shape[1], device=dev)[None, :]
+                     < n_valid[:, None])
+            feats = torch.where(valid[..., None], feats, 0.0)
+        return feats, n_valid.to(torch.int32)
 
 
 def _dct_matrix(n_ceps: int, n_mels: int) -> np.ndarray:

@@ -27,6 +27,10 @@ in f32, cast to w's dtype. Its taps go in chunks: one ``bmm`` over the
 groups per chunk, on an unfolded copy of x of at most DW_CHUNK_BYTES
 (:func:`grouped_conv1d_dw`). These are library calls (cuDNN, cuBLAS) on
 either device; JAX computes this with XLA convolutions, not Pallas.
+
+A profile's trace names the call ``sslc.pos_conv.fwd`` and the backward
+``sslc.pos_conv.bwd`` (``utils/profiling.py::span``; their device time:
+``span_device_seconds``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..utils.device import matmul_precision
+from ..utils.profiling import span
 
 DW_CHUNK_BYTES = 256 << 20  # the unfolded copy of x that one dW bmm reads
 
@@ -126,14 +131,16 @@ class _GroupedConv1d(torch.autograd.Function):
         groups, pad = ctx.groups, ctx.pad
         need_x, need_w = ctx.needs_input_grad[:2]
         dx = dw = None
-        if need_x:
-            acc = _acc_dtype(x.dtype)
-            with _f32_sums(x.dtype):
-                dx = _conv_transpose(dy.to(acc), w.to(acc), groups, pad,
-                                     x.shape[1])
-            dx = dx.to(x.dtype)
-        if need_w:
-            dw = grouped_conv1d_dw(x, dy, w.shape[0], groups, pad).to(w.dtype)
+        with span("sslc.pos_conv.bwd"):
+            if need_x:
+                acc = _acc_dtype(x.dtype)
+                with _f32_sums(x.dtype):
+                    dx = _conv_transpose(dy.to(acc), w.to(acc), groups, pad,
+                                         x.shape[1])
+                dx = dx.to(x.dtype)
+            if need_w:
+                dw = grouped_conv1d_dw(x, dy, w.shape[0], groups,
+                                       pad).to(w.dtype)
         return dx, dw, None, None
 
 
@@ -144,4 +151,5 @@ def grouped_conv1d(x: torch.Tensor, w: torch.Tensor, groups: int,
     (f32 sums), else x's dtype. Differentiable in x and w; the gradients
     come in their inputs' dtypes."""
     lo, hi = (int(p) for p in pad)
-    return _GroupedConv1d.apply(x, w, int(groups), (lo, hi))
+    with span("sslc.pos_conv.fwd"):
+        return _GroupedConv1d.apply(x, w, int(groups), (lo, hi))

@@ -17,6 +17,7 @@ It sets ``optimizer``, ``opt_state``, ``_opt_treedef`` and the
 from __future__ import annotations
 
 from ..utils.checkpoint import opt_leaves_of, restore_opt_state
+from ..utils.profiling import span
 from .steps import (
     applied_lr,
     fused_apply,
@@ -77,10 +78,12 @@ class OptimizerScheduleMixin:
 
     def apply(self, grads, sample_size):
         """The fused apply on the parameters and Adam state, in place;
-        returns the grad norm (a device tensor)."""
-        return fused_apply(self.optimizer, list(self.params.values()),
-                           self.opt_state, grads, sample_size,
-                           sumsq=self._grad_sumsq(grads))
+        returns the grad norm (a device tensor). Traced as
+        ``sslc.train.apply``."""
+        with span("sslc.train.apply"):
+            return fused_apply(self.optimizer, list(self.params.values()),
+                               self.opt_state, grads, sample_size,
+                               sumsq=self._grad_sumsq(grads))
 
     def _grad_sumsq(self, grads):
         """The gradient's squared norm where the trainer takes it itself

@@ -69,6 +69,7 @@ from ..models.melhubert import loss_selections
 from ..parallel.mesh import all_reduce_tensors
 from ..parallel.pipeline import make_melhubert_pipeline_grad_step
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.profiling import span
 from ..utils.tb import TBLogger
 from ..utils.torch_convert import (
     load_reference_checkpoint,
@@ -322,12 +323,14 @@ class Runner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
 
     def _device_batch(self, batch: dict) -> dict:
         """Device tensors for feat, label and pad_mask; ``length`` stays a
-        host array (the span mask is drawn on the host)."""
-        out = {k: torch.from_numpy(batch[k]).to(self.device)
-               for k in ("feat", "label", "pad_mask")}
-        out["label"] = out["label"].long()
-        out["length"] = batch["length"]
-        return out
+        host array (the span mask is drawn on the host). Traced as
+        ``sslc.train.upload``."""
+        with span("sslc.train.upload"):
+            out = {k: torch.from_numpy(batch[k]).to(self.device)
+                   for k in ("feat", "label", "pad_mask")}
+            out["label"] = out["label"].long()
+            out["length"] = batch["length"]
+            return out
 
     def save(self, global_step: int, name: str,
              total_step: Optional[int] = None):

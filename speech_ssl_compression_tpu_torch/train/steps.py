@@ -45,6 +45,7 @@ from ..models.melhubert import (
 )
 from ..ops.dropout import draw_seed
 from ..parallel.mesh import all_reduce_tensors, local_rows
+from ..utils.profiling import span
 
 _MAX_I32 = 2**31 - 1
 
@@ -271,9 +272,11 @@ def mask_params(params: Dict[str, torch.Tensor],
 
 
 def _grads(loss, params: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-    """d loss / d params in ``params``' order, zeros for unused ones."""
+    """d loss / d params in ``params``' order, zeros for unused ones;
+    traced as ``sslc.train.backward``."""
     leaves = list(params.values())
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("sslc.train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)]
 
@@ -294,14 +297,16 @@ def host_span_mask(cfg, batch: dict, rng: torch.Generator, mesh=None):
     ``length`` (numpy) and a seed drawn from ``rng``, on the device of
     ``batch["feat"]``; None where the config masks nothing. On a
     data-parallel grid (``mesh``) the mask is drawn over the global batch
-    and this rank's rows are taken (``parallel/mesh.py::local_rows``)."""
+    and this rank's rows are taken (``parallel/mesh.py::local_rows``).
+    Traced as ``sslc.train.span_mask``."""
     if cfg.mask_prob <= 0:
         return None
-    feat = batch["feat"]
-    gen = np.random.default_rng(draw_seed(rng))
-    mask = local_rows(mesh, lambda lens: span_mask(cfg, lens, feat.shape[1],
-                                                   gen), batch["length"])
-    return torch.from_numpy(mask).to(feat.device)
+    with span("sslc.train.span_mask"):
+        feat = batch["feat"]
+        gen = np.random.default_rng(draw_seed(rng))
+        mask = local_rows(mesh, lambda lens: span_mask(
+            cfg, lens, feat.shape[1], gen), batch["length"])
+        return torch.from_numpy(mask).to(feat.device)
 
 
 def make_melhubert_grad_step(model, *, accum_steps: int = 1,
@@ -339,17 +344,18 @@ def make_melhubert_grad_step(model, *, accum_steps: int = 1,
             mask_indices = host_span_mask(cfg, batch, rng, mesh)
         totals = global_totals(mesh, loss_selections(
             mask_indices, batch["label"], batch["pad_mask"]))
-        out = functional_call(
-            model,
-            cast_for_compute(mask_params(params, masks), compute_dtype),
-            (feat.to(compute_dtype), batch["pad_mask"]),
-            dict(mask=True, teacher_mask_indices=mask_indices, rng=rng,
-                 deterministic=deterministic, attn_impl=attn_impl,
-                 remat=remat),
-        )
-        loss, logs = melhubert_pretrain_loss(out, batch["label"],
-                                             batch["pad_mask"], cfg, totals)
-        loss = loss / accum_steps
+        with span("sslc.train.forward"):
+            out = functional_call(
+                model,
+                cast_for_compute(mask_params(params, masks), compute_dtype),
+                (feat.to(compute_dtype), batch["pad_mask"]),
+                dict(mask=True, teacher_mask_indices=mask_indices, rng=rng,
+                     deterministic=deterministic, attn_impl=attn_impl,
+                     remat=remat),
+            )
+            loss, logs = melhubert_pretrain_loss(
+                out, batch["label"], batch["pad_mask"], cfg, totals)
+            loss = loss / accum_steps
         # detached: a log entry on the graph would keep its leaves, the
         # masters, alive until the next step (past a prune event's rebuild)
         return (loss.detach(), _grads(loss, params),
@@ -397,15 +403,17 @@ def make_distill_grad_step(teacher, student, *, temperature: float,
         totals = global_totals(mesh, distill_selections(
             mask_indices if masked else None, batch["label"],
             batch["pad_mask"], loss_type))
-        loss, logs = distill_forward(
-            teacher, student, batch["feat"].to(compute_dtype),
-            batch["pad_mask"], batch["label"], temperature=temperature,
-            alpha=alpha, loss_type=loss_type, mask_indices=mask_indices,
-            rng=rng, deterministic_student=deterministic,
-            attn_impl=attn_impl, teacher_params=teacher_params,
-            student_params=cast_for_compute(mask_params(params, masks),
-                                            compute_dtype), totals=totals)
-        loss = loss / accum_steps
+        with span("sslc.train.forward"):
+            loss, logs = distill_forward(
+                teacher, student, batch["feat"].to(compute_dtype),
+                batch["pad_mask"], batch["label"], temperature=temperature,
+                alpha=alpha, loss_type=loss_type, mask_indices=mask_indices,
+                rng=rng, deterministic_student=deterministic,
+                attn_impl=attn_impl, teacher_params=teacher_params,
+                student_params=cast_for_compute(mask_params(params, masks),
+                                                compute_dtype),
+                totals=totals)
+            loss = loss / accum_steps
         return (loss.detach(), _grads(loss, params),
                 {k: v.detach() for k, v in logs.items()})
 
@@ -433,16 +441,17 @@ def make_hubert_grad_step(model, *, accum_steps: int = 1,
 
     def grad_step(params: Dict[str, torch.Tensor], batch: dict,
                   rng: torch.Generator, mask_indices=None, masks=None):
-        out = functional_call(
-            model,
-            cast_for_compute(mask_params(params, masks), compute_dtype),
-            (batch["source"].to(compute_dtype), batch["length"]),
-            dict(mask=True, mask_indices=mask_indices, rng=rng,
-                 deterministic=deterministic, attn_impl=attn_impl,
-                 target_list=batch["target_list"],
-                 target_valid=batch["target_valid"]),
-        )
-        loss = out["loss"] / accum_steps
+        with span("sslc.train.forward"):
+            out = functional_call(
+                model,
+                cast_for_compute(mask_params(params, masks), compute_dtype),
+                (batch["source"].to(compute_dtype), batch["length"]),
+                dict(mask=True, mask_indices=mask_indices, rng=rng,
+                     deterministic=deterministic, attn_impl=attn_impl,
+                     target_list=batch["target_list"],
+                     target_valid=batch["target_valid"]),
+            )
+            loss = out["loss"] / accum_steps
         # detached: a log entry on the graph would keep the masters alive
         # past a prune event's rebuild
         logs = {k: v.detach() if isinstance(v, torch.Tensor) else v
@@ -483,18 +492,19 @@ def make_wav2vec2_grad_step(model, *, accum_steps: int = 1,
                   negative_counts=None):
         if mask_indices is None:
             mask_indices = batch.get("precomputed_mask")
-        out = functional_call(
-            model,
-            cast_for_compute(mask_params(params, masks), compute_dtype),
-            (batch["source"].to(compute_dtype), batch["length"]),
-            dict(compute_loss=True, mask=True, mask_indices=mask_indices,
-                 rng=rng, deterministic=False,
-                 gumbel_temp=gumbel_temp, attn_impl=attn_impl,
-                 mask_shared_rounding=mask_shared_rounding,
-                 gumbel_uniform=gumbel_uniform,
-                 negative_counts=negative_counts),
-        )
-        loss = out["loss"] / accum_steps
+        with span("sslc.train.forward"):
+            out = functional_call(
+                model,
+                cast_for_compute(mask_params(params, masks), compute_dtype),
+                (batch["source"].to(compute_dtype), batch["length"]),
+                dict(compute_loss=True, mask=True, mask_indices=mask_indices,
+                     rng=rng, deterministic=False,
+                     gumbel_temp=gumbel_temp, attn_impl=attn_impl,
+                     mask_shared_rounding=mask_shared_rounding,
+                     gumbel_uniform=gumbel_uniform,
+                     negative_counts=negative_counts),
+            )
+            loss = out["loss"] / accum_steps
         logs = {k: v.detach() for k, v in out["logs"].items()}
         if "temp" in out:
             logs["temp"] = out["temp"]

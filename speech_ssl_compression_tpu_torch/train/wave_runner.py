@@ -69,6 +69,7 @@ from ..models.conv_frontend import conv_output_length
 from ..models.gumbel_vq import anneal_temp
 from ..models.hubert import encode_aligned_targets_np, feat2tar_ratio
 from ..utils.checkpoint import save_checkpoint
+from ..utils.profiling import span
 from ..utils.tb import TBLogger
 from ..utils.torch_convert import (
     load_wave_initial_weight,
@@ -455,8 +456,10 @@ class WaveRunner(ParallelMixin, OptimizerScheduleMixin, PruneMixin):
                     last_prune_fired = step
                     self._prune_hook(step, pbar)
                 try:
+                    with span("sslc.train.upload"):
+                        dev_batch = self._collate(batch)
                     loss, sample_size, grads, logs = self.grad_step(
-                        self.params, self._collate(batch), self.rng,
+                        self.params, dev_batch, self.rng,
                         masks=self.masks, **self._step_args(step))
                 except torch.cuda.OutOfMemoryError as err:
                     self._raise_if_grid(err)
